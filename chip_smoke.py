@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which stops the script with a non-zero exit when it fails:
+
+1. device: the card's name and power limit (``nvidia-smi``); no CUDA device
+   is a failure, never a fallback to the CPU;
+2. build: compile every kernel from ``src/repro_torch/kernels/csrc`` into
+   ``build/repro_torch/`` and print ptxas registers, shared memory and spills;
+3. kernels: hold each kernel against its plain PyTorch version on the card
+   and time kernel, plain version and one library call (a yardstick the port
+   never calls) with CUDA events around replays of a CUDA graph of the calls;
+4. main path: serve 16 greedy requests through nbi-100m at full width with
+   seeded weights, count kernel launches (each prefill attention through the
+   flash-attention kernel, each norm through the RMSNorm kernel), check the
+   decode-equals-forward law at full width and the card against the CPU on a
+   small model, then trace one batch with torch.profiler (device busy share
+   and the ops that take the most device time).
+
+The line before the last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
+and 4 at smoke size on the CPU through the plain versions, to check the
+script's control flow without a card; it prints no device result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
+from repro_torch.launch.serve import ServeEngine, device_name, pad_cache_to  # noqa: E402
+from repro_torch.models import transformer as tx  # noqa: E402
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# dense rates without sparsity, f32 outside the tensor cores.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=0.05, rtol=0.0)}
+# bf16 RMSNorm: atol 0.05 plus one bf16 rounding step relative (8 significant bits)
+NORM_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
+
+KERNEL_INFO = {
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    "rmsnorm": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:34",
+    ),
+}
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Mean device time of one call in ms. On the card the calls are captured
+    in a CUDA graph and the graph is replayed between two CUDA events, so the
+    Python wrappers' host time, which exceeds a small kernel's device time, is
+    not what is measured. In a CPU rehearsal: the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def __call__(self, fn, iters: int, warmup: int = 3, replays: int = 3) -> float:
+        if self.device.type != "cuda":
+            for _ in range(warmup):
+                fn()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / iters
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the default stream before capture
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (replays * iters)
+        del graph
+        return ms
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def check_close(got, want, atol: float, rtol: float, what: str) -> float:
+    err = (got.float() - want.float()).abs()
+    max_abs = float(err.max())
+    limit = atol + rtol * want.float().abs()
+    if not bool(torch.isfinite(got.float()).all()) or bool((err > limit).any()):
+        raise AssertionError(f"{what}: kernel disagrees with its plain version (max abs err {max_abs})")
+    return max_abs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def attention_cases(full: bool):
+    """(name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, logit_cap). The
+    first is the shape the main path gives the kernel (a 512-token prefill
+    batch of nbi-100m)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    if not full:
+        return [
+            ("nbi100m_prefill", 2, 4, 4, 16, 16, 16, f32, True, 0, 0.0),
+            ("gqa_bf16", 1, 8, 2, 24, 24, 16, bf16, True, 0, 0.0),
+            ("ragged", 1, 4, 4, 13, 13, 16, f32, True, 0, 0.0),
+            ("window", 1, 4, 4, 24, 24, 16, f32, True, 8, 0.0),
+            ("logit_cap", 1, 4, 4, 16, 16, 16, f32, True, 0, 30.0),
+            ("non_causal", 1, 4, 4, 10, 20, 16, f32, False, 0, 0.0),
+        ]
+    return [
+        ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, f32, True, 0, 0.0),
+        ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, bf16, True, 0, 0.0),
+        ("ragged_s300", 2, 12, 12, 300, 300, 64, f32, True, 0, 0.0),
+        ("window_128", 2, 12, 12, 512, 512, 64, f32, True, 128, 0.0),
+        ("logit_cap_30", 2, 12, 12, 512, 512, 64, f32, True, 0, 30.0),
+        ("non_causal_sq200_skv512", 2, 12, 12, 200, 512, 64, f32, False, 0, 0.0),
+    ]
+
+
+def norm_cases(full: bool):
+    """(name, rows, D, dtype); the first two are the main path's prefill and
+    decode rows of nbi-100m."""
+    if not full:
+        return [("prefill_rows", 32, 64, torch.float32), ("decode_rows", 2, 64, torch.float32),
+                ("bf16_wide", 16, 256, torch.bfloat16)]
+    return [("prefill_rows", 4096, 768, torch.float32), ("decode_rows", 8, 768, torch.float32),
+            ("bf16_4096", 2048, 4096, torch.bfloat16)]
+
+
+def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
+    """(q, k) pairs the mask keeps: the work a causal or windowed call needs."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    keep = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window > 0:
+        keep &= q_pos - k_pos < window
+    return int(keep.sum())
+
+
+def run_attention_cases(device, timer, full: bool) -> dict:
+    g = torch.Generator(device=device).manual_seed(0)
+    first = None
+    for name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, cap in attention_cases(full):
+        scale = 4.0 if cap else 1.0  # large logits so that the cap bites
+        q = (torch.randn((B, Hq, Sq, d), generator=g, device=device) * scale).to(dtype)
+        k = (torch.randn((B, Hkv, Skv, d), generator=g, device=device) * scale).to(dtype)
+        v = torch.randn((B, Hkv, Skv, d), generator=g, device=device).to(dtype)
+        kw = dict(causal=causal, window=window, logit_cap=cap)
+        got = ops.attention(q, k, v, **kw)
+        sync(device)
+        want = ref.attention_ref(q, k, v, **kw)
+        sync(device)
+        err = check_close(got, want, what=f"flash_attention[{name}]", **ATTN_TOL[dtype])
+        ms = timer(lambda: ops.attention(q, k, v, **kw), iters=20)
+        plain_ms = timer(lambda: ref.attention_ref(q, k, v, **kw), iters=5, warmup=1)
+        library_ms = None
+        if not cap:  # no single library call applies a tanh logit cap
+            mask = None
+            if window:
+                q_pos = torch.arange(Sq, device=device)[:, None]
+                k_pos = torch.arange(Skv, device=device)[None, :]
+                mask = (k_pos <= q_pos) & (q_pos - k_pos < window)
+            sdpa = dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=Hq != Hkv)
+            lib_out = F.scaled_dot_product_attention(q, k, v, **sdpa)
+            check_close(lib_out, want, what=f"library attention[{name}]", **ATTN_TOL[dtype])
+            library_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), iters=20)
+        sync(device)
+        pairs = B * Hq * valid_pairs(Sq, Skv, causal, window, device)
+        flops = pairs * (2 * d + 2 * d)  # q·k and p·v per kept pair
+        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+        say(f"[kernels] flash_attention {name}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
+            f"{str(dtype).removeprefix('torch.')} causal={causal} window={window} cap={cap} | "
+            f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"library={'none' if library_ms is None else f'{library_ms:.4f}ms'} "
+            f"bound={bound_ms:.4f}ms ({bound_by}) GFLOP={flops / 1e9:.3f} MB={nbytes / 1e6:.1f}")
+        first = first or row
+    return first
+
+
+def run_norm_cases(device, timer, full: bool) -> dict:
+    g = torch.Generator(device=device).manual_seed(1)
+    first = None
+    for name, rows, D, dtype in norm_cases(full):
+        x = torch.randn((rows, D), generator=g, device=device).to(dtype)
+        w = 1.0 + 0.1 * torch.randn((D,), generator=g, device=device)
+        got = ops.rmsnorm(x, w)
+        sync(device)
+        want = ref.rmsnorm_ref(x, w)
+        sync(device)
+        err = check_close(got, want, what=f"rmsnorm[{name}]", **NORM_TOL[dtype])
+        ms = timer(lambda: ops.rmsnorm(x, w), iters=50)
+        plain_ms = timer(lambda: ref.rmsnorm_ref(x, w), iters=20)
+        w_lib = w.to(dtype)
+        library_ms = timer(lambda: F.rms_norm(x, (D,), w_lib, eps=1e-6), iters=50)
+        sync(device)
+        nbytes = (2 * x.numel()) * x.element_size() + w.numel() * w.element_size()
+        bound_ms, bound_by = bound(4 * x.numel(), nbytes, dtype)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+        say(f"[kernels] rmsnorm {name}: rows={rows} D={D} {str(dtype).removeprefix('torch.')} | "
+            f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"library={library_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) MB={nbytes / 1e6:.2f}")
+        first = first or row
+    return first
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def serve_main_path(device, full: bool) -> dict:
+    if full:
+        cfg, batch, max_seq, lengths, gen_len = get_config("nbi-100m"), 8, 1024, (128, 384, 512), 32
+    else:
+        cfg, batch, max_seq, lengths, gen_len = get_smoke_config("nbi-100m"), 2, 64, (8, 12, 16), 4
+    # what earlier phases left allocated (library workspaces of the timed calls)
+    held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, batch=batch, max_seq=max_seq, seed=0, device=device)
+    say(f"[serve] {cfg.name}: L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} kv={cfg.n_kv_heads} "
+        f"hd={cfg.resolved_head_dim} F={cfg.d_ff} V={engine.model.cfg.vocab_size} {cfg.dtype} | "
+        f"engine batch={batch} max_seq={max_seq} | built in {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(0)
+    vocab = cfg.vocab_size
+    requests = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+                for n in rng.choice(lengths, size=16)]
+    engine.serve_requests(requests[:1], gen_len=2)  # warm-up: library handles, allocator
+    sync(device)
+    for key in engine.stats:
+        engine.stats[key] = type(engine.stats[key])()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    fa_kernel.launches = 0
+    rn_kernel.launches = 0
+    t0 = time.perf_counter()
+    outs = engine.serve_requests(requests, gen_len=gen_len)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa_kernel.launches, "rmsnorm": rn_kernel.launches}
+
+    per_len = {n: sum(len(r) == n for r in requests) for n in sorted({len(r) for r in requests})}
+    prefill_batches = sum(math.ceil(c / batch) for c in per_len.values())
+    L = cfg.n_layers
+    want = {"flash_attention": L * prefill_batches,
+            "rmsnorm": (2 * L + 1) * prefill_batches * (1 + gen_len)}
+    if device.type != "cuda":
+        want = {name: 0 for name in want}  # the CPU runs the plain versions: nothing launches
+    say(f"[serve] {len(requests)} requests, prompt lengths {per_len}, {prefill_batches} prefill "
+        f"batches, gen_len {gen_len} | launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"kernel launches on the main path {launches} != expected {want}")
+    padded_vocab = engine.model.cfg.vocab_size
+    for o in outs:
+        if o.shape != (gen_len,) or o.min() < 0 or o.max() >= padded_vocab:
+            raise AssertionError(f"bad generation {o.shape} {o.min()}..{o.max()}")
+    s = engine.stats
+    prefill_tps = s["prefill_tokens"] / s["prefill_s"]
+    decode_tps = s["decode_tokens"] / s["decode_s"]
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device)
+        memory = (f"max_memory_allocated {peak / 2**20:.1f} MiB, of which {held_before / 2**20:.1f} "
+                  f"MiB was held before the engine was built: {(peak - held_before) / 2**20:.1f} MiB "
+                  f"for weights, cache and activations")
+    else:
+        memory = "max_memory_allocated not measured (cpu)"
+    say(f"[serve] on {device_name(device)}: wall {wall:.3f}s | prefill {s['prefill_tokens']} tok in "
+        f"{s['prefill_s']:.4f}s = {prefill_tps:.1f} tok/s | decode {s['decode_tokens']} tok in "
+        f"{s['decode_s']:.4f}s = {decode_tps:.1f} tok/s | {memory}")
+
+    law_err = decode_equals_forward(engine, device, S=128 if full else 12)
+    trace_one_batch(engine, requests[0][None].repeat(batch, 0), gen_len=4)
+    return {"launches": launches, "law_err": law_err}
+
+
+def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> None:
+    """Where the time goes: torch.profiler over one batch with no decode step
+    (prefill alone) and over the same batch with ``gen_len`` steps; device
+    busy time (the sum of kernel times) against the host's wall time, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if engine.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    engine.generate_batch(prompts, gen_len)  # warm the shapes
+    runs = {}
+    for steps in (0, gen_len):
+        for key in engine.stats:
+            engine.stats[key] = type(engine.stats[key])()
+        with profile(activities=acts) as prof:
+            engine.generate_batch(prompts, steps)
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        runs[steps] = (engine.stats["prefill_s"] * 1e3, engine.stats["decode_s"] * 1e3, busy_ms, kernels)
+    if runs[gen_len][2] <= 0:
+        say("[trace] the profiler recorded no kernel: device busy share not measured")
+        return
+    pre_wall, _, pre_busy, _ = runs[0]
+    wall_pre, wall_dec, busy, kernels = runs[gen_len]
+    dec_busy = busy - pre_busy
+    B, P = prompts.shape
+    say(f"[trace] prefill {B}x{P} tokens: wall {pre_wall:.3f}ms, device busy {pre_busy:.3f}ms "
+        f"= {100 * pre_busy / pre_wall:.1f}%")
+    say(f"[trace] {gen_len} decode steps of {B} rows: wall {wall_dec:.3f}ms, device busy about "
+        f"{dec_busy:.3f}ms = {100 * dec_busy / wall_dec:.1f}% (busy of the run with decode minus "
+        f"the run without)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        dev = e.self_device_time_total / 1e3
+        say(f"[trace]   {e.key[:72]:72s} calls {e.count:5d} device {dev:9.3f}ms "
+            f"({100 * dev / busy:5.1f}%)")
+
+
+@torch.inference_mode()
+def decode_equals_forward(engine: ServeEngine, device, S: int) -> float:
+    """Decode-step logits at position S equal a full forward over S+1 tokens."""
+    model, params, cfg = engine.model, engine.params, engine.model.cfg
+    g = torch.Generator(device=device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=device)
+    last, cache = model.prefill_fn(params, {"tokens": toks})
+    cache = pad_cache_to(cache, model.cache_defs_fn(2, S + 8))
+    nxt = last[:, -1].argmax(-1)[:, None]
+    step, _ = model.decode_fn(params, cache, nxt, S)
+    full = tx.dense_forward(params, cfg, torch.cat([toks, nxt], dim=1))
+    sync(device)
+    if step.shape != (2, 1, cfg.vocab_size) or not bool(torch.isfinite(step).all()):
+        raise AssertionError(f"decode logits {tuple(step.shape)} not finite or misshapen")
+    err = float((step[:, -1] - full[:, -1]).abs().max())
+    say(f"[serve] decode-equals-forward at S={S}: max abs err {err:.3e} (tolerance 1e-3)")
+    if err > 1e-3:
+        raise AssertionError(f"decode step disagrees with the full forward: {err}")
+    return err
+
+
+@torch.inference_mode()
+def card_matches_cpu() -> float:
+    """A small model with the kernels' head width, on the card and on the CPU
+    (plain versions) with the same weights: prefill and one decode step agree."""
+    cfg = get_smoke_config("nbi-100m").replace(
+        n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64, d_ff=256)
+    gpu = ServeEngine(cfg, batch=2, max_seq=48, seed=3, device="cuda")
+    cpu = ServeEngine(cfg, batch=2, max_seq=48, seed=3, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(4))
+    worst = 0.0
+    outs = {}
+    for name, eng in (("cuda", gpu), ("cpu", cpu)):
+        last, cache = eng.model.prefill_fn(eng.params, {"tokens": toks.to(eng.device)})
+        cache = pad_cache_to(cache, eng.model.cache_defs_fn(2, 48))
+        nxt = torch.full((2, 1), 7, device=eng.device)
+        step, _ = eng.model.decode_fn(eng.params, cache, nxt, 40)
+        outs[name] = (last.cpu(), step.cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        worst = max(worst, float((a - b).abs().max()))
+    say(f"[serve] small model, card against CPU: max abs logit err {worst:.3e} (tolerance 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError(f"card and CPU disagree: {worst}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rehearse-cpu", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    full = not args.rehearse_cpu
+
+    if full:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+            return 1
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device("cuda", 0)
+        smi = nvidia_smi_line()
+        say(f"[device] {smi}")
+        say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | "
+            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        lib = _build.library_path()
+        say(f"[build] {lib.name} in {time.perf_counter() - t0:.2f}s")
+        for r in _build.ptxas_report():
+            say(f"[build] {r['source']}: {r['kernel']} | registers {r['registers']} | static smem "
+                f"{r['smem_bytes']} B | spills {r['spill_store_bytes']}/{r['spill_load_bytes']} B")
+    else:
+        device = torch.device("cpu")
+        say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")
+
+    timer = Timer(device)
+    results = {"flash_attention": run_attention_cases(device, timer, full),
+               "rmsnorm": run_norm_cases(device, timer, full)}
+    main_path = serve_main_path(device, full)
+    if full:
+        card_matches_cpu()
+
+    kernels = [
+        {"name": name, **KERNEL_INFO[name], "launches": main_path["launches"][name],
+         **results[name]}
+        for name in KERNEL_INFO
+    ]
+    if not full:
+        say(json.dumps({"kernels": kernels}))
+        say(json.dumps({"ok": True, "rehearsal": "cpu"}))
+        return 0
+    say(nvidia_smi_line())  # the card's name and power limit, as nvidia-smi gives them
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

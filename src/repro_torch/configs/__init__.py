@@ -1,0 +1,32 @@
+"""Architecture configs of the port: the two dense configs its serving path
+runs, copied from ``repro.configs`` with the same values.
+
+``get_config(name)`` returns the full published config; ``get_smoke_config``
+returns the reduced same-family config the CPU tests use.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ["codeqwen15_7b", "nbi100m"]
+
+_ALIASES = {
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "nbi-100m": "nbi100m",
+}
+
+
+def _module(name: str):
+    mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", ""))
+    if mod_name not in ARCHS:
+        raise ValueError(f"unknown or not yet ported architecture {name!r}; the port has {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str):
+    return _module(name).config()
+
+
+def get_smoke_config(name: str):
+    return _module(name).smoke_config()

@@ -1,0 +1,62 @@
+"""Model registry of the port: one API over the architecture families ported
+so far (``dense`` with GQA).
+
+``build_model(cfg)`` returns a :class:`Model` whose members are plain
+functions on tensors:
+
+  prefill_fn(params, batch)           → (last logits, cache)     [prefill]
+  decode_fn(params, cache, tok, pos)  → (logits, cache)          [decode]
+  cache_defs_fn(batch, max_seq)       → cache layout on ``meta``
+
+The reference's ``make_prefill_step`` / ``make_serve_step``
+(``repro/training/steps.py``) only wrap these two with sharding rules; on one
+card there are none, so they are these functions themselves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from . import transformer as tx
+from .common import init_params, resolve_device
+from .config import ArchConfig
+
+VOCAB_PAD = 512  # embeddings padded as in the reference (the padded logits are served too)
+
+
+def padded_vocab(cfg: ArchConfig) -> int:
+    v = cfg.vocab_size
+    return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    param_defs: Any
+    prefill_fn: Callable
+    decode_fn: Callable
+    cache_defs_fn: Callable  # (batch, max_seq) -> dict of meta tensors
+
+    def init(self, generator: torch.Generator, device="cuda") -> dict:
+        """Seeded weights on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+        return init_params(self.param_defs, generator, resolve_device(device))
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has 'dense')")
+    if cfg.attention not in ("gqa", "local") or cfg.n_patches:
+        raise NotImplementedError(
+            f"{cfg.name}: attention {cfg.attention!r} / visual prefix is not ported yet"
+        )
+    pcfg = cfg.replace(vocab_size=padded_vocab(cfg))
+    return Model(
+        cfg=pcfg,
+        param_defs=tx.dense_param_defs(pcfg),
+        prefill_fn=lambda p, b: tx.dense_prefill(p, pcfg, b["tokens"]),
+        decode_fn=lambda p, c, t, pos: tx.dense_decode_step(p, pcfg, c, t, pos),
+        cache_defs_fn=lambda batch, seq: tx.dense_cache_defs(pcfg, batch, seq),
+    )

@@ -1,0 +1,260 @@
+"""Dense decoder-only transformer, GQA serving path (the port of
+``repro.models.transformer`` for ``family == "dense"`` with standard or local
+attention; MLA and the visual prefix come later).
+
+Layout conventions, as in the reference
+---------------------------------------
+* Per-layer weights are stacked on a leading ``layers`` axis; the reference's
+  ``lax.scan`` over layers is a Python loop over views of that axis.
+* Projection weights are shaped (D, H, hd).
+* The KV cache is laid out (L, B, Hkv, S, hd).
+
+Every prefill attention goes through :func:`repro_torch.kernels.ops.attention`
+with compact (B, Hkv, S, hd) K/V, GQA resolved in the kernel's index; every
+RMSNorm through :func:`repro_torch.kernels.ops.rmsnorm`. Decode attention is
+plain PyTorch (:func:`.common.attention_single_shot`), as it is XLA and not
+Pallas in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .common import (
+    ParamDef,
+    apply_rope,
+    attention_single_shot,
+    map_defs,
+    rms_norm,
+    swiglu,
+    torch_dtype,
+)
+from .config import ArchConfig
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+
+def _stack(n, d: ParamDef) -> ParamDef:
+    return ParamDef(
+        shape=(n, *d.shape),
+        logical=("layers", *d.logical),
+        dtype=d.dtype,
+        init=d.init,
+        scale=d.scale,
+    )
+
+
+def attn_defs(cfg: ArchConfig, pdt) -> dict:
+    D, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((D, H, hd), ("embed", "heads", None), pdt),
+        "wk": ParamDef((D, K, hd), ("embed", "kv_heads", None), pdt),
+        "wv": ParamDef((D, K, hd), ("embed", "kv_heads", None), pdt),
+        "wo": ParamDef((H, hd, D), ("heads", None, "embed"), pdt),
+    }
+
+
+def mlp_defs(cfg: ArchConfig, pdt, d_ff=None) -> dict:
+    D, F = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wg": ParamDef((D, F), ("embed", "ff"), pdt),
+        "wi": ParamDef((D, F), ("embed", "ff"), pdt),
+        "wo": ParamDef((F, D), ("ff", "embed"), pdt),
+    }
+
+
+def block_defs(cfg: ArchConfig, pdt) -> dict:
+    D = cfg.d_model
+    return {
+        "ln1": ParamDef((D,), (None,), pdt, "ones"),
+        "attn": attn_defs(cfg, pdt),
+        "ln2": ParamDef((D,), (None,), pdt, "ones"),
+        "mlp": mlp_defs(cfg, pdt),
+    }
+
+
+def dense_param_defs(cfg: ArchConfig) -> dict:
+    pdt = torch_dtype(cfg.param_dtype)
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    defs = {
+        "embed": ParamDef((V, D), ("vocab", "embed"), pdt),
+        "blocks": map_defs(lambda d: _stack(L, d), block_defs(cfg, pdt)),
+        "final_ln": ParamDef((D,), (None,), pdt, "ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((D, V), ("embed", "vocab"), pdt)
+    return defs
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked block params, as views."""
+    return map_defs(lambda a: a[i], blocks)
+
+
+# ---------------------------------------------------------------------------
+# Attention (full-sequence path)
+# ---------------------------------------------------------------------------
+
+
+def gqa_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
+    dt = torch_dtype(cfg.dtype)
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(dt)).contiguous()
+    q = apply_rope(q, positions, cfg.rope_theta).contiguous()
+    k = apply_rope(k, positions, cfg.rope_theta).contiguous()
+    # compact (B, Hkv, S, hd) K/V: the kernel maps query head h to h // G
+    window = cfg.window if cfg.attention == "local" else 0
+    out = ops.attention(q, k, v, causal=True, window=window, logit_cap=cfg.logit_cap)
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
+    if collect:
+        return y, {"k": k, "v": v}
+    return y
+
+
+def dense_block(p, x, cfg: ArchConfig, positions):
+    x = x + gqa_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, positions)
+    m = p["mlp"]
+    return x + swiglu(rms_norm(x, p["ln2"]), m["wg"], m["wi"], m["wo"], torch_dtype(cfg.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Forward and prefill
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params, cfg: ArchConfig, tokens):
+    return params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]
+
+
+def unembed(params, cfg: ArchConfig, h):
+    dt = torch_dtype(cfg.dtype)
+    table = params["embed"].to(dt).T if cfg.tie_embeddings else params["unembed"].to(dt)
+    return torch.einsum("bsd,dv->bsv", h, table)
+
+
+def dense_forward(params, cfg: ArchConfig, tokens):
+    """tokens: (B, S) int → logits (B, S, V)."""
+    h = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(cfg.n_layers):
+        h = dense_block(layer_params(params["blocks"], i), h, cfg, positions)
+    h = rms_norm(h, params["final_ln"])
+    return unembed(params, cfg, h)
+
+
+def dense_prefill(params, cfg: ArchConfig, tokens):
+    """Inference prefill: full-sequence forward that also materialises the
+    per-layer KV cache. Returns (last-position logits (B, 1, V), cache with
+    "k" and "v" of shape (L, B, Hkv, S, hd))."""
+    h = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    dt = torch_dtype(cfg.dtype)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        y, kv = gqa_attention(p["attn"], rms_norm(h, p["ln1"]), cfg, positions, collect=True)
+        h = h + y
+        m = p["mlp"]
+        h = h + swiglu(rms_norm(h, p["ln2"]), m["wg"], m["wi"], m["wo"], dt)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    h = rms_norm(h[:, -1:].contiguous(), params["final_ln"])
+    return unembed(params, cfg, h), {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# ---------------------------------------------------------------------------
+# Decoding (KV cache)
+# ---------------------------------------------------------------------------
+
+
+def dense_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """Abstract cache layout: tensors on the ``meta`` device (shape and dtype,
+    no storage), the counterpart of the reference's ShapeDtypeStructs."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {
+        "k": torch.empty(shape, dtype=dt, device="meta"),
+        "v": torch.empty(shape, dtype=dt, device="meta"),
+    }
+
+
+def scatter_seq(buf, update, pos):
+    """Write ``update`` (B, H, 1, d) into ``buf`` (B, H, S, d) at sequence index
+    ``pos``, in place, and return ``buf``.
+
+    ``pos`` may be a scalar (whole batch at one position) or a (B,) vector
+    (continuous batching: every row at its own depth). The reference builds a
+    new buffer with a one-hot multiply-add so that GSPMD can shard S; on one
+    card an in-place write saves reading and writing the whole cache per step.
+    """
+    pos = torch.as_tensor(pos, device=buf.device).long()
+    update = update.to(buf.dtype)
+    if pos.dim() == 0:
+        buf.index_copy_(buf.dim() - 2, pos.reshape(1), update)
+    else:
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, :, pos] = update[:, :, 0]
+    return buf
+
+
+def _pos_rope(pos, batch: int, device):
+    """Positions for RoPE at decode: scalar → (1,); vector → (B,1,1) so the
+    angle tensor broadcasts against (B, H, 1, dh/2)."""
+    pos = torch.as_tensor(pos, device=device)
+    if pos.dim() == 0:
+        return pos.reshape(1)
+    return pos.expand(batch)[:, None, None]
+
+
+def _pos_mask(pos, batch: int, skv: int, device):
+    """(B,1,1,1,S) causal mask rows for scalar or per-row positions."""
+    pos_b = torch.as_tensor(pos, device=device).expand(batch)
+    return torch.arange(skv, device=device)[None, None, None, None, :] <= pos_b[:, None, None, None, None]
+
+
+def gqa_decode_attn(p, layer_cache, x, cfg: ArchConfig, pos):
+    """One-token attention against the cache; ``pos`` scalar or (B,). Writes
+    the new K/V into ``layer_cache`` in place."""
+    dt = torch_dtype(cfg.dtype)
+    B = x.shape[0]
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
+    k_new = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(dt))
+    v_new = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(dt))
+    positions = _pos_rope(pos, B, x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    k = scatter_seq(layer_cache["k"], k_new, pos)
+    v = scatter_seq(layer_cache["v"], v_new, pos)
+    S = k.shape[-2]
+    mask = _pos_mask(pos, B, S, x.device)
+    if cfg.attention == "local" and cfg.window > 0:
+        low = _pos_mask(torch.as_tensor(pos, device=x.device) - cfg.window, B, S, x.device)
+        mask &= ~low  # k_pos > pos - window
+    out = attention_single_shot(q, k, v, mask=mask, logit_cap=cfg.logit_cap)
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
+    return y, {"k": k, "v": v}
+
+
+def dense_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
+    """One decode step. tokens: (B, 1) int; pos: scalar or (B,).
+
+    Writes the step's K/V into ``cache`` in place and returns (logits (B, 1, V),
+    cache)."""
+    h = embed_tokens(params, cfg, tokens)
+    pos = torch.as_tensor(pos, device=h.device).long()  # one host-to-device copy per step
+    dt = torch_dtype(cfg.dtype)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        y, _ = gqa_decode_attn(p["attn"], layer_cache, rms_norm(h, p["ln1"]), cfg, pos)
+        h = h + y
+        m = p["mlp"]
+        h = h + swiglu(rms_norm(h, p["ln2"]), m["wg"], m["wi"], m["wo"], dt)
+    h = rms_norm(h, params["final_ln"])
+    return unembed(params, cfg, h), cache

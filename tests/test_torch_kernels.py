@@ -1,0 +1,205 @@
+"""The port's kernels: plain versions against the JAX package, dispatch, and
+(on a card) the Hopper kernels against their plain versions.
+
+On the CPU, inputs come from a seeded numpy generator and go through the JAX
+Pallas kernel in interpret mode, the JAX oracle and the port's plain version.
+Tolerances are those of tests/test_kernels.py: attention f32 atol 2e-5 /
+rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05.
+
+JAX is imported inside a fixture, so that the card's machine, which has no
+JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as trn
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.ref import attention_ref, rmsnorm_ref
+    from repro.kernels.rmsnorm import rmsnorm_pallas
+
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, flash_attention=flash_attention,
+        attention_ref=attention_ref, rmsnorm_ref=rmsnorm_ref, rmsnorm_pallas=rmsnorm_pallas,
+    )
+
+
+def draw(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * scale).astype(np.float32) for s in shapes]
+
+
+# name: (B, Hq, Hkv, Sq, Skv, d, causal, window, logit_cap, input scale)
+ATTN_CASES = {
+    "causal": (1, 2, 2, 64, 64, 32, True, 0, 0.0, 1.0),
+    "gqa": (2, 4, 1, 128, 128, 64, True, 0, 0.0, 1.0),
+    "ragged_gqa": (1, 8, 2, 96, 160, 32, True, 0, 0.0, 1.0),
+    "odd_sizes": (1, 2, 2, 33, 65, 16, True, 0, 0.0, 1.0),
+    "window": (1, 2, 2, 128, 128, 32, True, 16, 0.0, 1.0),
+    "logit_cap": (1, 2, 2, 64, 64, 32, True, 0, 30.0, 4.0),
+    "non_causal": (2, 2, 2, 40, 100, 32, False, 0, 0.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_plain_attention_matches_jax(jx, case):
+    B, Hq, Hkv, Sq, Skv, d, causal, window, cap, scale = ATTN_CASES[case]
+    qn, kn, vn = draw(0, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
+    vn = vn / scale
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    got = ref.attention_ref(torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn), **kw)
+    q, k, v = (jx.jnp.asarray(a) for a in (qn, kn, vn))
+    pallas = jx.flash_attention(q, k, v, block_q=32, block_k=32, interpret=True, **kw)
+    oracle = jx.attention_ref(q, k, v, **kw)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_plain_attention_bf16_matches_jax(jx):
+    qn, kn, vn = draw(1, (1, 4, 64, 64), (1, 2, 64, 64), (1, 2, 64, 64))
+    bf = jx.jnp.bfloat16
+    q, k, v = (jx.jnp.asarray(a, bf) for a in (qn, kn, vn))
+    want = jx.flash_attention(q, k, v, interpret=True)
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (qn, kn, vn))
+    got = ref.attention_ref(qt, kt, vt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 3, 100), (1, 768)])
+def test_plain_rmsnorm_matches_jax(jx, shape):
+    xn, wn = draw(2, shape, shape[-1:])
+    got = ref.rmsnorm_ref(torch.from_numpy(xn), torch.from_numpy(wn))
+    for fn in (jx.rmsnorm_pallas, jx.rmsnorm_ref):
+        kw = {"interpret": True} if fn is jx.rmsnorm_pallas else {}
+        want = fn(jx.jnp.asarray(xn), jx.jnp.asarray(wn), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_plain_rmsnorm_bf16_matches_jax(jx):
+    xn, wn = draw(3, (8, 128), (128,))
+    want = jx.rmsnorm_pallas(jx.jnp.asarray(xn, jx.jnp.bfloat16), jx.jnp.asarray(wn), interpret=True)
+    got = ref.rmsnorm_ref(torch.from_numpy(xn).to(torch.bfloat16), torch.from_numpy(wn))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
+
+
+def test_ops_send_cpu_tensors_to_plain_versions():
+    qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
+    q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
+    before = (tfa.launches, trn.launches)
+    torch.testing.assert_close(
+        ops.attention(q, k, v, causal=True, window=8, logit_cap=5.0),
+        ref.attention_ref(q, k, v, causal=True, window=8, logit_cap=5.0), rtol=0, atol=0,
+    )
+    torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w), rtol=0, atol=0)
+    assert (tfa.launches, trn.launches) == before
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """A wrapper never falls back: given what its kernel cannot take, it raises."""
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm(torch.zeros(4, 64), torch.ones(64))
+
+
+# ---------------------------------------------------------------------------
+# On the card: the Hopper kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+GPU_ATTN_CASES = {
+    **ATTN_CASES,
+    "nbi100m_prefill": (2, 12, 12, 512, 512, 64, True, 0, 0.0, 1.0),
+    "gqa_d128_bf16": (1, 32, 8, 256, 256, 128, True, 0, 0.0, 1.0),
+    "ragged_300": (1, 4, 4, 300, 300, 64, True, 0, 0.0, 1.0),
+    "window_128": (1, 4, 2, 400, 400, 64, True, 128, 0.0, 1.0),
+    "non_causal_d128": (2, 4, 4, 70, 200, 128, False, 0, 0.0, 1.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_ATTN_CASES))
+def test_flash_attention_kernel_matches_plain(case):
+    _need_card()
+    B, Hq, Hkv, Sq, Skv, d, causal, window, cap, scale = GPU_ATTN_CASES[case]
+    if d not in tfa.HEAD_DIMS:  # the CPU cases' narrow heads: widen to the kernel's
+        d = 64
+    dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    arrays = draw(5, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    before = tfa.launches
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    tol = dict(atol=0.05, rtol=0) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", [(64, 128), (128, 64)])
+def test_flash_attention_kernel_mixed_head_dims(d, dv):
+    _need_card()
+    arrays = draw(7, (2, 4, 130, d), (2, 2, 130, d), (2, 2, 130, dv))
+    q, k, v = (torch.from_numpy(a).to("cuda") for a in arrays)
+    got = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 4, 130, dv)
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((4096, 768), torch.float32), ((8, 768), torch.float32), ((2048, 4096), torch.bfloat16),
+     ((3, 5, 12288), torch.float32), ((7, 1000), torch.bfloat16)],
+)
+def test_rmsnorm_kernel_matches_plain(shape, dtype):
+    _need_card()
+    xn, wn = draw(6, shape, shape[-1:])
+    x = torch.from_numpy(xn).to("cuda", dtype)
+    w = torch.from_numpy(wn).to("cuda")
+    before = trn.launches
+    got = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert trn.launches == before + 1
+    # bf16 keeps 8 significant bits, so one rounding step of a value near 10
+    # is 0.0625: the bf16 bound is atol 0.05 plus one step relative (2**-7)
+    tol = dict(atol=0.05, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **tol)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    q = torch.zeros(1, 2, 8, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(q, q, q)
+    q64 = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.attention(q64, q64, q64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm(torch.zeros(64, 8, device="cuda").t(), torch.ones(64, device="cuda"))

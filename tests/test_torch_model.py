@@ -1,0 +1,227 @@
+"""The port's dense model against the JAX package, on the CPU at smoke size.
+
+Weights come from the reference's own init and cross with
+``repro_torch.convert.params_from_jax``; tokens come from a seeded numpy
+generator. The reference is called through ``build_model(cfg).prefill_fn`` /
+``decode_fn`` directly, with no sharding rules: its mesh-built paths fail under
+this JAX version (ROADMAP hazard H1). Tolerance: atol 1e-4 / rtol 1e-4 (f32,
+different summation orders).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.launch.serve import pad_cache_to as jax_pad_cache_to
+from repro.models import common as jcommon
+from repro.models.registry import build_model as jax_build_model
+from repro_torch import convert
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.launch.serve import pad_cache_to
+from repro_torch.models import common
+from repro_torch.models import transformer as tx
+from repro_torch.models.registry import build_model
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+B, S = 2, 16
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(reference model, reference params, port model, port params) per arch
+    and use_pallas, built once."""
+    built = {}
+
+    def get(arch, use_pallas=False):
+        if (arch, use_pallas) not in built:
+            ref_model = jax_build_model(jax_get_smoke_config(arch).replace(use_pallas=use_pallas))
+            ref_params = ref_model.init(jax.random.PRNGKey(0))
+            np_params = jax.tree_util.tree_map(np.asarray, ref_params)
+            model = build_model(get_smoke_config(arch).replace(use_pallas=use_pallas))
+            built[arch, use_pallas] = (
+                ref_model, ref_params, model, convert.params_from_jax(np_params, device="cpu"),
+            )
+        return built[arch, use_pallas]
+
+    return get
+
+
+def tokens(seed, batch=B, seq=S, vocab=512):
+    return np.random.default_rng(seed).integers(0, vocab, (batch, seq)).astype(np.int32)
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **(tol or TOL))
+
+
+def _common_case(name):
+    """(port output, reference output) of one common.py function on seeded inputs."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
+    t = torch.from_numpy
+    if name == "apply_rope":
+        pos = np.arange(3, 9)
+        return common.apply_rope(t(x), t(pos), 1e6), jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)
+    if name == "apply_rope_per_row":
+        x1 = x[:, :, :1]
+        pos = np.array([5, 11])[:, None, None]
+        return common.apply_rope(t(x1), t(pos)), jcommon.apply_rope(jnp.asarray(x1), jnp.asarray(pos))
+    if name == "attention_single_shot":
+        q, k, v = x[:, :, :1], x[:, :2], rng.standard_normal((2, 2, 6, 16)).astype(np.float32)
+        mask = np.arange(6)[None, None, None, None, :] <= np.array([3, 5])[:, None, None, None, None]
+        got = common.attention_single_shot(t(q), t(k), t(v), mask=t(mask), logit_cap=2.0)
+        want = jcommon.attention_single_shot(*map(jnp.asarray, (q, k, v)), mask=jnp.asarray(mask), logit_cap=2.0)
+        return got, want
+    if name == "causal_mask":
+        return common.causal_mask(5, 8, q_offset=3), jcommon.causal_mask(5, 8, q_offset=3)
+    if name == "swiglu":
+        h = x.reshape(2, 24, 16)
+        wg, wi = rng.standard_normal((16, 32)).astype(np.float32), rng.standard_normal((16, 32)).astype(np.float32)
+        wo = rng.standard_normal((32, 16)).astype(np.float32)
+        got = common.swiglu(t(h), t(wg), t(wi), t(wo), torch.float32)
+        return got, jcommon.swiglu(*map(jnp.asarray, (h, wg, wi, wo)), jnp.float32)
+    w = rng.standard_normal(16).astype(np.float32)
+    return common.rms_norm(t(x), t(w)), jcommon.rms_norm(jnp.asarray(x), jnp.asarray(w))
+
+
+@pytest.mark.parametrize(
+    "name", ["apply_rope", "apply_rope_per_row", "attention_single_shot", "causal_mask", "swiglu", "rms_norm"])
+def test_common_functions_match_reference(name):
+    got, want = _common_case(name)
+    assert tuple(got.shape) == tuple(want.shape)
+    if got.dtype == torch.bool:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_copies_match_reference(arch):
+    for mine, theirs in ((get_config, jax_get_config), (get_smoke_config, jax_get_smoke_config)):
+        assert dataclasses.asdict(mine(arch)) == dataclasses.asdict(theirs(arch))
+        assert mine(arch).param_count() == theirs(arch).param_count()
+
+
+def test_unported_archs_and_families_raise():
+    with pytest.raises(ValueError, match="not yet ported"):
+        get_config("rwkv6-7b")
+    with pytest.raises(NotImplementedError, match="family"):
+        build_model(get_smoke_config("nbi-100m").replace(family="moe"))
+    with pytest.raises(NotImplementedError, match="mla"):
+        build_model(get_smoke_config("nbi-100m").replace(attention="mla"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_defs_and_converter_round_trip(arch, pair):
+    ref_model, ref_params, model, params = pair(arch)
+    ref_shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), ref_params)
+    port_shapes = convert.map_defs(lambda t: tuple(t.shape), params)
+    def_shapes = convert.map_defs(lambda d: tuple(d.shape), model.param_defs)
+    assert port_shapes == ref_shapes == def_shapes
+    L = model.cfg.n_layers
+    assert all(t.shape[0] == L for t in jax.tree_util.tree_leaves(
+        convert.map_defs(lambda t: t, params["blocks"])))
+    back = convert.params_to_numpy(params)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(ref_params)):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_converter_carries_bf16_bits():
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((3, 5)), jnp.bfloat16)
+    t = convert.params_from_jax({"w": x}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), np.asarray(x, np.float32))
+    np.testing.assert_array_equal(convert.params_to_numpy({"w": t})["w"], np.asarray(x, np.float32))
+
+
+def test_seeded_init_is_deterministic_and_scaled():
+    model = build_model(get_smoke_config("nbi-100m"))
+    a = model.init(torch.Generator().manual_seed(5), device="cpu")
+    b = model.init(torch.Generator().manual_seed(5), device="cpu")
+    for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
+        assert torch.equal(x, y)
+    assert torch.equal(a["final_ln"], torch.ones(64))
+    # the reference's fan-in: every axis but the last and the stacked layers
+    # axis, so (D, H, hd) = (64, 4, 16) gives std 1/sqrt(64·4)
+    wq = a["blocks"]["attn"]["wq"]
+    assert abs(float(wq.std()) - 256**-0.5) < 0.005
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_reference(arch, use_pallas, pair):
+    ref_model, ref_params, model, params = pair(arch, use_pallas)
+    toks = tokens(1)
+    want_logits, want_cache = jax.jit(ref_model.prefill_fn)(ref_params, {"tokens": jnp.asarray(toks)})
+    logits, cache = model.prefill_fn(params, {"tokens": torch.from_numpy(toks)})
+    assert logits.shape == want_logits.shape == (B, 1, 512)
+    close(logits, want_logits)
+    assert set(cache) == set(want_cache) == {"k", "v"}
+    for name in cache:
+        assert cache[name].shape == want_cache[name].shape  # (L, B, Hkv, S, hd)
+        close(cache[name], want_cache[name])
+
+
+@pytest.mark.parametrize("pos_kind", ["scalar", "vector"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_reference(arch, pos_kind, pair):
+    ref_model, ref_params, model, params = pair(arch)
+    toks = tokens(2)
+    max_seq = S + 8
+    _, ref_cache = jax.jit(ref_model.prefill_fn)(ref_params, {"tokens": jnp.asarray(toks)})
+    ref_cache = jax_pad_cache_to(ref_cache, ref_model.cache_defs_fn(B, max_seq))
+    _, cache = model.prefill_fn(params, {"tokens": torch.from_numpy(toks)})
+    cache = pad_cache_to(cache, model.cache_defs_fn(B, max_seq))
+    nxt = tokens(3, seq=1)
+    pos = np.array(S, np.int32) if pos_kind == "scalar" else np.array([S, S - 5], np.int32)
+    want_logits, want_cache = jax.jit(ref_model.decode_fn)(
+        ref_params, ref_cache, jnp.asarray(nxt), jnp.asarray(pos))
+    logits, new_cache = model.decode_fn(params, cache, torch.from_numpy(nxt), torch.from_numpy(pos))
+    close(logits, want_logits)
+    for name in new_cache:
+        close(new_cache[name], want_cache[name])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_then_decode_matches_full_forward(arch, pair):
+    """The port's KV-cache law (tests/test_archs.py:88): the decode-step logits
+    at position S equal a full forward over the S+1 tokens."""
+    _, _, model, params = pair(arch)
+    toks = torch.from_numpy(tokens(4, batch=1))
+    last, cache = model.prefill_fn(params, {"tokens": toks})
+    cache = pad_cache_to(cache, model.cache_defs_fn(1, S + 8))
+    nxt = last[:, -1].argmax(-1)[:, None]
+    step, _ = model.decode_fn(params, cache, nxt, S)
+    full = tx.dense_forward(params, model.cfg, torch.cat([toks, nxt], dim=1))
+    torch.testing.assert_close(step[:, -1], full[:, -1], **TOL)
+
+
+def test_vector_pos_equals_per_row_scalar(pair):
+    _, _, model, params = pair("codeqwen15_7b")
+    rows, seq = 3, 24
+    gen = torch.Generator().manual_seed(1)
+    cache = {k: torch.randn(d.shape, generator=gen) for k, d in model.cache_defs_fn(rows, seq).items()}
+    tok = torch.randint(0, 512, (rows, 1), generator=gen)
+    posv = torch.tensor([2, 7, 11])
+    lm, _ = model.decode_fn(params, {k: v.clone() for k, v in cache.items()}, tok, posv)
+    for b in range(rows):
+        one = {k: v[:, b : b + 1].clone() for k, v in cache.items()}
+        lb, _ = model.decode_fn(params, one, tok[b : b + 1], int(posv[b]))
+        torch.testing.assert_close(lm[b], lb[0], atol=2e-5, rtol=0)
+
+
+def test_model_init_without_device_raises_on_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = build_model(get_smoke_config("nbi-100m"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_jax({"w": np.zeros(3, np.float32)})
