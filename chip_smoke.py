@@ -12,12 +12,16 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
-4. main path: serve 16 greedy requests through nbi-100m at full width with
-   seeded weights, count kernel launches (each prefill attention through the
-   flash-attention kernel, each norm through the RMSNorm kernel), check the
-   decode-equals-forward law at full width and the card against the CPU on a
-   small model, then trace one batch with torch.profiler (device busy share
-   and the ops that take the most device time).
+4. main paths, one engine at a time, each freed before the next: serve 16
+   greedy requests through nbi-100m, recurrentgemma-2b and rwkv6-7b at full
+   width with seeded weights; count every kernel's launches around each path
+   and require the exact counts (nbi-100m: each prefill attention through the
+   flash-attention kernel and each RMSNorm through the RMSNorm kernel;
+   Griffin: also each RG-LRU prefill scan through the LRU kernel; RWKV-6:
+   each WKV prefill through the WKV kernel); check the decode-equals-forward
+   law at full width and the card against the CPU on a small model of each
+   family, then trace one batch with torch.profiler (device busy share and the
+   ops that take the most device time).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
@@ -28,6 +32,7 @@ script's control flow without a card; it prints no device result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -44,18 +49,31 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import rglru_scan as lru_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, device_name, pad_cache_to  # noqa: E402
-from repro_torch.models import transformer as tx  # noqa: E402
+from repro_torch.models import rglru as rg  # noqa: E402
+from repro_torch.models.common import map_defs  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # dense rates without sparsity, f32 outside the tensor cores.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=0.05, rtol=0.0)}
+# Kernel and plain version both accumulate in f32 and round once at the end,
+# so a bf16 output may differ by one rounding step (8 significant bits)
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4), torch.bfloat16: dict(atol=1e-3, rtol=2**-7)}
+# the library yardstick only has to compute the same function: in bf16 it
+# rounds its probabilities before the second product
+LIBRARY_ATTN_TOL = {**ATTN_TOL, torch.bfloat16: dict(atol=0.05, rtol=0.0)}
 # bf16 RMSNorm: atol 0.05 plus one bf16 rounding step relative (8 significant bits)
 NORM_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
+# ROADMAP's tolerances: LRU 1e-5, WKV atol 5e-4 / rtol 1e-3 (f32); a bf16
+# output may differ by one rounding step of its own (8 significant bits)
+LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
+WKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
 
 KERNEL_INFO = {
     "flash_attention": dict(
@@ -66,7 +84,16 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:34",
     ),
+    "lru_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:56",
+    ),
+    "wkv6": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:90",
+    ),
 }
+COUNTERS = {"flash_attention": fa_kernel, "rmsnorm": rn_kernel, "lru_scan": lru_kernel, "wkv6": wkv_kernel}
 
 
 def say(*parts) -> None:
@@ -131,11 +158,14 @@ def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_close(got, want, atol: float, rtol: float, what: str) -> float:
+def within(got, want, atol: float, rtol: float) -> bool:
     err = (got.float() - want.float()).abs()
-    max_abs = float(err.max())
-    limit = atol + rtol * want.float().abs()
-    if not bool(torch.isfinite(got.float()).all()) or bool((err > limit).any()):
+    return bool(torch.isfinite(got.float()).all()) and not bool((err > atol + rtol * want.float().abs()).any())
+
+
+def check_close(got, want, atol: float, rtol: float, what: str) -> float:
+    max_abs = float((got.float() - want.float()).abs().max())
+    if not within(got, want, atol, rtol):
         raise AssertionError(f"{what}: kernel disagrees with its plain version (max abs err {max_abs})")
     return max_abs
 
@@ -147,12 +177,14 @@ def check_close(got, want, atol: float, rtol: float, what: str) -> float:
 
 def attention_cases(full: bool):
     """(name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, logit_cap). The
-    first is the shape the main path gives the kernel (a 512-token prefill
-    batch of nbi-100m)."""
+    first two are shapes the main paths give the kernel: a 512-token prefill
+    batch of nbi-100m and a 2304-token prefill batch of recurrentgemma-2b."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
             ("nbi100m_prefill", 2, 4, 4, 16, 16, 16, f32, True, 0, 0.0),
+            ("griffin_prefill", 2, 4, 1, 20, 20, 16, bf16, True, 8, 0.0),
+            ("d256_f32", 1, 2, 1, 12, 12, 16, f32, True, 4, 0.0),
             ("gqa_bf16", 1, 8, 2, 24, 24, 16, bf16, True, 0, 0.0),
             ("ragged", 1, 4, 4, 13, 13, 16, f32, True, 0, 0.0),
             ("window", 1, 4, 4, 24, 24, 16, f32, True, 8, 0.0),
@@ -161,6 +193,8 @@ def attention_cases(full: bool):
         ]
     return [
         ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, f32, True, 0, 0.0),
+        ("griffin_prefill", 8, 10, 1, 2304, 2304, 256, bf16, True, 2048, 0.0),
+        ("d256_f32", 2, 10, 1, 1024, 1024, 256, f32, True, 512, 0.0),
         ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, bf16, True, 0, 0.0),
         ("ragged_s300", 2, 12, 12, 300, 300, 64, f32, True, 0, 0.0),
         ("window_128", 2, 12, 12, 512, 512, 64, f32, True, 128, 0.0),
@@ -205,6 +239,13 @@ def run_attention_cases(device, timer, full: bool) -> dict:
         want = ref.attention_ref(q, k, v, **kw)
         sync(device)
         err = check_close(got, want, what=f"flash_attention[{name}]", **ATTN_TOL[dtype])
+        past = ""
+        if window and Skv > window:  # the limit must catch a kernel that attends past the window
+            wide = ref.attention_ref(q, k, v, **{**kw, "window": window + 256})
+            if within(wide, want, **ATTN_TOL[dtype]):
+                raise AssertionError(f"flash_attention[{name}]: the limit cannot see the window")
+            past = f" (256 keys past the window: {float((wide.float() - want.float()).abs().max()):.3e})"
+            del wide
         ms = timer(lambda: ops.attention(q, k, v, **kw), iters=20)
         plain_ms = timer(lambda: ref.attention_ref(q, k, v, **kw), iters=5, warmup=1)
         library_ms = None
@@ -216,7 +257,7 @@ def run_attention_cases(device, timer, full: bool) -> dict:
                 mask = (k_pos <= q_pos) & (q_pos - k_pos < window)
             sdpa = dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=Hq != Hkv)
             lib_out = F.scaled_dot_product_attention(q, k, v, **sdpa)
-            check_close(lib_out, want, what=f"library attention[{name}]", **ATTN_TOL[dtype])
+            check_close(lib_out, want, what=f"library attention[{name}]", **LIBRARY_ATTN_TOL[dtype])
             library_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), iters=20)
         sync(device)
         pairs = B * Hq * valid_pairs(Sq, Skv, causal, window, device)
@@ -227,7 +268,7 @@ def run_attention_cases(device, timer, full: bool) -> dict:
                    bound_by=bound_by, library_ms=library_ms)
         say(f"[kernels] flash_attention {name}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
             f"{str(dtype).removeprefix('torch.')} causal={causal} window={window} cap={cap} | "
-            f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"max_abs_err={err:.3e}{past} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library={'none' if library_ms is None else f'{library_ms:.4f}ms'} "
             f"bound={bound_ms:.4f}ms ({bound_by}) GFLOP={flops / 1e9:.3f} MB={nbytes / 1e6:.1f}")
         first = first or row
@@ -261,26 +302,138 @@ def run_norm_cases(device, timer, full: bool) -> dict:
     return first
 
 
-# ---------------------------------------------------------------------------
-# Phase 4: the main path
-# ---------------------------------------------------------------------------
+def lru_cases(full: bool):
+    """(name, B, T, W, dtype); the first is the Griffin prefill scan (a, b f32)."""
+    if not full:
+        return [("griffin_prefill", 2, 20, 64, torch.float32), ("bf16_ragged", 1, 13, 40, torch.bfloat16)]
+    return [("griffin_prefill", 8, 2304, 2560, torch.float32),
+            ("bf16_ragged", 4, 1001, 2500, torch.bfloat16)]
 
 
-def serve_main_path(device, full: bool) -> dict:
-    if full:
-        cfg, batch, max_seq, lengths, gen_len = get_config("nbi-100m"), 8, 1024, (128, 384, 512), 32
-    else:
-        cfg, batch, max_seq, lengths, gen_len = get_smoke_config("nbi-100m"), 2, 64, (8, 12, 16), 4
+def run_lru_cases(device, timer, full: bool) -> dict:
+    g = torch.Generator(device=device).manual_seed(3)
+    first = None
+    for name, B, T, W, dtype in lru_cases(full):
+        a = (0.5 + 0.499 * torch.rand((B, T, W), generator=g, device=device)).to(dtype)
+        b = torch.randn((B, T, W), generator=g, device=device).to(dtype)
+        h0 = torch.randn((B, W), generator=g, device=device)  # nonzero carried state
+        got_h, got_last = ops.lru_scan(a, b, h0)
+        sync(device)
+        want_h, want_last = ref.lru_ref(a, b, h0)
+        sync(device)
+        err = max(check_close(got_h, want_h, what=f"lru_scan[{name}]", **LRU_TOL[dtype]),
+                  check_close(got_last, want_last, what=f"lru_scan[{name}] h_final", **LRU_TOL[torch.float32]))
+        ms = timer(lambda: ops.lru_scan(a, b, h0), iters=20)
+        plain_ms = timer(lambda: ref.lru_ref(a, b, h0), iters=1, warmup=1)
+        sync(device)
+        nbytes = 3 * a.numel() * a.element_size() + 2 * h0.numel() * 4  # a, b in; h out; h0 in, h_final out
+        bound_ms, bound_by = bound(2 * a.numel(), nbytes, torch.float32)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        say(f"[kernels] lru_scan {name}: B={B} T={T} W={W} {str(dtype).removeprefix('torch.')} h0 nonzero | "
+            f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=none "
+            f"bound={bound_ms:.4f}ms ({bound_by}) MB={nbytes / 1e6:.1f}")
+        first = first or row
+    return first
+
+
+def wkv_cases(full: bool):
+    """(name, B, H, T, d, dtype, nonzero s0); the first is the RWKV-6 prefill."""
+    if not full:
+        return [("rwkv6_prefill", 2, 4, 24, 16, torch.bfloat16, False),
+                ("f32_s0", 1, 2, 13, 16, torch.float32, True)]
+    return [("rwkv6_prefill", 8, 64, 1024, 64, torch.bfloat16, False),
+            ("f32_s0_ragged", 2, 64, 300, 64, torch.float32, True)]
+
+
+def run_wkv_cases(device, timer, full: bool) -> dict:
+    g = torch.Generator(device=device).manual_seed(4)
+    first = None
+    for name, B, H, T, d, dtype, carried in wkv_cases(full):
+        r, k, v = ((0.5 * torch.randn((B, H, T, d), generator=g, device=device)).to(dtype) for _ in range(3))
+        # decays in (0, 1), as exp(-exp(w0 + lora)) gives them
+        w = torch.exp(-torch.exp(0.5 * torch.randn((B, H, T, d), generator=g, device=device) - 1.0)).to(dtype)
+        u = 0.5 * torch.randn((H, d), generator=g, device=device)
+        s0 = (0.5 * torch.randn((B, H, d, d), generator=g, device=device) if carried
+              else torch.zeros((B, H, d, d), device=device))
+        got_y, got_s = ops.wkv6(r, k, v, w, u, s0)
+        sync(device)
+        want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+        sync(device)
+        err = max(check_close(got_y, want_y, what=f"wkv6[{name}]", **WKV_TOL[dtype]),
+                  check_close(got_s, want_s, what=f"wkv6[{name}] state", **WKV_TOL[torch.float32]))
+        ms = timer(lambda: ops.wkv6(r, k, v, w, u, s0), iters=10)
+        plain_ms = timer(lambda: ref.wkv6_ref(r, k, v, w, u, s0), iters=1, warmup=1)
+        sync(device)
+        # r, k, v, w in and y out; u in; s0 in and S_final out
+        nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + 2 * s0.numel() * 4
+        # the sequential form: about 5 f32 operations per state element per token
+        bound_ms, bound_by = bound(5 * B * H * T * d * d, nbytes, torch.float32)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        say(f"[kernels] wkv6 {name}: B={B} H={H} T={T} d={d} {str(dtype).removeprefix('torch.')} "
+            f"s0 {'nonzero' if carried else 'zero'} | max_abs_err={err:.3e} kernel={ms:.4f}ms "
+            f"plain={plain_ms:.4f}ms library=none bound={bound_ms:.4f}ms ({bound_by}) "
+            f"GFLOP={5 * B * H * T * d * d / 1e9:.3f} MB={nbytes / 1e6:.1f}")
+        first = first or row
+    return first
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main paths
+# ---------------------------------------------------------------------------
+
+# arch: (engine batch, prompt lengths, generated tokens, law S) at full size,
+# and the same in the CPU rehearsal at smoke size
+PATHS = {
+    "nbi-100m": ((8, (128, 384, 512), 32, 128), (2, (8, 12, 16), 4, 12)),
+    # 2304 > window 2048: those prompts wrap the ring cache
+    "recurrentgemma-2b": ((8, (256, 1024, 2304), 32, 2100), (2, (6, 12, 20), 4, 12)),
+    "rwkv6-7b": ((8, (128, 512, 1024), 32, 200), (2, (8, 16, 24), 4, 13)),
+}
+
+
+def expected_launches(cfg, prefill_batches: int, gen_len: int) -> dict:
+    """Exact launches of each kernel for ``prefill_batches`` batches of one
+    prefill and ``gen_len`` decode steps each."""
+    L, steps = cfg.n_layers, prefill_batches * (1 + gen_len)
+    want = dict.fromkeys(KERNEL_INFO, 0)
+    if cfg.family == "dense":
+        want.update(flash_attention=L * prefill_batches, rmsnorm=(2 * L + 1) * steps)
+    elif cfg.family == "rglru":
+        n_super, tail = rg.griffin_layout(cfg)
+        want.update(flash_attention=n_super * prefill_batches, lru_scan=(2 * n_super + tail) * prefill_batches,
+                    rmsnorm=(2 * L + 1) * steps)
+    elif cfg.family == "rwkv6":
+        want.update(wkv6=L * prefill_batches)
+    return want
+
+
+def free(device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_path(arch: str, device, full: bool) -> dict:
+    """Serve 16 greedy requests through ``arch`` with the launch counters set
+    to 0 just before and read just after; then the law and the trace. Returns
+    the launches of each kernel."""
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    batch, lengths, gen_len, law_S = PATHS[arch][0 if full else 1]
+    max_seq = max(lengths) + gen_len
     # what earlier phases left allocated (library workspaces of the timed calls)
     held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, batch=batch, max_seq=max_seq, seed=0, device=device)
-    say(f"[serve] {cfg.name}: L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} kv={cfg.n_kv_heads} "
-        f"hd={cfg.resolved_head_dim} F={cfg.d_ff} V={engine.model.cfg.vocab_size} {cfg.dtype} | "
-        f"engine batch={batch} max_seq={max_seq} | built in {time.perf_counter() - t0:.2f}s")
+    sync(device)
+    say(f"[serve] {cfg.name}: family {cfg.family} L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} "
+        f"kv={cfg.n_kv_heads} hd={cfg.resolved_head_dim} F={cfg.d_ff} V={engine.model.cfg.vocab_size} "
+        f"{cfg.dtype} | {cfg.param_count() / 1e9:.3f}B parameters | engine batch={batch} "
+        f"max_seq={max_seq} | built in "
+        f"{time.perf_counter() - t0:.2f}s")
     rng = np.random.default_rng(0)
-    vocab = cfg.vocab_size
-    requests = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+    requests = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                 for n in rng.choice(lengths, size=16)]
     engine.serve_requests(requests[:1], gen_len=2)  # warm-up: library handles, allocator
     sync(device)
@@ -289,29 +442,27 @@ def serve_main_path(device, full: bool) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    fa_kernel.launches = 0
-    rn_kernel.launches = 0
+    for counter in COUNTERS.values():
+        counter.launches = 0
     t0 = time.perf_counter()
     outs = engine.serve_requests(requests, gen_len=gen_len)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa_kernel.launches, "rmsnorm": rn_kernel.launches}
+    launches = {name: counter.launches for name, counter in COUNTERS.items()}
 
     per_len = {n: sum(len(r) == n for r in requests) for n in sorted({len(r) for r in requests})}
     prefill_batches = sum(math.ceil(c / batch) for c in per_len.values())
-    L = cfg.n_layers
-    want = {"flash_attention": L * prefill_batches,
-            "rmsnorm": (2 * L + 1) * prefill_batches * (1 + gen_len)}
+    want = expected_launches(cfg, prefill_batches, gen_len)
     if device.type != "cuda":
         want = {name: 0 for name in want}  # the CPU runs the plain versions: nothing launches
-    say(f"[serve] {len(requests)} requests, prompt lengths {per_len}, {prefill_batches} prefill "
-        f"batches, gen_len {gen_len} | launches {launches} (expected {want})")
+    say(f"[serve] {cfg.name}: {len(requests)} requests, prompt lengths {per_len}, {prefill_batches} "
+        f"prefill batches, gen_len {gen_len} | launches {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"kernel launches on the main path {launches} != expected {want}")
+        raise AssertionError(f"{cfg.name}: kernel launches on the main path {launches} != expected {want}")
     padded_vocab = engine.model.cfg.vocab_size
     for o in outs:
         if o.shape != (gen_len,) or o.min() < 0 or o.max() >= padded_vocab:
-            raise AssertionError(f"bad generation {o.shape} {o.min()}..{o.max()}")
+            raise AssertionError(f"{cfg.name}: bad generation {o.shape} {o.min()}..{o.max()}")
     s = engine.stats
     prefill_tps = s["prefill_tokens"] / s["prefill_s"]
     decode_tps = s["decode_tokens"] / s["decode_s"]
@@ -322,13 +473,16 @@ def serve_main_path(device, full: bool) -> dict:
                   f"for weights, cache and activations")
     else:
         memory = "max_memory_allocated not measured (cpu)"
-    say(f"[serve] on {device_name(device)}: wall {wall:.3f}s | prefill {s['prefill_tokens']} tok in "
-        f"{s['prefill_s']:.4f}s = {prefill_tps:.1f} tok/s | decode {s['decode_tokens']} tok in "
+    say(f"[serve] {cfg.name} on {device_name(device)}: wall {wall:.3f}s | prefill {s['prefill_tokens']} "
+        f"tok in {s['prefill_s']:.4f}s = {prefill_tps:.1f} tok/s | decode {s['decode_tokens']} tok in "
         f"{s['decode_s']:.4f}s = {decode_tps:.1f} tok/s | {memory}")
 
-    law_err = decode_equals_forward(engine, device, S=128 if full else 12)
+    decode_equals_forward(engine, device, S=law_S)
+    free(device)
     trace_one_batch(engine, requests[0][None].repeat(batch, 0), gen_len=4)
-    return {"launches": launches, "law_err": law_err}
+    del engine, outs
+    free(device)
+    return launches
 
 
 def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> None:
@@ -371,47 +525,74 @@ def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> N
 
 @torch.inference_mode()
 def decode_equals_forward(engine: ServeEngine, device, S: int) -> float:
-    """Decode-step logits at position S equal a full forward over S+1 tokens."""
-    model, params, cfg = engine.model, engine.params, engine.model.cfg
+    """Decode-step logits at position S equal a full forward over S+1 tokens.
+
+    The law is checked with f32 activations over the engine's own weights: in
+    bf16 the two sides round at different places (a scan against a step, the
+    kernel's tiles against one-token attention), which is not what the law is
+    about; the served bf16 path is held by phase 3's kernel cases instead."""
+    params = engine.params
+    model = build_model(engine.cfg.replace(dtype="float32"))
+    cfg = model.cfg
     g = torch.Generator(device=device).manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=device)
     last, cache = model.prefill_fn(params, {"tokens": toks})
     cache = pad_cache_to(cache, model.cache_defs_fn(2, S + 8))
     nxt = last[:, -1].argmax(-1)[:, None]
     step, _ = model.decode_fn(params, cache, nxt, S)
-    full = tx.dense_forward(params, cfg, torch.cat([toks, nxt], dim=1))
+    del cache
+    full = model.forward_fn(params, torch.cat([toks, nxt], dim=1))[:, -1]
     sync(device)
     if step.shape != (2, 1, cfg.vocab_size) or not bool(torch.isfinite(step).all()):
         raise AssertionError(f"decode logits {tuple(step.shape)} not finite or misshapen")
-    err = float((step[:, -1] - full[:, -1]).abs().max())
-    say(f"[serve] decode-equals-forward at S={S}: max abs err {err:.3e} (tolerance 1e-3)")
+    err = float((step[:, -1] - full).abs().max())
+    say(f"[serve] {cfg.name} decode-equals-forward at S={S} (f32 activations): max abs err {err:.3e} "
+        f"(tolerance 1e-3; logits up to {float(full.abs().max()):.3e})")
     if err > 1e-3:
-        raise AssertionError(f"decode step disagrees with the full forward: {err}")
+        raise AssertionError(f"{cfg.name}: decode step disagrees with the full forward: {err}")
     return err
 
 
+SMALL_MODELS = {  # card against CPU: small models with the kernels' real head widths
+    "nbi-100m": (dict(n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64, d_ff=256), 40),
+    "recurrentgemma-2b": (dict(d_model=256, n_heads=2, n_kv_heads=1, head_dim=256, lru_width=256,
+                               d_ff=512, window=16), 40),
+    "rwkv6-7b": (dict(d_model=128, n_heads=2, n_kv_heads=2, rwkv_head_size=64, d_ff=256), 40),
+}
+
+
+def liven(params: dict) -> dict:
+    """Nonzero values for every leaf that the init leaves at zero (gates,
+    biases, RWKV's mixes and bonus), so that each term of the small models is
+    live."""
+    g = torch.Generator().manual_seed(7)
+    return map_defs(lambda t: t if bool(t.any()) else (0.3 * torch.randn(t.shape, generator=g)).to(t.dtype),
+                    params)
+
+
 @torch.inference_mode()
-def card_matches_cpu() -> float:
-    """A small model with the kernels' head width, on the card and on the CPU
-    (plain versions) with the same weights: prefill and one decode step agree."""
-    cfg = get_smoke_config("nbi-100m").replace(
-        n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64, d_ff=256)
-    gpu = ServeEngine(cfg, batch=2, max_seq=48, seed=3, device="cuda")
-    cpu = ServeEngine(cfg, batch=2, max_seq=48, seed=3, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(4))
-    worst = 0.0
+def card_matches_cpu(arch: str) -> float:
+    """A small f32 model with the kernels' head widths, on the card and on the
+    CPU (plain versions) with the same weights, drawn on the host: prefill and
+    one decode step agree."""
+    overrides, P = SMALL_MODELS[arch]
+    cfg = get_smoke_config(arch).replace(**overrides)
+    model = build_model(cfg)
+    host_params = liven(model.init(torch.Generator().manual_seed(3), "cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (2, P), generator=torch.Generator().manual_seed(4))
     outs = {}
-    for name, eng in (("cuda", gpu), ("cpu", cpu)):
-        last, cache = eng.model.prefill_fn(eng.params, {"tokens": toks.to(eng.device)})
-        cache = pad_cache_to(cache, eng.model.cache_defs_fn(2, 48))
-        nxt = torch.full((2, 1), 7, device=eng.device)
-        step, _ = eng.model.decode_fn(eng.params, cache, nxt, 40)
+    for name in ("cuda", "cpu"):
+        params = map_defs(lambda t: t.to(name), host_params)
+        last, cache = model.prefill_fn(params, {"tokens": toks.to(name)})
+        cache = pad_cache_to(cache, model.cache_defs_fn(2, P + 8))
+        nxt = torch.full((2, 1), 7, device=name)
+        step, _ = model.decode_fn(params, cache, nxt, P)
         outs[name] = (last.cpu(), step.cpu())
-    for a, b in zip(outs["cuda"], outs["cpu"]):
-        worst = max(worst, float((a - b).abs().max()))
-    say(f"[serve] small model, card against CPU: max abs logit err {worst:.3e} (tolerance 1e-4)")
+    worst = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    say(f"[serve] small {cfg.family} model ({arch} smoke, {overrides}), card against CPU: "
+        f"max abs logit err {worst:.3e} (tolerance 1e-4)")
     if worst > 1e-4:
-        raise AssertionError(f"card and CPU disagree: {worst}")
+        raise AssertionError(f"{arch}: card and CPU disagree: {worst}")
     return worst
 
 
@@ -441,20 +622,31 @@ def main(argv=None) -> int:
         for r in _build.ptxas_report():
             say(f"[build] {r['source']}: {r['kernel']} | registers {r['registers']} | static smem "
                 f"{r['smem_bytes']} B | spills {r['spill_store_bytes']}/{r['spill_load_bytes']} B")
+        say("[build] flash_attention dynamic smem per block: " + ", ".join(
+            f"d={d} dv={dv}: {fa_kernel.dynamic_smem_bytes(d, dv)} B" for d, dv in fa_kernel.HEAD_DIM_PAIRS))
     else:
         device = torch.device("cpu")
         say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")
 
     timer = Timer(device)
+    t0 = time.perf_counter()
     results = {"flash_attention": run_attention_cases(device, timer, full),
-               "rmsnorm": run_norm_cases(device, timer, full)}
-    main_path = serve_main_path(device, full)
-    if full:
-        card_matches_cpu()
+               "rmsnorm": run_norm_cases(device, timer, full),
+               "lru_scan": run_lru_cases(device, timer, full),
+               "wkv6": run_wkv_cases(device, timer, full)}
+    say(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f}s")
+    free(device)
+    by_path = {}
+    for arch in PATHS:
+        t0 = time.perf_counter()
+        by_path[arch] = serve_path(arch, device, full)
+        if full:
+            card_matches_cpu(arch)
+        say(f"[serve] {arch} phase took {time.perf_counter() - t0:.1f}s")
 
     kernels = [
-        {"name": name, **KERNEL_INFO[name], "launches": main_path["launches"][name],
-         **results[name]}
+        {"name": name, **KERNEL_INFO[name], "launches": sum(n[name] for n in by_path.values()),
+         **results[name], "launches_by_path": {arch: n[name] for arch, n in by_path.items()}}
         for name in KERNEL_INFO
     ]
     if not full:

@@ -1,5 +1,6 @@
-"""Architecture configs of the port: the two dense configs its serving path
-runs, copied from ``repro.configs`` with the same values.
+"""Architecture configs of the port: the configs its serving path runs (two
+dense, one Griffin, one RWKV-6), copied from ``repro.configs`` with the same
+values.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 returns the reduced same-family config the CPU tests use.
@@ -9,11 +10,13 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["codeqwen15_7b", "nbi100m"]
+ARCHS = ["codeqwen15_7b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b"]
 
 _ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
     "nbi-100m": "nbi100m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

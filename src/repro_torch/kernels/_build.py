@@ -35,6 +35,10 @@ SIGNATURES = {
     "repro_flash_attention_fwd": [_P, _P, _P, _P, *[_I] * 10, _F, _P],
     # x, w, y, rows, D, is_bf16, eps, stream
     "repro_rmsnorm_fwd": [_P, _P, _P, _LL, _I, _I, _F, _P],
+    # a, b, h0, y, h_out, B, T, W, is_bf16, stream
+    "repro_lru_scan_fwd": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+    # r, k, v, w, u, s0, y, s_out, B, H, T, d, is_bf16, stream
+    "repro_wkv6_fwd": [*[_P] * 8, *[_I] * 5, _P],
 }
 
 

@@ -26,6 +26,12 @@
 // version runs on the f32 FMA units; wgmma, TMA and warp specialisation are
 // later work. Ragged Sq and Skv are masked in the kernel, so nothing is padded
 // in device memory.
+//
+// Head dims: (64, 64), (128, 128), the two mixed pairs, and (256, 256) for
+// Griffin's local attention. At d 256 the f32 tiles take 213,760 bytes of
+// shared memory (Q and K 64 x 257, V 64 x 256, P 64 x 65 floats), under the
+// 232,448 a block may opt into, so one block runs per SM; each thread then
+// holds 4 x 16 accumulators.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,6 +217,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
     return launch<T, 64, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 128 && dv == 64)
     return launch<T, 128, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+  if (d == 256 && dv == 256)
+    return launch<T, 256, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   return cudaErrorInvalidValue;
 }
 

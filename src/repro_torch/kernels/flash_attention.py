@@ -14,7 +14,9 @@ import torch
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128)
+# (d, dv) pairs the kernel is compiled for
+HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256))
+BQ = BK = 64  # query rows and keys per tile, as in the kernel
 
 # Kernel launches since import. chip_smoke.py sets it to 0 around the
 # main path and reads it to show that every prefill attention came here.
@@ -44,15 +46,21 @@ def _validate(q, k, v) -> None:
         )
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if d not in HEAD_DIMS or v.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dims d={d}, dv={v.shape[3]} not in {HEAD_DIMS}")
+    if (d, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention: head dims (d, dv)=({d}, {v.shape[3]}) not in {HEAD_DIM_PAIRS}")
     if min(B, Hq, Sq, Skv) <= 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
+def dynamic_smem_bytes(d: int, dv: int) -> int:
+    """Shared memory one block asks for at launch: f32 Q and K tiles padded by
+    one float, the V tile and the P tile (``smem_bytes`` in the source)."""
+    return 4 * (BQ * (d + 1) + BK * (d + 1) + BK * dv + BQ * (BK + 1))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float = 0.0):
     """q: (B,Hq,Sq,d); k: (B,Hkv,Skv,d); v: (B,Hkv,Skv,dv), all on one CUDA
-    device, contiguous, f32 or bf16, d and dv in {64, 128}. Returns
+    device, contiguous, f32 or bf16, (d, dv) in ``HEAD_DIM_PAIRS``. Returns
     (B,Hq,Sq,dv) in q's dtype. Query head h reads KV head h // (Hq // Hkv);
     positions start at 0 for both q and k, as in the reference."""
     global launches

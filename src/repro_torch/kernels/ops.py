@@ -11,7 +11,9 @@ from __future__ import annotations
 
 from . import flash_attention as _fa
 from . import ref
+from . import rglru_scan as _lru
 from . import rmsnorm as _rn
+from . import rwkv6_scan as _wkv
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float = 0.0):
@@ -26,3 +28,20 @@ def rmsnorm(x, w, eps: float = 1e-6):
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     return _rn.rmsnorm(x, w, eps)
+
+
+def lru_scan(a, b, h0):
+    """h_t = a_t ⊙ h_{t-1} + b_t over (B, T, W) from h0 (B, W) f32; returns
+    (h_seq in a's dtype, h_final f32). Any T."""
+    if a.device.type == "cpu":
+        return ref.lru_ref(a, b, h0)
+    return _lru.lru_scan(a, b, h0)
+
+
+def wkv6(r, k, v, w, u, s0):
+    """RWKV-6 WKV recurrence. r, k, w: (B, H, T, dk); v: (B, H, T, dv); u:
+    (H, dk); s0: (B, H, dk, dv) f32. Returns (y in r's dtype, S_final f32).
+    Any T."""
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0)
+    return _wkv.wkv6(r, k, v, w, u, s0)

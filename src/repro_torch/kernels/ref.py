@@ -3,7 +3,8 @@
 Each function is the semantic definition its kernel must match: the CPU path
 of :mod:`repro_torch.kernels.ops` runs it, the CPU tests hold it against the
 JAX package, and ``chip_smoke.py`` holds each kernel against it on the card.
-They are deliberately naive (attention materialises the full score matrix).
+They are deliberately naive (attention materialises the full score matrix,
+the recurrences step token by token in f32) and take any sequence length.
 """
 
 from __future__ import annotations
@@ -45,3 +46,37 @@ def rmsnorm_ref(x, weight, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * weight.float()
     return y.to(x.dtype)
+
+
+def lru_ref(a, b, h0):
+    """Linear recurrence h_t = a_t ⊙ h_{t-1} + b_t, token by token in f32.
+
+    a, b: (B, T, W); h0: (B, W). Returns (h_seq (B, T, W) in a's dtype,
+    h_final (B, W) f32).
+    """
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = torch.empty_like(af)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs[:, t] = h
+    return hs.to(a.dtype), h
+
+
+def wkv6_ref(r, k, v, w, u, s0):
+    """The RWKV-6 WKV recurrence, token by token in f32.
+
+    r, k, w: (B, H, T, dk); v: (B, H, T, dv); u: (H, dk); s0: (B, H, dk, dv).
+        y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+        S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+    Returns (y (B, H, T, dv) in r's dtype, S_final (B, H, dk, dv) f32).
+    """
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = s0.float()
+    ys = torch.empty_like(vf)
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        ys[:, :, t] = torch.einsum("bhi,bhiv->bhv", rf[:, :, t], s + uf * kv)
+        s = wf[:, :, t, :, None] * s + kv
+    return ys.to(r.dtype), s

@@ -1,14 +1,18 @@
 """serve — batched generation on one card.
 
     python -m repro_torch.launch.serve --arch nbi-100m [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    python -m repro_torch.launch.serve --arch rwkv6-7b
 
-The port of ``repro.launch.serve``'s :class:`ServeEngine`: prefill a batch of
-prompts (every attention through the flash-attention kernel, every norm
-through the RMSNorm kernel), pad the prompt-sized KV cache into the
-fixed-capacity decode cache, then decode one token at a time (greedy or
-temperature sampling). A small batcher groups queued requests into
-engine-sized batches of one exact prompt length, so no row ever sees padding
-and a request's output does not depend on its batch-mates.
+The port of ``repro.launch.serve``'s :class:`ServeEngine`, for the dense,
+Griffin and RWKV-6 families: prefill a batch of prompts (on the card every
+prefill attention through the flash-attention kernel, every RMSNorm through
+the RMSNorm kernel, every RG-LRU scan and WKV-6 recurrence through theirs),
+pad the prompt-sized cache into the fixed-capacity decode cache, then decode
+one token at a time at a scalar position (greedy or temperature sampling). A
+small batcher groups queued requests into engine-sized batches of one exact
+prompt length, so no row ever sees padding and a request's output does not
+depend on its batch-mates.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``.
 ``ContinuousBatchingEngine`` comes in a later slice; the vector-``pos`` decode
@@ -28,25 +32,27 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.registry import build_model
 
 
-def pad_cache_to(cache: dict, cache_defs: dict) -> dict:
+def pad_cache_to(cache, cache_defs):
     """Zero-pad a prompt-sized prefill cache into the fixed decode layout.
 
-    Leaves match rank; any axis where the prefill extent is smaller (the
-    kv-seq axis) is right-padded. Zero padding is safe: decode masks by
-    position.
+    Maps over nested dicts, as the reference's ``tree_map``. Leaves match
+    rank; any axis where the prefill extent is smaller (the kv-seq axis) is
+    right-padded. Leaves whose shape already matches (recurrent states, ring
+    buffers) are only cast to the layout's dtype. Zero padding is safe:
+    decode masks by position.
     """
-
-    def pad(leaf, want):
-        target = tuple(want.shape)
-        if tuple(leaf.shape) == target:
-            return leaf.to(want.dtype)
-        if leaf.dim() != len(target) or any(h > n for h, n in zip(leaf.shape, target)):
-            raise ValueError(f"cache leaf {tuple(leaf.shape)} exceeds {target}")
-        out = torch.zeros(target, dtype=want.dtype, device=leaf.device)
-        out[tuple(slice(0, h) for h in leaf.shape)] = leaf
-        return out
-
-    return {name: pad(leaf, cache_defs[name]) for name, leaf in cache.items()}
+    if isinstance(cache, dict):
+        if set(cache) != set(cache_defs):
+            raise ValueError(f"cache keys {sorted(cache)} differ from the layout's {sorted(cache_defs)}")
+        return {name: pad_cache_to(leaf, cache_defs[name]) for name, leaf in cache.items()}
+    target = tuple(cache_defs.shape)
+    if tuple(cache.shape) == target:
+        return cache.to(cache_defs.dtype)
+    if cache.dim() != len(target) or any(h > n for h, n in zip(cache.shape, target)):
+        raise ValueError(f"cache leaf {tuple(cache.shape)} exceeds {target}")
+    out = torch.zeros(target, dtype=cache_defs.dtype, device=cache.device)
+    out[tuple(slice(0, h) for h in cache.shape)] = cache
+    return out
 
 
 class ServeEngine:
@@ -58,8 +64,9 @@ class ServeEngine:
         self.batch = batch
         self.max_seq = max_seq
         self.model = build_model(cfg)
-        # weights drawn on the host, so one seed gives one model on any device
-        self.params = self.model.init(torch.Generator().manual_seed(seed), self.device)
+        # Seeded weights are drawn on the engine's device: one seed gives one
+        # model per device type (the card's generator differs from the CPU's).
+        self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
         self.stats = {"requests": 0, "prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_s": 0.0, "decode_s": 0.0}
 

@@ -1,6 +1,6 @@
 """Shared model machinery of the port, the serving subset of
-``repro.models.common``: parameter definitions, seeded init, RMSNorm, RoPE,
-decode attention, the causal mask and SwiGLU.
+``repro.models.common``: parameter definitions, seeded init, RMSNorm,
+LayerNorm, RoPE, decode attention, the causal mask, SwiGLU and GeGLU.
 
 Layouts follow the reference at every public function: projections
 ``(D, H, hd)``, per-layer weights stacked on a leading ``layers`` axis, the KV
@@ -9,8 +9,8 @@ leaves; :func:`init_params` turns it into tensors. The reference draws its
 weights from ``jax.random``, so the numbers differ; parity tests copy the
 reference's weights across with :mod:`repro_torch.convert`.
 
-Left out until the training slice: ``cross_entropy``, ``layer_norm``,
-``geglu``, ``sinusoidal_positions`` and ``attention_chunked``.
+Left out until the training slice: ``cross_entropy``,
+``sinusoidal_positions`` and ``attention_chunked``.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def init_params(defs, generator: torch.Generator, device) -> dict:
         if d.init == "constant":
             return torch.full(d.shape, d.scale, dtype=d.dtype, device=device)
         std = d.scale / math.sqrt(max(1, _fan_in(d)))
-        w = torch.randn(d.shape, generator=generator, device=generator.device) * std
+        w = torch.randn(d.shape, generator=generator, device=generator.device).mul_(std)
         return w.to(device=device, dtype=d.dtype)
 
     return map_defs(make, defs)
@@ -111,6 +111,16 @@ def rms_norm(x, weight, eps: float = 1e-6):
     """The models' RMSNorm: the Hopper kernel on the card, its plain version
     on the CPU (:func:`repro_torch.kernels.ops.rmsnorm`)."""
     return ops.rmsnorm(x, weight, eps)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm over the last axis with f32 moments, cast back to x's dtype.
+    Plain PyTorch: in the reference this is XLA, not Pallas."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +188,11 @@ def swiglu(x, wg, wi, wo, dtype):
     g = torch.einsum("bsd,df->bsf", x, wg.to(dtype))
     h = torch.einsum("bsd,df->bsf", x, wi.to(dtype))
     return torch.einsum("bsf,fd->bsd", F.silu(g) * h, wo.to(dtype))
+
+
+def geglu(x, wg, wi, wo, dtype):
+    """GeGLU MLP. ``jax.nn.gelu`` defaults to the tanh approximation, and so
+    does this."""
+    g = torch.einsum("bsd,df->bsf", x, wg.to(dtype))
+    h = torch.einsum("bsd,df->bsf", x, wi.to(dtype))
+    return torch.einsum("bsf,fd->bsd", F.gelu(g, approximate="tanh") * h, wo.to(dtype))

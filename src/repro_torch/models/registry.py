@@ -1,5 +1,5 @@
 """Model registry of the port: one API over the architecture families ported
-so far (``dense`` with GQA).
+so far (``dense`` with GQA, ``rglru`` (Griffin) and ``rwkv6``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors:
@@ -7,10 +7,11 @@ functions on tensors:
   prefill_fn(params, batch)           → (last logits, cache)     [prefill]
   decode_fn(params, cache, tok, pos)  → (logits, cache)          [decode]
   cache_defs_fn(batch, max_seq)       → cache layout on ``meta``
+  forward_fn(params, tokens)          → logits of every position
 
 The reference's ``make_prefill_step`` / ``make_serve_step``
-(``repro/training/steps.py``) only wrap these two with sharding rules; on one
-card there are none, so they are these functions themselves.
+(``repro/training/steps.py``) only wrap the first two with sharding rules; on
+one card there are none, so they are these functions themselves.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Callable
 
 import torch
 
+from . import rglru as rg
+from . import rwkv6 as rw
 from . import transformer as tx
 from .common import init_params, resolve_device
 from .config import ArchConfig
@@ -39,24 +42,39 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs_fn: Callable  # (batch, max_seq) -> dict of meta tensors
+    forward_fn: Callable  # (params, tokens) -> logits of every position
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Seeded weights on ``device`` (``cuda`` unless the caller asks for the CPU)."""
         return init_params(self.param_defs, generator, resolve_device(device))
 
 
+# family: (param_defs, prefill, decode_step, forward, cache_defs), each taking
+# the (padded) config as an argument
+_FAMILIES = {
+    "dense": (tx.dense_param_defs, tx.dense_prefill, tx.dense_decode_step, tx.dense_forward,
+              tx.dense_cache_defs),
+    "rglru": (rg.griffin_param_defs, rg.griffin_prefill, rg.griffin_decode_step, rg.griffin_forward,
+              rg.griffin_cache_defs),
+    "rwkv6": (rw.rwkv_param_defs, rw.rwkv_prefill, rw.rwkv_decode_step, rw.rwkv_forward,
+              rw.rwkv_cache_defs),
+}
+
+
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has 'dense')")
-    if cfg.attention not in ("gqa", "local") or cfg.n_patches:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has {sorted(_FAMILIES)})")
+    if cfg.family == "dense" and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} / visual prefix is not ported yet"
         )
+    param_defs, prefill, decode_step, forward, cache_defs = _FAMILIES[cfg.family]
     pcfg = cfg.replace(vocab_size=padded_vocab(cfg))
     return Model(
         cfg=pcfg,
-        param_defs=tx.dense_param_defs(pcfg),
-        prefill_fn=lambda p, b: tx.dense_prefill(p, pcfg, b["tokens"]),
-        decode_fn=lambda p, c, t, pos: tx.dense_decode_step(p, pcfg, c, t, pos),
-        cache_defs_fn=lambda batch, seq: tx.dense_cache_defs(pcfg, batch, seq),
+        param_defs=param_defs(pcfg),
+        prefill_fn=lambda p, b: prefill(p, pcfg, b["tokens"]),
+        decode_fn=lambda p, c, t, pos: decode_step(p, pcfg, c, t, pos),
+        cache_defs_fn=lambda batch, seq: cache_defs(pcfg, batch, seq),
+        forward_fn=lambda p, t: forward(p, pcfg, t),
     )

@@ -4,7 +4,9 @@
 On the CPU, inputs come from a seeded numpy generator and go through the JAX
 Pallas kernel in interpret mode, the JAX oracle and the port's plain version.
 Tolerances are those of tests/test_kernels.py: attention f32 atol 2e-5 /
-rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05.
+rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05; LRU 1e-5; WKV atol
+5e-4 / rtol 1e-3. On the card, bf16 attention is held to atol 1e-3 / rtol
+2**-7: kernel and plain version both accumulate in f32 and round once.
 
 JAX is imported inside a fixture, so that the card's machine, which has no
 JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
@@ -18,7 +20,9 @@ import torch
 
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru_scan as tlru
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import rwkv6_scan as twkv
 
 
 @pytest.fixture(scope="module")
@@ -26,13 +30,16 @@ def jx():
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
 
+    from repro.kernels import ops as jops
     from repro.kernels.flash_attention import flash_attention
-    from repro.kernels.ref import attention_ref, rmsnorm_ref
+    from repro.kernels.ref import attention_ref, lru_ref, rmsnorm_ref, wkv6_ref
     from repro.kernels.rmsnorm import rmsnorm_pallas
+    from repro.kernels.rwkv6_scan import wkv6_pallas
 
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, flash_attention=flash_attention,
         attention_ref=attention_ref, rmsnorm_ref=rmsnorm_ref, rmsnorm_pallas=rmsnorm_pallas,
+        lru_ref=lru_ref, wkv6_ref=wkv6_ref, wkv6_pallas=wkv6_pallas, ops=jops,
     )
 
 
@@ -96,6 +103,112 @@ def test_plain_rmsnorm_bf16_matches_jax(jx):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
 
 
+def lru_inputs(seed, B, T, W):
+    """a in (0, 1) like RG-LRU decays, b and h0 normal."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, (B, T, W)).astype(np.float32)
+    b = rng.standard_normal((B, T, W)).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    return a, b, h0
+
+
+def wkv_inputs(seed, B, H, T, d):
+    """r, k, v normal; w in (0, 1) like RWKV-6 decays; u normal; s0 nonzero."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, T, d)).astype(np.float32) * 0.5 for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((B, H, T, d)) * 0.5 - 1.0)).astype(np.float32)
+    u = rng.standard_normal((H, d)).astype(np.float32) * 0.5
+    s0 = rng.standard_normal((B, H, d, d)).astype(np.float32) * 0.5
+    return r, k, v, w, u, s0
+
+
+# name: (B, T, W); T % 128 == 0 where the Pallas kernel runs
+LRU_CASES = {"smoke": (2, 128, 64), "wide": (1, 256, 512), "two_width_tiles": (2, 128, 1024)}
+
+
+@pytest.mark.parametrize("case", sorted(LRU_CASES))
+def test_plain_lru_matches_jax(jx, case):
+    """ops.lru_scan on the CPU against the reference's ops.lru_scan through
+    its Pallas kernel in interpret mode, and against its oracle."""
+    a, b, h0 = lru_inputs(8, *LRU_CASES[case])
+    got_h, got_last = ops.lru_scan(*map(torch.from_numpy, (a, b, h0)))
+    ja, jb, jh = map(jx.jnp.asarray, (a, b, h0))
+    for want_h, want_last in (jx.ops.lru_scan(ja, jb, jh, use_pallas=True), jx.lru_ref(ja, jb, jh)):
+        np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), atol=1e-5, rtol=1e-5)
+
+
+def test_plain_lru_any_length_and_bf16_match_jax_oracle(jx):
+    a, b, h0 = lru_inputs(9, 2, 37, 48)
+    got_h, got_last = ref.lru_ref(*map(torch.from_numpy, (a, b, h0)))
+    want_h, want_last = jx.lru_ref(*map(jx.jnp.asarray, (a, b, h0)))
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), atol=1e-5, rtol=1e-5)
+    bf = jx.jnp.bfloat16
+    got_h, _ = ref.lru_ref(torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16(), torch.from_numpy(h0))
+    want_h, _ = jx.lru_ref(jx.jnp.asarray(a, bf), jx.jnp.asarray(b, bf), jx.jnp.asarray(h0))
+    assert got_h.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_h.float().numpy(), np.asarray(want_h, np.float32), atol=0.05)
+
+
+# name: (B, H, T, d); T % 64 == 0 where the Pallas kernel runs
+WKV_CASES = {"smoke": (2, 4, 64, 16), "two_chunks": (1, 2, 128, 32), "head64": (1, 2, 64, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_plain_wkv6_matches_jax(jx, case):
+    """ops.wkv6 on the CPU against wkv6_pallas in interpret mode and against
+    the reference's oracle."""
+    arrays = wkv_inputs(10, *WKV_CASES[case])
+    got_y, got_s = ops.wkv6(*map(torch.from_numpy, arrays))
+    jarrays = list(map(jx.jnp.asarray, arrays))
+    for want_y, want_s in (jx.wkv6_pallas(*jarrays, interpret=True), jx.wkv6_ref(*jarrays)):
+        np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
+
+
+def test_plain_wkv6_any_length_and_bf16_match_jax_oracle(jx):
+    arrays = wkv_inputs(11, 1, 2, 37, 16)
+    got_y, got_s = ref.wkv6_ref(*map(torch.from_numpy, arrays))
+    want_y, want_s = jx.wkv6_ref(*map(jx.jnp.asarray, arrays))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
+    bf = jx.jnp.bfloat16
+    t_in = [torch.from_numpy(a).bfloat16() for a in arrays[:4]] + [torch.from_numpy(a) for a in arrays[4:]]
+    j_in = [jx.jnp.asarray(a, bf) for a in arrays[:4]] + [jx.jnp.asarray(a) for a in arrays[4:]]
+    got_y, got_s = ref.wkv6_ref(*t_in)
+    want_y, want_s = jx.wkv6_ref(*j_in)
+    assert got_y.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    np.testing.assert_allclose(got_y.float().numpy(), np.asarray(want_y, np.float32), atol=0.05, rtol=2**-7)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
+
+
+def test_ops_send_cpu_recurrences_to_plain_versions():
+    a, b, h0 = map(torch.from_numpy, lru_inputs(12, 2, 20, 32))
+    wkv = list(map(torch.from_numpy, wkv_inputs(13, 1, 2, 20, 16)))
+    before = (tlru.launches, twkv.launches)
+    for got, want in zip(ops.lru_scan(a, b, h0), ref.lru_ref(a, b, h0)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for got, want in zip(ops.wkv6(*wkv), ref.wkv6_ref(*wkv)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (tlru.launches, twkv.launches) == before
+
+
+def test_recurrence_wrappers_reject_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tlru.lru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.zeros(1, 8))
+    z = torch.zeros(1, 2, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        twkv.wkv6(z, z, z, z, torch.zeros(2, 64), torch.zeros(1, 2, 64, 64))
+
+
+def test_flash_attention_smem_fits_a_block():
+    """The dynamic shared memory of every compiled head-dim pair fits the
+    232,448 bytes a Hopper block may opt into; d 256 is the largest."""
+    sizes = {pair: tfa.dynamic_smem_bytes(*pair) for pair in tfa.HEAD_DIM_PAIRS}
+    assert max(sizes.values()) == sizes[256, 256] == 213760 <= 232448
+
+
 def test_ops_send_cpu_tensors_to_plain_versions():
     qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
     q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
@@ -131,6 +244,9 @@ def _need_card():
 
 GPU_ATTN_CASES = {
     **ATTN_CASES,
+    "griffin_mqa_d256_bf16": (2, 10, 1, 300, 300, 256, True, 128, 0.0, 1.0),
+    "griffin_d256": (1, 4, 1, 200, 200, 256, True, 64, 0.0, 1.0),
+    "d256_cap_bf16": (1, 2, 2, 130, 130, 256, True, 0, 30.0, 4.0),
     "nbi100m_prefill": (2, 12, 12, 512, 512, 64, True, 0, 0.0, 1.0),
     "gqa_d128_bf16": (1, 32, 8, 256, 256, 128, True, 0, 0.0, 1.0),
     "ragged_300": (1, 4, 4, 300, 300, 64, True, 0, 0.0, 1.0),
@@ -144,7 +260,7 @@ GPU_ATTN_CASES = {
 def test_flash_attention_kernel_matches_plain(case):
     _need_card()
     B, Hq, Hkv, Sq, Skv, d, causal, window, cap, scale = GPU_ATTN_CASES[case]
-    if d not in tfa.HEAD_DIMS:  # the CPU cases' narrow heads: widen to the kernel's
+    if (d, d) not in tfa.HEAD_DIM_PAIRS:  # the CPU cases' narrow heads: widen to the kernel's
         d = 64
     dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
     arrays = draw(5, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
@@ -155,7 +271,8 @@ def test_flash_attention_kernel_matches_plain(case):
     torch.cuda.synchronize()
     assert tfa.launches == before + 1
     want = ref.attention_ref(q, k, v, **kw)
-    tol = dict(atol=0.05, rtol=0) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
+    # both accumulate in f32 and round once: a bf16 output is off by one rounding step at most
+    tol = dict(atol=1e-3, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
@@ -203,3 +320,56 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         ops.attention(q64, q64, q64)
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(torch.zeros(64, 8, device="cuda").t(), torch.ones(64, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((8, 2304, 2560), torch.float32), ((2, 37, 100), torch.float32), ((3, 129, 256), torch.bfloat16),
+     ((1, 0, 64), torch.float32)],
+)
+def test_lru_scan_kernel_matches_plain(shape, dtype):
+    _need_card()
+    a, b, h0 = (torch.from_numpy(x).to("cuda") for x in lru_inputs(14, *shape))
+    a, b = a.to(dtype), b.to(dtype)
+    before = tlru.launches
+    got_h, got_last = ops.lru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert tlru.launches == before + 1
+    want_h, want_last = ref.lru_ref(a, b, h0)
+    tol = dict(atol=0.05, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got_h.float(), want_h.float(), **tol)
+    torch.testing.assert_close(got_last, want_last, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((8, 64, 256, 64), torch.bfloat16), ((2, 4, 100, 64), torch.float32), ((1, 3, 70, 16), torch.float32),
+     ((2, 2, 33, 32), torch.bfloat16)],
+)
+def test_wkv6_kernel_matches_plain(shape, dtype):
+    _need_card()
+    r, k, v, w, u, s0 = (torch.from_numpy(x).to("cuda") for x in wkv_inputs(15, *shape))
+    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
+    before = twkv.launches
+    got_y, got_s = ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert twkv.launches == before + 1
+    want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    tol = dict(atol=0.05, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(got_y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(got_s, want_s, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_recurrence_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    a = torch.zeros(1, 4, 8, device="cuda")
+    with pytest.raises(TypeError, match="h0"):
+        ops.lru_scan(a, a, torch.zeros(1, 8, device="cuda", dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.lru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), a, torch.zeros(1, 8, device="cuda"))
+    z = torch.zeros(1, 2, 4, 128, device="cuda")
+    with pytest.raises(ValueError, match="head size"):
+        ops.wkv6(z, z, z, z, torch.zeros(2, 128, device="cuda"), torch.zeros(1, 2, 128, 128, device="cuda"))
