@@ -13,15 +13,17 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
 4. main paths, one engine at a time, each freed before the next: serve 16
-   greedy requests through nbi-100m, recurrentgemma-2b and rwkv6-7b at full
-   width with seeded weights; count every kernel's launches around each path
-   and require the exact counts (nbi-100m: each prefill attention through the
-   flash-attention kernel and each RMSNorm through the RMSNorm kernel;
-   Griffin: also each RG-LRU prefill scan through the LRU kernel; RWKV-6:
-   each WKV prefill through the WKV kernel); check the decode-equals-forward
-   law at full width and the card against the CPU on a small model of each
-   family, then trace one batch with torch.profiler (device busy share and the
-   ops that take the most device time).
+   greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b and
+   deepseek-moe-16b at full width with seeded weights; count every kernel's
+   launches around each path and require the exact counts (nbi-100m: each
+   prefill attention through the flash-attention kernel and each RMSNorm
+   through the RMSNorm kernel; Griffin: also each RG-LRU prefill scan through
+   the LRU kernel; RWKV-6: each WKV prefill through the WKV kernel;
+   deepseek-moe-16b: also each MoE layer's routing, prefill and decode,
+   through the gating kernel); check the decode-equals-forward law at full
+   width and the card against the CPU on a small model of each family, then
+   trace one batch with torch.profiler (device busy share and the ops that
+   take the most device time).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
@@ -32,6 +34,7 @@ script's control flow without a card; it prints no device result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -49,6 +52,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import moe_gating as gating_kernel  # noqa: E402
 from repro_torch.kernels import rglru_scan as lru_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
@@ -92,8 +96,13 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:90",
     ),
+    "moe_gating": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/moe_gating.cu",
+        replaces="src/repro/kernels/moe_gating.py:72",
+    ),
 }
-COUNTERS = {"flash_attention": fa_kernel, "rmsnorm": rn_kernel, "lru_scan": lru_kernel, "wkv6": wkv_kernel}
+COUNTERS = {"flash_attention": fa_kernel, "rmsnorm": rn_kernel, "lru_scan": lru_kernel, "wkv6": wkv_kernel,
+            "moe_gating": gating_kernel}
 
 
 def say(*parts) -> None:
@@ -177,13 +186,15 @@ def check_close(got, want, atol: float, rtol: float, what: str) -> float:
 
 def attention_cases(full: bool):
     """(name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, logit_cap). The
-    first two are shapes the main paths give the kernel: a 512-token prefill
-    batch of nbi-100m and a 2304-token prefill batch of recurrentgemma-2b."""
+    first three are shapes the main paths give the kernel: a 512-token prefill
+    batch of nbi-100m, a 2304-token prefill batch of recurrentgemma-2b and a
+    2048-token prefill batch of deepseek-moe-16b."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
             ("nbi100m_prefill", 2, 4, 4, 16, 16, 16, f32, True, 0, 0.0),
             ("griffin_prefill", 2, 4, 1, 20, 20, 16, bf16, True, 8, 0.0),
+            ("deepseek_prefill", 2, 4, 4, 16, 16, 16, bf16, True, 0, 0.0),
             ("d256_f32", 1, 2, 1, 12, 12, 16, f32, True, 4, 0.0),
             ("gqa_bf16", 1, 8, 2, 24, 24, 16, bf16, True, 0, 0.0),
             ("ragged", 1, 4, 4, 13, 13, 16, f32, True, 0, 0.0),
@@ -194,6 +205,7 @@ def attention_cases(full: bool):
     return [
         ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, f32, True, 0, 0.0),
         ("griffin_prefill", 8, 10, 1, 2304, 2304, 256, bf16, True, 2048, 0.0),
+        ("deepseek_prefill", 8, 16, 16, 2048, 2048, 128, bf16, True, 0, 0.0),
         ("d256_f32", 2, 10, 1, 1024, 1024, 256, f32, True, 512, 0.0),
         ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, bf16, True, 0, 0.0),
         ("ragged_s300", 2, 12, 12, 300, 300, 64, f32, True, 0, 0.0),
@@ -205,12 +217,15 @@ def attention_cases(full: bool):
 
 def norm_cases(full: bool):
     """(name, rows, D, dtype); the first two are the main path's prefill and
-    decode rows of nbi-100m."""
+    decode rows of nbi-100m, the last two those of deepseek-moe-16b's largest
+    prefill and a decode step."""
     if not full:
         return [("prefill_rows", 32, 64, torch.float32), ("decode_rows", 2, 64, torch.float32),
-                ("bf16_wide", 16, 256, torch.bfloat16)]
+                ("bf16_wide", 16, 256, torch.bfloat16), ("deepseek_prefill_rows", 64, 64, torch.bfloat16),
+                ("deepseek_decode_rows", 2, 64, torch.bfloat16)]
     return [("prefill_rows", 4096, 768, torch.float32), ("decode_rows", 8, 768, torch.float32),
-            ("bf16_4096", 2048, 4096, torch.bfloat16)]
+            ("bf16_4096", 2048, 4096, torch.bfloat16), ("deepseek_prefill_rows", 16384, 2048, torch.bfloat16),
+            ("deepseek_decode_rows", 8, 2048, torch.bfloat16)]
 
 
 def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
@@ -379,6 +394,71 @@ def run_wkv_cases(device, timer, full: bool) -> dict:
     return first
 
 
+def gating_cases(full: bool):
+    """(name, G, N, E, k, capacity, logit scale, expert skew, everyone wants
+    expert 0). The first two are the shapes deepseek-moe-16b's path gives the
+    kernel (its largest prefill, 8 rows of 2048 tokens in 16 groups, and a
+    decode step of 8 rows) at the router's logit scale at full width (about
+    0.1); then an odd shape whose popular experts drop picks, kimi-k2's
+    routing widths, and every token wanting expert 0."""
+    if not full:
+        return [("deepseek_prefill", 2, 32, 8, 2, 10, 0.1, 0.0, False),
+                ("deepseek_decode", 1, 2, 8, 2, 4, 0.1, 0.0, False),
+                ("odd_drops", 3, 20, 40, 3, 3, 1.0, 1.0, False),
+                ("kimi_routing", 2, 16, 40, 4, 4, 1.0, 0.0, False),
+                ("everyone_expert_0", 1, 32, 8, 1, 5, 0.1, 0.0, True)]
+    return [("deepseek_prefill", 16, 1024, 64, 6, 120, 0.1, 0.0, False),
+            ("deepseek_decode", 1, 8, 64, 6, 4, 0.1, 0.0, False),
+            ("odd_drops", 3, 100, 160, 8, 13, 1.0, 1.0, False),
+            ("kimi_routing", 4, 256, 384, 8, math.ceil(8 * 256 / 384 * 1.25), 1.0, 0.0, False),
+            ("everyone_expert_0", 2, 1024, 64, 6, 120, 0.1, 0.0, True)]
+
+
+def run_gating_cases(device, timer, full: bool) -> dict:
+    g = torch.Generator(device=device).manual_seed(5)
+    first = None
+    for name, G, N, E, k, cap, scale, skew, all_zero in gating_cases(full):
+        x = scale * torch.randn((G, N, E), generator=g, device=device)
+        x += skew * torch.randn((E,), generator=g, device=device)
+        if all_zero:
+            x[..., 0] += 10.0
+        got = ops.moe_gating(x, top_k=k, capacity=cap)
+        sync(device)
+        want = ref.moe_gating_ref(x, top_k=k, capacity=cap)
+        sync(device)
+        for part, a, b in zip(("idx", "pos"), got[::2], want[::2]):
+            if not torch.equal(a, b):
+                bad = (a != b).nonzero()[0].tolist()
+                row = torch.softmax(x[bad[0], bad[1]], -1)
+                raise AssertionError(f"moe_gating[{name}]: {part} differs at {bad}: kernel {a[tuple(bad)]}, "
+                                     f"plain {b[tuple(bad)]}; probabilities {row[a[bad[0], bad[1]].long()].tolist()} "
+                                     f"against {row[b[bad[0], bad[1]].long()].tolist()}")
+        err = check_close(got[1], want[1], atol=1e-6, rtol=0.0, what=f"moe_gating[{name}] gate")
+        pos = got[2]
+        dropped = int((pos < 0).sum())
+        if skew and not dropped:
+            raise AssertionError(f"moe_gating[{name}]: no pick was dropped")
+        if all_zero:
+            first_rank = pos[..., 0]
+            expect = torch.where(torch.arange(N, device=device) < cap, torch.arange(N, device=device), -1)
+            if not (bool((got[0][..., 0] == 0).all()) and torch.equal(first_rank, expect.int().expand(G, N))):
+                raise AssertionError(f"moe_gating[{name}]: expert 0 did not keep exactly slots 0..{cap - 1}")
+        ms = timer(lambda: ops.moe_gating(x, top_k=k, capacity=cap), iters=50)
+        plain_ms = timer(lambda: ref.moe_gating_ref(x, top_k=k, capacity=cap), iters=5, warmup=1)
+        sync(device)
+        nbytes = x.numel() * 4 + 3 * G * N * k * 4  # logits in; idx, gate, pos out
+        # softmax (max, subtract, exp, add, divide) and k rounds of compares per logit
+        bound_ms, bound_by = bound((5 + k) * x.numel(), nbytes, torch.float32)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        say(f"[kernels] moe_gating {name}: G={G} N={N} E={E} k={k} capacity={cap} logit scale={scale} "
+            f"skew={skew} | idx and pos exact, {dropped} of {pos.numel()} picks dropped, gate max_abs_err="
+            f"{err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=none bound={bound_ms:.4f}ms "
+            f"({bound_by}) MB={nbytes / 1e6:.2f}")
+        first = first or row
+    return first
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main paths
 # ---------------------------------------------------------------------------
@@ -390,6 +470,9 @@ PATHS = {
     # 2304 > window 2048: those prompts wrap the ring cache
     "recurrentgemma-2b": ((8, (256, 1024, 2304), 32, 2100), (2, (6, 12, 20), 4, 12)),
     "rwkv6-7b": ((8, (128, 512, 1024), 32, 200), (2, (8, 16, 24), 4, 13)),
+    # batches of 8 rows of these lengths split into whole groups of 1024
+    # tokens (at the smoke size, 2 rows into groups of 32)
+    "deepseek-moe-16b": ((8, (128, 1024, 2048), 32, 200), (2, (8, 16, 32), 4, 12)),
 }
 
 
@@ -406,6 +489,9 @@ def expected_launches(cfg, prefill_batches: int, gen_len: int) -> dict:
                     rmsnorm=(2 * L + 1) * steps)
     elif cfg.family == "rwkv6":
         want.update(wkv6=L * prefill_batches)
+    elif cfg.family == "moe":
+        want.update(flash_attention=L * prefill_batches, rmsnorm=(2 * L + 1) * steps,
+                    moe_gating=(L - cfg.n_dense_layers) * steps)
     return want
 
 
@@ -424,14 +510,20 @@ def serve_path(arch: str, device, full: bool) -> dict:
     max_seq = max(lengths) + gen_len
     # what earlier phases left allocated (library workspaces of the timed calls)
     held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, batch=batch, max_seq=max_seq, seed=0, device=device)
     sync(device)
+    build_peak = (f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB peak" if device.type == "cuda"
+                  else "peak not measured (cpu)")
+    moe_shape = (f" E={cfg.n_experts} k={cfg.top_k} shared={cfg.n_shared_experts} moe_F={cfg.moe_d_ff} "
+                 f"dense layers={cfg.n_dense_layers} group={cfg.moe_group_tokens}"
+                 if cfg.family == "moe" else "")
     say(f"[serve] {cfg.name}: family {cfg.family} L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} "
-        f"kv={cfg.n_kv_heads} hd={cfg.resolved_head_dim} F={cfg.d_ff} V={engine.model.cfg.vocab_size} "
+        f"kv={cfg.n_kv_heads} hd={cfg.resolved_head_dim} F={cfg.d_ff}{moe_shape} V={engine.model.cfg.vocab_size} "
         f"{cfg.dtype} | {cfg.param_count() / 1e9:.3f}B parameters | engine batch={batch} "
-        f"max_seq={max_seq} | built in "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"max_seq={max_seq} | built in {time.perf_counter() - t0:.2f}s, {build_peak}")
     rng = np.random.default_rng(0)
     requests = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                 for n in rng.choice(lengths, size=16)]
@@ -530,9 +622,15 @@ def decode_equals_forward(engine: ServeEngine, device, S: int) -> float:
     The law is checked with f32 activations over the engine's own weights: in
     bf16 the two sides round at different places (a scan against a step, the
     kernel's tiles against one-token attention), which is not what the law is
-    about; the served bf16 path is held by phase 3's kernel cases instead."""
+    about; the served bf16 path is held by phase 3's kernel cases instead.
+    For MoE it holds only where no pick is dropped (routing per group depends
+    on the group's other tokens): at capacity_factor E / k every group's
+    capacity is at least its token count, so routing is per token."""
     params = engine.params
-    model = build_model(engine.cfg.replace(dtype="float32"))
+    law_cfg = engine.cfg.replace(dtype="float32")
+    if law_cfg.family == "moe":
+        law_cfg = law_cfg.replace(capacity_factor=law_cfg.n_experts / law_cfg.top_k)
+    model = build_model(law_cfg)
     cfg = model.cfg
     g = torch.Generator(device=device).manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=device)
@@ -558,6 +656,10 @@ SMALL_MODELS = {  # card against CPU: small models with the kernels' real head w
     "recurrentgemma-2b": (dict(d_model=256, n_heads=2, n_kv_heads=1, head_dim=256, lru_width=256,
                                d_ff=512, window=16), 40),
     "rwkv6-7b": (dict(d_model=128, n_heads=2, n_kv_heads=2, rwkv_head_size=64, d_ff=256), 40),
+    # the real routing widths (64 experts, top-6) at the reference capacity
+    # factor, in groups of 32 tokens with capacity 4: picks are dropped
+    "deepseek-moe-16b": (dict(d_model=128, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=256, moe_d_ff=64,
+                              n_experts=64, top_k=6, moe_group_tokens=32), 32),
 }
 
 
@@ -568,6 +670,24 @@ def liven(params: dict) -> dict:
     g = torch.Generator().manual_seed(7)
     return map_defs(lambda t: t if bool(t.any()) else (0.3 * torch.randn(t.shape, generator=g)).to(t.dtype),
                     params)
+
+
+@contextlib.contextmanager
+def count_drops(dropped: list):
+    """Append the number of dropped picks of every ops.moe_gating call made
+    inside the block to ``dropped``."""
+    real = ops.moe_gating
+
+    def counting(logits, **kw):
+        out = real(logits, **kw)
+        dropped.append(int((out[2] < 0).sum()))
+        return out
+
+    ops.moe_gating = counting
+    try:
+        yield
+    finally:
+        ops.moe_gating = real
 
 
 @torch.inference_mode()
@@ -581,16 +701,21 @@ def card_matches_cpu(arch: str) -> float:
     host_params = liven(model.init(torch.Generator().manual_seed(3), "cpu"))
     toks = torch.randint(0, cfg.vocab_size, (2, P), generator=torch.Generator().manual_seed(4))
     outs = {}
+    dropped = []  # picks the CPU run's routing dropped, per MoE layer call
     for name in ("cuda", "cpu"):
         params = map_defs(lambda t: t.to(name), host_params)
-        last, cache = model.prefill_fn(params, {"tokens": toks.to(name)})
-        cache = pad_cache_to(cache, model.cache_defs_fn(2, P + 8))
-        nxt = torch.full((2, 1), 7, device=name)
-        step, _ = model.decode_fn(params, cache, nxt, P)
+        with count_drops(dropped if name == "cpu" else []):
+            last, cache = model.prefill_fn(params, {"tokens": toks.to(name)})
+            cache = pad_cache_to(cache, model.cache_defs_fn(2, P + 8))
+            nxt = torch.full((2, 1), 7, device=name)
+            step, _ = model.decode_fn(params, cache, nxt, P)
         outs[name] = (last.cpu(), step.cpu())
     worst = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    drops = f", {sum(dropped)} picks dropped over {len(dropped)} routings" if cfg.family == "moe" else ""
     say(f"[serve] small {cfg.family} model ({arch} smoke, {overrides}), card against CPU: "
-        f"max abs logit err {worst:.3e} (tolerance 1e-4)")
+        f"max abs logit err {worst:.3e} (tolerance 1e-4){drops}")
+    if cfg.family == "moe" and not sum(dropped):
+        raise AssertionError(f"{arch}: the small model dropped no pick, so it does not exercise capacity")
     if worst > 1e-4:
         raise AssertionError(f"{arch}: card and CPU disagree: {worst}")
     return worst
@@ -633,7 +758,8 @@ def main(argv=None) -> int:
     results = {"flash_attention": run_attention_cases(device, timer, full),
                "rmsnorm": run_norm_cases(device, timer, full),
                "lru_scan": run_lru_cases(device, timer, full),
-               "wkv6": run_wkv_cases(device, timer, full)}
+               "wkv6": run_wkv_cases(device, timer, full),
+               "moe_gating": run_gating_cases(device, timer, full)}
     say(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f}s")
     free(device)
     by_path = {}

@@ -1,5 +1,5 @@
 """Architecture configs of the port: the configs its serving path runs (two
-dense, one Griffin, one RWKV-6), copied from ``repro.configs`` with the same
+dense, one MoE, one Griffin, one RWKV-6), copied from ``repro.configs`` with the same
 values.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["codeqwen15_7b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b"]
+ARCHS = ["codeqwen15_7b", "deepseek_moe_16b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b"]
 
 _ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "nbi-100m": "nbi100m",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-7b": "rwkv6_7b",

@@ -10,6 +10,7 @@ here. The ``autograd.Function``s with backward kernels come with training.
 from __future__ import annotations
 
 from . import flash_attention as _fa
+from . import moe_gating as _gating
 from . import ref
 from . import rglru_scan as _lru
 from . import rmsnorm as _rn
@@ -45,3 +46,11 @@ def wkv6(r, k, v, w, u, s0):
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0)
     return _wkv.wkv6(r, k, v, w, u, s0)
+
+
+def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
+    """MoE routing decision per group. logits: (G, N, E) f32 → (idx (G, N, k)
+    int32, gate (G, N, k) f32, pos (G, N, k) int32, -1 where dropped)."""
+    if logits.device.type == "cpu":
+        return ref.moe_gating_ref(logits, top_k=top_k, capacity=capacity, renormalise=renormalise)
+    return _gating.moe_gating(logits, top_k=top_k, capacity=capacity, renormalise=renormalise)

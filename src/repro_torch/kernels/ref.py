@@ -10,6 +10,7 @@ the recurrences step token by token in f32) and take any sequence length.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -80,3 +81,65 @@ def wkv6_ref(r, k, v, w, u, s0):
         ys[:, :, t] = torch.einsum("bhi,bhiv->bhv", rf[:, :, t], s + uf * kv)
         s = wf[:, :, t, :, None] * s + kv
     return ys.to(r.dtype), s
+
+
+def lane_sum(x):
+    """Sum over the last axis in the order of the gating kernel's warp, so
+    that the two agree to the bit: entry i belongs to lane i % 32, each lane
+    adds its entries in index order, then the 32 lane sums combine by halves
+    (16, 8, 4, 2, 1). Returns the sums with the last axis kept as 1."""
+    E = x.shape[-1]
+    chunks = -(-E // 32)
+    lanes = F.pad(x, (0, 32 * chunks - E)).unflatten(-1, (chunks, 32))
+    s = lanes[..., 0, :]
+    for c in range(1, chunks):
+        s = s + lanes[..., c, :]
+    width = 16
+    while width:
+        s = s[..., :width] + s[..., width : 2 * width]
+        width //= 2
+    return s
+
+
+def moe_gating_ref(logits, *, top_k: int, capacity: int, renormalise: bool = True):
+    """MoE routing decision per dispatch group: softmax, top-k, capacity slots.
+
+    logits: (G, N, E) → (idx (G, N, k) int32, gate (G, N, k) f32, pos (G, N, k)
+    int32).
+      * softmax in f32 as exp(x - max) / sum, the sum in :func:`lane_sum`'s
+        order;
+      * k rounds of argmax over the remaining probabilities (the first
+        maximum wins, so ties go to the lower expert), each pick's
+        probability is its gate;
+      * gates renormalised by max(sum of the k gates, 1e-9), summed in pick
+        order;
+      * capacity slots j-major: every rank-0 pick of the group claims a slot
+        before any rank-1 pick, tokens in group order within a rank; a pick
+        past ``capacity`` gets -1 (dropped) and still counts against its
+        expert.
+    Vectorised over tokens with one-hot cumulative sums.
+    """
+    x = logits.float()
+    G, N, E = x.shape
+    p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    remaining = p / lane_sum(p)
+    idx = torch.empty((G, N, top_k), dtype=torch.long, device=x.device)
+    gate = torch.empty((G, N, top_k), dtype=torch.float32, device=x.device)
+    for j in range(top_k):
+        e = remaining.argmax(dim=-1, keepdim=True)
+        idx[..., j : j + 1] = e
+        gate[..., j : j + 1] = remaining.gather(-1, e)
+        remaining = remaining.scatter(-1, e, float("-inf"))
+    if renormalise:
+        total = gate[..., 0]
+        for j in range(1, top_k):
+            total = total + gate[..., j]
+        gate = gate / total.clamp_min(1e-9)[..., None]
+    counts = torch.zeros((G, 1, E), dtype=torch.long, device=x.device)
+    pos = torch.empty_like(idx)
+    for j in range(top_k):
+        onehot = F.one_hot(idx[..., j], E)  # (G, N, E)
+        slot = (counts + onehot.cumsum(dim=1) - onehot).gather(-1, idx[..., j : j + 1])[..., 0]
+        pos[..., j] = torch.where(slot < capacity, slot, -1)
+        counts = counts + onehot.sum(dim=1, keepdim=True)
+    return idx.int(), gate, pos.int()

@@ -1,5 +1,5 @@
 """Model registry of the port: one API over the architecture families ported
-so far (``dense`` with GQA, ``rglru`` (Griffin) and ``rwkv6``).
+so far (``dense`` with GQA, ``moe``, ``rglru`` (Griffin) and ``rwkv6``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors:
@@ -21,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from . import moe
 from . import rglru as rg
 from . import rwkv6 as rw
 from . import transformer as tx
@@ -54,6 +55,7 @@ class Model:
 _FAMILIES = {
     "dense": (tx.dense_param_defs, tx.dense_prefill, tx.dense_decode_step, tx.dense_forward,
               tx.dense_cache_defs),
+    "moe": (moe.moe_param_defs, moe.moe_prefill, moe.moe_decode_step, moe.moe_forward, moe.moe_cache_defs),
     "rglru": (rg.griffin_param_defs, rg.griffin_prefill, rg.griffin_decode_step, rg.griffin_forward,
               rg.griffin_cache_defs),
     "rwkv6": (rw.rwkv_param_defs, rw.rwkv_prefill, rw.rwkv_decode_step, rw.rwkv_forward,
@@ -64,7 +66,7 @@ _FAMILIES = {
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has {sorted(_FAMILIES)})")
-    if cfg.family == "dense" and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
+    if cfg.family in ("dense", "moe") and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} / visual prefix is not ported yet"
         )

@@ -5,7 +5,7 @@ On the CPU, inputs come from a seeded numpy generator and go through the JAX
 Pallas kernel in interpret mode, the JAX oracle and the port's plain version.
 Tolerances are those of tests/test_kernels.py: attention f32 atol 2e-5 /
 rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05; LRU 1e-5; WKV atol
-5e-4 / rtol 1e-3. On the card, bf16 attention is held to atol 1e-3 / rtol
+5e-4 / rtol 1e-3; MoE gating idx and pos exact, gate 1e-6. On the card, bf16 attention is held to atol 1e-3 / rtol
 2**-7: kernel and plain version both accumulate in f32 and round once.
 
 JAX is imported inside a fixture, so that the card's machine, which has no
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import moe_gating as tgate
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as tlru
 from repro_torch.kernels import rmsnorm as trn
@@ -32,7 +33,8 @@ def jx():
 
     from repro.kernels import ops as jops
     from repro.kernels.flash_attention import flash_attention
-    from repro.kernels.ref import attention_ref, lru_ref, rmsnorm_ref, wkv6_ref
+    from repro.kernels.moe_gating import moe_gating_pallas
+    from repro.kernels.ref import attention_ref, lru_ref, moe_gating_ref, rmsnorm_ref, wkv6_ref
     from repro.kernels.rmsnorm import rmsnorm_pallas
     from repro.kernels.rwkv6_scan import wkv6_pallas
 
@@ -40,6 +42,7 @@ def jx():
         jax=jax, jnp=jnp, flash_attention=flash_attention,
         attention_ref=attention_ref, rmsnorm_ref=rmsnorm_ref, rmsnorm_pallas=rmsnorm_pallas,
         lru_ref=lru_ref, wkv6_ref=wkv6_ref, wkv6_pallas=wkv6_pallas, ops=jops,
+        moe_gating_ref=moe_gating_ref, moe_gating_pallas=moe_gating_pallas,
     )
 
 
@@ -200,6 +203,78 @@ def test_recurrence_wrappers_reject_cpu_tensors():
     z = torch.zeros(1, 2, 4, 64)
     with pytest.raises(ValueError, match="CUDA"):
         twkv.wkv6(z, z, z, z, torch.zeros(2, 64), torch.zeros(1, 2, 64, 64))
+
+
+def router_logits(seed, G, N, E, scale=1.0, skew=0.0):
+    """Router logits, normal with the given scale, plus a per-expert bias of
+    standard deviation ``skew`` that makes some experts popular (and so drops
+    picks at a tight capacity)."""
+    rng = np.random.default_rng(seed)
+    bias = rng.standard_normal(E) * skew
+    return (rng.standard_normal((G, N, E)) * scale + bias).astype(np.float32)
+
+
+# name: (G, N, E, k, capacity, skew): tests/test_kernels.py's shapes, then
+# deepseek-moe-16b's routing widths (E 64, k 6) with drops
+GATING_CASES = {
+    "g2_e16_k2": (2, 64, 16, 2, 12, 0.0),
+    "g1_e32_k4": (1, 128, 32, 4, 20, 0.0),
+    "g3_e8_k1": (3, 32, 8, 1, 5, 0.0),
+    "deepseek_e64_k6": (2, 128, 64, 6, 15, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATING_CASES))
+def test_plain_moe_gating_matches_jax(jx, case):
+    """The plain gating against the reference's token-by-token oracle and
+    moe_gating_pallas in interpret mode: idx and pos exact, gate 1e-6."""
+    G, N, E, k, cap, skew = GATING_CASES[case]
+    x = router_logits(20, G, N, E, skew=skew)
+    idx, gate, pos = ops.moe_gating(torch.from_numpy(x), top_k=k, capacity=cap)
+    assert (idx.dtype, gate.dtype, pos.dtype) == (torch.int32, torch.float32, torch.int32)
+    for fn in (jx.moe_gating_ref, jx.moe_gating_pallas):
+        want_idx, want_gate, want_pos = fn(jx.jnp.asarray(x), top_k=k, capacity=cap)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos))
+        np.testing.assert_allclose(gate.numpy(), np.asarray(want_gate), atol=1e-6)
+    if skew:
+        assert (pos < 0).any()  # the case exercises drops
+
+
+def test_plain_moe_gating_without_renormalising_matches_jax(jx):
+    x = router_logits(21, 2, 40, 16)
+    _, gate, _ = ref.moe_gating_ref(torch.from_numpy(x), top_k=3, capacity=8, renormalise=False)
+    _, want, _ = jx.moe_gating_pallas(jx.jnp.asarray(x), top_k=3, capacity=8, renormalise=False)
+    np.testing.assert_allclose(gate.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_plain_moe_gating_ties_and_capacity():
+    """Everyone wants expert 0: exactly ``cap`` picks survive, in slots
+    0 .. cap-1 in token order (tests/test_kernels.py's drop case); equal
+    logits go to the lower expert, as the first maximum wins."""
+    x = torch.zeros(1, 32, 4)
+    x[:, :, 0] = 10.0
+    idx, _, pos = ref.moe_gating_ref(x, top_k=1, capacity=5)
+    assert (idx == 0).all()
+    np.testing.assert_array_equal(pos[0, :, 0].numpy(), [0, 1, 2, 3, 4] + [-1] * 27)
+    idx, gate, _ = ref.moe_gating_ref(torch.zeros(2, 3, 6), top_k=6, capacity=4)
+    np.testing.assert_array_equal(idx.numpy(), np.broadcast_to(np.arange(6), (2, 3, 6)))
+    torch.testing.assert_close(gate, torch.full((2, 3, 6), 1 / 6), rtol=0, atol=1e-7)
+
+
+def test_lane_sum_is_a_sum():
+    x = torch.from_numpy(router_logits(22, 3, 5, 100)).exp()
+    torch.testing.assert_close(ref.lane_sum(x), x.sum(-1, keepdim=True), rtol=1e-6, atol=0)
+
+
+def test_ops_send_cpu_gating_to_plain_version():
+    x = torch.from_numpy(router_logits(23, 2, 16, 8))
+    before = tgate.launches
+    for got, want in zip(ops.moe_gating(x, top_k=2, capacity=5), ref.moe_gating_ref(x, top_k=2, capacity=5)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert tgate.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tgate.moe_gating(x, top_k=2, capacity=5)
 
 
 def test_flash_attention_smem_fits_a_block():
@@ -373,3 +448,60 @@ def test_recurrence_wrappers_reject_what_the_kernels_do_not_take():
     z = torch.zeros(1, 2, 4, 128, device="cuda")
     with pytest.raises(ValueError, match="head size"):
         ops.wkv6(z, z, z, z, torch.zeros(2, 128, device="cuda"), torch.zeros(1, 2, 128, 128, device="cuda"))
+
+
+# name: (G, N, E, k, capacity, logit scale, skew). The first two are the
+# shapes the deepseek-moe-16b path gives the kernel (its largest prefill group
+# set and a decode step), with the router's logit scale at full width; then
+# an odd shape with drops, kimi-k2's routing widths, and narrow E below a warp.
+GPU_GATING_CASES = {
+    "deepseek_prefill": (16, 1024, 64, 6, 120, 0.1, 0.0),
+    "deepseek_decode": (1, 8, 64, 6, 4, 0.1, 0.0),
+    "odd_drops": (3, 100, 160, 8, 13, 1.0, 1.0),
+    "kimi_routing": (4, 256, 384, 8, 7, 1.0, 0.0),
+    "e16_k2": (2, 64, 16, 2, 12, 1.0, 0.0),
+    "e8_k1": (3, 32, 8, 1, 5, 1.0, 0.5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_GATING_CASES))
+def test_moe_gating_kernel_matches_plain(case):
+    _need_card()
+    G, N, E, k, cap, scale, skew = GPU_GATING_CASES[case]
+    x = torch.from_numpy(router_logits(24, G, N, E, scale=scale, skew=skew)).cuda()
+    before = tgate.launches
+    idx, gate, pos = ops.moe_gating(x, top_k=k, capacity=cap)
+    torch.cuda.synchronize()
+    assert tgate.launches == before + 1
+    want_idx, want_gate, want_pos = ref.moe_gating_ref(x, top_k=k, capacity=cap)
+    torch.testing.assert_close(idx, want_idx, rtol=0, atol=0)
+    torch.testing.assert_close(pos, want_pos, rtol=0, atol=0)
+    torch.testing.assert_close(gate, want_gate, rtol=0, atol=1e-6)
+    if skew:
+        assert bool((pos < 0).any())
+
+
+@pytest.mark.gpu
+def test_moe_gating_kernel_drops_past_capacity():
+    _need_card()
+    x = torch.zeros(1, 32, 4, device="cuda")
+    x[:, :, 0] = 10.0
+    _, _, pos = ops.moe_gating(x, top_k=1, capacity=5)
+    assert pos[0, :, 0].tolist() == [0, 1, 2, 3, 4] + [-1] * 27
+
+
+@pytest.mark.gpu
+def test_moe_gating_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    x = torch.zeros(1, 8, 64, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ops.moe_gating(x.double(), top_k=2, capacity=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_gating(torch.zeros(1, 64, 8, device="cuda").transpose(1, 2), top_k=2, capacity=4)
+    with pytest.raises(ValueError, match="top_k"):
+        ops.moe_gating(x, top_k=0, capacity=4)
+    with pytest.raises(ValueError, match="top_k"):
+        ops.moe_gating(torch.zeros(1, 8, 400, device="cuda"), top_k=2, capacity=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.moe_gating(torch.zeros(1, 30000, 64, device="cuda"), top_k=8, capacity=4)

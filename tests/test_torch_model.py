@@ -122,14 +122,14 @@ def test_config_copies_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    for arch in ("deepseek-moe-16b", "whisper-small", "minicpm3-4b", "llava-next-mistral-7b"):
+    for arch in ("kimi-k2-1t-a32b", "whisper-small", "minicpm3-4b", "llava-next-mistral-7b"):
         with pytest.raises(ValueError, match="not yet ported"):
             get_config(arch)
-    for family in ("moe", "encdec"):
-        with pytest.raises(NotImplementedError, match="family"):
-            build_model(get_smoke_config("nbi-100m").replace(family=family))
-    with pytest.raises(NotImplementedError, match="mla"):
-        build_model(get_smoke_config("nbi-100m").replace(attention="mla"))
+    with pytest.raises(NotImplementedError, match="family"):
+        build_model(get_smoke_config("nbi-100m").replace(family="encdec"))
+    for arch in ("nbi-100m", "deepseek-moe-16b"):  # MLA in a dense or an MoE model
+        with pytest.raises(NotImplementedError, match="mla"):
+            build_model(get_smoke_config(arch).replace(attention="mla"))
     with pytest.raises(NotImplementedError, match="visual prefix"):
         build_model(get_smoke_config("nbi-100m").replace(n_patches=4))
 
@@ -141,11 +141,13 @@ def test_param_defs_and_converter_round_trip(arch, pair):
     port_shapes = convert.map_defs(lambda t: tuple(t.shape), params)
     def_shapes = convert.map_defs(lambda d: tuple(d.shape), model.param_defs)
     assert port_shapes == ref_shapes == def_shapes
-    # stacked per-layer weights: "blocks" of L layers, or Griffin's
-    # super-layers and tail pairs
-    n_super = model.cfg.n_layers // 3
-    stacks = ({"blocks": model.cfg.n_layers} if "blocks" in params else
-              {"super": n_super, "tail": model.cfg.n_layers - 3 * n_super})
+    # stacked per-layer weights: "blocks" of L layers, Griffin's super-layers
+    # and tail pairs, or MoE's leading dense layers and MoE layers
+    cfg = model.cfg
+    n_super = cfg.n_layers // 3
+    stacks = ({"blocks": cfg.n_layers} if "blocks" in params else
+              {"dense_blocks": cfg.n_dense_layers, "moe_blocks": cfg.n_layers - cfg.n_dense_layers}
+              if cfg.family == "moe" else {"super": n_super, "tail": cfg.n_layers - 3 * n_super})
     for key, n in stacks.items():
         assert all(t.shape[0] == n for t in jax.tree_util.tree_leaves(params[key]))
     back = convert.params_to_numpy(params)

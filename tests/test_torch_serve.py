@@ -65,7 +65,7 @@ def reference_greedy(model, params, prompts, gen_len, max_seq):
     return out
 
 
-@pytest.mark.parametrize("arch", ["nbi100m", "codeqwen15_7b"])
+@pytest.mark.parametrize("arch", ["nbi100m", "codeqwen15_7b", "deepseek_moe_16b"])
 def test_greedy_tokens_match_reference(arch, engines):
     engine, ref_model, ref_params = engines(arch)
     prompts = np.random.default_rng(0).integers(0, 512, (2, 12)).astype(np.int32)
