@@ -8,7 +8,8 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA device
    is a failure, never a fallback to the CPU;
 2. build: compile every kernel from ``src/repro_torch/kernels/csrc`` into
-   ``build/repro_torch/`` and print ptxas registers, shared memory and spills;
+   ``build/repro_torch/`` and print ptxas registers, shared memory and spills,
+   and each flash-attention instance's dynamic shared memory per dtype;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
@@ -16,14 +17,16 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b and
    deepseek-moe-16b at full width with seeded weights; count every kernel's
    launches around each path and require the exact counts (nbi-100m: each
-   prefill attention through the flash-attention kernel and each RMSNorm
-   through the RMSNorm kernel; Griffin: also each RG-LRU prefill scan through
-   the LRU kernel; RWKV-6: each WKV prefill through the WKV kernel;
-   deepseek-moe-16b: also each MoE layer's routing, prefill and decode,
-   through the gating kernel); check the decode-equals-forward law at full
-   width and the card against the CPU on a small model of each family, then
-   trace one batch with torch.profiler (device busy share and the ops that
-   take the most device time).
+   prefill attention through the f32 flash-attention kernel and each RMSNorm
+   through the RMSNorm kernel; Griffin: each prefill attention through the
+   bf16 flash-attention kernel and each RG-LRU prefill scan through the LRU
+   kernel; RWKV-6: each WKV prefill through the WKV kernel;
+   deepseek-moe-16b: bf16 attention, norms, and each MoE layer's routing,
+   prefill and decode, through the gating kernel); check the
+   decode-equals-forward law at full width and the card against the CPU on
+   a small model of each family, then trace one batch with torch.profiler
+   (device busy share, each of the port's kernels' share of the prefill's
+   device time, and the ops that take the most device time).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
@@ -80,7 +83,12 @@ LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=
 WKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
 
 KERNEL_INFO = {
+    # K1 has two kernels: f32 on the FMA units, bf16 on the tensor cores
     "flash_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    "flash_attention_bf16": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
@@ -101,8 +109,16 @@ KERNEL_INFO = {
         replaces="src/repro/kernels/moe_gating.py:72",
     ),
 }
-COUNTERS = {"flash_attention": fa_kernel, "rmsnorm": rn_kernel, "lru_scan": lru_kernel, "wkv6": wkv_kernel,
-            "moe_gating": gating_kernel}
+# kernel: (wrapper module, its launch counter)
+COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
+            "rmsnorm": (rn_kernel, "launches"), "lru_scan": (lru_kernel, "launches"),
+            "wkv6": (wkv_kernel, "launches"), "moe_gating": (gating_kernel, "launches")}
+# the phase-3 case whose numbers stand for each attention kernel in the JSON line
+ATTN_JSON_CASE = {"flash_attention": "nbi100m_prefill", "flash_attention_bf16": "deepseek_prefill"}
+# a part of each kernel's name as the profiler shows it
+TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel", "flash_attention_bf16": "flash_attn_bf16_kernel",
+               "rmsnorm": "rmsnorm_", "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel",
+               "moe_gating": "moe_gating_kernel"}
 
 
 def say(*parts) -> None:
@@ -186,9 +202,10 @@ def check_close(got, want, atol: float, rtol: float, what: str) -> float:
 
 def attention_cases(full: bool):
     """(name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, logit_cap). The
-    first three are shapes the main paths give the kernel: a 512-token prefill
+    first three are shapes the main paths give the kernels: a 512-token prefill
     batch of nbi-100m, a 2304-token prefill batch of recurrentgemma-2b and a
-    2048-token prefill batch of deepseek-moe-16b."""
+    2048-token prefill batch of deepseek-moe-16b; the last two are edges of the
+    bf16 kernel's TMA boxes and 64-key tiles at full size."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
@@ -201,6 +218,8 @@ def attention_cases(full: bool):
             ("window", 1, 4, 4, 24, 24, 16, f32, True, 8, 0.0),
             ("logit_cap", 1, 4, 4, 16, 16, 16, f32, True, 0, 30.0),
             ("non_causal", 1, 4, 4, 10, 20, 16, f32, False, 0, 0.0),
+            ("ragged_non_causal_bf16", 1, 4, 4, 13, 40, 16, bf16, False, 0, 0.0),
+            ("mqa_d256_window_bf16", 1, 4, 1, 23, 23, 16, bf16, True, 8, 0.0),
         ]
     return [
         ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, f32, True, 0, 0.0),
@@ -212,6 +231,8 @@ def attention_cases(full: bool):
         ("window_128", 2, 12, 12, 512, 512, 64, f32, True, 128, 0.0),
         ("logit_cap_30", 2, 12, 12, 512, 512, 64, f32, True, 0, 30.0),
         ("non_causal_sq200_skv512", 2, 12, 12, 200, 512, 64, f32, False, 0, 0.0),
+        ("ragged_non_causal_bf16", 2, 16, 16, 333, 1000, 128, bf16, False, 0, 0.0),
+        ("mqa_d256_window_bf16", 2, 10, 1, 2300, 2300, 256, bf16, True, 2048, 0.0),
     ]
 
 
@@ -241,8 +262,9 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
 
 
 def run_attention_cases(device, timer, full: bool) -> dict:
+    """Every case's numbers, by case name."""
     g = torch.Generator(device=device).manual_seed(0)
-    first = None
+    rows = {}
     for name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, cap in attention_cases(full):
         scale = 4.0 if cap else 1.0  # large logits so that the cap bites
         q = (torch.randn((B, Hq, Sq, d), generator=g, device=device) * scale).to(dtype)
@@ -286,8 +308,8 @@ def run_attention_cases(device, timer, full: bool) -> dict:
             f"max_abs_err={err:.3e}{past} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library={'none' if library_ms is None else f'{library_ms:.4f}ms'} "
             f"bound={bound_ms:.4f}ms ({bound_by}) GFLOP={flops / 1e9:.3f} MB={nbytes / 1e6:.1f}")
-        first = first or row
-    return first
+        rows[name] = row
+    return rows
 
 
 def run_norm_cases(device, timer, full: bool) -> dict:
@@ -481,17 +503,18 @@ def expected_launches(cfg, prefill_batches: int, gen_len: int) -> dict:
     prefill and ``gen_len`` decode steps each."""
     L, steps = cfg.n_layers, prefill_batches * (1 + gen_len)
     want = dict.fromkeys(KERNEL_INFO, 0)
+    fa = "flash_attention_bf16" if cfg.dtype == "bfloat16" else "flash_attention"
     if cfg.family == "dense":
-        want.update(flash_attention=L * prefill_batches, rmsnorm=(2 * L + 1) * steps)
+        want.update({fa: L * prefill_batches, "rmsnorm": (2 * L + 1) * steps})
     elif cfg.family == "rglru":
         n_super, tail = rg.griffin_layout(cfg)
-        want.update(flash_attention=n_super * prefill_batches, lru_scan=(2 * n_super + tail) * prefill_batches,
-                    rmsnorm=(2 * L + 1) * steps)
+        want.update({fa: n_super * prefill_batches, "lru_scan": (2 * n_super + tail) * prefill_batches,
+                     "rmsnorm": (2 * L + 1) * steps})
     elif cfg.family == "rwkv6":
         want.update(wkv6=L * prefill_batches)
     elif cfg.family == "moe":
-        want.update(flash_attention=L * prefill_batches, rmsnorm=(2 * L + 1) * steps,
-                    moe_gating=(L - cfg.n_dense_layers) * steps)
+        want.update({fa: L * prefill_batches, "rmsnorm": (2 * L + 1) * steps,
+                     "moe_gating": (L - cfg.n_dense_layers) * steps})
     return want
 
 
@@ -534,13 +557,13 @@ def serve_path(arch: str, device, full: bool) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    for counter in COUNTERS.values():
-        counter.launches = 0
+    for module, count in COUNTERS.values():
+        setattr(module, count, 0)
     t0 = time.perf_counter()
     outs = engine.serve_requests(requests, gen_len=gen_len)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = {name: counter.launches for name, counter in COUNTERS.items()}
+    launches = {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
 
     per_len = {n: sum(len(r) == n for r in requests) for n in sorted({len(r) for r in requests})}
     prefill_batches = sum(math.ceil(c / batch) for c in per_len.values())
@@ -580,8 +603,9 @@ def serve_path(arch: str, device, full: bool) -> dict:
 def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> None:
     """Where the time goes: torch.profiler over one batch with no decode step
     (prefill alone) and over the same batch with ``gen_len`` steps; device
-    busy time (the sum of kernel times) against the host's wall time, and the
-    kernels that take the most device time."""
+    busy time (the sum of kernel times) against the host's wall time, the
+    port's kernels' share of the prefill's device time, and the kernels that
+    take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -600,12 +624,16 @@ def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> N
     if runs[gen_len][2] <= 0:
         say("[trace] the profiler recorded no kernel: device busy share not measured")
         return
-    pre_wall, _, pre_busy, _ = runs[0]
+    pre_wall, _, pre_busy, pre_kernels = runs[0]
     wall_pre, wall_dec, busy, kernels = runs[gen_len]
     dec_busy = busy - pre_busy
     B, P = prompts.shape
     say(f"[trace] prefill {B}x{P} tokens: wall {pre_wall:.3f}ms, device busy {pre_busy:.3f}ms "
         f"= {100 * pre_busy / pre_wall:.1f}%")
+    ours = {name: sum(e.self_device_time_total for e in pre_kernels if part in e.key) / 1e3
+            for name, part in TRACE_NAMES.items()}
+    say("[trace] prefill device time in the port's kernels: " + (", ".join(
+        f"{name} {ms:.3f}ms ({100 * ms / pre_busy:.1f}%)" for name, ms in ours.items() if ms) or "none"))
     say(f"[trace] {gen_len} decode steps of {B} rows: wall {wall_dec:.3f}ms, device busy about "
         f"{dec_busy:.3f}ms = {100 * dec_busy / wall_dec:.1f}% (busy of the run with decode minus "
         f"the run without)")
@@ -747,15 +775,17 @@ def main(argv=None) -> int:
         for r in _build.ptxas_report():
             say(f"[build] {r['source']}: {r['kernel']} | registers {r['registers']} | static smem "
                 f"{r['smem_bytes']} B | spills {r['spill_store_bytes']}/{r['spill_load_bytes']} B")
-        say("[build] flash_attention dynamic smem per block: " + ", ".join(
-            f"d={d} dv={dv}: {fa_kernel.dynamic_smem_bytes(d, dv)} B" for d, dv in fa_kernel.HEAD_DIM_PAIRS))
+        for dtype in fa_kernel.DTYPES:
+            say(f"[build] flash_attention {str(dtype).removeprefix('torch.')} dynamic smem per block: " + ", ".join(
+                f"d={d} dv={dv}: {fa_kernel.dynamic_smem_bytes(d, dv, dtype)} B" for d, dv in fa_kernel.HEAD_DIM_PAIRS))
     else:
         device = torch.device("cpu")
         say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")
 
     timer = Timer(device)
     t0 = time.perf_counter()
-    results = {"flash_attention": run_attention_cases(device, timer, full),
+    attention = run_attention_cases(device, timer, full)
+    results = {**{name: attention[case] for name, case in ATTN_JSON_CASE.items()},
                "rmsnorm": run_norm_cases(device, timer, full),
                "lru_scan": run_lru_cases(device, timer, full),
                "wkv6": run_wkv_cases(device, timer, full),

@@ -1,61 +1,100 @@
-// Flash attention, forward, for Hopper (sm_90a).
+// Flash attention, forward, for Hopper (sm_90a): two kernels behind one entry.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` and its
 // Pallas TPU kernel `_attn_kernel`. Same function: softmax(q k^T * d^-0.5)
 // v with an online softmax over KV tiles, f32 running max m, sum l and
 // accumulator acc, optional causal mask, sliding window and tanh logit cap,
-// GQA through the KV head h / G, output acc / max(l, 1e-30) in q's dtype.
+// GQA and MQA through the KV head h / (Hq / Hkv), ragged Sq and Skv, output
+// acc / max(l, 1e-30) in q's dtype, masked scores at the finite -1e30 (a
+// fully masked row must not turn into NaN).
 //
-// What bounds it on this card: operations. At the serving shapes of nbi-100m
-// (B 8, H 12, S 512, d 64, causal, f32) one call needs about 3.2 GFLOP of
-// matrix products against about 50 MB of q, k, v and o, so the f32 rate
-// (no tensor cores for f32) and not device memory is the limit.
+// bf16: `flash_attn_bf16_kernel`, on the tensor cores.
 //
-// What the design does about it: the S x S score matrix never reaches device
-// memory, and tiles that the causal or window bound masks completely are never
-// loaded or computed (the same tests as `_attn_kernel`), which halves the work
-// of a causal prefill. One block of 256 threads owns one (b, hq, 64-row query
-// tile) and loops over 64-key tiles; that loop replaces the TPU's sequential
-// `ki` grid axis, since blocks on Hopper share no scratch. Q, K, V and P tiles
-// live in shared memory as f32 (padded rows avoid bank conflicts); each thread
-// keeps a 4x4 block of scores and a 4 x (dv/16) block of acc in registers, so
-// one shared-memory load feeds several FMAs. The four rows of a thread are
-// owned by the 16 lanes of a half-warp, so row max and row sum are warp
-// shuffles and P needs only a warp barrier. p stays f32 for the PV product, as
-// in the Pallas kernel. bf16 inputs are widened to f32 on load. This first
-// version runs on the f32 FMA units; wgmma, TMA and warp specialisation are
-// later work. Ragged Sq and Skv are masked in the kernel, so nothing is padded
-// in device memory.
+// What bounds it on this card: operations. At deepseek-moe-16b's prefill
+// (B 8, H 16, S 2048, d 128, causal) the kept (q, k) pairs need 137 GFLOP of
+// matrix products against 268 MB of q, k, v and o: 0.139 ms at the bf16
+// tensor-core rate (989 TFLOP/s) against 0.080 ms at 3.35 TB/s. Griffin's
+// local attention (B 8, 10 heads of 256 on one KV head, S 2304, window 2048)
+// needs 215 GFLOP against 0.10 GB. Only wgmma reaches that rate; on the f32
+// FMA units (67 TFLOP/s) the same work takes 15 times longer.
 //
-// Head dims: (64, 64), (128, 128), the two mixed pairs, and (256, 256) for
-// Griffin's local attention. At d 256 the f32 tiles take 213,760 bytes of
-// shared memory (Q and K 64 x 257, V 64 x 256, P 64 x 65 floats), under the
-// 232,448 a block may opt into, so one block runs per SM; each thread then
-// holds 4 x 16 accumulators.
+// What the design does about it. A block owns 128 query rows of one
+// (b, hq) and has three warpgroups:
+// - a producer warpgroup, of which one thread starts every copy: Q once, then
+//   K and V tiles of 64 keys by TMA (3-D tensor maps over the contiguous
+//   (B*H, S, d) views, 128-byte swizzle, 64-column boxes, rows past S
+//   filled with zeros so a ragged tile never reads the next head) into a ring
+//   of 2 (d 256) or 4 stages, each guarded by a full and an empty mbarrier;
+//   `setmaxnreg` leaves it 24 registers;
+// - two consumer warpgroups of 64 rows each, with 240 registers: S = Q K^T by
+//   `wgmma ... m64n64k16` with both operands in shared memory (K-major), then
+//   in f32 and in the plain version's order the scale d^-0.5, the tanh cap
+//   and the masks, the online softmax on the accumulator fragment (a thread
+//   holds two rows, so a row max or sum is two xor shuffles; scores are kept
+//   in units of log2 e, so p is one subtraction and one exp2, and acc is
+//   rescaled only when a row's max moved), and O += P V by `wgmma` with P
+//   from registers (the S fragment repacked as bf16x2 is the A fragment) and
+//   V from shared memory (MN-major, transposed).
+// Tiles that the causal edge or the window masks completely for the block
+// are never loaded (the tests of `_attn_kernel`), a warpgroup computes only
+// the tiles live for its own rows, only the tiles that straddle an edge are
+// masked, and query tiles run heaviest first so that causal blocks balance
+// over the 132 SMs. Q is not pre-scaled: d^-0.5 is not a power of two at
+// d 128, and a scaled bf16 Q would round.
+//
+// P keeps 16 bits. The Pallas kernel multiplies V by p in f32. One bf16
+// rounding of p puts some outputs outside the limit that holds the kernel to
+// the plain version (atol 1e-3, rtol 2^-7; one output rounding), so p is
+// split: P_hi = bf16(p), P_lo = bf16(p - P_hi), and both P_hi V and P_lo V
+// accumulate into the same f32 acc. That is 1.5 times the tensor work of a
+// single product; l is summed from the f32 p.
+//
+// f32: `flash_attn_f32_kernel`, on the FMA units (tensor cores would need
+// TF32, which cannot meet the f32 limit of atol 2e-5). One block of 256
+// threads owns one (b, hq, 64-row query tile) and loops over 64-key tiles;
+// Q (pre-scaled), K, V and P tiles live in shared memory as f32 with padded
+// rows, each thread keeps a 4x4 block of scores and a 4 x (dv/16) block of
+// acc in registers, and the four rows of a thread belong to one half-warp, so
+// row max and row sum are warp shuffles. At d 256 its tiles take 213,760
+// bytes of shared memory.
+//
+// Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;
+// Codes at and above this are a CUresult from libcuda plus this base
+// (errors.cu prints them); below it they are cudaError_t.
+constexpr int ENCODE_ERROR_BASE = 10000;
+
+// ---------------------------------------------------------------------------
+// f32: SIMT kernel
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
-constexpr float NEG_INF = -1e30f;
 
 template <int D, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * DV + BQ * (BK + 1));
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-                      int Sq, int Skv, float scale, int causal, int window,
-                      float logit_cap) {
+flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
+                      int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D + 1], pre-scaled
   float* Ks = Qs + BQ * (D + 1);    // [BK][D + 1]
@@ -70,14 +109,14 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = tid / 16;  // rows tr*4 .. tr*4+3 of the tile
   const int tc = tid % 16;  // score columns and output columns tc + 16*j
 
-  const T* qb = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
-  const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
-  const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * DV;
-  T* ob = o + (static_cast<size_t>(b) * Hq + h) * Sq * DV;
+  const float* qb = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
+  const float* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
+  const float* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * DV;
+  float* ob = o + (static_cast<size_t>(b) * Hq + h) * Sq * DV;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D, row = q_start + r;
-    Qs[r * (D + 1) + c] = row < Sq ? repro::to_f32(qb[static_cast<size_t>(row) * D + c]) * scale : 0.f;
+    Qs[r * (D + 1) + c] = row < Sq ? qb[static_cast<size_t>(row) * D + c] * scale : 0.f;
   }
 
   constexpr int NC = DV / 16;
@@ -103,11 +142,11 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's K and V are no longer read
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D, row = k_start + r;
-      Ks[r * (D + 1) + c] = row < Skv ? repro::to_f32(kb[static_cast<size_t>(row) * D + c]) : 0.f;
+      Ks[r * (D + 1) + c] = row < Skv ? kb[static_cast<size_t>(row) * D + c] : 0.f;
     }
     for (int i = tid; i < BK * DV; i += THREADS) {
       const int r = i / DV, c = i % DV, row = k_start + r;
-      Vs[r * DV + c] = row < Skv ? repro::to_f32(vb[static_cast<size_t>(row) * DV + c]) : 0.f;
+      Vs[r * DV + c] = row < Skv ? vb[static_cast<size_t>(row) * DV + c] : 0.f;
     }
     __syncthreads();
 
@@ -183,50 +222,536 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      ob[static_cast<size_t>(row) * DV + tc + 16 * c] = repro::from_f32<T>(acc[i][c] / denom);
+    for (int c = 0; c < NC; ++c) ob[static_cast<size_t>(row) * DV + tc + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                   int Hkv, int Sq, int Skv, int causal, int window, float logit_cap,
-                   cudaStream_t stream) {
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
+           int Skv, int causal, int window, float logit_cap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, DV>();
-  auto kernel = flash_attn_fwd_kernel<T, D, DV>;
+  auto kernel = flash_attn_f32_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                     int Hkv, int Sq, int Skv, int d, int dv, int causal, int window,
-                     float logit_cap, cudaStream_t stream) {
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma, TMA ring, warp-specialised producer
+// ---------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int BQ = 128;                       // query rows per block
+constexpr int BK = 64;                        // keys per tile
+constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int ROW_BYTES = 128;                // one swizzled row: 64 bf16 columns
+
+template <int D, int DV>
+__host__ __device__ constexpr int stages() { return D + DV >= 512 ? 2 : 4; }
+
+// Q, the ring of K and V tiles, the barriers, and slack to align the tiles
+// to the 1024 bytes of a swizzle pattern; flash_attention.py's
+// dynamic_smem_bytes repeats this sum.
+template <int D, int DV>
+constexpr size_t smem_bytes() {
+  return 1024 + 2 * (static_cast<size_t>(BQ) * D + static_cast<size_t>(stages<D, DV>()) * BK * (D + DV)) +
+         8 * (2 * stages<D, DV>() + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of the tensor map at (column c0, row c1, head c2) into shared
+// memory; its bytes complete a transaction of the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from moving a register's reads or writes across the
+// asynchronous wgmma that owns it.
+__device__ __forceinline__ void pin(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand whose rows
+// are 128 bytes apart and whose 8-row groups are 1024 bytes apart (stride
+// offset). The leading offset is set to the same 1024 bytes: a K-major
+// operand ignores it, and an MN-major one only 64 columns wide never uses it.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 x 64, f32) = a (64 x 16) b (16 x 64) + (accumulate ? d : 0), both
+// bf16 operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += a (64 x 16, bf16 fragment in registers) b (16 x 64),
+// b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(x[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(x[i]);
+}
+
+template <int N, int M>
+__device__ __forceinline__ void pin(float (&x)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(x[i]);
+}
+
+// S = Q K^T for one 64-key tile in d / 16 steps of 16 columns (32 bytes of a
+// 128-byte row; a new 64-column panel every four steps).
+template <int D>
+__device__ __forceinline__ void mma_qk(float (&s)[32], uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = 32 * (kk % 4);
+    wgmma_ss(s, desc(q_rows + (kk / 4) * BQ * ROW_BYTES + off), desc(k_tile + (kk / 4) * BK * ROW_BYTES + off),
+             kk > 0);
+  }
+}
+
+// O += P_hi V + P_lo V for one 64-key tile, 16 keys (2048 bytes) a step, one
+// 64-column panel of V and of acc at a time.
+template <int DV>
+__device__ __forceinline__ void mma_pv(float (&acc)[DV / 64][32], const uint32_t (&p_hi)[16],
+                                         const uint32_t (&p_lo)[16], uint32_t v_tile) {
+#pragma unroll
+  for (int c = 0; c < DV / 64; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t vd = desc(v_tile + c * BK * ROW_BYTES + kk * 16 * ROW_BYTES);
+      wgmma_rs(acc[c], p_hi + 4 * kk, vd);
+      wgmma_rs(acc[c], p_lo + 4 * kk, vd);
+    }
+  }
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to zero,
+// which no sum of weights that holds a 1 can see.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online-softmax step on the thread's S fragment (rows row0 and
+// row0 + 8, keys k0 + 8 j + {0, 1}): the scale, the cap and, on a tile that
+// straddles an edge, the masks, in the plain version's order; the running max
+// m; p = exp(s - m) in place; the thread's share of l. corr is the factor
+// that rescales acc. Scores and m are kept in units of log2(e), so that p is
+// one subtraction and one exp2.
+__device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], float (&l)[2], float (&corr)[2],
+                                             int row0, int k0, bool edge, int Skv, int causal, int window,
+                                             float scale, float logit_cap) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  if (logit_cap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = logit_cap * tanhf(s[i] * scale / logit_cap) * LOG2E;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale * LOG2E;
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int q = row0 + 8 * ((i / 2) % 2);
+      const int k = k0 + 8 * (i / 4) + i % 2;
+      if (k >= Skv)
+        s[i] = -INFINITY;  // no key: weight 0 even in a row with nothing to attend
+      else if ((causal && k > q) || (window > 0 && q - k >= window))
+        s[i] = NEG_INF;
+    }
+  }
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) % 2;
+    s[i] = exp2_approx(s[i] - m[r]);
+    l[r] += s[i];
+  }
+}
+
+// P as bf16 hi + lo parts: the S fragment's pairs are the A fragment's.
+__device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&p_hi)[16], uint32_t (&p_lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
+    const float2 back = __bfloat1622float2(hi);
+    p_hi[i] = bits(hi);
+    p_lo[i] = bits(__floats2bfloat162_rn(s[2 * i] - back.x, s[2 * i + 1] - back.y));
+  }
+}
+
+// Thread t of a consumer warpgroup holds, in the fragment of a 64 x 64 f32
+// wgmma result, entry i at row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)
+// and column 8 * (i / 4) + 2 * (t % 4) + i % 2.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int Hq,
+                       int Hkv, int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
+  constexpr int STAGES = stages<D, DV>();
+  constexpr uint32_t Q_PANEL = BQ * ROW_BYTES;  // 64 columns of the Q tile
+  constexpr uint32_t KV_PANEL = BK * ROW_BYTES;  // 64 columns of a K or V tile
+  constexpr uint32_t Q_BYTES = (D / 64) * Q_PANEL;
+  constexpr uint32_t K_BYTES = (D / 64) * KV_PANEL;
+  constexpr uint32_t V_BYTES = (DV / 64) * KV_PANEL;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + Q_BYTES;           // STAGES K tiles
+  const uint32_t sv = sk + STAGES * K_BYTES;  // STAGES V tiles
+  const uint32_t q_full = sv + STAGES * V_BYTES;
+  const uint32_t full = q_full + 8;           // STAGES barriers: the tile has landed
+  const uint32_t empty = full + 8 * STAGES;   // STAGES barriers: both consumers are done with it
+
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+
+  // Tile liveness of the block, as in _attn_kernel: causal kills the tiles
+  // right of its last row, the window (with causal) those left of its first
+  // row's reach.
+  const int n_k = (Skv + BK - 1) / BK;
+  int kt_end = n_k;
+  if (causal) kt_end = min(n_k, (min(q_start + BQ, Sq) - 1) / BK + 1);
+  int kt_begin = 0;
+  if (causal && window > 0 && q_start - window + 1 > 0) kt_begin = (q_start - window + 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // Producer: one thread keeps the ring full.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int bh_kv = b * Hkv + hk;
+      mbar_expect_tx(q_full, Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) tma_load(sq + c * Q_PANEL, &tm_q, q_full, 64 * c, q_start, b * Hq + h);
+      int stage = 0, round = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, K_BYTES + V_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(sk + stage * K_BYTES + c * KV_PANEL, &tm_k, bar, 64 * c, kt * BK, bh_kv);
+#pragma unroll
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(sv + stage * V_BYTES + c * KV_PANEL, &tm_v, bar, 64 * c, kt * BK, bh_kv);
+        if (++stage == STAGES) {
+          stage = 0;
+          ++round;
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q_start + 64 wg .. + 63.
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int first = q_start + 64 * wg;        // this warpgroup's first row
+    const int last = min(first + 63, Sq - 1);  // and its last row that exists
+    const int row0 = first + 16 * (t / 32) + lane / 4;  // the thread's rows: row0, row0 + 8
+    const int col0 = 2 * (lane % 4);
+
+    // The tiles this warpgroup computes: a run [live_begin, live_end) of the
+    // block's, by the same tests on its own rows. It only passes the others on.
+    int live_begin = kt_begin, live_end = kt_end;
+    if (causal) live_end = min(live_end, last / BK + 1);
+    if (causal && window > 0 && first - window + 1 > 0) live_begin = max(live_begin, (first - window + 1) / BK);
+    live_begin = min(live_begin, kt_end);
+    if (first >= Sq || live_end < live_begin) live_end = live_begin;
+
+    float acc[DV / 64][32];
+#pragma unroll
+    for (int c = 0; c < DV / 64; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    uint32_t p_hi[16], p_lo[16];
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float corr[2];
+
+    const uint32_t q_rows = sq + 64 * wg * ROW_BYTES;
+    int stage = 0, round = 0;
+    auto advance = [&] {
+      if (++stage == STAGES) {
+        stage = 0;
+        ++round;
+      }
+    };
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    };
+    auto pass = [&] {
+      mbar_wait(full + 8 * stage, round & 1);
+      release(stage);
+      advance();
+    };
+
+    mbar_wait(q_full, 0);
+    for (int kt = kt_begin; kt < live_begin; ++kt) pass();
+    for (int kt = live_begin; kt < live_end; ++kt) {
+      mbar_wait(full + 8 * stage, round & 1);
+      wgmma_fence();
+      mma_qk<D>(s, q_rows, sk + stage * K_BYTES);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      const int k_start = kt * BK;
+      const bool edge = k_start + BK > Skv || (causal && k_start + BK - 1 > first) ||
+                        (window > 0 && first + 63 - k_start >= window);
+      softmax_step(s, m, l, corr, row0, k_start + col0, edge, Skv, causal, window, scale, logit_cap);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {  // a row's max moved
+#pragma unroll
+        for (int c = 0; c < DV / 64; ++c)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i / 2) % 2];
+      }
+      split_p(s, p_hi, p_lo);
+      wgmma_fence();
+      mma_pv<DV>(acc, p_hi, p_lo, sv + stage * V_BYTES);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+      pin(p_hi);
+      pin(p_lo);
+      release(stage);
+      advance();
+    }
+    for (int kt = live_end; kt < kt_end; ++kt) pass();
+
+    // out = acc / max(l, 1e-30) in bf16, rows past Sq not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = row0 + 8 * r;
+      if (q >= Sq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * DV + col0;
+#pragma unroll
+      for (int c = 0; c < DV / 64; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * j) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / denom, acc[c][4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda that PyTorch has loaded (the
+// library links no libcuda stub).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a contiguous (heads, rows, cols) bf16 array, boxes of 64
+// columns by box_rows rows, 128-byte swizzle, zeros outside the array.
+int encode(CUtensorMap* map, const void* ptr, int heads, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return ENCODE_ERROR_BASE + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2, static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + static_cast<int>(r);
+}
+
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+           int causal, int window, float logit_cap, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return cudaErrorMisalignedAddress;  // a tensor map's base is 16-byte aligned
+  CUtensorMap tq, tk, tv;
+  if (int err = encode(&tq, q, B * Hq, Sq, D, BQ)) return err;
+  if (int err = encode(&tk, k, B * Hkv, Skv, D, BK)) return err;
+  if (int err = encode(&tv, v, B * Hkv, Skv, DV, BK)) return err;
+  constexpr size_t smem = smem_bytes<D, DV>();
+  auto kernel = flash_attn_bf16_kernel<D, DV>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, scale,
+                                          causal, window, logit_cap);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+template <bool BF16, int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+           int causal, int window, float logit_cap, cudaStream_t stream) {
+  if constexpr (BF16)
+    return hopper::launch<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+  else
+    return simt::launch<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+}
+
+template <bool BF16>
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+             int d, int dv, int causal, int window, float logit_cap, cudaStream_t stream) {
   if (d == 64 && dv == 64)
-    return launch<T, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return launch<BF16, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 128 && dv == 128)
-    return launch<T, 128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return launch<BF16, 128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 64 && dv == 128)
-    return launch<T, 64, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return launch<BF16, 64, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 128 && dv == 64)
-    return launch<T, 128, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return launch<BF16, 128, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 256 && dv == 256)
-    return launch<T, 256, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return launch<BF16, 256, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq, dv),
-// all contiguous and of one type: f32, or bf16 when is_bf16. Returns the CUDA
-// error of the launch (0 when it was accepted).
+// all contiguous and of one type: f32, or bf16 when is_bf16 (then q, k and v
+// 16-byte aligned). Returns 0 when the launch was accepted, else a CUDA error
+// or, from the tensor maps' encoding, ENCODE_ERROR_BASE plus a CUresult.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int B, int Hq, int Hkv, int Sq, int Skv, int d, int dv,
                                          int is_bf16, int causal, int window, float logit_cap,
@@ -235,7 +760,6 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window,
-                                   logit_cap, s);
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
+    return dispatch<true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
+  return dispatch<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
 }

@@ -1,10 +1,24 @@
 """Flash attention forward on the card: the wrapper of ``csrc/flash_attention.cu``.
 
-The kernel replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``flash_attention`` / ``_attn_kernel``); its plain version is
-:func:`repro_torch.kernels.ref.attention_ref`. The wrapper checks what the
-kernel takes and raises on anything else, allocates the output, and launches
-on PyTorch's current stream without synchronising.
+The kernels replace the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention`` / ``_attn_kernel``); their plain version is
+:func:`repro_torch.kernels.ref.attention_ref`. Both are bound by operations at
+the serving shapes (deepseek-moe-16b's 8 × 2048 prefill needs 137 GFLOP
+against 268 MB), so the design follows the unit that does them:
+
+- bf16 runs on the tensor cores. A block of 128 query rows has a producer
+  warpgroup that streams 64-key K and V tiles by TMA into a ring of
+  mbarrier-guarded stages (2 at d 256, else 4) and two consumer warpgroups
+  that compute S = Q·Kᵀ and O += P·V with ``wgmma``, P taken from registers.
+  P is split into bf16 hi and lo parts and both are multiplied with V: one
+  bf16 rounding of P would put some outputs outside the card's limit (atol
+  1e-3, rtol 2⁻⁷ against the plain version), the split keeps 16 bits of P.
+- f32 runs on the FMA units (TF32 could not meet atol 2e-5): 64-row blocks,
+  f32 tiles in shared memory.
+
+The wrapper checks what the kernels take and raises on anything else,
+allocates the output, and launches on PyTorch's current stream without
+synchronising.
 """
 
 from __future__ import annotations
@@ -14,13 +28,17 @@ import torch
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-# (d, dv) pairs the kernel is compiled for
+# (d, dv) pairs the kernels are compiled for
 HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256))
-BQ = BK = 64  # query rows and keys per tile, as in the kernel
+# query rows per block and keys per tile, as in the kernels
+BQ = {torch.float32: 64, torch.bfloat16: 128}
+BK = 64
 
-# Kernel launches since import. chip_smoke.py sets it to 0 around the
-# main path and reads it to show that every prefill attention came here.
+# Launches since import, one count per kernel: the f32 kernel and the bf16
+# tensor-core kernel. chip_smoke.py sets them to 0 around the main path and
+# reads them to show that every prefill attention came here.
 launches = 0
+bf16_launches = 0
 
 
 def _validate(q, k, v) -> None:
@@ -35,6 +53,8 @@ def _validate(q, k, v) -> None:
             raise ValueError(f"flash_attention: {name} must be 4-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
     B, Hq, Sq, d = q.shape
@@ -52,10 +72,21 @@ def _validate(q, k, v) -> None:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
-def dynamic_smem_bytes(d: int, dv: int) -> int:
-    """Shared memory one block asks for at launch: f32 Q and K tiles padded by
-    one float, the V tile and the P tile (``smem_bytes`` in the source)."""
-    return 4 * (BQ * (d + 1) + BK * (d + 1) + BK * dv + BQ * (BK + 1))
+def stages(d: int, dv: int) -> int:
+    """K and V tiles in flight in the bf16 kernel's ring."""
+    return 2 if d + dv >= 512 else 4
+
+
+def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory one block asks for at launch (``smem_bytes`` in the
+    source). f32: Q and K tiles padded by one float, the V tile and the P
+    tile. bf16: the Q tile, the ring of K and V tiles, one barrier per stage
+    for full and for empty and one for Q, and 1024 bytes of slack to align
+    the tiles to their swizzle pattern."""
+    if dtype == torch.bfloat16:
+        n = stages(d, dv)
+        return 1024 + 2 * (BQ[dtype] * d + n * BK * (d + dv)) + 8 * (2 * n + 1)
+    return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float = 0.0):
@@ -63,19 +94,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
     device, contiguous, f32 or bf16, (d, dv) in ``HEAD_DIM_PAIRS``. Returns
     (B,Hq,Sq,dv) in q's dtype. Query head h reads KV head h // (Hq // Hkv);
     positions start at 0 for both q and k, as in the reference."""
-    global launches
+    global launches, bf16_launches
     _validate(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
     out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, d, dv, int(q.dtype == torch.bfloat16),
+            B, Hq, Hkv, Sq, Skv, d, dv, int(bf16),
             int(causal), int(window), float(logit_cap),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out

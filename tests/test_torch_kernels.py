@@ -6,7 +6,10 @@ Pallas kernel in interpret mode, the JAX oracle and the port's plain version.
 Tolerances are those of tests/test_kernels.py: attention f32 atol 2e-5 /
 rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05; LRU 1e-5; WKV atol
 5e-4 / rtol 1e-3; MoE gating idx and pos exact, gate 1e-6. On the card, bf16 attention is held to atol 1e-3 / rtol
-2**-7: kernel and plain version both accumulate in f32 and round once.
+2**-7: kernel and plain version both accumulate in f32 and round once. The
+bf16 attention kernel's arithmetic (64-key tiles, P split into bf16 hi and lo
+parts for the tensor cores) is emulated on the CPU and held to that limit
+against the JAX package.
 
 JAX is imported inside a fixture, so that the card's machine, which has no
 JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
@@ -86,6 +89,94 @@ def test_plain_attention_bf16_matches_jax(jx):
     got = ref.attention_ref(qt, kt, vt)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
+
+
+def emulate_bf16_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
+    """The arithmetic of the bf16 kernel (csrc/flash_attention.cu), on the
+    CPU, with the wrapper's tile sizes: for each 64-row warpgroup of a block
+    of BQ rows, the BK-key tiles it computes, in order; S from the bf16 products summed in f32, times the f32
+    d**-0.5, the tanh cap, the masks at -1e30 (keys past Skv take no part);
+    the online softmax in f32; P split into bf16 hi and lo (rounded once when
+    ``split`` is False), each multiplied with V into the f32 acc; l summed
+    from the f32 p; out = acc / max(l, 1e-30) in bf16. (The kernel keeps
+    scores in units of log2 e and skips rescaling acc by a factor of 1: the
+    same numbers to an f32 rounding.)"""
+    BQ, BK = tfa.BQ[torch.bfloat16], tfa.BK
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
+    qf = q.float()
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    scale = float(np.float32(1) / np.sqrt(np.float32(d)))
+    n_k = -(-Skv // BK)
+    out = torch.zeros((B, Hq, Sq, dv))
+    for q0 in range(0, Sq, BQ):
+        kt_end = min(n_k, (min(q0 + BQ, Sq) - 1) // BK + 1) if causal else n_k
+        kt_begin = (q0 - window + 1) // BK if causal and window > 0 and q0 - window + 1 > 0 else 0
+        for first in range(q0, min(q0 + BQ, Sq), 64):
+            rows = torch.arange(first, min(first + 64, Sq))
+            last = int(rows[-1])
+            m = torch.full((B, Hq, len(rows)), -1e30)
+            l = torch.zeros((B, Hq, len(rows)))
+            acc = torch.zeros((B, Hq, len(rows), dv))
+            for kt in range(kt_begin, kt_end):
+                k0 = kt * BK
+                if causal and (k0 > last or (window > 0 and k0 + BK - 1 <= first - window)):
+                    continue
+                cols = torch.arange(k0, min(k0 + BK, Skv))
+                s = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) * scale
+                if logit_cap > 0:
+                    s = logit_cap * torch.tanh(s / logit_cap)
+                keep = torch.ones((len(rows), len(cols)), dtype=torch.bool)
+                if causal:
+                    keep &= cols[None, :] <= rows[:, None]
+                if window > 0:
+                    keep &= rows[:, None] - cols[None, :] < window
+                s = torch.where(keep, s, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * corr + p.sum(-1)
+                hi = p.bfloat16().float()
+                pv = hi @ vf[:, :, cols]
+                if split:
+                    pv = pv + (p - hi).bfloat16().float() @ vf[:, :, cols]
+                acc = acc * corr[..., None] + pv
+                m = m_new
+            out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.bfloat16()
+
+
+# bf16 attention on the card: one output rounding of either side
+BF16_ATTN_TOL = dict(atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_bf16_kernel_arithmetic_matches_jax(jx, case):
+    """The bf16 kernel's arithmetic meets the card's limit against the JAX
+    Pallas kernel in interpret mode, the JAX oracle and the plain version."""
+    B, Hq, Hkv, Sq, Skv, d, causal, window, cap, scale = ATTN_CASES[case]
+    qn, kn, vn = draw(16, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
+    vn = vn / scale
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn))
+    got = emulate_bf16_kernel(q, k, v, **kw).float().numpy()
+    jq, jk, jv = (jx.jnp.asarray(t.float().numpy(), jx.jnp.bfloat16) for t in (q, k, v))
+    pallas = jx.flash_attention(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jx.attention_ref(jq, jk, jv, **kw), ref.attention_ref(q, k, v, **kw).float()):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_ATTN_TOL)
+
+
+def test_bf16_kernel_needs_p_in_two_parts():
+    """At deepseek-moe-16b's head width, P rounded once to bf16 puts outputs
+    outside the card's limit; the hi + lo split does not."""
+    qn, kn, vn = draw(17, (1, 4, 512, 128), (1, 4, 512, 128), (1, 4, 512, 128))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn))
+    want = ref.attention_ref(q, k, v).float()
+    limit = BF16_ATTN_TOL["atol"] + BF16_ATTN_TOL["rtol"] * want.abs()
+    outside = {split: int(((emulate_bf16_kernel(q, k, v, split=split).float() - want).abs() > limit).sum())
+               for split in (True, False)}
+    assert outside[True] == 0 < outside[False]
 
 
 @pytest.mark.parametrize("shape", [(4, 64), (2, 3, 100), (1, 768)])
@@ -278,22 +369,28 @@ def test_ops_send_cpu_gating_to_plain_version():
 
 
 def test_flash_attention_smem_fits_a_block():
-    """The dynamic shared memory of every compiled head-dim pair fits the
-    232,448 bytes a Hopper block may opt into; d 256 is the largest."""
-    sizes = {pair: tfa.dynamic_smem_bytes(*pair) for pair in tfa.HEAD_DIM_PAIRS}
-    assert max(sizes.values()) == sizes[256, 256] == 213760 <= 232448
+    """The dynamic shared memory of every compiled instance (head-dim pair
+    and dtype) fits the 232,448 bytes a Hopper block may opt into; d 256 is
+    the largest of each dtype (bf16: Q 64 KB and two stages of K and V)."""
+    for dtype in tfa.DTYPES:
+        sizes = {pair: tfa.dynamic_smem_bytes(*pair, dtype) for pair in tfa.HEAD_DIM_PAIRS}
+        assert max(sizes.values()) == sizes[256, 256] <= 232448
+    assert tfa.dynamic_smem_bytes(256, 256, torch.float32) == 213760
+    assert tfa.dynamic_smem_bytes(256, 256, torch.bfloat16) == 1024 + 2 * (128 * 256 + 2 * 64 * 512) + 8 * 5
 
 
 def test_ops_send_cpu_tensors_to_plain_versions():
     qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
     q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
-    before = (tfa.launches, trn.launches)
-    torch.testing.assert_close(
-        ops.attention(q, k, v, causal=True, window=8, logit_cap=5.0),
-        ref.attention_ref(q, k, v, causal=True, window=8, logit_cap=5.0), rtol=0, atol=0,
-    )
+    before = (tfa.launches, tfa.bf16_launches, trn.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        qt, kt, vt = (t.to(dtype) for t in (q, k, v))
+        torch.testing.assert_close(
+            ops.attention(qt, kt, vt, causal=True, window=8, logit_cap=5.0),
+            ref.attention_ref(qt, kt, vt, causal=True, window=8, logit_cap=5.0), rtol=0, atol=0,
+        )
     torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w), rtol=0, atol=0)
-    assert (tfa.launches, trn.launches) == before
+    assert (tfa.launches, tfa.bf16_launches, trn.launches) == before
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -327,6 +424,15 @@ GPU_ATTN_CASES = {
     "ragged_300": (1, 4, 4, 300, 300, 64, True, 0, 0.0, 1.0),
     "window_128": (1, 4, 2, 400, 400, 64, True, 128, 0.0, 1.0),
     "non_causal_d128": (2, 4, 4, 70, 200, 128, False, 0, 0.0, 1.0),
+    # the edges of the bf16 kernel's TMA boxes and 64-key tiles
+    "sq1_short_kv_bf16": (2, 4, 2, 1, 30, 128, False, 0, 0.0, 1.0),
+    "sq1_causal_bf16": (1, 4, 4, 1, 1, 64, True, 0, 0.0, 1.0),
+    "ragged_300_130_bf16": (2, 4, 2, 300, 130, 128, True, 0, 0.0, 1.0),
+    "non_causal_d128_bf16": (2, 4, 4, 70, 200, 128, False, 0, 0.0, 1.0),
+    "window_d128_bf16": (1, 4, 2, 400, 400, 128, True, 128, 0.0, 1.0),
+    "logit_cap_d128_bf16": (1, 2, 2, 130, 130, 128, True, 0, 30.0, 4.0),
+    "mqa_d256_ragged_bf16": (1, 10, 1, 150, 333, 256, False, 0, 0.0, 1.0),
+    "deepseek_heads_bf16": (1, 16, 16, 1000, 1000, 128, True, 0, 0.0, 1.0),
 }
 
 
@@ -341,10 +447,11 @@ def test_flash_attention_kernel_matches_plain(case):
     arrays = draw(5, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
     q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
     kw = dict(causal=causal, window=window, logit_cap=cap)
-    before = tfa.launches
+    count = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    before = getattr(tfa, count)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert tfa.launches == before + 1
+    assert getattr(tfa, count) == before + 1
     want = ref.attention_ref(q, k, v, **kw)
     # both accumulate in f32 and round once: a bf16 output is off by one rounding step at most
     tol = dict(atol=1e-3, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
@@ -352,15 +459,17 @@ def test_flash_attention_kernel_matches_plain(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(64, 128), (128, 64)])
-def test_flash_attention_kernel_mixed_head_dims(d, dv):
+def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
     _need_card()
     arrays = draw(7, (2, 4, 130, d), (2, 2, 130, d), (2, 2, 130, dv))
-    q, k, v = (torch.from_numpy(a).to("cuda") for a in arrays)
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
     got = ops.attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert got.shape == (2, 4, 130, dv)
-    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True), atol=2e-5, rtol=1e-4)
+    assert got.shape == (2, 4, 130, dv) and got.dtype == dtype
+    tol = BF16_ATTN_TOL if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, causal=True).float(), **tol)
 
 
 @pytest.mark.gpu
@@ -393,6 +502,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q64 = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         ops.attention(q64, q64, q64)
+    shifted = torch.zeros(2 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.attention(shifted, shifted, shifted)
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(torch.zeros(64, 8, device="cuda").t(), torch.ones(64, device="cuda"))
 
