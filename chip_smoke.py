@@ -17,8 +17,8 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b and
    deepseek-moe-16b at full width with seeded weights; count every kernel's
    launches around each path and require the exact counts (nbi-100m: each
-   prefill attention through the f32 flash-attention kernel and each RMSNorm
-   through the RMSNorm kernel; Griffin: each prefill attention through the
+   prefill attention through the f32 tensor-core (3xTF32) flash-attention
+   kernel and each RMSNorm through the RMSNorm kernel; Griffin: each prefill attention through the
    bf16 flash-attention kernel and each RG-LRU prefill scan through the LRU
    kernel; RWKV-6: each WKV prefill through the WKV kernel;
    deepseek-moe-16b: bf16 attention, norms, and each MoE layer's routing,
@@ -65,8 +65,8 @@ from repro_torch.models.common import map_defs  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# dense rates without sparsity, f32 outside the tensor cores.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# dense rates without sparsity, f32 outside the tensor cores, TF32 on them.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel and plain version both accumulate in f32 and round once at the end,
@@ -83,12 +83,18 @@ LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=
 WKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
 
 KERNEL_INFO = {
-    # K1 has two kernels: f32 on the FMA units, bf16 on the tensor cores
+    # K1 has three kernels: f32 on the FMA units (the f32 head-dim pairs other
+    # than (64, 64)), bf16 on the tensor cores, f32 at (64, 64) on the tensor
+    # cores as 3xTF32
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
     "flash_attention_bf16": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    "flash_attention_tf32": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
@@ -111,14 +117,16 @@ KERNEL_INFO = {
 }
 # kernel: (wrapper module, its launch counter)
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
-            "rmsnorm": (rn_kernel, "launches"), "lru_scan": (lru_kernel, "launches"),
-            "wkv6": (wkv_kernel, "launches"), "moe_gating": (gating_kernel, "launches")}
+            "flash_attention_tf32": (fa_kernel, "tf32_launches"), "rmsnorm": (rn_kernel, "launches"),
+            "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
+            "moe_gating": (gating_kernel, "launches")}
 # the phase-3 case whose numbers stand for each attention kernel in the JSON line
-ATTN_JSON_CASE = {"flash_attention": "nbi100m_prefill", "flash_attention_bf16": "deepseek_prefill"}
+ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepseek_prefill",
+                  "flash_attention_tf32": "nbi100m_prefill"}
 # a part of each kernel's name as the profiler shows it
 TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel", "flash_attention_bf16": "flash_attn_bf16_kernel",
-               "rmsnorm": "rmsnorm_", "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel",
-               "moe_gating": "moe_gating_kernel"}
+               "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
+               "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_kernel"}
 
 
 def say(*parts) -> None:
@@ -179,6 +187,9 @@ def sync(device: torch.device) -> None:
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """The least time for the work in ms, and which of operations and bytes
+    sets it; ``dtype`` picks the peak rate (``"tf32"``: the tensor cores' TF32
+    rate)."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
@@ -301,13 +312,21 @@ def run_attention_cases(device, timer, full: bool) -> dict:
         flops = pairs * (2 * d + 2 * d)  # q·k and p·v per kept pair
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
         bound_ms, bound_by = bound(flops, nbytes, dtype)
+        bounds = ""
+        if dtype == torch.float32:
+            # the same function as three TF32 products on the tensor cores;
+            # the tensor-core kernel is held against this bound
+            tf32_ms, tf32_by = bound(3 * flops, nbytes, "tf32")
+            bounds = f" bound_f32_fma={bound_ms:.4f}ms ({bound_by}) bound_3xtf32={tf32_ms:.4f}ms ({tf32_by})"
+            if fa_kernel.kernel_kind(dtype, d, d) == fa_kernel.F32_TF32:
+                bound_ms, bound_by = tf32_ms, tf32_by
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)
         say(f"[kernels] flash_attention {name}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
             f"{str(dtype).removeprefix('torch.')} causal={causal} window={window} cap={cap} | "
             f"max_abs_err={err:.3e}{past} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library={'none' if library_ms is None else f'{library_ms:.4f}ms'} "
-            f"bound={bound_ms:.4f}ms ({bound_by}) GFLOP={flops / 1e9:.3f} MB={nbytes / 1e6:.1f}")
+            f"bound={bound_ms:.4f}ms ({bound_by}){bounds} GFLOP={flops / 1e9:.3f} MB={nbytes / 1e6:.1f}")
         rows[name] = row
     return rows
 
@@ -503,7 +522,9 @@ def expected_launches(cfg, prefill_batches: int, gen_len: int) -> dict:
     prefill and ``gen_len`` decode steps each."""
     L, steps = cfg.n_layers, prefill_batches * (1 + gen_len)
     want = dict.fromkeys(KERNEL_INFO, 0)
-    fa = "flash_attention_bf16" if cfg.dtype == "bfloat16" else "flash_attention"
+    hd = cfg.resolved_head_dim
+    fa = {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
+          fa_kernel.F32_SIMT: "flash_attention"}[fa_kernel.kernel_kind(getattr(torch, cfg.dtype), hd, hd)]
     if cfg.family == "dense":
         want.update({fa: L * prefill_batches, "rmsnorm": (2 * L + 1) * steps})
     elif cfg.family == "rglru":

@@ -1,4 +1,4 @@
-// Flash attention, forward, for Hopper (sm_90a): two kernels behind one entry.
+// Flash attention, forward, for Hopper (sm_90a): three kernels behind one entry.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` and its
 // Pallas TPU kernel `_attn_kernel`. Same function: softmax(q k^T * d^-0.5)
@@ -49,16 +49,46 @@
 // accumulate into the same f32 acc. That is 1.5 times the tensor work of a
 // single product; l is summed from the f32 p.
 //
-// f32: `flash_attn_f32_kernel`, on the FMA units (tensor cores would need
-// TF32, which cannot meet the f32 limit of atol 2e-5). One block of 256
-// threads owns one (b, hq, 64-row query tile) and loops over 64-key tiles;
-// Q (pre-scaled), K, V and P tiles live in shared memory as f32 with padded
-// rows, each thread keeps a 4x4 block of scores and a 4 x (dv/16) block of
-// acc in registers, and the four rows of a thread belong to one half-warp, so
-// row max and row sum are warp shuffles. At d 256 its tiles take 213,760
-// bytes of shared memory.
+// f32 at (d, dv) = (64, 64), nbi-100m's heads: `flash_attn_tf32_kernel`, on
+// the tensor cores as 3xTF32. One TF32 product keeps 11 bits and cannot meet
+// the f32 limit (atol 2e-5, rtol 1e-4); splitting each operand into x_hi =
+// tf32(x) and x_lo = tf32(x - x_hi) (cvt.rna, low bits cleared) and summing
+// a_hi b_hi + a_hi b_lo + a_lo b_hi in f32 keeps about 22. At nbi-100m's
+// prefill (8 x 512, 12 heads, causal) that is 9.66 GFLOP of TF32 products:
+// 0.0195 ms at 495 TFLOP/s, against 0.0482 ms for the 3.22 GFLOP of the
+// function on the FMA units. The blocks, ring, liveness and softmax are the
+// bf16 kernel's, with what TF32 changes:
+// - both operands of a TF32 wgmma must be K-major, and a B operand comes from
+//   shared memory, so the producer's three idle warps split each landed K
+//   tile in place into K_hi with K_lo beside it, and write V^T_hi and V^T_lo
+//   (keys contiguous) in the swizzled layout wgmma reads, behind a third
+//   barrier per stage (ready); two stages of five 16 KB tiles;
+// - the keys of each group of 8 in V^T are ordered 0 2 4 6 1 3 5 7, so that
+//   the S accumulator fragment (keys 2t, 2t + 1) is the TF32 A fragment
+//   (columns t, t + 4) with no shuffle;
+// - each consumer warpgroup pre-scales its 64 rows of Q in f32 (as the Pallas
+//   kernel does) and splits them once into Q_hi and Q_lo tiles in shared
+//   memory. Q kept as register A fragments for the whole loop gave wrong S
+//   after the first tile: in that build's SASS, registers holding Q were
+//   reused inside the loop body after the products that read them;
+// - the tensor cores round each wgmma's f32 sum toward zero, so the large
+//   products (Q_hi K_hi, P_hi V_hi) and the small ones go to separate
+//   accumulators, added once per tile on the FMA units; O is carried across
+//   tiles there too.
+// 128-byte swizzled rows hold 32 f32 columns, so d 64 is two panels; one k8
+// step of TF32 is 32 bytes, as one k16 step of bf16.
 //
-// Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256).
+// f32 at the other pairs: `flash_attn_f32_kernel`, on the FMA units (the
+// TF32 kernel's tiles and registers are sized for d 64; no served path runs
+// f32 at these widths). One block of 256 threads owns one (b, hq, 64-row
+// query tile) and loops over 64-key tiles; Q (pre-scaled), K, V and P tiles
+// live in shared memory as f32 with padded rows, each thread keeps a 4x4
+// block of scores and a 4 x (dv/16) block of acc in registers, and the four
+// rows of a thread belong to one half-warp, so row max and row sum are warp
+// shuffles. At d 256 its tiles take 213,760 bytes of shared memory.
+//
+// Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256);
+// f32 at (64, 64) runs the TF32 kernel, f32 at the others the FMA kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -682,18 +712,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a contiguous (heads, rows, cols) bf16 array, boxes of 64
-// columns by box_rows rows, 128-byte swizzle, zeros outside the array.
-int encode(CUtensorMap* map, const void* ptr, int heads, int rows, int cols, int box_rows) {
+// Tensor map of a contiguous (heads, rows, cols) bf16 or f32 array, boxes of
+// 128 bytes of columns (64 bf16, 32 f32) by box_rows rows, 128-byte swizzle,
+// zeros outside the array.
+int encode(CUtensorMap* map, const void* ptr, int heads, int rows, int cols, int box_rows, bool f32) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return ENCODE_ERROR_BASE + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2, static_cast<cuuint64_t>(rows) * cols * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * size, static_cast<cuuint64_t>(rows) * cols * size};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(ROW_BYTES / size), static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + static_cast<int>(r);
 }
@@ -704,9 +737,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorMisalignedAddress;  // a tensor map's base is 16-byte aligned
   CUtensorMap tq, tk, tv;
-  if (int err = encode(&tq, q, B * Hq, Sq, D, BQ)) return err;
-  if (int err = encode(&tk, k, B * Hkv, Skv, D, BK)) return err;
-  if (int err = encode(&tv, v, B * Hkv, Skv, DV, BK)) return err;
+  if (int err = encode(&tq, q, B * Hq, Sq, D, BQ, false)) return err;
+  if (int err = encode(&tk, k, B * Hkv, Skv, D, BK, false)) return err;
+  if (int err = encode(&tv, v, B * Hkv, Skv, DV, BK, false)) return err;
   constexpr size_t smem = smem_bytes<D, DV>();
   auto kernel = flash_attn_bf16_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -716,6 +749,379 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, scale,
                                           causal, window, logit_cap);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32 at (d, dv) = (64, 64): 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TD = 64;         // d = dv of the tf32 kernel
+constexpr int T_STAGES = 2;    // stages of the ring
+constexpr int SPLITTERS = 3;   // producer warps that split K and V
+constexpr uint32_t T_QPANEL = BQ * ROW_BYTES;     // 32 f32 columns of the Q tile
+constexpr uint32_t T_PANEL = BK * ROW_BYTES;      // 32 columns of a 64-row tile
+constexpr uint32_t T_TILE = (TD / 32) * T_PANEL;  // one 64 x 64 f32 tile
+constexpr uint32_t T_Q_BYTES = (TD / 32) * T_QPANEL;
+// A stage holds five tiles: K as loaded (split in place into K_hi), K_lo, V
+// as loaded, and V^T_hi, V^T_lo.
+constexpr uint32_t T_STAGE = 5 * T_TILE;
+
+// Q as loaded (split in place into Q_hi) and Q_lo, the ring, three barriers
+// per stage and one for Q, and slack to align the tiles to the 1024 bytes of
+// a swizzle pattern; flash_attention.py's dynamic_smem_bytes repeats this sum.
+constexpr size_t tf32_smem_bytes() { return 1024 + 2 * T_Q_BYTES + T_STAGES * T_STAGE + 8 * (3 * T_STAGES + 1); }
+
+// Byte offset of f32 element (row, col) in a tile kept as panels of 32
+// columns, panel_bytes apart, each row 128 bytes with the 128-byte swizzle
+// (TMA's and wgmma's): the row's 16-byte chunk c sits at chunk c ^ (row % 8).
+__device__ __forceinline__ uint32_t swz(int row, int col, uint32_t panel_bytes) {
+  return (col / 32) * panel_bytes + row * ROW_BYTES + ((((col % 32) / 4) ^ (row % 8)) << 4) + (col % 4) * 4;
+}
+
+// Round to TF32 (to nearest, ties away from zero), the 13 low bits cleared
+// here rather than left to how wgmma reads them.
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// d (64 x 64, f32) = a (64 x 8) b (8 x 64) + (accumulate ? d : 0), tf32, both
+// K-major in shared memory (tf32 has no transpose).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = a (64 x 8, tf32 fragment in registers) b (8 x 64) +
+// (accumulate ? d : 0), b K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+// Descriptor of k-step kk (8 columns, 32 bytes) of a K-major 64-row tile.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk) {
+  return desc(tile + (kk / 4) * T_PANEL + 32 * (kk % 4));
+}
+
+// Key of column c of V^T: the 8 keys of each group are ordered 0 2 4 6 1 3 5 7,
+// so that a thread's S fragment (keys 2t, 2t + 1 of each group) is its P
+// fragment (A columns t, t + 4) as it stands.
+__device__ __forceinline__ int vt_key(int c) {
+  const int j = c % 8;
+  return (c - j) + (j < 4 ? 2 * j : 2 * (j - 4) + 1);
+}
+
+// One stage, by the splitter warps (thread i of n): K_hi = tf32(K) in place
+// and K_lo = tf32(K - K_hi) at the same swizzled offsets; V^T_hi and V^T_lo,
+// transposed, keys in vt_key order, in the swizzled K-major layout.
+__device__ __forceinline__ void split_stage(uint32_t stage_base, int i, int n) {
+  uint8_t* base = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(stage_base));
+  float4* k = reinterpret_cast<float4*>(base);
+  float4* k_lo = reinterpret_cast<float4*>(base + T_TILE);
+  const uint8_t* v = base + 2 * T_TILE;
+  uint8_t* vt_hi = base + 3 * T_TILE;
+  uint8_t* vt_lo = base + 4 * T_TILE;
+  for (int j = i; j < static_cast<int>(T_TILE / 16); j += n) {
+    const float4 x = k[j];
+    const float4 hi = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+    k[j] = hi;
+    k_lo[j] = make_float4(to_tf32(x.x - hi.x), to_tf32(x.y - hi.y), to_tf32(x.z - hi.z), to_tf32(x.w - hi.w));
+  }
+  // V^T row r (an output column) and columns 4 q .. 4 q + 3: consecutive
+  // threads take consecutive rows, so the reads of a V row and the 16-byte
+  // writes meet no bank twice
+  for (int j = i; j < TD * (BK / 4); j += n) {
+    const int r = j % TD, q = j / TD;
+    float hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = *reinterpret_cast<const float*>(v + swz(vt_key(4 * q + e), r, T_PANEL));
+      hi[e] = to_tf32(x);
+      lo[e] = to_tf32(x - hi[e]);
+    }
+    const uint32_t off = swz(r, 4 * q, T_PANEL);
+    *reinterpret_cast<float4*>(vt_hi + off) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<float4*>(vt_lo + off) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// The f32 kernel's block: 128 query rows of one (b, hq), as the bf16 kernel,
+// with the split of each operand into TF32 hi and lo parts:
+// - producer warp 0, one thread: TMA of Q once and of K and V tiles into the
+//   ring (stage full); warps 1 to 3 split each landed stage (stage ready);
+// - two consumer warpgroups: each pre-scales its 64 rows of Q in f32 and
+//   splits them in shared memory once; per live tile S = Q_hi K_hi +
+//   (Q_hi K_lo + Q_lo K_hi) and O += P_hi V_hi + (P_hi V_lo + P_lo V_hi), each
+//   a run of wgmma m64n64k8 tf32, the online softmax as in the bf16 kernel,
+//   then the stage is released (stage empty).
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, int Hq, int Hkv, int Sq,
+                       int Skv, float scale, int causal, int window, float logit_cap) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;  // Q, then Q_hi
+  const uint32_t sq_lo = sq + T_Q_BYTES;
+  const uint32_t ring = sq_lo + T_Q_BYTES;         // T_STAGES stages of T_STAGE bytes
+  const uint32_t q_full = ring + T_STAGES * T_STAGE;
+  const uint32_t full = q_full + 8;                // K and V have landed
+  const uint32_t ready = full + 8 * T_STAGES;      // the stage is split
+  const uint32_t empty = ready + 8 * T_STAGES;     // both consumers are done with it
+
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+
+  const int n_k = (Skv + BK - 1) / BK;
+  int kt_end = n_k;
+  if (causal) kt_end = min(n_k, (min(q_start + BQ, Sq) - 1) / BK + 1);
+  int kt_begin = 0;
+  if (causal && window > 0 && q_start - window + 1 > 0) kt_begin = (q_start - window + 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(ready + 8 * s, SPLITTERS);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<40>();
+    const int warp = (threadIdx.x % 128) / 32;
+    if (warp == 0) {
+      if (threadIdx.x == CONSUMERS * 128) {
+        const int bh_kv = b * Hkv + hk;
+        mbar_expect_tx(q_full, T_Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < TD / 32; ++c) tma_load(sq + c * T_QPANEL, &tm_q, q_full, 32 * c, q_start, b * Hq + h);
+        int stage = 0, round = 0;
+        for (int kt = kt_begin; kt < kt_end; ++kt) {
+          if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+          const uint32_t bar = full + 8 * stage, st = ring + stage * T_STAGE;
+          mbar_expect_tx(bar, 2 * T_TILE);
+#pragma unroll
+          for (int c = 0; c < TD / 32; ++c) {
+            tma_load(st + c * T_PANEL, &tm_k, bar, 32 * c, kt * BK, bh_kv);
+            tma_load(st + 2 * T_TILE + c * T_PANEL, &tm_v, bar, 32 * c, kt * BK, bh_kv);
+          }
+          if (++stage == T_STAGES) {
+            stage = 0;
+            ++round;
+          }
+        }
+      }
+    } else {
+      const int i = threadIdx.x % 128 - 32;
+      int stage = 0, round = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(full + 8 * stage, round & 1);
+        split_stage(ring + stage * T_STAGE, i, 32 * SPLITTERS);
+        // the split parts are read by wgmma, through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if (i % 32 == 0) mbar_arrive(ready + 8 * stage);
+        if (++stage == T_STAGES) {
+          stage = 0;
+          ++round;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int first = q_start + 64 * wg;
+    const int last = min(first + 63, Sq - 1);
+    const int row0 = first + 16 * (t / 32) + lane / 4;
+    const int col0 = 2 * (lane % 4);
+
+    int live_begin = kt_begin, live_end = kt_end;
+    if (causal) live_end = min(live_end, last / BK + 1);
+    if (causal && window > 0 && first - window + 1 > 0) live_begin = max(live_begin, (first - window + 1) / BK);
+    live_begin = min(live_begin, kt_end);
+    if (first >= Sq || live_end < live_begin) live_end = live_begin;
+
+    // This warpgroup's 64 rows of Q (rows past Sq are zeros), scaled in f32
+    // and split: Q_hi in place, Q_lo at the same swizzled offsets
+    mbar_wait(q_full, 0);
+    {
+      uint8_t* qs = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(sq));
+      uint8_t* qs_lo = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(sq_lo));
+      for (int j = t; j < 64 * TD / 4; j += 128) {
+        const uint32_t off = (j / 512) * T_QPANEL + (64 * wg + (j / 8) % 64) * ROW_BYTES + 16 * (j % 8);
+        float4 x = *reinterpret_cast<float4*>(qs + off);
+        x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+        const float4 hi = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+        *reinterpret_cast<float4*>(qs + off) = hi;
+        *reinterpret_cast<float4*>(qs_lo + off) =
+            make_float4(to_tf32(x.x - hi.x), to_tf32(x.y - hi.y), to_tf32(x.z - hi.z), to_tf32(x.w - hi.w));
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");  // this warpgroup's rows are split
+    }
+    const uint32_t q_rows = sq + 64 * wg * ROW_BYTES, q_rows_lo = sq_lo + 64 * wg * ROW_BYTES;
+
+    // The tensor cores round their f32 sums toward zero at each wgmma, so
+    // products of unequal size go to separate accumulators, added once per
+    // tile on the FMA units with rounding to nearest: s (Q_hi K_hi) and pv
+    // (P_hi V_hi) take the large terms, small the hi-lo ones of either
+    // product; acc carries O across tiles.
+    float acc[32], pv[32], small[32];
+    float s[32];  // S, then p, then P_lo
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = pv[i] = small[i] = s[i] = 0.f;
+    uint32_t p_hi[32];
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
+    float corr[2];
+
+    int stage = 0, round = 0;
+    auto advance = [&] {
+      if (++stage == T_STAGES) {
+        stage = 0;
+        ++round;
+      }
+    };
+    auto release = [&] {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      advance();
+    };
+    for (int kt = kt_begin; kt < live_begin; ++kt) {
+      mbar_wait(ready + 8 * stage, round & 1);
+      release();
+    }
+    for (int kt = live_begin; kt < live_end; ++kt) {
+      mbar_wait(ready + 8 * stage, round & 1);
+      const uint32_t st = ring + stage * T_STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TD / 8; ++kk) {
+        const uint64_t k_hi = tile_desc(st, kk), k_lo = tile_desc(st + T_TILE, kk);
+        const uint32_t off = (kk / 4) * T_QPANEL + 32 * (kk % 4);
+        const uint64_t a_hi = desc(q_rows + off), a_lo = desc(q_rows_lo + off);
+        wgmma_tf32_ss(s, a_hi, k_hi, kk > 0);
+        wgmma_tf32_ss(small, a_hi, k_lo, kk > 0);
+        wgmma_tf32_ss(small, a_lo, k_hi, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      pin(small);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] += small[i];
+      const int k_start = kt * BK;
+      const bool edge = k_start + BK > Skv || (causal && k_start + BK - 1 > first) ||
+                        (window > 0 && first + 63 - k_start >= window);
+      softmax_step(s, m, l, corr, row0, k_start + col0, edge, Skv, causal, window, 1.f, logit_cap);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= corr[(i / 2) % 2];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float hi = to_tf32(s[i]);
+        p_hi[i] = __float_as_uint(hi);
+        s[i] = to_tf32(s[i] - hi);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        // A columns t, t + 4 are keys 2t, 2t + 1: entries 4kk, 4kk + 2 (rows
+        // r, r + 8 of key 2t) and 4kk + 1, 4kk + 3 (key 2t + 1)
+        const uint64_t v_hi = tile_desc(st + 3 * T_TILE, kk), v_lo = tile_desc(st + 4 * T_TILE, kk);
+        const uint32_t* a = p_hi + 4 * kk;
+        const uint32_t b0 = __float_as_uint(s[4 * kk]), b1 = __float_as_uint(s[4 * kk + 1]),
+                       b2 = __float_as_uint(s[4 * kk + 2]), b3 = __float_as_uint(s[4 * kk + 3]);
+        wgmma_tf32_rs(pv, a[0], a[2], a[1], a[3], v_hi, kk > 0);
+        wgmma_tf32_rs(small, a[0], a[2], a[1], a[3], v_lo, kk > 0);
+        wgmma_tf32_rs(small, b0, b2, b1, b3, v_hi, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(pv);
+      pin(small);
+      pin(p_hi);
+      pin(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += pv[i] + small[i];
+      release();
+    }
+    for (int kt = live_end; kt < kt_end; ++kt) {
+      mbar_wait(ready + 8 * stage, round & 1);
+      release();
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = row0 + 8 * r;
+      if (q >= Sq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      float* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * TD + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[4 * j + 2 * r] / denom,
+                                                               acc[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                int causal, int window, float logit_cap, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  if (int err = encode(&tq, q, B * Hq, Sq, TD, BQ, true)) return err;
+  if (int err = encode(&tk, k, B * Hkv, Skv, TD, BK, true)) return err;
+  if (int err = encode(&tv, v, B * Hkv, Skv, TD, BK, true)) return err;
+  constexpr size_t smem = tf32_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(TD));
+  flash_attn_tf32_kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o), Hq, Hkv, Sq, Skv,
+                                                          scale, causal, window, logit_cap);
   return cudaGetLastError();
 }
 
@@ -733,8 +1139,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
 template <bool BF16>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
              int d, int dv, int causal, int window, float logit_cap, cudaStream_t stream) {
-  if (d == 64 && dv == 64)
-    return launch<BF16, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+  if (d == 64 && dv == 64) {
+    if constexpr (BF16)
+      return launch<BF16, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return cudaErrorInvalidValue;  // f32 at (64, 64) is the TF32 kernel's
+  }
   if (d == 128 && dv == 128)
     return launch<BF16, 128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 64 && dv == 128)
@@ -748,18 +1157,32 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
 
 }  // namespace
 
+// The kernel the wrapper chose (flash_attention.py's kernel_kind; its
+// constants repeat these).
+enum Kind { F32_SIMT = 0, BF16 = 1, F32_TF32 = 2 };
+
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq, dv),
-// all contiguous and of one type: f32, or bf16 when is_bf16 (then q, k and v
-// 16-byte aligned). Returns 0 when the launch was accepted, else a CUDA error
-// or, from the tensor maps' encoding, ENCODE_ERROR_BASE plus a CUresult.
+// all contiguous and of one type: bf16 for BF16, else f32 (F32_TF32 takes
+// (d, dv) = (64, 64), F32_SIMT the other pairs); q, k and v 16-byte aligned
+// for the TMA kernels (BF16, F32_TF32).
+// Returns 0 when the launch was accepted, else a CUDA error or, from the
+// tensor maps' encoding, ENCODE_ERROR_BASE plus a CUresult.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int B, int Hq, int Hkv, int Sq, int Skv, int d, int dv,
-                                         int is_bf16, int causal, int window, float logit_cap,
+                                         int kind, int causal, int window, float logit_cap,
                                          void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
-  return dispatch<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
+  switch (kind) {
+    case BF16:
+      return dispatch<true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
+    case F32_SIMT:
+      return dispatch<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
+    case F32_TF32:
+      if (d != hopper::TD || dv != hopper::TD) return cudaErrorInvalidValue;
+      return hopper::launch_tf32(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

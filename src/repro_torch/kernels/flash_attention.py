@@ -2,7 +2,7 @@
 
 The kernels replace the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_attn_kernel``); their plain version is
-:func:`repro_torch.kernels.ref.attention_ref`. Both are bound by operations at
+:func:`repro_torch.kernels.ref.attention_ref`. They are bound by operations at
 the serving shapes (deepseek-moe-16b's 8 × 2048 prefill needs 137 GFLOP
 against 268 MB), so the design follows the unit that does them:
 
@@ -13,8 +13,15 @@ against 268 MB), so the design follows the unit that does them:
   P is split into bf16 hi and lo parts and both are multiplied with V: one
   bf16 rounding of P would put some outputs outside the card's limit (atol
   1e-3, rtol 2⁻⁷ against the plain version), the split keeps 16 bits of P.
-- f32 runs on the FMA units (TF32 could not meet atol 2e-5): 64-row blocks,
-  f32 tiles in shared memory.
+- f32 at (d, dv) = (64, 64), nbi-100m's heads, runs on the tensor cores too,
+  as 3×TF32: every operand is split into TF32 hi and lo parts and each
+  product is hi·hi + hi·lo + lo·hi in f32 (about 22 bits; one TF32 product
+  keeps 11 and misses the f32 limit of atol 2e-5). Blocks as in bf16; the
+  producer's three idle warps split each K and V tile in shared memory and
+  write Vᵀ, since TF32 operands of ``wgmma`` must be K-major.
+- f32 at the other pairs of ``HEAD_DIM_PAIRS`` (d 128 and 256, the mixed
+  ones; no served path runs them) stays on the FMA units: 64-row blocks, f32
+  tiles in shared memory.
 
 The wrapper checks what the kernels take and raises on anything else,
 allocates the output, and launches on PyTorch's current stream without
@@ -30,15 +37,31 @@ from . import _build
 DTYPES = (torch.float32, torch.bfloat16)
 # (d, dv) pairs the kernels are compiled for
 HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256))
-# query rows per block and keys per tile, as in the kernels
+# the f32 pairs of the tensor-core (3×TF32) kernel; other f32 pairs run on
+# the FMA units
+TF32_HEAD_DIM_PAIRS = ((64, 64),)
+# query rows per block and keys per tile, as in the kernels: the f32 FMA
+# kernel, the bf16 kernel, the f32 tensor-core kernel
 BQ = {torch.float32: 64, torch.bfloat16: 128}
+BQ_TF32 = 128
 BK = 64
+# the C entry's kernel codes (``Kind`` in the source)
+F32_SIMT, BF16, F32_TF32 = 0, 1, 2
 
-# Launches since import, one count per kernel: the f32 kernel and the bf16
-# tensor-core kernel. chip_smoke.py sets them to 0 around the main path and
-# reads them to show that every prefill attention came here.
+# Launches since import, one count per kernel: the f32 kernel on the FMA
+# units, the bf16 kernel and the f32 tensor-core kernel. chip_smoke.py sets
+# them to 0 around the main path and reads them to show that every prefill
+# attention came here.
 launches = 0
 bf16_launches = 0
+tf32_launches = 0
+
+
+def kernel_kind(dtype: torch.dtype, d: int, dv: int) -> int:
+    """Which kernel takes these inputs: ``F32_SIMT``, ``BF16`` or ``F32_TF32``."""
+    if dtype == torch.bfloat16:
+        return BF16
+    return F32_TF32 if (d, dv) in TF32_HEAD_DIM_PAIRS else F32_SIMT
 
 
 def _validate(q, k, v) -> None:
@@ -53,8 +76,6 @@ def _validate(q, k, v) -> None:
             raise ValueError(f"flash_attention: {name} must be 4-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
     B, Hq, Sq, d = q.shape
@@ -70,6 +91,10 @@ def _validate(q, k, v) -> None:
         raise ValueError(f"flash_attention: head dims (d, dv)=({d}, {v.shape[3]}) not in {HEAD_DIM_PAIRS}")
     if min(B, Hq, Sq, Skv) <= 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if kernel_kind(q.dtype, d, v.shape[3]) != F32_SIMT:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")
 
 
 def stages(d: int, dv: int) -> int:
@@ -78,14 +103,21 @@ def stages(d: int, dv: int) -> int:
 
 
 def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory one block asks for at launch (``smem_bytes`` in the
-    source). f32: Q and K tiles padded by one float, the V tile and the P
-    tile. bf16: the Q tile, the ring of K and V tiles, one barrier per stage
-    for full and for empty and one for Q, and 1024 bytes of slack to align
-    the tiles to their swizzle pattern."""
-    if dtype == torch.bfloat16:
+    """Shared memory one block of the kernel that takes (d, dv, dtype) asks
+    for at launch (``smem_bytes`` and ``tf32_smem_bytes`` in the source).
+    bf16: the Q tile, the ring of K and V tiles, one barrier per stage for
+    full and for empty and one for Q, and 1024 bytes of slack to align the
+    tiles to their swizzle pattern. f32 on the tensor cores: the Q tile (split
+    in place into Q_hi) and Q_lo, two stages of five 64-key tiles (K split in
+    place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per stage and one for Q, and
+    the slack. f32 on the FMA
+    units: Q and K tiles padded by one float, the V tile and the P tile."""
+    kind = kernel_kind(dtype, d, dv)
+    if kind == BF16:
         n = stages(d, dv)
         return 1024 + 2 * (BQ[dtype] * d + n * BK * (d + dv)) + 8 * (2 * n + 1)
+    if kind == F32_TF32:
+        return 1024 + 4 * (2 * BQ_TF32 * d + 2 * BK * (3 * d + 2 * dv)) + 8 * (3 * 2 + 1)
     return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
 
 
@@ -94,23 +126,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
     device, contiguous, f32 or bf16, (d, dv) in ``HEAD_DIM_PAIRS``. Returns
     (B,Hq,Sq,dv) in q's dtype. Query head h reads KV head h // (Hq // Hkv);
     positions start at 0 for both q and k, as in the reference."""
-    global launches, bf16_launches
+    global launches, bf16_launches, tf32_launches
     _validate(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
     out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
-    bf16 = q.dtype == torch.bfloat16
+    kind = kernel_kind(q.dtype, d, dv)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, d, dv, int(bf16),
+            B, Hq, Hkv, Sq, Skv, d, dv, kind,
             int(causal), int(window), float(logit_cap),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")
-    if bf16:
+    if kind == BF16:
         bf16_launches += 1
+    elif kind == F32_TF32:
+        tf32_launches += 1
     else:
         launches += 1
     return out

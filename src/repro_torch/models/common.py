@@ -153,13 +153,17 @@ def attention_single_shot(q, k, v, *, mask=None, logit_cap: float = 0.0):
     """Naive attention for tiny Sq (decode): one (B,Hkv,G,Sq,Skv) score tensor.
 
     q: (B,Hq,Sq,Dh); k, v: (B,Hkv,Skv,Dh); mask broadcastable to the scores.
-    Scores and the PV sum in f32; p is cast to v's dtype first, as in the
-    reference. Plain PyTorch: in the reference this is XLA, not Pallas.
+    q is scaled in its own dtype by ``Dh**-0.5`` rounded to that dtype, as
+    the reference's weak-typed product does (in bf16 at Dh 128 the scale is
+    0.0883789 and the product rounds to bf16). Scores and the PV sum in f32;
+    p is cast to v's dtype first, as in the reference. Plain PyTorch: in the
+    reference this is XLA, not Pallas.
     """
     B, Hq, Sq, Dh = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, Sq, Dh).float() * (Dh**-0.5)
+    scale = torch.tensor(Dh**-0.5, dtype=q.dtype).item()
+    qg = (q.reshape(B, Hkv, G, Sq, Dh) * scale).float()
     s = torch.einsum("bhgqd,bhsd->bhgqs", qg, k.float())
     if logit_cap > 0:
         s = logit_cap * torch.tanh(s / logit_cap)

@@ -29,11 +29,21 @@ from repro_torch.kernels import rmsnorm as trn
 from repro_torch.launch.serve import ServeEngine, pad_cache_to
 from repro_torch.models import rglru
 from repro_torch.models.registry import build_model
+from test_torch_model import assert_bf16_logits_close, bf16_logits
 
 ARCH = "recurrentgemma_2b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 B = 2
 USE_PALLAS = pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas"])
+
+
+def liven(np_params):
+    """Redraws the zero leaves of a numpy reference tree (both RG-LRU gates'
+    weights and biases and the conv bias), so that the gates depend on the
+    input."""
+    rng = np.random.default_rng(9)
+    return jax.tree_util.tree_map(
+        lambda a: a if a.any() else (rng.standard_normal(a.shape) * 0.3).astype(a.dtype), np_params)
 
 
 @pytest.fixture(scope="module")
@@ -47,10 +57,7 @@ def pair():
     def get(use_pallas=False):
         if use_pallas not in built:
             ref_model = jax_build_model(jax_get_smoke_config(ARCH).replace(use_pallas=use_pallas))
-            rng = np.random.default_rng(9)
-            ref_params = jax.tree_util.tree_map(
-                lambda a: a if a.any() else (rng.standard_normal(a.shape) * 0.3).astype(a.dtype),
-                jax.tree_util.tree_map(np.asarray, ref_model.init(jax.random.PRNGKey(0))))
+            ref_params = liven(jax.tree_util.tree_map(np.asarray, ref_model.init(jax.random.PRNGKey(0))))
             ref_params = jax.tree_util.tree_map(jnp.asarray, ref_params)
             model = build_model(get_smoke_config(ARCH).replace(use_pallas=use_pallas))
             params = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, ref_params), device="cpu")
@@ -242,3 +249,17 @@ def test_cpu_path_launches_no_kernel(pair):
     before = (tfa.launches, tlru.launches, trn.launches)
     model.prefill_fn(params, {"tokens": torch.from_numpy(tokens(6, 10))})
     assert (tfa.launches, tlru.launches, trn.launches) == before
+
+
+# Griffin stages per layer (the deeper of its two blocks, the recurrent one):
+# norm, input and gate projections, conv, RG-LRU gates, the scan, GeLU
+# product, output projection, residual, norm, gate and up, GeLU product,
+# down, residual
+GRIFFIN_BF16_STAGES = 14
+
+
+def test_bf16_matches_reference():
+    """bf16 prefill past the window of 8 (the ring cache) and decode, held to
+    the bound from bf16 rounding."""
+    cfg, steps = bf16_logits(ARCH, seq=64, liven=liven)
+    assert_bf16_logits_close(cfg, steps, GRIFFIN_BF16_STAGES)

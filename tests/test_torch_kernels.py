@@ -9,7 +9,8 @@ rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05; LRU 1e-5; WKV atol
 2**-7: kernel and plain version both accumulate in f32 and round once. The
 bf16 attention kernel's arithmetic (64-key tiles, P split into bf16 hi and lo
 parts for the tensor cores) is emulated on the CPU and held to that limit
-against the JAX package.
+against the JAX package, and so is the f32 tensor-core kernel's (3xTF32: each
+operand split into TF32 hi and lo parts) at the f32 limit.
 
 JAX is imported inside a fixture, so that the card's machine, which has no
 JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
@@ -91,60 +92,120 @@ def test_plain_attention_bf16_matches_jax(jx):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
 
 
-def emulate_bf16_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
-    """The arithmetic of the bf16 kernel (csrc/flash_attention.cu), on the
-    CPU, with the wrapper's tile sizes: for each 64-row warpgroup of a block
-    of BQ rows, the BK-key tiles it computes, in order; S from the bf16 products summed in f32, times the f32
-    d**-0.5, the tanh cap, the masks at -1e30 (keys past Skv take no part);
-    the online softmax in f32; P split into bf16 hi and lo (rounded once when
-    ``split`` is False), each multiplied with V into the f32 acc; l summed
-    from the f32 p; out = acc / max(l, 1e-30) in bf16. (The kernel keeps
-    scores in units of log2 e and skips rescaling acc by a factor of 1: the
-    same numbers to an f32 rounding.)"""
-    BQ, BK = tfa.BQ[torch.bfloat16], tfa.BK
-    B, Hq, Sq, d = q.shape
-    Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
-    qf = q.float()
-    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
-    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
-    scale = float(np.float32(1) / np.sqrt(np.float32(d)))
+def kernel_tiles(Sq, Skv, causal, window, BQ):
+    """The tiles of the tensor-core attention kernels, in their order: for each
+    64-row warpgroup of a block of BQ query rows, its rows and the BK-key
+    tiles that it computes (those live for its own rows among the block's)."""
+    BK = tfa.BK
     n_k = -(-Skv // BK)
-    out = torch.zeros((B, Hq, Sq, dv))
     for q0 in range(0, Sq, BQ):
         kt_end = min(n_k, (min(q0 + BQ, Sq) - 1) // BK + 1) if causal else n_k
         kt_begin = (q0 - window + 1) // BK if causal and window > 0 and q0 - window + 1 > 0 else 0
         for first in range(q0, min(q0 + BQ, Sq), 64):
             rows = torch.arange(first, min(first + 64, Sq))
             last = int(rows[-1])
-            m = torch.full((B, Hq, len(rows)), -1e30)
-            l = torch.zeros((B, Hq, len(rows)))
-            acc = torch.zeros((B, Hq, len(rows), dv))
-            for kt in range(kt_begin, kt_end):
-                k0 = kt * BK
-                if causal and (k0 > last or (window > 0 and k0 + BK - 1 <= first - window)):
-                    continue
-                cols = torch.arange(k0, min(k0 + BK, Skv))
-                s = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) * scale
-                if logit_cap > 0:
-                    s = logit_cap * torch.tanh(s / logit_cap)
-                keep = torch.ones((len(rows), len(cols)), dtype=torch.bool)
-                if causal:
-                    keep &= cols[None, :] <= rows[:, None]
-                if window > 0:
-                    keep &= rows[:, None] - cols[None, :] < window
-                s = torch.where(keep, s, torch.tensor(-1e30))
-                m_new = torch.maximum(m, s.amax(-1))
-                corr = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
-                l = l * corr + p.sum(-1)
-                hi = p.bfloat16().float()
-                pv = hi @ vf[:, :, cols]
-                if split:
-                    pv = pv + (p - hi).bfloat16().float() @ vf[:, :, cols]
-                acc = acc * corr[..., None] + pv
-                m = m_new
-            out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
-    return out.bfloat16()
+            live = [torch.arange(kt * BK, min(kt * BK + BK, Skv)) for kt in range(kt_begin, kt_end)
+                    if not (causal and (kt * BK > last or (window > 0 and kt * BK + BK - 1 <= first - window)))]
+            yield rows, live
+
+
+def emulate_tiled(q, k, v, scores, weigh, out_dtype, *, causal=True, window=0, logit_cap=0.0, BQ=128):
+    """The online softmax of the tensor-core kernels on the CPU, over
+    :func:`kernel_tiles`: ``scores(q_rows, k_cols)`` gives S in f32 (scaled),
+    then the tanh cap, the masks at -1e30 (keys past Skv take no part), the
+    running max, p = exp(s - m) in f32, l summed from the f32 p, and
+    ``weigh(p, v_cols)`` gives the tile's P·V; out = acc / max(l, 1e-30).
+    (The kernels keep scores in units of log2 e and skip rescaling acc by a
+    factor of 1: the same numbers to an f32 rounding.)"""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
+    qf = q.float()
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    out = torch.zeros((B, Hq, Sq, dv))
+    for rows, tiles in kernel_tiles(Sq, Skv, causal, window, BQ):
+        m = torch.full((B, Hq, len(rows)), -1e30)
+        l = torch.zeros((B, Hq, len(rows)))
+        acc = torch.zeros((B, Hq, len(rows), dv))
+        for cols in tiles:
+            s = scores(qf[:, :, rows], kf[:, :, cols])
+            if logit_cap > 0:
+                s = logit_cap * torch.tanh(s / logit_cap)
+            keep = torch.ones((len(rows), len(cols)), dtype=torch.bool)
+            if causal:
+                keep &= cols[None, :] <= rows[:, None]
+            if window > 0:
+                keep &= rows[:, None] - cols[None, :] < window
+            s = torch.where(keep, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + weigh(p, vf[:, :, cols])
+            m = m_new
+        out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(out_dtype)
+
+
+def emulate_bf16_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
+    """The arithmetic of the bf16 kernel (csrc/flash_attention.cu) on the CPU,
+    with the wrapper's tile sizes: S from the bf16 products summed in f32,
+    times the f32 d**-0.5; P split into bf16 hi and lo (rounded once when
+    ``split`` is False), each multiplied with V into the f32 acc; out in
+    bf16."""
+    scale = float(np.float32(1) / np.sqrt(np.float32(q.shape[-1])))
+
+    def weigh(p, vt):
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        return pv + (p - hi).bfloat16().float() @ vt if split else pv
+
+    return emulate_tiled(q, k, v, lambda qt, kt: (qt @ kt.transpose(-1, -2)) * scale, weigh, torch.bfloat16,
+                         causal=causal, window=window, logit_cap=logit_cap, BQ=tfa.BQ[torch.bfloat16])
+
+
+def tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties away
+    from zero, onto 10 explicit mantissa bits; the 13 low bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+# The f32 kernel's order of the 8 keys of each group in its P·V product: the
+# A fragment's column c holds the S fragment's key KEY_ORDER[c], so that a
+# thread's S registers are its P registers as they stand.
+KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
+    """The arithmetic of the f32 tensor-core kernel (csrc/flash_attention.cu,
+    ``flash_attn_tf32_kernel``) on the CPU, with its tiles: q pre-scaled by
+    d**-0.5 in f32, as the Pallas kernel does; S = Q_hi K_hi + Q_hi K_lo +
+    Q_lo K_hi summed in f32, each part rounded by :func:`tf32`, the two small
+    products summed apart and added to the large one; P·V the same three
+    products of the split p and V, over the keys of each group of 8 in
+    ``KEY_ORDER``, added to the rescaled acc. With ``split`` False, one TF32 product each: Q K and P V
+    from singly rounded operands."""
+    scale = float(np.float32(1) / np.sqrt(np.float32(q.shape[-1])))
+
+    def product(a, b):
+        if not split:
+            return tf32(a) @ tf32(b)
+        (a_hi, a_lo), (b_hi, b_lo) = split_tf32(a), split_tf32(b)
+        return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+    def weigh(p, vt):
+        n = p.shape[-1]
+        order = torch.tensor([g + c for g in range(0, n, 8) for c in KEY_ORDER if g + c < n])
+        return product(p[..., order], vt[..., order, :])
+
+    return emulate_tiled(q * scale, k, v, lambda qt, kt: product(qt, kt.transpose(-1, -2)), weigh, torch.float32,
+                         causal=causal, window=window, logit_cap=logit_cap, BQ=tfa.BQ_TF32)
 
 
 # bf16 attention on the card: one output rounding of either side
@@ -177,6 +238,51 @@ def test_bf16_kernel_needs_p_in_two_parts():
     outside = {split: int(((emulate_bf16_kernel(q, k, v, split=split).float() - want).abs() > limit).sum())
                for split in (True, False)}
     assert outside[True] == 0 < outside[False]
+
+
+# f32 attention on the card: the unchanged f32 limit
+F32_ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_f32_kernel_arithmetic_matches_jax(jx, case):
+    """The f32 tensor-core kernel's arithmetic (3xTF32) meets the f32 limit
+    against the JAX Pallas kernel in interpret mode, the JAX oracle and the
+    plain version."""
+    B, Hq, Hkv, Sq, Skv, d, causal, window, cap, scale = ATTN_CASES[case]
+    qn, kn, vn = draw(18, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
+    vn = vn / scale
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    q, k, v = map(torch.from_numpy, (qn, kn, vn))
+    got = emulate_f32_kernel(q, k, v, **kw).numpy()
+    jq, jk, jv = map(jx.jnp.asarray, (qn, kn, vn))
+    pallas = jx.flash_attention(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jx.attention_ref(jq, jk, jv, **kw), ref.attention_ref(q, k, v, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), **F32_ATTN_TOL)
+
+
+def test_f32_kernel_needs_three_tf32_products():
+    """At nbi-100m's head width, one TF32 product for each of Q K and P V puts
+    outputs outside the f32 limit; the 3xTF32 split does not."""
+    qn, kn, vn = draw(19, (1, 4, 512, 64), (1, 4, 512, 64), (1, 4, 512, 64))
+    q, k, v = map(torch.from_numpy, (qn, kn, vn))
+    want = ref.attention_ref(q, k, v)
+    limit = F32_ATTN_TOL["atol"] + F32_ATTN_TOL["rtol"] * want.abs()
+    outside = {split: int(((emulate_f32_kernel(q, k, v, split=split) - want).abs() > limit).sum())
+               for split in (True, False)}
+    assert outside[True] == 0 < outside[False]
+
+
+def test_tf32_rounds_to_nearest_away():
+    """tf32 keeps 10 explicit mantissa bits and rounds a tie away from zero;
+    hi + lo carries about 22 bits."""
+    ulp = 2.0**-10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2**-23, 1 + 3 * ulp / 2, 3.0])
+    torch.testing.assert_close(tf32(x), torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]), rtol=0, atol=0)
+    y = torch.from_numpy(draw(20, (1000,))[0])
+    hi, lo = split_tf32(y)
+    assert bool(((tf32(hi) == hi) & (tf32(lo) == lo)).all())
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0**-21
 
 
 @pytest.mark.parametrize("shape", [(4, 64), (2, 3, 100), (1, 768)])
@@ -370,19 +476,23 @@ def test_ops_send_cpu_gating_to_plain_version():
 
 def test_flash_attention_smem_fits_a_block():
     """The dynamic shared memory of every compiled instance (head-dim pair
-    and dtype) fits the 232,448 bytes a Hopper block may opt into; d 256 is
-    the largest of each dtype (bf16: Q 64 KB and two stages of K and V)."""
+    and dtype) fits the 232,448 bytes a Hopper block may opt into. The
+    largest are bf16 at d 256 (Q 64 KB and two stages of K and V) and f32 at
+    (64, 64) on the tensor cores (Q_hi and Q_lo, 32 KB each, and two stages of
+    five 16 KB tiles); the f32 FMA kernel's largest is d 256."""
+    largest = {torch.bfloat16: (256, 256), torch.float32: (64, 64)}
     for dtype in tfa.DTYPES:
         sizes = {pair: tfa.dynamic_smem_bytes(*pair, dtype) for pair in tfa.HEAD_DIM_PAIRS}
-        assert max(sizes.values()) == sizes[256, 256] <= 232448
+        assert max(sizes.values()) == sizes[largest[dtype]] <= 232448
     assert tfa.dynamic_smem_bytes(256, 256, torch.float32) == 213760
     assert tfa.dynamic_smem_bytes(256, 256, torch.bfloat16) == 1024 + 2 * (128 * 256 + 2 * 64 * 512) + 8 * 5
+    assert tfa.dynamic_smem_bytes(64, 64, torch.float32) == 1024 + 2 * 32768 + 2 * 5 * 16384 + 8 * 7
 
 
 def test_ops_send_cpu_tensors_to_plain_versions():
     qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
     q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
-    before = (tfa.launches, tfa.bf16_launches, trn.launches)
+    before = (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, trn.launches)
     for dtype in (torch.float32, torch.bfloat16):
         qt, kt, vt = (t.to(dtype) for t in (q, k, v))
         torch.testing.assert_close(
@@ -390,7 +500,7 @@ def test_ops_send_cpu_tensors_to_plain_versions():
             ref.attention_ref(qt, kt, vt, causal=True, window=8, logit_cap=5.0), rtol=0, atol=0,
         )
     torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w), rtol=0, atol=0)
-    assert (tfa.launches, tfa.bf16_launches, trn.launches) == before
+    assert (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, trn.launches) == before
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -433,7 +543,18 @@ GPU_ATTN_CASES = {
     "logit_cap_d128_bf16": (1, 2, 2, 130, 130, 128, True, 0, 30.0, 4.0),
     "mqa_d256_ragged_bf16": (1, 10, 1, 150, 333, 256, False, 0, 0.0, 1.0),
     "deepseek_heads_bf16": (1, 16, 16, 1000, 1000, 128, True, 0, 0.0, 1.0),
+    # the edges of the f32 tensor-core kernel (d 64): ragged Sq and Skv off
+    # the 128-row block and the 64-key tile, GQA, window, cap, non-causal
+    "tf32_ragged_non_causal": (2, 4, 4, 130, 197, 64, False, 0, 0.0, 1.0),
+    "tf32_ragged_gqa": (1, 8, 2, 333, 333, 64, True, 0, 0.0, 1.0),
+    "tf32_sq1": (2, 4, 2, 1, 70, 64, False, 0, 0.0, 1.0),
+    "tf32_sq_past_skv": (1, 4, 4, 100, 30, 64, False, 0, 0.0, 1.0),
+    "tf32_window_ragged": (1, 4, 1, 500, 500, 64, True, 100, 0.0, 1.0),
+    "tf32_logit_cap": (1, 4, 4, 257, 257, 64, True, 0, 30.0, 4.0),
 }
+
+
+COUNT_OF_KIND = {tfa.F32_SIMT: "launches", tfa.BF16: "bf16_launches", tfa.F32_TF32: "tf32_launches"}
 
 
 @pytest.mark.gpu
@@ -447,7 +568,7 @@ def test_flash_attention_kernel_matches_plain(case):
     arrays = draw(5, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
     q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
     kw = dict(causal=causal, window=window, logit_cap=cap)
-    count = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    count = COUNT_OF_KIND[tfa.kernel_kind(dtype, d, d)]
     before = getattr(tfa, count)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -470,6 +591,25 @@ def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
     assert got.shape == (2, 4, 130, dv) and got.dtype == dtype
     tol = BF16_ATTN_TOL if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, causal=True).float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", tfa.HEAD_DIM_PAIRS)
+def test_f32_head_dims_run_their_kernel(d, dv):
+    """Each f32 head-dim pair launches the kernel that takes it, the tensor
+    cores' at (64, 64) and the FMA units' at the others, and meets the f32
+    limit."""
+    _need_card()
+    arrays = draw(21, (1, 4, 200, d), (1, 2, 200, d), (1, 2, 200, dv))
+    q, k, v = (torch.from_numpy(a).cuda() for a in arrays)
+    kind = tfa.kernel_kind(torch.float32, d, dv)
+    assert (kind == tfa.F32_TF32) == ((d, dv) in tfa.TF32_HEAD_DIM_PAIRS)
+    counts = {name: getattr(tfa, name) for name in COUNT_OF_KIND.values()}
+    got = ops.attention(q, k, v, causal=True, window=150)
+    torch.cuda.synchronize()
+    counts[COUNT_OF_KIND[kind]] += 1
+    assert counts == {name: getattr(tfa, name) for name in COUNT_OF_KIND.values()}
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True, window=150), **F32_ATTN_TOL)
 
 
 @pytest.mark.gpu
@@ -502,9 +642,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q64 = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         ops.attention(q64, q64, q64)
-    shifted = torch.zeros(2 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(1, 2, 8, 64)
-    with pytest.raises(ValueError, match="16 bytes"):
-        ops.attention(shifted, shifted, shifted)
+    for dtype in (torch.bfloat16, torch.float32):  # the TMA kernels
+        shifted = torch.zeros(2 * 8 * 64 + 1, device="cuda", dtype=dtype)[1:].view(1, 2, 8, 64)
+        with pytest.raises(ValueError, match="16 bytes"):
+            ops.attention(shifted, shifted, shifted)
     with pytest.raises(ValueError, match="contiguous"):
         ops.rmsnorm(torch.zeros(64, 8, device="cuda").t(), torch.ones(64, device="cuda"))
 

@@ -6,6 +6,10 @@ generator. The reference is called through ``build_model(cfg).prefill_fn`` /
 ``decode_fn`` directly, with no sharding rules: its mesh-built paths fail under
 this JAX version (ROADMAP hazard H1). Tolerance: atol 1e-4 / rtol 1e-4 (f32,
 different summation orders).
+
+bf16, the dtype of every served full config, is held to a bound derived from
+bf16 rounding (see :func:`assert_bf16_logits_close`); decode attention in bf16
+at head dim 128 is held op by op to one output rounding.
 """
 
 import dataclasses
@@ -248,3 +252,88 @@ def test_model_init_without_device_raises_on_cpu_host():
         model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_jax({"w": np.zeros(3, np.float32)})
+
+
+# bf16 decode attention: both sides sum in f32 and round once at the output
+BF16_OUT_TOL = dict(atol=1e-3, rtol=2**-7)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_attention_single_shot_bf16_matches_reference(d):
+    """bf16 decode attention scales q the reference's way: in bf16, by
+    ``d**-0.5`` rounded to bf16 (not a power of two at d 128, so an f32 scale
+    moves outputs past one rounding step); d 64 and 256 have exact scales."""
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((4, 16, 1, d), (4, 4, 300, d), (4, 4, 300, d)))
+    mask = np.arange(300)[None, None, None, None, :] < np.array([300, 217, 64, 1])[:, None, None, None, None]
+    got = common.attention_single_shot(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), mask=torch.from_numpy(mask))
+    want = jcommon.attention_single_shot(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), mask=jnp.asarray(mask))
+    assert got.dtype == torch.bfloat16
+    close(got.float(), np.asarray(want, np.float32), **BF16_OUT_TOL)
+
+
+# bf16 parity of whole models: prefill, then greedy decode steps
+BF16_STEPS = 3
+
+
+def bf16_logits(arch, seq=64, liven=None, **overrides):
+    """(port cfg, [(port logits, reference logits)] for a prefill of 2 × seq
+    tokens and BF16_STEPS decode steps) of the smoke config in bf16
+    (``dtype`` and ``param_dtype``), the reference's prefill through its
+    Pallas attention kernel in interpret mode, which scales in f32 as the card
+    does (ROADMAP H3). Each step feeds both sides the reference's greedy token,
+    so that they stay on one sequence. ``liven`` may redraw reference leaves
+    (a numpy tree) before they cross to the port."""
+    over = dict(dtype="bfloat16", param_dtype="bfloat16", use_pallas=True, **overrides)
+    ref_model = jax_build_model(jax_get_smoke_config(arch).replace(**over))
+    np_params = jax.tree_util.tree_map(np.asarray, ref_model.init(jax.random.PRNGKey(0)))
+    if liven:
+        np_params = liven(np_params)
+    ref_params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    model = build_model(get_smoke_config(arch).replace(**over))
+    params = convert.params_from_jax(np_params, device="cpu")
+    toks = tokens(11, seq=seq)
+    want, ref_cache = jax.jit(ref_model.prefill_fn)(ref_params, {"tokens": jnp.asarray(toks)})
+    got, cache = model.prefill_fn(params, {"tokens": torch.from_numpy(toks)})
+    out = [(got, want)]
+    ref_cache = jax_pad_cache_to(ref_cache, ref_model.cache_defs_fn(B, seq + BF16_STEPS))
+    cache = pad_cache_to(cache, model.cache_defs_fn(B, seq + BF16_STEPS))
+    decode = jax.jit(ref_model.decode_fn)
+    for i in range(BF16_STEPS):
+        nxt = np.asarray(want, np.float32)[:, -1].argmax(-1)[:, None].astype(np.int32)
+        want, ref_cache = decode(ref_params, ref_cache, jnp.asarray(nxt), jnp.asarray(seq + i, jnp.int32))
+        got, cache = model.decode_fn(params, cache, torch.from_numpy(nxt), seq + i)
+        out.append((got, want))
+    return model.cfg, out
+
+
+def assert_bf16_logits_close(cfg, steps, stages_per_layer: int) -> None:
+    """The bound, from bf16 rounding alone. bf16 keeps 8 significant bits, so
+    each side rounds a value to within 2**-8 of it relative, and two sides
+    that round at different places (fused or not, other summation orders)
+    differ by up to 2**-7 relative at each stage that rounds. Carried to
+    first order with unit gain through every rounding stage on the path to
+    the logits (``stages_per_layer`` per layer, then the final norm and the
+    unembedding), the logits differ by at most
+    (stages_per_layer * L + 2) * 2**-7 * max |logit|."""
+    n = stages_per_layer * cfg.n_layers + 2
+    for i, (got, want) in enumerate(steps):
+        want = np.asarray(want, np.float32)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        bound = n * 2**-7 * float(np.abs(want).max())
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= bound, f"step {i}: max abs logit err {err} > {bound}"
+
+
+# dense stages: norm, q/k/v, RoPE, attention, out projection, residual, norm,
+# gate and up, SiLU product, down, residual
+DENSE_BF16_STAGES = 11
+
+
+@pytest.mark.parametrize("arch,head_dim", [("nbi-100m", None), ("codeqwen15_7b", 128)])
+def test_bf16_matches_reference(arch, head_dim):
+    """bf16 prefill and decode of the dense family; codeqwen15_7b at its real
+    head width 128, where decode's q scale (0.0883789 in bf16) is not a power
+    of two."""
+    cfg, steps = bf16_logits(arch, **({"head_dim": head_dim} if head_dim else {}))
+    assert_bf16_logits_close(cfg, steps, DENSE_BF16_STAGES)

@@ -27,6 +27,7 @@ from repro_torch.kernels import ref
 from repro_torch.launch.serve import ServeEngine, pad_cache_to
 from repro_torch.models import moe
 from repro_torch.models.registry import build_model
+from test_torch_model import assert_bf16_logits_close, bf16_logits
 
 ARCH = "deepseek_moe_16b"
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -217,3 +218,17 @@ def test_index_dispatch_equals_one_hot_einsums(pair):
     want = torch.einsum("gnec,egcd->gnd", combine, out).reshape(4, 16, cfg.d_model)
     want = want + moe.swiglu(x, p["shared"]["wg"], p["shared"]["wi"], p["shared"]["wo"], torch.float32)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# MoE stages per layer: norm, q/k/v, RoPE, attention, out projection,
+# residual, norm, gate and up, SiLU product, down, gate weighting, combine
+# with the shared experts, residual
+MOE_BF16_STAGES = 14
+
+
+def test_bf16_matches_reference():
+    """bf16 prefill (2 × 16 tokens: one routing group) and decode at
+    deepseek-moe-16b's real head width 128, where decode's q scale (0.0883789
+    in bf16) is not a power of two, held to the bound from bf16 rounding."""
+    cfg, steps = bf16_logits(ARCH, seq=16, head_dim=128)
+    assert_bf16_logits_close(cfg, steps, MOE_BF16_STAGES)

@@ -30,12 +30,25 @@ from repro_torch.kernels import rwkv6_scan as twkv
 from repro_torch.launch.serve import ServeEngine, pad_cache_to
 from repro_torch.models import rwkv6
 from repro_torch.models.registry import build_model
+from test_torch_model import assert_bf16_logits_close, bf16_logits
 
 ARCH = "rwkv6_7b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 STATE_TOL = dict(atol=2e-4, rtol=1e-4)
 B = 2
 USE_PALLAS = pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas"])
+
+
+def liven(np_params):
+    """Redraws the zero-initialised mixes, bonus and biases of a numpy
+    reference tree in place, so that every term of the block is live."""
+    rng = np.random.default_rng(9)
+    blocks = np_params["blocks"]
+    for group, name in (("tm", "mu_x"), ("tm", "mu_rkvgw"), ("tm", "u"), ("tm", "gn_b"),
+                        ("cm", "mu_k"), ("cm", "mu_r")):
+        leaf = blocks[group][name]
+        blocks[group][name] = (rng.standard_normal(leaf.shape) * 0.3).astype(leaf.dtype)
+    return np_params
 
 
 @pytest.fixture(scope="module")
@@ -49,13 +62,7 @@ def pair():
     def get(use_pallas=False):
         if use_pallas not in built:
             ref_model = jax_build_model(jax_get_smoke_config(ARCH).replace(use_pallas=use_pallas))
-            ref_params = jax.tree_util.tree_map(np.asarray, ref_model.init(jax.random.PRNGKey(0)))
-            rng = np.random.default_rng(9)
-            blocks = ref_params["blocks"]
-            for group, name in (("tm", "mu_x"), ("tm", "mu_rkvgw"), ("tm", "u"), ("tm", "gn_b"),
-                                ("cm", "mu_k"), ("cm", "mu_r")):
-                leaf = blocks[group][name]
-                blocks[group][name] = (rng.standard_normal(leaf.shape) * 0.3).astype(leaf.dtype)
+            ref_params = liven(jax.tree_util.tree_map(np.asarray, ref_model.init(jax.random.PRNGKey(0))))
             ref_params = jax.tree_util.tree_map(jnp.asarray, ref_params)
             model = build_model(get_smoke_config(ARCH).replace(use_pallas=use_pallas))
             params = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, ref_params), device="cpu")
@@ -222,3 +229,17 @@ def test_cpu_path_launches_no_kernel(pair):
     before = (twkv.launches, trn.launches)
     model.prefill_fn(params, {"tokens": torch.from_numpy(tokens(6, 10))})
     assert (twkv.launches, trn.launches) == before
+
+
+# RWKV-6 stages: LayerNorm, token shift and mixes, r/k/v/g projections, decay
+# LoRA, the WKV recurrence, group norm, gate, output projection, residual,
+# LayerNorm, channel-mix shift, key projection, squared ReLU, value and
+# receptance, residual
+RWKV6_BF16_STAGES = 16
+
+
+def test_bf16_matches_reference():
+    """bf16 prefill (64 tokens: the reference needs S % 64 == 0, H4) and
+    decode, held to the bound from bf16 rounding."""
+    cfg, steps = bf16_logits(ARCH, seq=64, liven=liven)
+    assert_bf16_logits_close(cfg, steps, RWKV6_BF16_STAGES)
