@@ -397,9 +397,12 @@ def wkv_cases(full: bool):
     """(name, B, H, T, d, dtype, nonzero s0); the first is the RWKV-6 prefill."""
     if not full:
         return [("rwkv6_prefill", 2, 4, 24, 16, torch.bfloat16, False),
-                ("f32_s0", 1, 2, 13, 16, torch.float32, True)]
+                ("f32_s0", 1, 2, 13, 16, torch.float32, True),
+                ("rwkv6_long_s0", 1, 2, 40, 16, torch.bfloat16, True)]
     return [("rwkv6_prefill", 8, 64, 1024, 64, torch.bfloat16, False),
-            ("f32_s0_ragged", 2, 64, 300, 64, torch.float32, True)]
+            ("f32_s0_ragged", 2, 64, 300, 64, torch.float32, True),
+            # a long prompt from a carried state: f32 drift over T held by WKV_TOL
+            ("rwkv6_long_s0", 2, 64, 4096, 64, torch.bfloat16, True)]
 
 
 def run_wkv_cases(device, timer, full: bool) -> dict:
@@ -799,6 +802,11 @@ def main(argv=None) -> int:
         for dtype in fa_kernel.DTYPES:
             say(f"[build] flash_attention {str(dtype).removeprefix('torch.')} dynamic smem per block: " + ", ".join(
                 f"d={d} dv={dv}: {fa_kernel.dynamic_smem_bytes(d, dv, dtype)} B" for d, dv in fa_kernel.HEAD_DIM_PAIRS))
+        configs = {(d, dtype): wkv_kernel.launch_config(d, dtype)
+                   for d in wkv_kernel.HEAD_SIZES for dtype in wkv_kernel.DTYPES}
+        say("[build] wkv6 threads, dynamic smem and blocks per SM: " + ", ".join(
+            f"d={d} {str(dtype).removeprefix('torch.')}: {c['threads']} threads {c['smem_bytes']} B "
+            f"{c['blocks_per_sm']} blocks" for (d, dtype), c in configs.items()))
     else:
         device = torch.device("cpu")
         say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")

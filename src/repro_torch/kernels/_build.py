@@ -39,6 +39,8 @@ SIGNATURES = {
     "repro_lru_scan_fwd": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
     # r, k, v, w, u, s0, y, s_out, B, H, T, d, is_bf16, stream
     "repro_wkv6_fwd": [*[_P] * 8, *[_I] * 5, _P],
+    # d, is_bf16, out (5 ints)
+    "repro_wkv6_config": [_I, _I, _P],
     # logits, idx, gate, pos, G, N, E, k, capacity, renormalise, stream
     "repro_moe_gating_fwd": [*[_P] * 4, *[_I] * 6, _P],
 }

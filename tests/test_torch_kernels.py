@@ -383,6 +383,122 @@ def test_plain_wkv6_any_length_and_bf16_match_jax_oracle(jx):
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
 
 
+def fma(a, b, c):
+    """a * b + c rounded once to f32, as ``fmaf`` does: the product is exact
+    in f64, so only the f64 sum's rounding (rarely) adds to the one of f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def halve(x, dim):
+    """The sum of ``repro::segment_sum`` over a warp segment of lanes along
+    ``dim`` (a power of two): each step adds the upper half to the lower."""
+    while x.shape[dim] > 1:
+        lo, hi = x.chunk(2, dim)
+        x = lo + hi
+    return x.squeeze(dim)
+
+
+# The WKV-6 kernel's split (csrc/rwkv6_scan.cu, CH and P):
+# test_wkv6_smem_lets_four_blocks_share_an_sm holds them to the library's
+# report on the card.
+WKV_CHUNK = 16
+WKV_PARTS = 4
+
+
+def emulate_wkv6_kernel(r, k, v, w, u, s0):
+    """The arithmetic of the WKV-6 kernel (csrc/rwkv6_scan.cu) on the CPU, in
+    its f32 order. Row group g of WKV_PARTS holds rows g R .. g R + R - 1 (R =
+    d / WKV_PARTS) of every column; per token and column it sums r_i S_ij
+    over its float4 groups of rows m into accumulator m % chains (four fmas
+    each; two chains where a thread has two or more float4 groups, else one)
+    and adds the accumulators in order; the partial sums of the row groups
+    are added by halves. The bonus r.(u*k) is summed four elements to a lane
+    (fma of r*u and k), then by halves over d/4 lanes; y = fma(bonus, v,
+    sum). S_ij = fma(w_i, S_ij, k_i v_j). Returns (y in r's dtype, S_final
+    f32)."""
+    B, H, T, d = r.shape
+    parts = WKV_PARTS
+    groups = d // 4 // parts
+    chains = 2 if groups >= 2 else 1
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :]
+    rows = torch.arange(d).view(parts, 4 * groups)  # rows[g, 4m + e]
+    s = s0.float()[:, :, rows, :]  # (B, H, parts, 4 groups, d)
+    ys = torch.empty((B, H, T, d))
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t]
+        ru, kk = (rt * uf).unflatten(-1, (d // 4, 4)), kt.unflatten(-1, (d // 4, 4))
+        bonus = torch.zeros((B, H, d // 4))
+        for e in range(4):
+            bonus = fma(ru[..., e], kk[..., e], bonus)
+        bonus = halve(bonus, -1)
+        rg, kg, wg = (x[:, :, rows, None] for x in (rt, kt, wt))  # (B, H, parts, 4 groups, 1)
+        vj = vt[:, :, None, :]
+        acc = [torch.zeros((B, H, parts, d)) for _ in range(chains)]
+        for m in range(groups):
+            for e in range(4 * m, 4 * m + 4):
+                acc[m % chains] = fma(rg[:, :, :, e], s[:, :, :, e], acc[m % chains])
+        part = acc[0]
+        for a in acc[1:]:
+            part = part + a
+        ys[:, :, t] = fma(bonus[..., None], vt, halve(part, 2))
+        s = fma(wg, s, kg * vj[:, :, :, None])
+    s_final = torch.empty((B, H, d, d))
+    s_final[:, :, rows.flatten()] = s.flatten(2, 3)
+    return ys.to(r.dtype), s_final
+
+
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_wkv6_kernel_arithmetic_matches_jax(jx, case):
+    """The WKV-6 kernel's arithmetic meets the f32 limit against wkv6_pallas
+    in interpret mode, the JAX oracle and the plain version."""
+    arrays = wkv_inputs(21, *WKV_CASES[case])
+    got_y, got_s = emulate_wkv6_kernel(*map(torch.from_numpy, arrays))
+    jarrays = list(map(jx.jnp.asarray, arrays))
+    wants = [jx.wkv6_pallas(*jarrays, interpret=True), jx.wkv6_ref(*jarrays),
+             ref.wkv6_ref(*map(torch.from_numpy, arrays))]
+    for want_y, want_s in wants:
+        np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("T", [37, 70])
+def test_wkv6_kernel_arithmetic_any_length(jx, T, d):
+    """At T off the kernel's chunk and the Pallas kernel's 64 (ROADMAP H4),
+    against the JAX oracle and the plain version, at each head size the
+    kernel has an instance for."""
+    arrays = wkv_inputs(22, 1, 2, T, d)
+    got_y, got_s = emulate_wkv6_kernel(*map(torch.from_numpy, arrays))
+    for want_y, want_s in (jx.wkv6_ref(*map(jx.jnp.asarray, arrays)), ref.wkv6_ref(*map(torch.from_numpy, arrays))):
+        np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
+
+
+def test_wkv6_kernel_arithmetic_bf16_matches_jax(jx):
+    """bf16 inputs: y in bf16 within one rounding step of the JAX oracle's,
+    the f32 state within the f32 limit."""
+    arrays = wkv_inputs(23, 2, 2, 100, 64)
+    t_in = [torch.from_numpy(a).bfloat16() for a in arrays[:4]] + [torch.from_numpy(a) for a in arrays[4:]]
+    j_in = [jx.jnp.asarray(a, jx.jnp.bfloat16) for a in arrays[:4]] + [jx.jnp.asarray(a) for a in arrays[4:]]
+    got_y, got_s = emulate_wkv6_kernel(*t_in)
+    want_y, want_s = jx.wkv6_ref(*j_in)
+    assert got_y.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    np.testing.assert_allclose(got_y.float().numpy(), np.asarray(want_y, np.float32), atol=0.05, rtol=2**-7)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wkv6_emulation_keeps_every_row_and_column(d):
+    """With no decay and no bonus, S_final = s0 + sum_t k_t v_t^T and y_t =
+    r_t . S_{t-1}: the emulation's row layout loses and repeats nothing."""
+    r, k, v, w, u, s0 = map(torch.from_numpy, wkv_inputs(24, 1, 1, 5, d))
+    y, s = emulate_wkv6_kernel(r, k, v, torch.ones_like(w), torch.zeros_like(u), s0)
+    want_s = s0 + torch.einsum("bhti,bhtj->bhij", k, v)
+    torch.testing.assert_close(s, want_s, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(y[:, :, 0], torch.einsum("bhi,bhij->bhj", r[:, :, 0], s0), atol=1e-5, rtol=1e-5)
+
+
 def test_ops_send_cpu_recurrences_to_plain_versions():
     a, b, h0 = map(torch.from_numpy, lru_inputs(12, 2, 20, 32))
     wkv = list(map(torch.from_numpy, wkv_inputs(13, 1, 2, 20, 16)))
@@ -670,12 +786,21 @@ def test_lru_scan_kernel_matches_plain(shape, dtype):
     torch.testing.assert_close(got_last, want_last, atol=1e-5, rtol=1e-5)
 
 
+# The kernel's edges: T of one token, one short of a chunk, one chunk, one
+# past it and many chunks, at each head size; bf16 with the (nonzero) s0 of
+# wkv_inputs; B * H that fills the card.
+WKV_EDGE_T = (1, WKV_CHUNK - 1, WKV_CHUNK, WKV_CHUNK + 1, 1000)
+GPU_WKV_CASES = [
+    ((8, 64, 256, 64), torch.bfloat16), ((2, 4, 100, 64), torch.float32), ((1, 3, 70, 16), torch.float32),
+    ((2, 2, 33, 32), torch.bfloat16),
+    *[((2, 3, T, d), torch.float32) for T in WKV_EDGE_T for d in twkv.HEAD_SIZES],
+    *[((2, 3, T, 64), torch.bfloat16) for T in WKV_EDGE_T],
+    ((8, 64, 1024, 64), torch.bfloat16),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "shape,dtype",
-    [((8, 64, 256, 64), torch.bfloat16), ((2, 4, 100, 64), torch.float32), ((1, 3, 70, 16), torch.float32),
-     ((2, 2, 33, 32), torch.bfloat16)],
-)
+@pytest.mark.parametrize("shape,dtype", GPU_WKV_CASES)
 def test_wkv6_kernel_matches_plain(shape, dtype):
     _need_card()
     r, k, v, w, u, s0 = (torch.from_numpy(x).to("cuda") for x in wkv_inputs(15, *shape))
@@ -688,6 +813,62 @@ def test_wkv6_kernel_matches_plain(shape, dtype):
     tol = dict(atol=0.05, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=5e-4, rtol=1e-3)
     torch.testing.assert_close(got_y.float(), want_y.float(), **tol)
     torch.testing.assert_close(got_s, want_s, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", twkv.HEAD_SIZES)
+def test_wkv6_kernel_follows_its_emulation(d):
+    """The kernel and emulate_wkv6_kernel add in the same order: they agree
+    far inside the f32 limit over several chunks (the emulation's fma may
+    round twice, rarely, so not to the bit)."""
+    _need_card()
+    arrays = [torch.from_numpy(x) for x in wkv_inputs(17, 2, 3, 2 * WKV_CHUNK + 5, d)]
+    got_y, got_s = ops.wkv6(*(t.to("cuda") for t in arrays))
+    want_y, want_s = emulate_wkv6_kernel(*arrays)
+    torch.testing.assert_close(got_y.cpu(), want_y, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(got_s.cpu(), want_s, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_wkv6_smem_lets_four_blocks_share_an_sm():
+    """At d 64 in bf16, the served shape, four blocks are resident on one SM
+    (shared memory and registers both), so that B * H = 512 blocks run at
+    once on 132 SMs; every instance fits one block in whole warps; the chunk
+    and row split are the ones the emulation and the edge cases assume."""
+    _need_card()
+    for d in twkv.HEAD_SIZES:
+        for dtype in twkv.DTYPES:
+            c = twkv.launch_config(d, dtype)
+            assert c["blocks_per_sm"] >= 1 and c["threads"] % 32 == 0, (d, dtype, c)
+            assert (c["chunk"], c["parts"]) == (WKV_CHUNK, WKV_PARTS), (d, dtype, c)
+    assert twkv.launch_config(64, torch.bfloat16)["blocks_per_sm"] >= 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_empty_sequence_returns_s0(dtype):
+    """T = 0: one launch, an empty y and S_final equal to s0."""
+    _need_card()
+    r, k, v, w, u, s0 = (torch.from_numpy(x).to("cuda") for x in wkv_inputs(16, 2, 3, 0, 64))
+    before = twkv.launches
+    y, s = ops.wkv6(*(t.to(dtype) for t in (r, k, v, w)), u, s0)
+    torch.cuda.synchronize()
+    assert twkv.launches == before + 1
+    assert y.shape == (2, 3, 0, 64) and y.dtype == dtype
+    torch.testing.assert_close(s, s0, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_wkv6_wrapper_rejects_unaligned_inputs():
+    """The kernel copies r, k, v and w 16 bytes at a time: a contiguous view
+    that starts off a 16-byte boundary is refused, not read wrongly."""
+    _need_card()
+    shape = (1, 2, 8, 64)
+    buf = torch.zeros(2 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    bad = buf[1:].view(shape)
+    z = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.wkv6(bad, z, z, z, torch.zeros(2, 64, device="cuda"), torch.zeros(1, 2, 64, 64, device="cuda"))
 
 
 @pytest.mark.gpu
