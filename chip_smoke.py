@@ -9,10 +9,13 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    is a failure, never a fallback to the CPU;
 2. build: compile every kernel from ``src/repro_torch/kernels/csrc`` into
    ``build/repro_torch/`` and print ptxas registers, shared memory and spills,
-   and each flash-attention instance's dynamic shared memory per dtype;
+   each flash-attention instance's dynamic shared memory per dtype, and the
+   WKV-6 and MoE gating launches (threads, shared memory, registers, blocks
+   resident per SM) as the library reports them;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
+   then the gating kernels again at each tile in ``GATING_TILES``;
 4. main paths, one engine at a time, each freed before the next: serve 16
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b and
    deepseek-moe-16b at full width with seeded weights; count every kernel's
@@ -126,7 +129,7 @@ ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepse
 # a part of each kernel's name as the profiler shows it
 TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel", "flash_attention_bf16": "flash_attn_bf16_kernel",
                "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
-               "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_kernel"}
+               "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
 
 
 def say(*parts) -> None:
@@ -440,28 +443,34 @@ def run_wkv_cases(device, timer, full: bool) -> dict:
 
 def gating_cases(full: bool):
     """(name, G, N, E, k, capacity, logit scale, expert skew, everyone wants
-    expert 0). The first two are the shapes deepseek-moe-16b's path gives the
-    kernel (its largest prefill, 8 rows of 2048 tokens in 16 groups, and a
-    decode step of 8 rows) at the router's logit scale at full width (about
-    0.1); then an odd shape whose popular experts drop picks, kimi-k2's
-    routing widths, and every token wanting expert 0."""
+    expert 0). The first three are the shapes deepseek-moe-16b's path gives
+    the kernels (its largest prefill, 8 rows of 2048 tokens in 16 groups; one
+    group, as 8 rows of 128 tokens give; and a decode step of 8 rows) at the
+    router's logit scale at full width (about 0.1); then groups of several
+    tiles with N off every tile and drops, an odd shape whose popular experts
+    drop picks, kimi-k2's routing widths, and every token wanting expert 0."""
     if not full:
         return [("deepseek_prefill", 2, 32, 8, 2, 10, 0.1, 0.0, False),
+                ("deepseek_prefill_g1", 1, 32, 8, 2, 10, 0.1, 0.0, False),
                 ("deepseek_decode", 1, 2, 8, 2, 4, 0.1, 0.0, False),
                 ("odd_drops", 3, 20, 40, 3, 3, 1.0, 1.0, False),
                 ("kimi_routing", 2, 16, 40, 4, 4, 1.0, 0.0, False),
                 ("everyone_expert_0", 1, 32, 8, 1, 5, 0.1, 0.0, True)]
     return [("deepseek_prefill", 16, 1024, 64, 6, 120, 0.1, 0.0, False),
+            ("deepseek_prefill_g1", 1, 1024, 64, 6, 120, 0.1, 0.0, False),
             ("deepseek_decode", 1, 8, 64, 6, 4, 0.1, 0.0, False),
+            ("ragged_tiles_drops", 3, 1000, 64, 6, 94, 1.0, 1.0, False),
             ("odd_drops", 3, 100, 160, 8, 13, 1.0, 1.0, False),
             ("kimi_routing", 4, 256, 384, 8, math.ceil(8 * 256 / 384 * 1.25), 1.0, 0.0, False),
             ("everyone_expert_0", 2, 1024, 64, 6, 120, 0.1, 0.0, True)]
 
 
-def run_gating_cases(device, timer, full: bool) -> dict:
+def run_gating_cases(device, timer, full: bool, first_cases: int | None = None, split: bool = False) -> dict:
+    """The gating cases against the plain version, timed; with ``split``, also
+    each kernel's device time per call (``kernel_split_us``)."""
     g = torch.Generator(device=device).manual_seed(5)
     first = None
-    for name, G, N, E, k, cap, scale, skew, all_zero in gating_cases(full):
+    for name, G, N, E, k, cap, scale, skew, all_zero in gating_cases(full)[:first_cases]:
         x = scale * torch.randn((G, N, E), generator=g, device=device)
         x += skew * torch.randn((E,), generator=g, device=device)
         if all_zero:
@@ -499,8 +508,55 @@ def run_gating_cases(device, timer, full: bool) -> dict:
             f"skew={skew} | idx and pos exact, {dropped} of {pos.numel()} picks dropped, gate max_abs_err="
             f"{err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=none bound={bound_ms:.4f}ms "
             f"({bound_by}) MB={nbytes / 1e6:.2f}")
+        if split:
+            say(f"[kernels] moe_gating {name}: device time per call " + ", ".join(
+                f"{kernel} {us:.2f} us" for kernel, us in
+                kernel_split_us(lambda: ops.moe_gating(x, top_k=k, capacity=cap), "moe_gating_").items()))
         first = first or row
     return first
+
+
+def kernel_split_us(fn, prefix: str, calls: int = 20) -> dict:
+    """Device time per call of each kernel whose name holds ``prefix``, from
+    torch.profiler over ``calls`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[e.key.index(prefix):].split("<")[0].split("(")[0]: e.self_device_time_total / calls
+            for e in prof.key_averages() if prefix in e.key}
+
+
+GATING_TILES = (32, 64, 128)
+
+
+def gating_launch_line(tile: int) -> str:
+    """Route and slots launches at deepseek-moe-16b's prefill group (1024
+    tokens) and decode step (8), as the library reports them."""
+    parts = []
+    for what, N in (("prefill", 1024), ("decode", 8)):
+        c = gating_kernel.launch_config(N, 64, 6, tile)
+        parts.append(f"{what} N={N}: {c['tiles']} tiles, " + ", ".join(
+            f"{kernel} {c[kernel]['threads']} threads {c[kernel]['registers']} registers "
+            f"{c[kernel]['smem_bytes']} B smem {c[kernel]['blocks_per_sm']} blocks per SM"
+            for kernel in ("route", "slots") if kernel == "route" or c["tiles"] > 1))
+    return f"tile={tile}: " + "; ".join(parts)
+
+
+def run_gating_tiles(device, timer) -> None:
+    """K5 at each tile in GATING_TILES (``moe_gating.TILE`` is the one the
+    port keeps): deepseek-moe-16b's three shapes, each held to the plain
+    version and timed, each kernel's share of a call, and the launches."""
+    kept = gating_kernel.TILE
+    try:
+        for tile in GATING_TILES:
+            gating_kernel.TILE = tile
+            say(f"[kernels] moe_gating {gating_launch_line(tile)}")
+            run_gating_cases(device, timer, full=True, first_cases=3, split=True)
+    finally:
+        gating_kernel.TILE = kept
 
 
 # ---------------------------------------------------------------------------
@@ -807,6 +863,7 @@ def main(argv=None) -> int:
         say("[build] wkv6 threads, dynamic smem and blocks per SM: " + ", ".join(
             f"d={d} {str(dtype).removeprefix('torch.')}: {c['threads']} threads {c['smem_bytes']} B "
             f"{c['blocks_per_sm']} blocks" for (d, dtype), c in configs.items()))
+        say(f"[build] moe_gating {gating_launch_line(gating_kernel.TILE)}")
     else:
         device = torch.device("cpu")
         say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")
@@ -819,6 +876,8 @@ def main(argv=None) -> int:
                "lru_scan": run_lru_cases(device, timer, full),
                "wkv6": run_wkv_cases(device, timer, full),
                "moe_gating": run_gating_cases(device, timer, full)}
+    if full:
+        run_gating_tiles(device, timer)
     say(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f}s")
     free(device)
     by_path = {}

@@ -590,6 +590,75 @@ def test_ops_send_cpu_gating_to_plain_version():
         tgate.moe_gating(x, top_k=2, capacity=5)
 
 
+def emulate_moe_gating_kernel(logits, top_k, capacity, tile):
+    """The gating kernels' split (csrc/moe_gating.cu) on the CPU. idx and
+    gate come from the route kernel's row arithmetic, which is the plain
+    version's step for step. Each tile of ``tile`` tokens counts its picks
+    per (rank j, expert e): hist (G, T, k, E). The slots kernel's base is
+    sum_{j' < j} sum_{all t'} hist[t'][j'][e] + sum_{t' < t} hist[t'][j][e];
+    its walk cuts the tile into 32-token segments, and a pick's slot is base
+    plus its rank among the earlier lanes of its segment that picked the same
+    expert (``__match_any_sync``) plus that expert's picks of rank j in the
+    tile's earlier segments. A group of one tile has the same base with T = 1.
+    Returns (idx, gate, pos) as the kernels do, and hist."""
+    idx, gate, _ = ref.moe_gating_ref(logits, top_k=top_k, capacity=capacity)
+    G, N, k = idx.shape
+    E = logits.shape[-1]
+    T = -(-N // tile)
+    segments = -(-tile // 32)
+    # tokens past N and lanes past a tile pick expert E, which the one-hot drops
+    picks = torch.nn.functional.pad(idx.long(), (0, 0, 0, T * tile - N), value=E).view(G, T, tile, k)
+    picks = torch.nn.functional.pad(picks, (0, 0, 0, segments * 32 - tile), value=E)
+    onehot = torch.nn.functional.one_hot(picks.view(G, T, segments, 32, k), E + 1)[..., :E]
+    hist = onehot.sum((2, 3))  # (G, T, k, E)
+    total = hist.sum(1, keepdim=True)
+    base = (total.cumsum(2) - total) + (hist.cumsum(1) - hist)
+    in_segment = onehot.cumsum(3) - onehot  # lanes before this one, same expert
+    seg_counts = onehot.sum(3, keepdim=True)
+    earlier = seg_counts.cumsum(2) - seg_counts  # the tile's earlier segments
+    slot = (base[:, :, None, None] + in_segment + earlier) * onehot
+    slot = slot.sum(-1).view(G, T, segments * 32, k)[:, :, :tile].reshape(G, T * tile, k)[:, :N]
+    pos = torch.where(slot < capacity, slot, -1).int()
+    return idx, gate, pos, hist
+
+
+# name: (G, N, E, k, capacity, skew, everyone wants expert 0): N off every
+# tile, drops, one expert taking every first pick, k 1, E below a warp, and
+# kimi-k2's 384 experts at k 8
+TILED_GATING_CASES = {
+    "ragged_n": (2, 100, 16, 2, 20, 0.0, False),
+    "skew_drops": (3, 70, 40, 3, 6, 1.0, False),
+    "everyone_expert_0": (2, 50, 8, 2, 7, 0.0, True),
+    "k1": (2, 45, 16, 1, 4, 0.5, False),
+    "e20_below_a_warp": (1, 77, 20, 4, 18, 0.0, False),
+    "e384_k8": (2, 40, 384, 8, 2, 1.0, False),
+}
+
+
+@pytest.mark.parametrize("tile", [8, 32, 64])
+@pytest.mark.parametrize("case", sorted(TILED_GATING_CASES))
+def test_tiled_gating_matches_jax(jx, case, tile):
+    """The kernels' tiles, histograms, base counts and segment walk give the
+    slots of the reference's token-by-token oracle, of moe_gating_pallas in
+    interpret mode and of the plain version: idx and pos exact, gate 1e-6."""
+    G, N, E, k, cap, skew, all_zero = TILED_GATING_CASES[case]
+    x = router_logits(25, G, N, E, skew=skew)
+    if all_zero:
+        x[..., 0] += 10.0
+    idx, gate, pos, hist = emulate_moe_gating_kernel(torch.from_numpy(x), k, cap, tile)
+    assert hist.shape == (G, -(-N // tile), k, E) and int(hist.sum()) == G * N * k
+    wants = [fn(jx.jnp.asarray(x), top_k=k, capacity=cap) for fn in (jx.moe_gating_ref, jx.moe_gating_pallas)]
+    for want_idx, want_gate, want_pos in [*wants, ref.moe_gating_ref(torch.from_numpy(x), top_k=k, capacity=cap)]:
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos))
+        np.testing.assert_allclose(gate.numpy(), np.asarray(want_gate), atol=1e-6)
+    if skew:
+        assert (pos < 0).any()  # the case exercises drops
+    if all_zero:
+        first_slots = np.where(np.arange(N) < cap, np.arange(N), -1)
+        np.testing.assert_array_equal(pos[:, :, 0].numpy(), np.broadcast_to(first_slots, (G, N)))
+
+
 def test_flash_attention_smem_fits_a_block():
     """The dynamic shared memory of every compiled instance (head-dim pair
     and dtype) fits the 232,448 bytes a Hopper block may opt into. The
@@ -884,13 +953,18 @@ def test_recurrence_wrappers_reject_what_the_kernels_do_not_take():
         ops.wkv6(z, z, z, z, torch.zeros(2, 128, device="cuda"), torch.zeros(1, 2, 128, 128, device="cuda"))
 
 
-# name: (G, N, E, k, capacity, logit scale, skew). The first two are the
-# shapes the deepseek-moe-16b path gives the kernel (its largest prefill group
-# set and a decode step), with the router's logit scale at full width; then
-# an odd shape with drops, kimi-k2's routing widths, and narrow E below a warp.
+# name: (G, N, E, k, capacity, logit scale, skew). The first three are the
+# shapes the deepseek-moe-16b path gives the kernels (its largest prefill group
+# set, one group of a short prefill and a decode step), with the router's
+# logit scale at full width; then groups of several tiles with N off the
+# tile and drops, one group of 30000 tokens at k 8, an odd shape with drops,
+# kimi-k2's routing widths, and narrow E below a warp.
 GPU_GATING_CASES = {
     "deepseek_prefill": (16, 1024, 64, 6, 120, 0.1, 0.0),
+    "deepseek_prefill_g1": (1, 1024, 64, 6, 120, 0.1, 0.0),
     "deepseek_decode": (1, 8, 64, 6, 4, 0.1, 0.0),
+    "ragged_tiles_drops": (3, 1000, 64, 6, 94, 1.0, 1.0),
+    "long_group_k8": (1, 30000, 64, 8, 4688, 1.0, 0.0),
     "odd_drops": (3, 100, 160, 8, 13, 1.0, 1.0),
     "kimi_routing": (4, 256, 384, 8, 7, 1.0, 0.0),
     "e16_k2": (2, 64, 16, 2, 12, 1.0, 0.0),
@@ -937,5 +1011,42 @@ def test_moe_gating_wrapper_rejects_what_the_kernel_does_not_take():
         ops.moe_gating(x, top_k=0, capacity=4)
     with pytest.raises(ValueError, match="top_k"):
         ops.moe_gating(torch.zeros(1, 8, 400, device="cuda"), top_k=2, capacity=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.moe_gating(torch.zeros(1, 30000, 64, device="cuda"), top_k=8, capacity=4)
+    with pytest.raises(ValueError, match="top_k"):
+        ops.moe_gating(x, top_k=33, capacity=4)
+    with pytest.raises(ValueError, match="capacity"):
+        ops.moe_gating(x, top_k=2, capacity=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [1, 32, 64, 128, 256])
+def test_moe_gating_kernel_any_tile_follows_its_emulation(tile, monkeypatch):
+    """At every tile the kernels take, groups of one and of several tiles
+    (N off the tile, drops) give the emulation's and the plain version's
+    idx, pos and gate."""
+    _need_card()
+    monkeypatch.setattr(tgate, "TILE", tile)
+    for G, N, E, k, cap in ((2, 300, 64, 6, 30), (3, 100, 160, 8, 13), (1, 8, 64, 6, 4)):
+        x = torch.from_numpy(router_logits(26, G, N, E, skew=1.0))
+        idx, gate, pos = ops.moe_gating(x.cuda(), top_k=k, capacity=cap)
+        want_idx, want_gate, want_pos, _ = emulate_moe_gating_kernel(x, k, cap, tile)
+        torch.testing.assert_close(idx.cpu(), want_idx, rtol=0, atol=0)
+        torch.testing.assert_close(pos.cpu(), want_pos, rtol=0, atol=0)
+        torch.testing.assert_close(gate.cpu(), want_gate, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_moe_gating_launch_config():
+    """The library's launches are the ones the kernels assume: a warp per row
+    of the tile (at most 32), shared memory for the tile's counts and picks,
+    one tile a decode step; at deepseek-moe-16b's prefill shape two route
+    blocks fit an SM, so its 256 blocks are all resident on 132 SMs."""
+    _need_card()
+    for N, E, k in ((1024, 64, 6), (8, 64, 6), (100, 384, 8)):
+        c = tgate.launch_config(N, E, k)
+        R = tgate.TILE
+        assert c["tiles"] == -(-N // R)
+        assert c["route"]["threads"] == 32 * min(32, R, N)
+        assert c["route"]["smem_bytes"] == 4 * k * (E + R + 1)
+        assert c["slots"]["smem_bytes"] == 4 * k * (R + 1 + 2 * E)
+        assert c["route"]["blocks_per_sm"] >= 1 and c["slots"]["blocks_per_sm"] >= 1
+    assert tgate.launch_config(1024, 64, 6)["route"]["blocks_per_sm"] >= 2
