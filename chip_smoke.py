@@ -15,7 +15,6 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
-   then the gating kernels again at each tile in ``GATING_TILES``;
 4. main paths, one engine at a time, each freed before the next: serve 16
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b and
    deepseek-moe-16b at full width with seeded weights; count every kernel's
@@ -25,7 +24,8 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    bf16 flash-attention kernel and each RG-LRU prefill scan through the LRU
    kernel; RWKV-6: each WKV prefill through the WKV kernel;
    deepseek-moe-16b: bf16 attention, norms, and each MoE layer's routing,
-   prefill and decode, through the gating kernel); check the
+   prefill and decode, through the gating kernels, the slots kernel on every
+   routing whose groups span more than one tile); check the
    decode-equals-forward law at full width and the card against the CPU on
    a small model of each family, then trace one batch with torch.profiler
    (device busy share, each of the port's kernels' share of the prefill's
@@ -122,7 +122,7 @@ KERNEL_INFO = {
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
             "flash_attention_tf32": (fa_kernel, "tf32_launches"), "rmsnorm": (rn_kernel, "launches"),
             "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
-            "moe_gating": (gating_kernel, "launches")}
+            "moe_gating": (gating_kernel, "launches"), "moe_gating_slots": (gating_kernel, "slots_launches")}
 # the phase-3 case whose numbers stand for each attention kernel in the JSON line
 ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepseek_prefill",
                   "flash_attention_tf32": "nbi100m_prefill"}
@@ -465,12 +465,10 @@ def gating_cases(full: bool):
             ("everyone_expert_0", 2, 1024, 64, 6, 120, 0.1, 0.0, True)]
 
 
-def run_gating_cases(device, timer, full: bool, first_cases: int | None = None, split: bool = False) -> dict:
-    """The gating cases against the plain version, timed; with ``split``, also
-    each kernel's device time per call (``kernel_split_us``)."""
+def run_gating_cases(device, timer, full: bool) -> dict:
     g = torch.Generator(device=device).manual_seed(5)
     first = None
-    for name, G, N, E, k, cap, scale, skew, all_zero in gating_cases(full)[:first_cases]:
+    for name, G, N, E, k, cap, scale, skew, all_zero in gating_cases(full):
         x = scale * torch.randn((G, N, E), generator=g, device=device)
         x += skew * torch.randn((E,), generator=g, device=device)
         if all_zero:
@@ -508,55 +506,21 @@ def run_gating_cases(device, timer, full: bool, first_cases: int | None = None, 
             f"skew={skew} | idx and pos exact, {dropped} of {pos.numel()} picks dropped, gate max_abs_err="
             f"{err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=none bound={bound_ms:.4f}ms "
             f"({bound_by}) MB={nbytes / 1e6:.2f}")
-        if split:
-            say(f"[kernels] moe_gating {name}: device time per call " + ", ".join(
-                f"{kernel} {us:.2f} us" for kernel, us in
-                kernel_split_us(lambda: ops.moe_gating(x, top_k=k, capacity=cap), "moe_gating_").items()))
         first = first or row
     return first
 
 
-def kernel_split_us(fn, prefix: str, calls: int = 20) -> dict:
-    """Device time per call of each kernel whose name holds ``prefix``, from
-    torch.profiler over ``calls`` calls of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[e.key.index(prefix):].split("<")[0].split("(")[0]: e.self_device_time_total / calls
-            for e in prof.key_averages() if prefix in e.key}
-
-
-GATING_TILES = (32, 64, 128)
-
-
-def gating_launch_line(tile: int) -> str:
+def gating_launch_line() -> str:
     """Route and slots launches at deepseek-moe-16b's prefill group (1024
     tokens) and decode step (8), as the library reports them."""
     parts = []
     for what, N in (("prefill", 1024), ("decode", 8)):
-        c = gating_kernel.launch_config(N, 64, 6, tile)
+        c = gating_kernel.launch_config(N, 64, 6)
         parts.append(f"{what} N={N}: {c['tiles']} tiles, " + ", ".join(
             f"{kernel} {c[kernel]['threads']} threads {c[kernel]['registers']} registers "
             f"{c[kernel]['smem_bytes']} B smem {c[kernel]['blocks_per_sm']} blocks per SM"
             for kernel in ("route", "slots") if kernel == "route" or c["tiles"] > 1))
-    return f"tile={tile}: " + "; ".join(parts)
-
-
-def run_gating_tiles(device, timer) -> None:
-    """K5 at each tile in GATING_TILES (``moe_gating.TILE`` is the one the
-    port keeps): deepseek-moe-16b's three shapes, each held to the plain
-    version and timed, each kernel's share of a call, and the launches."""
-    kept = gating_kernel.TILE
-    try:
-        for tile in GATING_TILES:
-            gating_kernel.TILE = tile
-            say(f"[kernels] moe_gating {gating_launch_line(tile)}")
-            run_gating_cases(device, timer, full=True, first_cases=3, split=True)
-    finally:
-        gating_kernel.TILE = kept
+    return "; ".join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -576,11 +540,14 @@ PATHS = {
 }
 
 
-def expected_launches(cfg, prefill_batches: int, gen_len: int) -> dict:
-    """Exact launches of each kernel for ``prefill_batches`` batches of one
-    prefill and ``gen_len`` decode steps each."""
+def expected_launches(cfg, per_len: dict, batch: int, gen_len: int) -> dict:
+    """Exact launches of each kernel (and of the gating's slots kernel) for
+    the prefill batches of ``batch`` rows that ``per_len`` (prompt length:
+    requests) gives, each with ``gen_len`` decode steps."""
+    batches = {n: math.ceil(c / batch) for n, c in per_len.items()}
+    prefill_batches = sum(batches.values())
     L, steps = cfg.n_layers, prefill_batches * (1 + gen_len)
-    want = dict.fromkeys(KERNEL_INFO, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     hd = cfg.resolved_head_dim
     fa = {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
           fa_kernel.F32_SIMT: "flash_attention"}[fa_kernel.kernel_kind(getattr(torch, cfg.dtype), hd, hd)]
@@ -593,8 +560,15 @@ def expected_launches(cfg, prefill_batches: int, gen_len: int) -> dict:
     elif cfg.family == "rwkv6":
         want.update(wkv6=L * prefill_batches)
     elif cfg.family == "moe":
-        want.update({fa: L * prefill_batches, "rmsnorm": (2 * L + 1) * steps,
-                     "moe_gating": (L - cfg.n_dense_layers) * steps})
+        # groups of min(moe_group_tokens, rows x tokens a row) tokens; the
+        # slots kernel runs when a group spans more than one tile
+        def spans(n):
+            return min(cfg.moe_group_tokens, batch * n) > gating_kernel.TILE
+
+        routings = L - cfg.n_dense_layers
+        want.update({fa: L * prefill_batches, "rmsnorm": (2 * L + 1) * steps, "moe_gating": routings * steps,
+                     "moe_gating_slots": routings * sum(b * (spans(n) + gen_len * spans(1))
+                                                        for n, b in batches.items())})
     return want
 
 
@@ -647,7 +621,7 @@ def serve_path(arch: str, device, full: bool) -> dict:
 
     per_len = {n: sum(len(r) == n for r in requests) for n in sorted({len(r) for r in requests})}
     prefill_batches = sum(math.ceil(c / batch) for c in per_len.values())
-    want = expected_launches(cfg, prefill_batches, gen_len)
+    want = expected_launches(cfg, per_len, batch, gen_len)
     if device.type != "cuda":
         want = {name: 0 for name in want}  # the CPU runs the plain versions: nothing launches
     say(f"[serve] {cfg.name}: {len(requests)} requests, prompt lengths {per_len}, {prefill_batches} "
@@ -863,7 +837,7 @@ def main(argv=None) -> int:
         say("[build] wkv6 threads, dynamic smem and blocks per SM: " + ", ".join(
             f"d={d} {str(dtype).removeprefix('torch.')}: {c['threads']} threads {c['smem_bytes']} B "
             f"{c['blocks_per_sm']} blocks" for (d, dtype), c in configs.items()))
-        say(f"[build] moe_gating {gating_launch_line(gating_kernel.TILE)}")
+        say(f"[build] moe_gating {gating_launch_line()}")
     else:
         device = torch.device("cpu")
         say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")
@@ -876,8 +850,6 @@ def main(argv=None) -> int:
                "lru_scan": run_lru_cases(device, timer, full),
                "wkv6": run_wkv_cases(device, timer, full),
                "moe_gating": run_gating_cases(device, timer, full)}
-    if full:
-        run_gating_tiles(device, timer)
     say(f"[kernels] phase 3 took {time.perf_counter() - t0:.1f}s")
     free(device)
     by_path = {}
@@ -893,6 +865,9 @@ def main(argv=None) -> int:
          **results[name], "launches_by_path": {arch: n[name] for arch, n in by_path.items()}}
         for name in KERNEL_INFO
     ]
+    # of moe_gating's launches, the calls that also ran its slots kernel
+    kernels[list(KERNEL_INFO).index("moe_gating")]["slots_launches"] = sum(
+        n["moe_gating_slots"] for n in by_path.values())
     if not full:
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "rehearsal": "cpu"}))

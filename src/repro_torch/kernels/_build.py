@@ -41,10 +41,10 @@ SIGNATURES = {
     "repro_wkv6_fwd": [*[_P] * 8, *[_I] * 5, _P],
     # d, is_bf16, out (5 ints)
     "repro_wkv6_config": [_I, _I, _P],
-    # logits, idx, gate, pos, hist, G, N, E, k, capacity, renormalise, tile, stream
-    "repro_moe_gating_fwd": [*[_P] * 5, *[_I] * 7, _P],
-    # N, E, k, tile, out (9 ints)
-    "repro_moe_gating_config": [*[_I] * 4, _P],
+    # logits, idx, gate, pos, hist, G, N, E, k, capacity, renormalise, stream
+    "repro_moe_gating_fwd": [*[_P] * 5, *[_I] * 6, _P],
+    # N, E, k, out (9 ints)
+    "repro_moe_gating_config": [*[_I] * 3, _P],
 }
 
 

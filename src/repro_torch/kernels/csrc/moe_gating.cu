@@ -22,8 +22,9 @@
 // every SM, and each round has to be short.
 //
 // What the design does about it: the group's N tokens are cut into tiles of
-// R tokens, and both kernels run one block per (group, tile), G * ceil(N / R)
-// blocks.
+// TILE = 64 tokens, and both kernels run one block per (group, tile),
+// G * ceil(N / TILE) blocks. Of 32, 64 and 128 tokens a tile, 64 was the
+// fastest at deepseek-moe-16b's largest prefill on an H100 (PERF.md).
 //
 // Route kernel: a warp per token row, as many warps as the tile has rows (at
 // most 32). Each lane holds the row's entries e = lane, lane + 32, ... in
@@ -35,7 +36,7 @@
 // index among the lanes that hold it. That is the first maximum, as the
 // (value, index) shuffle tree would give, in 2 steps instead of 10. It writes
 // idx and gate, and lane j adds pick j to the tile's count per (rank j,
-// expert e) in shared memory. A group of one tile (N <= R; a decode step)
+// expert e) in shared memory. A group of one tile (N <= TILE; a decode step)
 // gets its slots in the same block, so it is one launch. Otherwise the block
 // writes its (k, E) counts to a scratch tensor hist (G, T, k, E), every
 // entry, so it needs no zeroing.
@@ -46,7 +47,10 @@
 //   base[t][j][e] = sum_{j' < j} sum_{all t'} hist[t'][j'][e]
 //                 + sum_{t' < t} hist[t'][j][e],
 // then reads the tile's picks from idx into shared memory, rank-major with a
-// row of R + 1 (the walk's reads are conflict-free), and gives each its slot.
+// row of TILE + 1 (the walk's reads are conflict-free), and gives each its
+// slot. Each block reads all T histograms of its group, so a group costs
+// T^2 k E loads: 98304 at deepseek-moe-16b's prefill group (T 16, k 6,
+// E 64), 1.1e8 at a group of 30000 tokens at k 8 (T 469).
 // The walk spreads the tile's (rank, 32-token segment) pairs over all the
 // block's warps: __match_any_sync groups the lanes of a segment that picked
 // the same expert, a lane's rank among them plus the picks of that expert in
@@ -71,10 +75,11 @@
 
 namespace {
 
+constexpr int TILE = 64;           // tokens a block
+constexpr int STRIDE = TILE + 1;   // a rank's row of s_idx
 constexpr int MAX_WARPS = 32;      // route block: a warp per row of the tile
 constexpr int SLOT_THREADS = 512;  // slots block: a (rank, expert) count a thread at k E <= 512
 constexpr int MAX_CHUNKS = 12;     // E <= 384 (kimi-k2's 384 experts)
-constexpr int MAX_TILE = 256;
 
 struct Tile {
   int g, t;      // group, tile within the group
@@ -82,20 +87,20 @@ struct Tile {
   int rows;      // tokens in the tile (the last tile of a group may be short)
 };
 
-__device__ __forceinline__ Tile tile_of(int N, int R, int T) {
+__device__ __forceinline__ Tile tile_of(int N, int T) {
   Tile tile;
   tile.g = blockIdx.x / T;
   tile.t = blockIdx.x % T;
-  tile.first = static_cast<size_t>(tile.g) * N + static_cast<size_t>(tile.t) * R;
-  tile.rows = min(R, N - tile.t * R);
+  tile.first = static_cast<size_t>(tile.g) * N + static_cast<size_t>(tile.t) * TILE;
+  tile.rows = min(TILE, N - tile.t * TILE);
   return tile;
 }
 
-// Slots of one tile's picks. s_idx (k, stride): the expert of each pick,
+// Slots of one tile's picks. s_idx (k, STRIDE): the expert of each pick,
 // rank-major; base (k, E): slots claimed before the tile's rank-j picks of
 // each expert; pos: the tile's first row of the (rows, k) output.
-__device__ void assign_slots(const int* s_idx, int stride, const int* base, int rows, int E, int k,
-                             int capacity, int* pos) {
+__device__ void assign_slots(const int* s_idx, const int* base, int rows, int E, int k, int capacity,
+                             int* pos) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int warps = blockDim.x / 32;
@@ -104,7 +109,7 @@ __device__ void assign_slots(const int* s_idx, int stride, const int* base, int 
   for (int p = warp; p < k * segments; p += warps) {
     const int j = p / segments;
     const int s = p - j * segments;
-    const int* picks = s_idx + j * stride;
+    const int* picks = s_idx + j * STRIDE;
     const int n = s * 32 + lane;
     const int e = n < rows ? picks[n] : -1 - lane;  // idle lanes match no one
     const unsigned peers = __match_any_sync(0xffffffffu, e);
@@ -124,15 +129,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 moe_gating_route_kernel(const float* __restrict__ logits, int* __restrict__ idx_out,
                         float* __restrict__ gate_out, int* __restrict__ pos_out,
                         int* __restrict__ hist, int N, int E, int k, int capacity, int renormalise,
-                        int R, int T) {
+                        int T) {
   extern __shared__ int smem[];
-  const int stride = R + 1;
   int* s_count = smem;          // (k, E): the tile's picks of rank j per expert
-  int* s_idx = smem + k * E;    // (k, R + 1): the expert of every pick, rank-major
+  int* s_idx = smem + k * E;    // (k, STRIDE): the expert of every pick, rank-major
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int warps = blockDim.x / 32;
-  const Tile tile = tile_of(N, R, T);
+  const Tile tile = tile_of(N, T);
   for (int i = threadIdx.x; i < k * E; i += blockDim.x) s_count[i] = 0;
   __syncthreads();
 
@@ -188,7 +192,7 @@ moe_gating_route_kernel(const float* __restrict__ logits, int* __restrict__ idx_
     }
     if (lane < k) {  // lane j holds pick j
       atomicAdd(&s_count[lane * E + my_idx], 1);
-      s_idx[lane * stride + r] = my_idx;
+      s_idx[lane * STRIDE + r] = my_idx;
       idx_out[n * k + lane] = my_idx;
       gate_out[n * k + lane] = renormalise ? my_gate / fmaxf(total, 1e-9f) : my_gate;
     }
@@ -210,19 +214,18 @@ moe_gating_route_kernel(const float* __restrict__ logits, int* __restrict__ idx_
     }
   }
   __syncthreads();
-  assign_slots(s_idx, stride, s_count, tile.rows, E, k, capacity, pos_out + tile.first * k);
+  assign_slots(s_idx, s_count, tile.rows, E, k, capacity, pos_out + tile.first * k);
 }
 
 __global__ void __launch_bounds__(SLOT_THREADS)
 moe_gating_slots_kernel(const int* __restrict__ idx, const int* __restrict__ hist,
-                        int* __restrict__ pos_out, int N, int E, int k, int capacity, int R, int T) {
+                        int* __restrict__ pos_out, int N, int E, int k, int capacity, int T) {
   extern __shared__ int smem[];
-  const int stride = R + 1;
   const int kE = k * E;
-  int* s_idx = smem;                  // (k, R + 1): the tile's picks, rank-major
-  int* s_total = s_idx + k * stride;  // (k, E): the group's picks of rank j per expert
+  int* s_idx = smem;                  // (k, STRIDE): the tile's picks, rank-major
+  int* s_total = s_idx + k * STRIDE;  // (k, E): the group's picks of rank j per expert
   int* s_base = s_total + kE;         // (k, E): slots claimed before the tile's rank-j picks
-  const Tile tile = tile_of(N, R, T);
+  const Tile tile = tile_of(N, T);
   const int* h = hist + static_cast<size_t>(tile.g) * T * kE;
   for (int i = threadIdx.x; i < kE; i += blockDim.x) {
     int before = 0, total = 0;
@@ -237,7 +240,7 @@ moe_gating_slots_kernel(const int* __restrict__ idx, const int* __restrict__ his
   }
   const int* tile_idx = idx + tile.first * k;
   for (int i = threadIdx.x; i < tile.rows * k; i += blockDim.x)
-    s_idx[(i % k) * stride + i / k] = tile_idx[i];
+    s_idx[(i % k) * STRIDE + i / k] = tile_idx[i];
   __syncthreads();
   for (int i = threadIdx.x; i < kE; i += blockDim.x) {
     const int j = i / E;
@@ -247,10 +250,10 @@ moe_gating_slots_kernel(const int* __restrict__ idx, const int* __restrict__ his
     s_base[i] = b;
   }
   __syncthreads();
-  assign_slots(s_idx, stride, s_base, tile.rows, E, k, capacity, pos_out + tile.first * k);
+  assign_slots(s_idx, s_base, tile.rows, E, k, capacity, pos_out + tile.first * k);
 }
 
-using RouteKernel = void (*)(const float*, int*, float*, int*, int*, int, int, int, int, int, int, int);
+using RouteKernel = void (*)(const float*, int*, float*, int*, int*, int, int, int, int, int, int);
 
 RouteKernel route_kernel(int E) {
   switch ((E + 31) / 32) {
@@ -265,66 +268,66 @@ RouteKernel route_kernel(int E) {
   return nullptr;
 }
 
-bool valid(int G, int N, int E, int k, int tile) {
+int tiles(int N) { return (N + TILE - 1) / TILE; }
+
+bool valid(int G, int N, int E, int k) {
   return G > 0 && N > 0 && E > 0 && E <= 32 * MAX_CHUNKS && k >= 1 && k <= E && k <= 32 &&
-         tile >= 1 && tile <= MAX_TILE &&
-         static_cast<long long>(G) * ((N + tile - 1) / tile) <= INT_MAX &&
-         static_cast<long long>(N) * k <= INT_MAX;
+         static_cast<long long>(G) * tiles(N) <= INT_MAX && static_cast<long long>(N) * k <= INT_MAX;
 }
 
-int route_threads(int N, int R) { return 32 * std::min(MAX_WARPS, std::min(R, N)); }
-size_t route_smem(int E, int k, int R) { return static_cast<size_t>(k) * (E + R + 1) * sizeof(int); }
-size_t slots_smem(int E, int k, int R) { return static_cast<size_t>(k) * (R + 1 + 2 * E) * sizeof(int); }
+int route_threads(int N) { return 32 * std::min(MAX_WARPS, std::min(TILE, N)); }
+size_t route_smem(int E, int k) { return static_cast<size_t>(k) * (E + STRIDE) * sizeof(int); }
+size_t slots_smem(int E, int k) { return static_cast<size_t>(k) * (STRIDE + 2 * E) * sizeof(int); }
 
 }  // namespace
 
 // logits (G, N, E) f32 contiguous; idx, gate, pos (G, N, k) int32 / f32 /
-// int32 contiguous; hist (G, ceil(N / tile), k, E) int32 scratch, unused
-// (may be null) when N <= tile. 1 <= k <= min(E, 32), E <= 384,
-// 1 <= tile <= 256, capacity >= 0, N k within int. Launches the route kernel
+// int32 contiguous; hist (G, ceil(N / 64), k, E) int32 scratch, unused
+// (may be null) when N <= 64. 1 <= k <= min(E, 32), E <= 384, capacity >= 0,
+// N k within int. Launches the route kernel
 // and, when a group has more than one tile, the slots kernel. Returns the
 // CUDA error of the launches (0 when they were accepted).
 extern "C" int repro_moe_gating_fwd(const void* logits, void* idx, void* gate, void* pos, void* hist,
                                     int G, int N, int E, int k, int capacity, int renormalise,
-                                    int tile, void* stream) {
-  if (!valid(G, N, E, k, tile) || capacity < 0) return cudaErrorInvalidValue;
-  const int T = (N + tile - 1) / tile;
+                                    void* stream) {
+  if (!valid(G, N, E, k) || capacity < 0) return cudaErrorInvalidValue;
+  const int T = tiles(N);
   if (T > 1 && hist == nullptr) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto* i = static_cast<int*>(idx);
   auto* p = static_cast<int*>(pos);
   auto* h = static_cast<int*>(hist);
   RouteKernel route = route_kernel(E);
-  const size_t smem = route_smem(E, k, tile);
+  const size_t smem = route_smem(E, k);
   cudaError_t err = cudaFuncSetAttribute(route, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  route<<<G * T, route_threads(N, tile), smem, s>>>(static_cast<const float*>(logits), i,
-                                                    static_cast<float*>(gate), p, h, N, E, k,
-                                                    capacity, renormalise, tile, T);
+  route<<<G * T, route_threads(N), smem, s>>>(static_cast<const float*>(logits), i,
+                                              static_cast<float*>(gate), p, h, N, E, k, capacity,
+                                              renormalise, T);
   err = cudaGetLastError();
   if (err != cudaSuccess || T == 1) return err;
-  const size_t smem2 = slots_smem(E, k, tile);
+  const size_t smem2 = slots_smem(E, k);
   err = cudaFuncSetAttribute(moe_gating_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return err;
-  moe_gating_slots_kernel<<<G * T, SLOT_THREADS, smem2, s>>>(i, h, p, N, E, k, capacity, tile, T);
+  moe_gating_slots_kernel<<<G * T, SLOT_THREADS, smem2, s>>>(i, h, p, N, E, k, capacity, T);
   return cudaGetLastError();
 }
 
-// The launches for one group of N tokens over E experts at top-k k and the
-// given tile: out[0] tiles a group, then for the route kernel out[1] threads
+// The launches for one group of N tokens over E experts at top-k k: out[0]
+// tiles a group, then for the route kernel out[1] threads
 // per block, out[2] dynamic shared memory in bytes, out[3] registers a
 // thread, out[4] blocks resident per SM on the current device (the occupancy
 // calculator's answer), and out[5..8] the same for the slots kernel (which
 // runs only when out[0] > 1). Returns the CUDA error.
-extern "C" int repro_moe_gating_config(int N, int E, int k, int tile, int* out) {
-  if (!valid(1, N, E, k, tile)) return cudaErrorInvalidValue;
-  out[0] = (N + tile - 1) / tile;
+extern "C" int repro_moe_gating_config(int N, int E, int k, int* out) {
+  if (!valid(1, N, E, k)) return cudaErrorInvalidValue;
+  out[0] = tiles(N);
   const void* kernels[2] = {reinterpret_cast<const void*>(route_kernel(E)),
                             reinterpret_cast<const void*>(moe_gating_slots_kernel)};
-  const int threads[2] = {route_threads(N, tile), SLOT_THREADS};
-  const size_t smem[2] = {route_smem(E, k, tile), slots_smem(E, k, tile)};
+  const int threads[2] = {route_threads(N), SLOT_THREADS};
+  const size_t smem[2] = {route_smem(E, k), slots_smem(E, k)};
   for (int w = 0; w < 2; ++w) {
     cudaError_t err = cudaFuncSetAttribute(kernels[w], cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem[w]));

@@ -1018,20 +1018,22 @@ def test_moe_gating_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [1, 32, 64, 128, 256])
-def test_moe_gating_kernel_any_tile_follows_its_emulation(tile, monkeypatch):
-    """At every tile the kernels take, groups of one and of several tiles
-    (N off the tile, drops) give the emulation's and the plain version's
-    idx, pos and gate."""
+@pytest.mark.parametrize("shape", [(2, 300, 64, 6, 30), (3, 100, 160, 8, 13), (1, 8, 64, 6, 4)])
+def test_moe_gating_kernel_follows_its_emulation(shape):
+    """Groups of several tiles (N off the tile, several 32-token segments a
+    tile, drops) and of one tile give the emulation's idx, pos and gate at
+    the library's tile, and its slots kernel runs exactly when a group spans
+    more than one tile."""
     _need_card()
-    monkeypatch.setattr(tgate, "TILE", tile)
-    for G, N, E, k, cap in ((2, 300, 64, 6, 30), (3, 100, 160, 8, 13), (1, 8, 64, 6, 4)):
-        x = torch.from_numpy(router_logits(26, G, N, E, skew=1.0))
-        idx, gate, pos = ops.moe_gating(x.cuda(), top_k=k, capacity=cap)
-        want_idx, want_gate, want_pos, _ = emulate_moe_gating_kernel(x, k, cap, tile)
-        torch.testing.assert_close(idx.cpu(), want_idx, rtol=0, atol=0)
-        torch.testing.assert_close(pos.cpu(), want_pos, rtol=0, atol=0)
-        torch.testing.assert_close(gate.cpu(), want_gate, rtol=0, atol=1e-6)
+    G, N, E, k, cap = shape
+    x = torch.from_numpy(router_logits(26, G, N, E, skew=1.0))
+    before = tgate.slots_launches
+    idx, gate, pos = ops.moe_gating(x.cuda(), top_k=k, capacity=cap)
+    assert tgate.slots_launches == before + (N > tgate.TILE)
+    want_idx, want_gate, want_pos, _ = emulate_moe_gating_kernel(x, k, cap, tgate.TILE)
+    torch.testing.assert_close(idx.cpu(), want_idx, rtol=0, atol=0)
+    torch.testing.assert_close(pos.cpu(), want_pos, rtol=0, atol=0)
+    torch.testing.assert_close(gate.cpu(), want_gate, rtol=0, atol=1e-6)
 
 
 @pytest.mark.gpu
