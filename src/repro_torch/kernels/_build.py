@@ -37,6 +37,8 @@ SIGNATURES = {
     "repro_rmsnorm_fwd": [_P, _P, _P, _LL, _I, _I, _F, _P],
     # a, b, h0, y, h_out, B, T, W, is_bf16, stream
     "repro_lru_scan_fwd": [_P, _P, _P, _P, _P, *[_I] * 4, _P],
+    # B, T, W, is_bf16, misalign, out (9 ints)
+    "repro_lru_scan_config": [*[_I] * 5, _P],
     # r, k, v, w, u, s0, y, s_out, B, H, T, d, is_bf16, stream
     "repro_wkv6_fwd": [*[_P] * 8, *[_I] * 5, _P],
     # d, is_bf16, out (5 ints)

@@ -351,6 +351,138 @@ def test_plain_lru_any_length_and_bf16_match_jax_oracle(jx):
     np.testing.assert_allclose(got_h.float().numpy(), np.asarray(want_h, np.float32), atol=0.05)
 
 
+# The LRU kernel's launch rule (csrc/rglru_scan.cu: TILES, STAGES, IN_FLIGHT,
+# STEP_ALIGN) on an H100's 132 SMs, without the shared-memory cap that no
+# shape here reaches; test_lru_scan_launch_config holds it to the library's
+# report on the card.
+LRU_STAGES = 3
+LRU_IN_FLIGHT = 4 << 20
+LRU_STEP_ALIGN = 16
+H100_SMS = 132
+
+
+def lru_plan(B, T, W, elt, sms=H100_SMS):
+    """(WT, D) of a (B, T, W) call with elt-byte inputs: the widest tile of
+    128, 64, 32, 16 channels that gives every SM a block, and the steps a ring
+    stage such that LRU_STAGES - 1 stages of the whole grid hold
+    LRU_IN_FLIGHT bytes of a and b, no more than T needs."""
+    tile = next((wt for wt in (128, 64, 32, 16) if B * -(-W // wt) >= sms), 16)
+
+    def up(x):
+        return -(-x // LRU_STEP_ALIGN) * LRU_STEP_ALIGN
+
+    steps = up(-(-LRU_IN_FLIGHT // (2 * B * W * elt * (LRU_STAGES - 1))))
+    return tile, max(LRU_STEP_ALIGN, min(steps, up(max(T, 1))))
+
+
+def emulate_lru_kernel(a, b, h0, WT, D, stages=LRU_STAGES):
+    """The LRU kernel's data movement on the CPU. Per batch row and tile of
+    WT channels, a ring of ``stages`` slots of D steps; stage c is copied
+    into slot c % stages ``stages - 1`` stages before the chain reads it, with
+    zeros past W and past T; every channel's chain runs h = a h + b (f32
+    product, then f32 sum) from its slot and stops at T. A chain that read a
+    step past T or a copy that missed a row would show in y or h_final.
+    Returns (h_seq in a's dtype, h_final f32)."""
+    B, T, W = a.shape
+    tiles, n_stages = -(-W // WT), -(-T // D)
+    rings = [torch.zeros((stages, B, tiles, D, WT), dtype=a.dtype) for _ in range(2)]
+
+    def issue(c):
+        if c >= n_stages:
+            return
+        rows = min(D, T - c * D)
+        for ring, x in zip(rings, (a, b)):
+            padded = torch.zeros((B, rows, tiles * WT), dtype=x.dtype)
+            padded[..., :W] = x[:, c * D : c * D + rows]
+            ring[c % stages].zero_()
+            ring[c % stages][:, :, :rows] = padded.unflatten(-1, (tiles, WT)).transpose(1, 2)
+
+    h = torch.zeros((B, tiles * WT))
+    h[:, :W] = h0.float()
+    h = h.unflatten(-1, (tiles, WT))
+    ys = torch.zeros((B, T, tiles, WT))
+    for c in range(stages - 1):
+        issue(c)
+    for c in range(n_stages):
+        issue(c + stages - 1)  # into slot (c - 1) % stages, which the chain has left
+        ring_a, ring_b = (ring[c % stages] for ring in rings)
+        for t in range(min(D, T - c * D)):
+            h = ring_a[:, :, t].float() * h + ring_b[:, :, t].float()
+            ys[:, c * D + t] = h
+    return ys.flatten(2)[..., :W].to(a.dtype), h.flatten(1)[:, :W]
+
+
+# the shapes chip_smoke.py times K3 at: (B, T, W, bytes an element)
+LRU_SERVED = {"griffin_prefill": (8, 2304, 2560, 4), "griffin_prefill_b1": (1, 2304, 2560, 4),
+              "griffin_prefill_s256": (8, 256, 2560, 4), "bf16_ragged": (4, 1001, 2500, 2)}
+
+
+def test_lru_plan_fills_the_card_in_one_wave():
+    """At each served shape the rule gives at least one block per SM and at
+    least 4 MB of a and b in flight; the tiles and depths the emulation
+    tests below use."""
+    plans = {name: lru_plan(*shape) for name, shape in LRU_SERVED.items()}
+    assert plans == {"griffin_prefill": (128, 16), "griffin_prefill_b1": (16, 112),
+                     "griffin_prefill_s256": (128, 16), "bf16_ragged": (64, 64)}
+    for name, (B, T, W, elt) in LRU_SERVED.items():
+        WT, D = plans[name]
+        assert B * -(-W // WT) >= H100_SMS, name
+        assert 2 * B * W * elt * (LRU_STAGES - 1) * D >= LRU_IN_FLIGHT, name
+
+
+def lru_emulation_cases():
+    """(B, T, W, dtype, WT, D): each served shape's (WT, D) at a small B, with
+    W two tiles and 3 channels (a ragged last tile) and T three stages and 5
+    steps (a ragged last stage); T of 0, 1, D - 1, D and D + 1; bf16 at odd W."""
+    cases = {}
+    for name, (B, T, W, elt) in LRU_SERVED.items():
+        WT, D = lru_plan(B, T, W, elt)
+        cases[name] = (2, 3 * D + 5, 2 * WT + 3, torch.bfloat16 if elt == 2 else torch.float32, WT, D)
+    for T in (0, 1, 7, 8, 9):
+        cases[f"T{T}"] = (2, T, 37, torch.float32, 16, 8)
+    cases["bf16_odd_w"] = (2, 37, 99, torch.bfloat16, 32, 8)
+    return cases
+
+
+LRU_EMULATION_CASES = lru_emulation_cases()
+
+
+@pytest.mark.parametrize("case", sorted(LRU_EMULATION_CASES))
+def test_lru_kernel_emulation_equals_plain_to_the_bit(case):
+    B, T, W, dtype, WT, D = LRU_EMULATION_CASES[case]
+    a, b, h0 = map(torch.from_numpy, lru_inputs(30, B, T, W))
+    a, b = a.to(dtype), b.to(dtype)
+    got_h, got_last = emulate_lru_kernel(a, b, h0, WT, D)
+    want_h, want_last = ref.lru_ref(a, b, h0)
+    assert got_h.dtype == dtype and got_h.shape == (B, T, W)
+    assert torch.equal(got_h, want_h) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.parametrize("served", sorted(LRU_SERVED))
+@pytest.mark.parametrize("case", sorted(LRU_CASES))
+def test_lru_kernel_emulation_matches_jax(jx, case, served):
+    """At each served shape's (WT, D): within the LRU limit of lru_pallas in
+    interpret mode (through the reference's ops.lru_scan) and of its oracle."""
+    a, b, h0 = lru_inputs(31, *LRU_CASES[case])
+    got_h, got_last = emulate_lru_kernel(*map(torch.from_numpy, (a, b, h0)), *lru_plan(*LRU_SERVED[served]))
+    ja, jb, jh = map(jx.jnp.asarray, (a, b, h0))
+    for want_h, want_last in (jx.ops.lru_scan(ja, jb, jh, use_pallas=True), jx.lru_ref(ja, jb, jh)):
+        np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), atol=1e-5, rtol=1e-5)
+
+
+def test_lru_kernel_emulation_bf16_odd_width_matches_jax(jx):
+    """bf16 at odd W (the plain-load path): y within one bf16 rounding step of
+    the JAX oracle's, h_final within the LRU limit."""
+    a, b, h0 = lru_inputs(32, 2, 37, 99)
+    bf = jx.jnp.bfloat16
+    got_h, got_last = emulate_lru_kernel(torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16(),
+                                         torch.from_numpy(h0), 32, 8)
+    want_h, want_last = jx.lru_ref(jx.jnp.asarray(a, bf), jx.jnp.asarray(b, bf), jx.jnp.asarray(h0))
+    np.testing.assert_allclose(got_h.float().numpy(), np.asarray(want_h, np.float32), atol=0.05, rtol=2**-7)
+    np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), atol=1e-5, rtol=1e-5)
+
+
 # name: (B, H, T, d); T % 64 == 0 where the Pallas kernel runs
 WKV_CASES = {"smoke": (2, 4, 64, 16), "two_chunks": (1, 2, 128, 32), "head64": (1, 2, 64, 64)}
 
@@ -839,9 +971,13 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.parametrize(
     "shape,dtype",
     [((8, 2304, 2560), torch.float32), ((2, 37, 100), torch.float32), ((3, 129, 256), torch.bfloat16),
-     ((1, 0, 64), torch.float32)],
+     ((1, 0, 64), torch.float32), ((2, 37, 99), torch.bfloat16), ((1, 2304, 2560), torch.float32),
+     ((8, 256, 2560), torch.float32), ((4, 1001, 2500), torch.bfloat16), ((2, 37, 99), torch.float32)],
 )
 def test_lru_scan_kernel_matches_plain(shape, dtype):
+    """Within the LRU limit and to the bit, one launch a call: the served
+    shapes, each copy path (16-byte rows; 4-byte bf16 rows at W 2500 and f32
+    rows at W 99; 2-byte bf16 rows at W 99) and T 0."""
     _need_card()
     a, b, h0 = (torch.from_numpy(x).to("cuda") for x in lru_inputs(14, *shape))
     a, b = a.to(dtype), b.to(dtype)
@@ -853,6 +989,73 @@ def test_lru_scan_kernel_matches_plain(shape, dtype):
     tol = dict(atol=0.05, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(got_h.float(), want_h.float(), **tol)
     torch.testing.assert_close(got_last, want_last, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got_h, want_h) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,offset,path", [(torch.float32, 1, 4), (torch.bfloat16, 2, 4),
+                                               (torch.bfloat16, 1, 2), (torch.float32, 4, 16)])
+def test_lru_scan_kernel_copy_path_follows_the_pointers(dtype, offset, path):
+    """Contiguous views that start ``offset`` elements into their storage:
+    the library picks the copy path the pointers allow, and the kernel is
+    still exact at a tile and stage edge."""
+    _need_card()
+    B, T, W = 2, 45, 136
+    views = []
+    for x in lru_inputs(18, B, T, W)[:2]:
+        buf = torch.zeros(B * T * W + offset, device="cuda", dtype=dtype)
+        buf[offset:] = torch.from_numpy(x).to("cuda").to(dtype).flatten()
+        views.append(buf[offset:].view(B, T, W))
+    a, b = views
+    h0 = torch.from_numpy(lru_inputs(18, B, T, W)[2]).to("cuda")
+    misalign = (a.data_ptr() | b.data_ptr()) % 16
+    assert tlru.launch_config(B, T, W, dtype, misalign)["copy_bytes"] == path
+    got_h, got_last = ops.lru_scan(a, b, h0)
+    want_h, want_last = ref.lru_ref(a, b, h0)
+    assert torch.equal(got_h, want_h) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("served", sorted(LRU_SERVED))
+def test_lru_scan_kernel_stage_edges(served):
+    """At each served shape's tile and stage depth: T of 1, D - 1, D, D + 1
+    (and W off the tile) equal the plain version to the bit."""
+    _need_card()
+    B, _, W, elt = LRU_SERVED[served]
+    dtype = torch.bfloat16 if elt == 2 else torch.float32
+    for T in (1, LRU_STEP_ALIGN - 1, LRU_STEP_ALIGN, LRU_STEP_ALIGN + 1):
+        D = tlru.launch_config(B, T, W, dtype)["steps"]
+        for t in sorted({T, D - 1, D, D + 1} - {0}):
+            a, b, h0 = (torch.from_numpy(x).to("cuda") for x in lru_inputs(19, B, t, W))
+            a, b = a.to(dtype), b.to(dtype)
+            got_h, got_last = ops.lru_scan(a, b, h0)
+            want_h, want_last = ref.lru_ref(a, b, h0)
+            assert torch.equal(got_h, want_h) and torch.equal(got_last, want_last), (served, t, D)
+
+
+@pytest.mark.gpu
+def test_lru_scan_launch_config():
+    """The library's launch at each served shape: the tile and depth of
+    lru_plan (at the card's SM count), one wave (every block resident at
+    once), at least 4 MB of a and b in flight, a ring that fits its blocks'
+    SM, and the copy path each alignment allows."""
+    _need_card()
+    for name, (B, T, W, elt) in LRU_SERVED.items():
+        dtype = torch.bfloat16 if elt == 2 else torch.float32
+        c = tlru.launch_config(B, T, W, dtype)
+        assert (c["tile"], c["steps"]) == lru_plan(B, T, W, elt, sms=c["sms"]), (name, c)
+        assert c["stages"] == LRU_STAGES, (name, c)
+        assert c["blocks"] == B * -(-W // c["tile"]) >= c["sms"], (name, c)
+        assert c["blocks"] <= c["blocks_per_sm"] * c["sms"], (name, c)
+        assert c["in_flight_bytes"] >= LRU_IN_FLIGHT, (name, c)
+        assert c["smem_bytes"] == 2 * LRU_STAGES * c["steps"] * c["tile"] * elt, (name, c)
+        assert c["threads"] == max(128, c["tile"]), (name, c)
+    f32, bf16 = torch.float32, torch.bfloat16
+    paths = {(8, 2560, f32, 0): 16, (4, 2500, bf16, 0): 4, (2, 99, bf16, 0): 2, (2, 99, f32, 0): 4,
+             (2, 136, f32, 4): 4, (2, 136, bf16, 4): 4, (2, 136, bf16, 2): 2, (2, 136, bf16, 6): 2,
+             (2, 136, bf16, 0): 16}
+    for (B, W, dtype, misalign), path in paths.items():
+        assert tlru.launch_config(B, 100, W, dtype, misalign)["copy_bytes"] == path, (B, W, dtype, misalign)
 
 
 # The kernel's edges: T of one token, one short of a chunk, one chunk, one
