@@ -29,11 +29,23 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    decode-equals-forward law at full width and the card against the CPU on
    a small model of each family, then trace one batch with torch.profiler
    (device busy share, each of the port's kernels' share of the prefill's
-   device time, and the ops that take the most device time).
+   device time, and the ops that take the most device time);
+5. training: train nbi-100m at full width and depth through
+   ``repro_torch.launch.train`` (global batch 8 x 512 tokens, 30 AdamW steps
+   with cosine warmup, the port's data pipeline, seeded weights drawn on the
+   card) with the launch counters set to 0 just before and read just after:
+   every forward's 12 attentions through the f32 tensor-core (3xTF32)
+   flash-attention kernel and its 25 norms through the RMSNorm kernel, the
+   backward (the plain path recomputed) through neither; the loss must fall.
+   Then train tok/s, step ms and peak memory, one step traced with
+   torch.profiler (device busy share, K1's and K2's shares, top ops), one
+   train step of a small model on the card against the CPU, and resume
+   equivalence: 2N straight steps against N steps, a checkpoint, a fresh
+   restore and N more, bitwise under ``torch.use_deterministic_algorithms``.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
-and 4 at smoke size on the CPU through the plain versions, to check the
+to 5 at smoke size on the CPU through the plain versions, to check the
 script's control flow without a card; it prints no device result.
 """
 
@@ -41,15 +53,22 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import filecmp
 import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+# cuBLAS reads its workspace setting when its first handle is made; the
+# resume check of phase 5 runs under torch.use_deterministic_algorithms, which
+# needs one of the two fixed settings. 8 x 4 MiB is PyTorch's default on Hopper.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
@@ -63,10 +82,16 @@ from repro_torch.kernels import moe_gating as gating_kernel  # noqa: E402
 from repro_torch.kernels import rglru_scan as lru_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data import make_train_loader  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, device_name, pad_cache_to  # noqa: E402
+from repro_torch.launch.train import build_argparser as train_argparser  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import rglru as rg  # noqa: E402
-from repro_torch.models.common import map_defs  # noqa: E402
+from repro_torch.models.common import map_defs, tree_leaves  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.optim import cosine_warmup, make_optimizer  # noqa: E402
+from repro_torch.training import init_train_state, make_train_step  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # dense rates without sparsity, f32 outside the tensor cores, TF32 on them.
@@ -835,6 +860,223 @@ def card_matches_cpu(arch: str) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: training
+# ---------------------------------------------------------------------------
+
+# global batch, sequence, steps, warmup of the main train run, and batch,
+# sequence and N of the resume check (2N straight against N + restore + N):
+# at full size and in the CPU rehearsal
+TRAIN_RUN = {True: ((8, 512, 30, 10), (4, 128, 3)), False: ((4, 32, 12, 4), (2, 16, 2))}
+TRAIN_ARCH = "nbi-100m"
+# the small model of the card-against-CPU train step: SMALL_MODELS' nbi-100m
+# (head dim 64, so that K1 runs), one AdamW step at a constant lr
+TRAIN_SMALL_LR = 1e-3
+
+
+def train_args(device, full: bool, *argv):
+    return train_argparser().parse_args(
+        ["--arch", TRAIN_ARCH, "--device", device.type, *map(str, argv), *([] if full else ["--smoke"])])
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Each step's forward: L attentions through K1 and 2L+1 norms through
+    K2; the backward recomputes the plain path and launches nothing; with
+    remat every recomputed block adds its attention and two norms."""
+    fa = {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
+          fa_kernel.F32_SIMT: "flash_attention"}[fa_kernel.kernel_kind(getattr(torch, cfg.dtype),
+                                                                      cfg.resolved_head_dim, cfg.resolved_head_dim)]
+    blocks = cfg.n_layers * (2 if cfg.remat != "none" else 1)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({fa: blocks * steps, "rmsnorm": (2 * blocks + 1) * steps})
+    return want
+
+
+def train_path(device, full: bool) -> dict:
+    """Train nbi-100m through the launcher with the launch counters set to 0
+    just before and read just after; then the step trace, the card against
+    the CPU and resume equivalence. Returns the launches of each kernel."""
+    (batch, seq, steps, warmup), _ = TRAIN_RUN[full]
+    cfg = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
+    held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    stamps = []
+    for module, count in COUNTERS.values():
+        setattr(module, count, 0)
+    t0 = time.perf_counter()
+    result = train(train_args(device, full, "--steps", steps, "--global-batch", batch, "--seq", seq,
+                              "--warmup", warmup, "--log-every", 1),
+                   on_metrics=lambda m: stamps.append(time.perf_counter()))
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
+    want = expected_train_launches(cfg, steps) if device.type == "cuda" else dict.fromkeys(COUNTERS, 0)
+    say(f"[train] {cfg.name}: L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} hd={cfg.resolved_head_dim} "
+        f"F={cfg.d_ff} V={build_model(cfg).cfg.vocab_size} {cfg.dtype} remat={cfg.remat} | "
+        f"{cfg.param_count() / 1e6:.1f}M parameters | {cfg.optimizer}, cosine warmup {warmup} | "
+        f"{steps} steps of {batch} x {seq} tokens | launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} training: kernel launches {launches} != expected {want}")
+    losses = [m["loss"] for m in result["metrics"]]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} training: the loss did not fall: {losses}")
+    step_ms = np.diff(stamps[2:]) * 1e3  # the first steps warm up the allocator and library handles
+    med = float(np.median(step_ms))
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device)
+        memory = (f"max_memory_allocated {peak / 2**20:.1f} MiB ({held_before / 2**20:.1f} MiB held before "
+                  f"the run)")
+    else:
+        memory = "max_memory_allocated not measured (cpu)"
+    say(f"[train] {cfg.name} on {device_name(device)}: wall {wall:.3f}s for {steps} steps | loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} | step ms median {med:.3f} (min {step_ms.min():.3f}, max "
+        f"{step_ms.max():.3f}, steps 4 to {steps}) = {batch * seq / med * 1e3:.1f} tok/s | {memory}")
+    free(device)
+    trace_train_step(device, cfg, batch, seq, med)
+    free(device)
+    if full:
+        train_card_matches_cpu()
+    resume_equivalence(device, full)
+    free(device)
+    return launches
+
+
+def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
+    """One train step (after two warm-up steps) under torch.profiler: device
+    busy time against the host's wall time under the profiler and against
+    ``step_ms``, the median step without it; K1's and K2's shares of the
+    step's device time, and the ops that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
+    state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
+    step = make_train_step(model, opt)
+    loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()} for _ in range(3)]
+    loader.close()
+    for b in batches[:2]:
+        state, metrics = step(state, b)
+    float(metrics["loss"])
+    sync(device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[2])
+        float(metrics["loss"])
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        say(f"[trace] train step {batch}x{seq}: wall {wall_ms:.3f}ms under the profiler; no kernel recorded: "
+            "device busy share not measured")
+        return
+    say(f"[trace] train step {batch}x{seq}: wall {wall_ms:.3f}ms under the profiler, device busy {busy:.3f}ms "
+        f"= {100 * busy / wall_ms:.1f}%; {100 * busy / step_ms:.1f}% of the median step without the profiler "
+        f"({step_ms:.3f}ms)")
+    ours = {name: sum(e.self_device_time_total for e in kernels if part in e.key) / 1e3
+            for name, part in TRACE_NAMES.items()}
+    say("[trace] train step device time in the port's kernels: " + (", ".join(
+        f"{name} {ms:.3f}ms ({100 * ms / busy:.1f}%)" for name, ms in ours.items() if ms) or "none"))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        dev = e.self_device_time_total / 1e3
+        say(f"[trace]   {e.key[:72]:72s} calls {e.count:5d} device {dev:9.3f}ms ({100 * dev / busy:5.1f}%)")
+
+
+def train_card_matches_cpu() -> None:
+    """One AdamW step of the small nbi-100m model from the same host-drawn
+    weights and batch on the card and on the CPU.
+
+    Tolerances. Loss rtol 1e-5 and grad_norm rtol 1e-4: K1's 3xTF32 products
+    keep about 22 bits (atol 2e-5 on attention outputs) and the f32 GEMMs
+    sum in other orders. The clipped gradients, read from the new first
+    moment m = 0.1 g, within 1e-4 of each leaf's largest. The new params:
+    Adam's first step moves an entry by lr g / (|g| + eps), which two
+    gradients g1, g2 change by at most lr |g1 - g2| / (max(|g1|, |g2|) +
+    eps), so each entry may differ by that (from the two runs' own g) plus
+    1e-6: tight where a gradient is well above its rounding, loose only where
+    it is at its noise floor."""
+    overrides, _ = SMALL_MODELS[TRAIN_ARCH]
+    cfg = get_smoke_config(TRAIN_ARCH).replace(**overrides)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", lr=TRAIN_SMALL_LR)
+    host_params = model.init(torch.Generator().manual_seed(3), "cpu")
+    loader = make_train_loader(model.cfg.vocab_size, 4, 64, seed=5)
+    host_batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
+    loader.close()
+    outs = {}
+    for name in ("cuda", "cpu"):
+        params = map_defs(lambda t: t.to(name), host_params)
+        state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32, device=name)}
+        new_state, metrics = make_train_step(model, opt)(state, {k: v.to(name) for k, v in host_batch.items()})
+        outs[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                      {p: t.cpu() for p, t in tree_leaves(new_state["params"])},
+                      {p: t.cpu() / 0.1 for p, t in tree_leaves(new_state["opt"]["m"])})
+    (loss_c, gn_c, p_c, g_c), (loss_h, gn_h, p_h, g_h) = outs["cuda"], outs["cpu"]
+    g_err = max(float((g_c[k] - g_h[k]).abs().max() / g_h[k].abs().max().clamp_min(1e-30)) for k in g_h)
+    p_excess = max(float(((p_c[k] - p_h[k]).abs()
+                          - TRAIN_SMALL_LR * (g_c[k] - g_h[k]).abs()
+                          / (torch.maximum(g_c[k].abs(), g_h[k].abs()) + 1e-8)).max()) for k in p_h)
+    p_err = max(float((p_c[k] - p_h[k]).abs().max()) for k in p_h)
+    say(f"[train] small dense model ({TRAIN_ARCH} smoke, {overrides}), one AdamW step, card against CPU: "
+        f"loss {loss_c:.7f} / {loss_h:.7f}, grad_norm {gn_c:.7f} / {gn_h:.7f}, clipped grads max err "
+        f"{g_err:.3e} of each leaf's largest (tolerance 1e-4), params max abs err {p_err:.3e}, past the "
+        f"Adam bound by at most {p_excess:.3e} (tolerance 1e-6)")
+    if abs(loss_c - loss_h) > 1e-5 * abs(loss_h) or abs(gn_c - gn_h) > 1e-4 * abs(gn_h):
+        raise AssertionError(f"train step: loss or grad_norm disagree: {loss_c} {loss_h} {gn_c} {gn_h}")
+    if g_err > 1e-4 or p_excess > 1e-6:
+        raise AssertionError(f"train step: gradients ({g_err}) or params ({p_excess}) disagree")
+
+
+@contextlib.contextmanager
+def deterministic(device):
+    """torch.use_deterministic_algorithms on the card for the block (the
+    embedding's backward accumulates with atomics otherwise)."""
+    if device.type != "cuda":
+        yield
+        return
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def resume_equivalence(device, full: bool) -> None:
+    """2N straight steps through the launcher equal N steps, a checkpoint, a
+    fresh restore (a new train() call) and N more: the two final checkpoints'
+    manifests and leaf files are identical, byte for byte. Every step is
+    inside the default warmup of 20, where the learning rate does not depend
+    on ``--steps`` (as in the reference's own resume test)."""
+    _, (batch, seq, n) = TRAIN_RUN[full]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, deterministic(device):
+        def run(steps, name, every):
+            return train(train_args(device, full, "--steps", steps, "--global-batch", batch, "--seq", seq,
+                                    "--ckpt-dir", Path(tmp) / name, "--ckpt-every", every, "--log-every", 100))
+
+        run(2 * n, "straight", 2 * n)
+        run(n, "split", n)
+        run(2 * n, "split", n)
+        dirs = [CheckpointManager(Path(tmp) / name) for name in ("straight", "split")]
+        if [m.latest_step() for m in dirs] != [2 * n, 2 * n]:
+            raise AssertionError(f"resume: latest steps {[m.latest_step() for m in dirs]}")
+        a, b = (m.step_dir(2 * n) for m in dirs)
+        manifests = [json.loads((d / "MANIFEST.json").read_text()) for d in (a, b)]
+        if manifests[0]["leaves"] != manifests[1]["leaves"]:
+            raise AssertionError("resume: the checkpoints' manifests (shapes, dtypes, crc32s) differ")
+        differ = [r["keypath"] for r in manifests[0]["leaves"]
+                  if not filecmp.cmp(a / r["file"], b / r["file"], shallow=False)]
+        nbytes = sum((a / r["file"]).stat().st_size for r in manifests[0]["leaves"])
+    if differ:
+        raise AssertionError(f"resume: leaves differ: {differ}")
+    how = "under torch.use_deterministic_algorithms" if device.type == "cuda" else "on the CPU"
+    say(f"[train] resume equivalence ({how}): {2 * n} straight steps == {n} + checkpoint + restore + {n}, "
+        f"{len(manifests[0]['leaves'])} leaves ({nbytes / 2**20:.1f} MiB) identical byte for byte, "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -893,6 +1135,9 @@ def main(argv=None) -> int:
         if full:
             card_matches_cpu(arch)
         say(f"[serve] {arch} phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    by_path["train"] = train_path(device, full)
+    say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")
 
     kernels = [
         {"name": name, **KERNEL_INFO[name], "launches": sum(n[name] for n in by_path.values()),

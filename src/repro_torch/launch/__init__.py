@@ -1,1 +1,1 @@
-"""Entry points of the port (serving so far)."""
+"""Entry points of the port: training (:mod:`.train`) and serving (:mod:`.serve`)."""

@@ -1,6 +1,7 @@
-"""Shared model machinery of the port, the serving subset of
-``repro.models.common``: parameter definitions, seeded init, RMSNorm,
-LayerNorm, RoPE, decode attention, the causal mask, SwiGLU and GeGLU.
+"""Shared model machinery of the port (``repro.models.common``): parameter
+definitions, seeded init, nested-dict trees, RMSNorm, LayerNorm, RoPE,
+chunked and decode attention, the causal mask, SwiGLU, GeGLU and the
+cross-entropy loss.
 
 Layouts follow the reference at every public function: projections
 ``(D, H, hd)``, per-layer weights stacked on a leading ``layers`` axis, the KV
@@ -9,8 +10,8 @@ leaves; :func:`init_params` turns it into tensors. The reference draws its
 weights from ``jax.random``, so the numbers differ; parity tests copy the
 reference's weights across with :mod:`repro_torch.convert`.
 
-Left out until the training slice: ``cross_entropy``,
-``sinusoidal_positions`` and ``attention_chunked``.
+Left out: the logical sharding constraints (one card has no mesh) and
+``sinusoidal_positions``, which no model of the reference calls.
 """
 
 from __future__ import annotations
@@ -65,12 +66,31 @@ class ParamDef:
             raise ValueError(f"shape {self.shape} and logical axes {self.logical} differ in rank")
 
 
-def map_defs(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict, keys in sorted order (the
-    order in which JAX flattens a dict)."""
+def map_defs(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict (and to the matching leaves
+    of ``rest``, dicts of the same keys), keys in sorted order (the order in
+    which JAX flattens a dict)."""
     if isinstance(tree, dict):
-        return {k: map_defs(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: map_defs(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, path: str = "") -> list:
+    """(keypath, leaf) of every leaf of a nested dict in JAX's flattening
+    order; keypaths as ``jax.tree_util.keystr`` prints them (``['a']['b']``)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in tree_leaves(tree[k], f"{path}[{k!r}]")]
+    return [(path, tree)]
+
+
+def tree_unflatten(tree, leaves) -> dict:
+    """A nested dict of ``tree``'s structure holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+    out = map_defs(lambda _: next(it), tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
 
 
 def _fan_in(d: ParamDef) -> int:
@@ -145,8 +165,90 @@ def apply_rope(x, positions, theta: float = 1e4):
 
 
 # ---------------------------------------------------------------------------
-# Attention (decode path; prefill attention is ops.attention)
+# Attention: chunked (the gradient of ops.attention) and single-shot (decode)
 # ---------------------------------------------------------------------------
+
+
+def _scale_in(x, head_dim: int):
+    """x times ``head_dim**-0.5`` rounded to x's dtype, in x's dtype: the
+    reference's weak-typed product (in bf16 at head dim 128 the scale is
+    0.0883789)."""
+    return x * torch.tensor(head_dim**-0.5, dtype=x.dtype).item()
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0, q_offset=0,
+                      kv_chunk: int = 1024, logit_cap: float = 0.0):
+    """Flash-style double-blocked attention (query blocks × KV chunks) with an
+    online softmax, the reference's XLA path, differentiable by autograd.
+
+    q: (B, Hq, Sq, Dh); k: (B, Hkv, Skv, Dh); v: (B, Hkv, Skv, Dv); GQA via
+    Hq = G·Hkv. Ragged lengths are padded and masked. Causal self-attention
+    (Sq == Skv after padding, ``q_offset`` 0) visits only the KV chunks at or
+    below each query block's diagonal (and, with a window, not before it),
+    the reference's triangular schedule; otherwise every chunk. Numerics as
+    in the reference: q is multiplied by the scale rounded to its dtype, in
+    its dtype; scores, the softmax carry and the PV sum are f32; ``p`` is
+    cast to v's dtype before PV. Every tile's intermediates stay alive for
+    the backward (the reference rematerialises per block): memory is
+    O(Sq·Skv) under autograd.
+    """
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    chunk = min(kv_chunk, max(Skv, 1))
+    valid_kv = Skv
+    if Skv % chunk:  # pad ragged KV
+        pad = chunk - Skv % chunk
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        Skv += pad
+    n_kv = Skv // chunk
+    valid_q = Sq
+    qb = min(chunk, Sq)
+    if Sq % qb:
+        q = F.pad(q, (0, 0, 0, qb - Sq % qb))
+        Sq = q.shape[2]
+    n_q = Sq // qb
+
+    qg = _scale_in(q.reshape(B, Hkv, G, n_q, qb, Dh), Dh)
+    kc = k.reshape(B, Hkv, n_kv, chunk, Dh)
+    vc = v.reshape(B, Hkv, n_kv, chunk, Dv)
+    triangular = causal and Sq == Skv and not isinstance(q_offset, torch.Tensor) and q_offset == 0
+    offset = 0 if triangular else q_offset
+    outs = []
+    for qi in range(n_q):
+        lo, hi = 0, n_kv
+        if triangular:
+            hi = qi + 1
+            if window > 0:
+                lo = max(0, qi - (window + chunk - 1) // chunk)
+        q_blk = qg[:, :, :, qi].float()
+        q_pos = offset + qi * qb + torch.arange(qb, device=q.device)
+        m = torch.full((B, Hkv, G, qb), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hkv, G, qb), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hkv, G, qb, Dv), dtype=torch.float32, device=q.device)
+        for ci in range(lo, hi):
+            k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+            s = torch.einsum("bhgqd,bhcd->bhgqc", q_blk, kc[:, :, ci].float())
+            if logit_cap > 0:
+                s = logit_cap * torch.tanh(s / logit_cap)
+            mask = (k_pos[None, :] < valid_kv) & (q_pos[:, None] < valid_q + offset)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            correction = torch.exp(m - m_new)
+            l = l * correction + p.sum(dim=-1)
+            pv = torch.einsum("bhgqc,bhcd->bhgqd", p.to(v.dtype).float(), vc[:, :, ci].float())
+            acc = acc * correction[..., None] + pv
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30)[..., None])
+    out = torch.stack(outs, dim=3)  # (B, Hkv, G, n_q, qb, Dv)
+    return out.reshape(B, Hq, Sq, Dv)[:, :, :valid_q].to(q.dtype)
 
 
 def attention_single_shot(q, k, v, *, mask=None, logit_cap: float = 0.0):
@@ -162,8 +264,7 @@ def attention_single_shot(q, k, v, *, mask=None, logit_cap: float = 0.0):
     B, Hq, Sq, Dh = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
-    scale = torch.tensor(Dh**-0.5, dtype=q.dtype).item()
-    qg = (q.reshape(B, Hkv, G, Sq, Dh) * scale).float()
+    qg = _scale_in(q.reshape(B, Hkv, G, Sq, Dh), Dh).float()
     s = torch.einsum("bhgqd,bhsd->bhgqs", qg, k.float())
     if logit_cap > 0:
         s = logit_cap * torch.tanh(s / logit_cap)
@@ -200,3 +301,26 @@ def geglu(x, wg, wi, wo, dtype):
     g = torch.einsum("bsd,df->bsf", x, wg.to(dtype))
     h = torch.einsum("bsd,df->bsf", x, wi.to(dtype))
     return torch.einsum("bsf,fd->bsd", F.gelu(g, approximate="tanh") * h, wo.to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
+    """Token-level cross-entropy with z-loss over every logit given (the
+    padded vocab included). labels == -100 (any negative label) are masked
+    out. Returns (mean loss, {"ce", "accuracy"}), each a 0-dim f32 tensor."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    gold = logits.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    gold = torch.where(valid, gold, 0.0)
+    mask = valid.float()
+    ce = (lse - gold) * mask
+    zl = z_loss * lse.square() * mask
+    denom = mask.sum().clamp_min(1.0)
+    loss = (ce + zl).sum() / denom
+    acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / denom
+    return loss, {"ce": ce.sum() / denom, "accuracy": acc}

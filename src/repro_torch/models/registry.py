@@ -4,14 +4,17 @@ so far (``dense`` with GQA, ``moe``, ``rglru`` (Griffin) and ``rwkv6``).
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors:
 
+  loss_fn(params, batch)              → (scalar loss, metrics)   [train]
   prefill_fn(params, batch)           → (last logits, cache)     [prefill]
   decode_fn(params, cache, tok, pos)  → (logits, cache)          [decode]
   cache_defs_fn(batch, max_seq)       → cache layout on ``meta``
   forward_fn(params, tokens)          → logits of every position
 
 The reference's ``make_prefill_step`` / ``make_serve_step``
-(``repro/training/steps.py``) only wrap the first two with sharding rules; on
-one card there are none, so they are these functions themselves.
+(``repro/training/steps.py``) only wrap the prefill and decode functions with
+sharding rules; on one card there are none, so they are these functions
+themselves. ``loss_fn`` is ported for the dense family; the others raise
+``NotImplementedError`` from it until their training halves land.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ def padded_vocab(cfg: ArchConfig) -> int:
 class Model:
     cfg: ArchConfig
     param_defs: Any
+    loss_fn: Callable  # (params, batch) -> (loss, metrics)
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs_fn: Callable  # (batch, max_seq) -> dict of meta tensors
@@ -63,6 +67,21 @@ _FAMILIES = {
 }
 
 
+# family: loss(params, cfg, batch); the other families' training halves are
+# not ported yet
+_LOSSES = {"dense": tx.dense_loss}
+
+
+def _loss_fn(family: str, pcfg: ArchConfig) -> Callable:
+    if family in _LOSSES:
+        return lambda p, b: _LOSSES[family](p, pcfg, b)
+
+    def loss_fn(params, batch):
+        raise NotImplementedError(f"family {family!r}: the training loss is not ported yet")
+
+    return loss_fn
+
+
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has {sorted(_FAMILIES)})")
@@ -75,6 +94,7 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=pcfg,
         param_defs=param_defs(pcfg),
+        loss_fn=_loss_fn(cfg.family, pcfg),
         prefill_fn=lambda p, b: prefill(p, pcfg, b["tokens"]),
         decode_fn=lambda p, c, t, pos: decode_step(p, pcfg, c, t, pos),
         cache_defs_fn=lambda batch, seq: cache_defs(pcfg, batch, seq),

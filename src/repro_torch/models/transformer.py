@@ -1,6 +1,6 @@
-"""Dense decoder-only transformer, GQA serving path (the port of
-``repro.models.transformer`` for ``family == "dense"`` with standard or local
-attention; MLA and the visual prefix come later).
+"""Dense decoder-only transformer with GQA: training loss, prefill and
+decode (the port of ``repro.models.transformer`` for ``family == "dense"``
+with standard or local attention; MLA and the visual prefix come later).
 
 Layout conventions, as in the reference
 ---------------------------------------
@@ -9,16 +9,19 @@ Layout conventions, as in the reference
 * Projection weights are shaped (D, H, hd).
 * The KV cache is laid out (L, B, Hkv, S, hd).
 
-Every prefill attention goes through :func:`repro_torch.kernels.ops.attention`
-with compact (B, Hkv, S, hd) K/V, GQA resolved in the kernel's index; every
-RMSNorm through :func:`repro_torch.kernels.ops.rmsnorm`. Decode attention is
-plain PyTorch (:func:`.common.attention_single_shot`), as it is XLA and not
-Pallas in the reference.
+Every full-sequence attention (training and prefill) goes through
+:func:`repro_torch.kernels.ops.attention` with compact (B, Hkv, S, hd) K/V,
+GQA resolved in the kernel's index; every RMSNorm through
+:func:`repro_torch.kernels.ops.rmsnorm`. Both take their gradient by
+recomputing the plain path. Decode attention is plain PyTorch
+(:func:`.common.attention_single_shot`), as it is XLA and not Pallas in the
+reference.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.kernels import ops
 
@@ -26,6 +29,7 @@ from .common import (
     ParamDef,
     apply_rope,
     attention_single_shot,
+    cross_entropy,
     map_defs,
     rms_norm,
     swiglu,
@@ -110,7 +114,7 @@ def gqa_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
     k = apply_rope(k, positions, cfg.rope_theta).contiguous()
     # compact (B, Hkv, S, hd) K/V: the kernel maps query head h to h // G
     window = cfg.window if cfg.attention == "local" else 0
-    out = ops.attention(q, k, v, causal=True, window=window, logit_cap=cfg.logit_cap)
+    out = ops.attention(q, k, v, causal=True, window=window, logit_cap=cfg.logit_cap, kv_chunk=cfg.attn_chunk)
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
     if collect:
         return y, {"k": k, "v": v}
@@ -124,7 +128,40 @@ def dense_block(p, x, cfg: ArchConfig, positions):
 
 
 # ---------------------------------------------------------------------------
-# Forward and prefill
+# Layer-stack execution
+# ---------------------------------------------------------------------------
+
+# what ``remat="selective"`` keeps from the forward: the matmuls' outputs
+# (the reference's ``dots_with_no_batch_dims_saveable``); the rest is recomputed
+_MATMULS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default]
+
+
+def remat_wrap(fn, cfg: ArchConfig):
+    """``fn`` under ``cfg.remat`` when autograd records: ``full`` recomputes
+    the whole call in the backward, ``selective`` all but the matmuls."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "selective":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        def context_fn():
+            return create_selective_checkpoint_contexts(_MATMULS)
+    else:
+        context_fn = noop_context_fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def run_stack(blocks, x, cfg: ArchConfig, apply_block):
+    """Apply ``apply_block(layer params, x)`` over the stacked layers in order
+    (the reference's ``lax.scan``), each call under ``cfg.remat``."""
+    body = remat_wrap(apply_block, cfg)
+    for i in range(cfg.n_layers):
+        x = body(layer_params(blocks, i), x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Forward, loss and prefill
 # ---------------------------------------------------------------------------
 
 
@@ -142,10 +179,15 @@ def dense_forward(params, cfg: ArchConfig, tokens):
     """tokens: (B, S) int → logits (B, S, V)."""
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    for i in range(cfg.n_layers):
-        h = dense_block(layer_params(params["blocks"], i), h, cfg, positions)
+    h = run_stack(params["blocks"], h, cfg, lambda p, y: dense_block(p, y, cfg, positions))
     h = rms_norm(h, params["final_ln"])
     return unembed(params, cfg, h)
+
+
+def dense_loss(params, cfg: ArchConfig, batch):
+    """batch: {"tokens", "labels"} (B, S) int → (mean loss, {"ce", "accuracy"})."""
+    logits = dense_forward(params, cfg, batch["tokens"])
+    return cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
 
 
 def dense_prefill(params, cfg: ArchConfig, tokens):

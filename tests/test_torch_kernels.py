@@ -1255,3 +1255,78 @@ def test_moe_gating_launch_config():
         assert c["slots"]["smem_bytes"] == 4 * k * (R + 1 + 2 * E)
         assert c["route"]["blocks_per_sm"] >= 1 and c["slots"]["blocks_per_sm"] >= 1
     assert tgate.launch_config(1024, 64, 6)["route"]["blocks_per_sm"] >= 2
+
+
+# the train path's gradients through the autograd Functions of ops: on the
+# card the forward is the kernel, the backward the plain path recomputed
+GRAD_ATTN_CASES = {
+    # name: (B, Hq, Hkv, S, d, window, logit_cap, kv_chunk); nbi-100m's heads
+    # at two chunkings, GQA with a window, a logit cap on a ragged length
+    "nbi100m_heads": (2, 4, 4, 128, 64, 0, 0.0, 1024),
+    "nbi100m_heads_chunked": (2, 4, 4, 128, 64, 0, 0.0, 32),
+    "gqa_window": (1, 8, 2, 200, 64, 50, 0.0, 64),
+    "logit_cap_ragged": (1, 4, 4, 77, 64, 0, 30.0, 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GRAD_ATTN_CASES))
+def test_attention_grads_on_the_card_match_the_cpu(case):
+    """``ops.attention`` on CUDA tensors that require grad: the output keeps
+    its ``grad_fn`` (the 3xTF32 kernel's forward, one launch, the backward
+    launching none) and out, dq, dk, dv agree with the CPU's at the f32
+    attention limit."""
+    _need_card()
+    B, Hq, Hkv, S, d, window, cap, chunk = GRAD_ATTN_CASES[case]
+    arrays = draw(31, (B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d), (B, Hq, S, d))
+    kw = dict(causal=True, window=window, logit_cap=cap, kv_chunk=chunk)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in arrays[:3])
+        before = tfa.tf32_launches
+        out = ops.attention(q, k, v, **kw)
+        assert out.grad_fn is not None
+        grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(arrays[3]).to(dev))
+        torch.cuda.synchronize()
+        assert tfa.tf32_launches == before + (dev == "cuda")
+        results[dev] = [t.cpu() for t in (out, *grads)]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_grads_on_the_card_match_the_cpu(dtype):
+    _need_card()
+    x, w, g = draw(32, (4, 100, 768), (768,), (4, 100, 768))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        xt = torch.from_numpy(x).to(dev, dtype).requires_grad_()
+        wt = torch.from_numpy(1.0 + 0.1 * w).to(dev).requires_grad_()
+        before = trn.launches
+        out = ops.rmsnorm(xt, wt)
+        assert out.grad_fn is not None
+        dx, dw = torch.autograd.grad(out, (xt, wt), torch.from_numpy(g).to(dev, dtype))
+        torch.cuda.synchronize()
+        assert trn.launches == before + (dev == "cuda")
+        results[dev] = [t.cpu().float() for t in (out, dx, dw)]
+    # dw sums 400 rows: its f32 sums differ in order between the devices
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=0.05, rtol=2**-7)
+    for got, want in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.gpu
+def test_forward_only_kernels_refuse_grad_on_the_card():
+    _need_card()
+    a = torch.rand(1, 8, 32, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.lru_scan(a, a, torch.zeros(1, 32, device="cuda"))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.moe_gating(torch.rand(1, 8, 16, device="cuda", requires_grad=True), top_k=2, capacity=4)
+    r = torch.rand(1, 2, 8, 16, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.wkv6(r, r, r, r, torch.rand(2, 16, device="cuda"), torch.zeros(1, 2, 16, 16, device="cuda"))
+    with torch.no_grad():
+        h, _ = ops.lru_scan(a, a, torch.zeros(1, 32, device="cuda"))
+    assert h.grad_fn is None
