@@ -16,20 +16,34 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
 4. main paths, one engine at a time, each freed before the next: serve 16
-   greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b and
-   deepseek-moe-16b at full width with seeded weights; count every kernel's
-   launches around each path and require the exact counts (nbi-100m: each
-   prefill attention through the f32 tensor-core (3xTF32) flash-attention
-   kernel and each RMSNorm through the RMSNorm kernel; Griffin: each prefill attention through the
-   bf16 flash-attention kernel and each RG-LRU prefill scan through the LRU
+   greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b,
+   deepseek-moe-16b, minicpm3-4b (MLA), starcoder2-7b and mistral-large-123b
+   (full width, 8 of its 88 layers) with seeded weights, and feed
+   llava-next-mistral-7b's model functions 1152 seeded patch embeddings
+   before each text; count every kernel's launches around each path and
+   require the exact counts (nbi-100m: each prefill attention through the
+   f32 tensor-core (3xTF32) flash-attention kernel and each RMSNorm through
+   the RMSNorm kernel; Griffin: each prefill attention through the bf16
+   flash-attention kernel and each RG-LRU prefill scan through the LRU
    kernel; RWKV-6: each WKV prefill through the WKV kernel;
    deepseek-moe-16b: bf16 attention, norms, and each MoE layer's routing,
    prefill and decode, through the gating kernels, the slots kernel on every
-   routing whose groups span more than one tile); check the
+   routing whose groups span more than one tile; minicpm3-4b: each prefill
+   attention through the bf16 kernel's (96, 64) instance and 4L+1 norms,
+   q_ln and kv_ln included, per prefill and decode step; the other dense
+   paths: bf16 attention at d 128 and 2L+1 norms); check the
    decode-equals-forward law at full width and the card against the CPU on
    a small model of each family, then trace one batch with torch.profiler
    (device busy share, each of the port's kernels' share of the prefill's
-   device time, and the ops that take the most device time);
+   device time, and the ops that take the most device time); then
+   continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
+   of mixed lengths) on minicpm3-4b at full width and on nbi-100m, with f32
+   activations: exact launches per insert and decode step, every chosen
+   token within 1e-3 of the max logit of a full forward over its request,
+   and decode steps against the static bound; then inserts into the live
+   cache beside a slot part-way through its generation, with the same
+   checks, exact launches, and the first request's tokens equal to a run of
+   it alone;
 5. training: train nbi-100m at full width and depth through
    ``repro_torch.launch.train`` (global batch 8 x 512 tokens, 30 AdamW steps
    with cosine warmup, the port's data pipeline, seeded weights drawn on the
@@ -84,7 +98,7 @@ from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import make_train_loader  # noqa: E402
-from repro_torch.launch.serve import ServeEngine, device_name, pad_cache_to  # noqa: E402
+from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, device_name, pad_cache_to  # noqa: E402
 from repro_torch.launch.train import build_argparser as train_argparser  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import rglru as rg  # noqa: E402
@@ -123,6 +137,11 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
+    # the bf16 kernel's (d, dv) = (96, 64) instance, MLA's prefill
+    "flash_attention_bf16_mla": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
     "flash_attention_tf32": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
@@ -146,16 +165,33 @@ KERNEL_INFO = {
 }
 # kernel: (wrapper module, its launch counter)
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
+            "flash_attention_bf16_mla": (fa_kernel, "bf16_mla_launches"),
             "flash_attention_tf32": (fa_kernel, "tf32_launches"), "rmsnorm": (rn_kernel, "launches"),
             "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
             "moe_gating": (gating_kernel, "launches"), "moe_gating_slots": (gating_kernel, "slots_launches")}
-# the phase-3 case whose numbers stand for each attention kernel in the JSON line
-ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepseek_prefill",
-                  "flash_attention_tf32": "nbi100m_prefill"}
-# a part of each kernel's name as the profiler shows it
-TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel", "flash_attention_bf16": "flash_attn_bf16_kernel",
+# the phase-3 case whose numbers stand for each attention kernel in the JSON
+# line: a shape a main path gives it (the FMA kernel's: the continuous-batching
+# phase's f32 MLA inserts)
+ATTN_JSON_CASE = {"flash_attention": "mla_f32_insert", "flash_attention_bf16": "deepseek_prefill",
+                  "flash_attention_bf16_mla": "mla_prefill", "flash_attention_tf32": "nbi100m_prefill"}
+# a part of each kernel's name as the profiler shows it; a kernel goes to the
+# first name it matches (the (96, 64) instance before the other bf16 ones)
+TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel",
+               "flash_attention_bf16_mla": "flash_attn_bf16_kernel<96, 64>",
+               "flash_attention_bf16": "flash_attn_bf16_kernel",
                "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
                "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
+
+
+def trace_shares(kernels) -> dict:
+    """Device ms of each of the port's kernels among the profiler's kernel
+    entries, each entry counted once, under the first name it matches."""
+    ms = dict.fromkeys(TRACE_NAMES, 0.0)
+    for e in kernels:
+        name = next((n for n, part in TRACE_NAMES.items() if part in e.key), None)
+        if name:
+            ms[name] += e.self_device_time_total / 1e3
+    return ms
 
 
 def say(*parts) -> None:
@@ -241,52 +277,73 @@ def check_close(got, want, atol: float, rtol: float, what: str) -> float:
 
 
 def attention_cases(full: bool):
-    """(name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, logit_cap). The
-    first three are shapes the main paths give the kernels: a 512-token prefill
-    batch of nbi-100m, a 2304-token prefill batch of recurrentgemma-2b and a
-    2048-token prefill batch of deepseek-moe-16b; the last two are edges of the
+    """(name, B, Hq, Hkv, Sq, Skv, d, dv, dtype, causal, window, logit_cap).
+    The first four are shapes the main paths give the kernels: a 512-token
+    prefill batch of nbi-100m, a 2304-token prefill batch of
+    recurrentgemma-2b, a 2048-token prefill batch of deepseek-moe-16b and one
+    of minicpm3-4b (MLA, q and k 96 wide, v 64); then MLA's instance at a
+    ragged Sq and Skv and under a window, MLA's f32 pair as the
+    continuous-batching phase's single-row inserts give it, and edges of the
     bf16 kernel's TMA boxes and 64-key tiles at full size."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
-            ("nbi100m_prefill", 2, 4, 4, 16, 16, 16, f32, True, 0, 0.0),
-            ("griffin_prefill", 2, 4, 1, 20, 20, 16, bf16, True, 8, 0.0),
-            ("deepseek_prefill", 2, 4, 4, 16, 16, 16, bf16, True, 0, 0.0),
-            ("d256_f32", 1, 2, 1, 12, 12, 16, f32, True, 4, 0.0),
-            ("gqa_bf16", 1, 8, 2, 24, 24, 16, bf16, True, 0, 0.0),
-            ("ragged", 1, 4, 4, 13, 13, 16, f32, True, 0, 0.0),
-            ("window", 1, 4, 4, 24, 24, 16, f32, True, 8, 0.0),
-            ("logit_cap", 1, 4, 4, 16, 16, 16, f32, True, 0, 30.0),
-            ("non_causal", 1, 4, 4, 10, 20, 16, f32, False, 0, 0.0),
-            ("ragged_non_causal_bf16", 1, 4, 4, 13, 40, 16, bf16, False, 0, 0.0),
-            ("mqa_d256_window_bf16", 1, 4, 1, 23, 23, 16, bf16, True, 8, 0.0),
+            ("nbi100m_prefill", 2, 4, 4, 16, 16, 16, 16, f32, True, 0, 0.0),
+            ("griffin_prefill", 2, 4, 1, 20, 20, 16, 16, bf16, True, 8, 0.0),
+            ("deepseek_prefill", 2, 4, 4, 16, 16, 16, 16, bf16, True, 0, 0.0),
+            ("mla_prefill", 2, 4, 4, 16, 16, 24, 16, bf16, True, 0, 0.0),
+            ("mla_ragged", 1, 4, 4, 13, 40, 24, 16, bf16, False, 0, 0.0),
+            ("mla_window", 1, 4, 4, 24, 24, 24, 16, bf16, True, 8, 0.0),
+            ("mla_f32_insert", 1, 4, 4, 20, 20, 24, 16, f32, True, 0, 0.0),
+            ("d256_f32", 1, 2, 1, 12, 12, 16, 16, f32, True, 4, 0.0),
+            ("gqa_bf16", 1, 8, 2, 24, 24, 16, 16, bf16, True, 0, 0.0),
+            ("ragged", 1, 4, 4, 13, 13, 16, 16, f32, True, 0, 0.0),
+            ("window", 1, 4, 4, 24, 24, 16, 16, f32, True, 8, 0.0),
+            ("logit_cap", 1, 4, 4, 16, 16, 16, 16, f32, True, 0, 30.0),
+            ("non_causal", 1, 4, 4, 10, 20, 16, 16, f32, False, 0, 0.0),
+            ("ragged_non_causal_bf16", 1, 4, 4, 13, 40, 16, 16, bf16, False, 0, 0.0),
+            ("mqa_d256_window_bf16", 1, 4, 1, 23, 23, 16, 16, bf16, True, 8, 0.0),
         ]
     return [
-        ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, f32, True, 0, 0.0),
-        ("griffin_prefill", 8, 10, 1, 2304, 2304, 256, bf16, True, 2048, 0.0),
-        ("deepseek_prefill", 8, 16, 16, 2048, 2048, 128, bf16, True, 0, 0.0),
-        ("d256_f32", 2, 10, 1, 1024, 1024, 256, f32, True, 512, 0.0),
-        ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, bf16, True, 0, 0.0),
-        ("ragged_s300", 2, 12, 12, 300, 300, 64, f32, True, 0, 0.0),
-        ("window_128", 2, 12, 12, 512, 512, 64, f32, True, 128, 0.0),
-        ("logit_cap_30", 2, 12, 12, 512, 512, 64, f32, True, 0, 30.0),
-        ("non_causal_sq200_skv512", 2, 12, 12, 200, 512, 64, f32, False, 0, 0.0),
-        ("ragged_non_causal_bf16", 2, 16, 16, 333, 1000, 128, bf16, False, 0, 0.0),
-        ("mqa_d256_window_bf16", 2, 10, 1, 2300, 2300, 256, bf16, True, 2048, 0.0),
+        ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, 64, f32, True, 0, 0.0),
+        ("griffin_prefill", 8, 10, 1, 2304, 2304, 256, 256, bf16, True, 2048, 0.0),
+        ("deepseek_prefill", 8, 16, 16, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
+        ("mla_prefill", 8, 40, 40, 2048, 2048, 96, 64, bf16, True, 0, 0.0),
+        ("mla_ragged", 2, 40, 40, 333, 1000, 96, 64, bf16, False, 0, 0.0),
+        ("mla_window", 2, 40, 40, 1500, 1500, 96, 64, bf16, True, 512, 0.0),
+        ("mla_f32_insert", 1, 40, 40, 1000, 1000, 96, 64, f32, True, 0, 0.0),
+        ("d256_f32", 2, 10, 1, 1024, 1024, 256, 256, f32, True, 512, 0.0),
+        ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
+        ("ragged_s300", 2, 12, 12, 300, 300, 64, 64, f32, True, 0, 0.0),
+        ("window_128", 2, 12, 12, 512, 512, 64, 64, f32, True, 128, 0.0),
+        ("logit_cap_30", 2, 12, 12, 512, 512, 64, 64, f32, True, 0, 30.0),
+        ("non_causal_sq200_skv512", 2, 12, 12, 200, 512, 64, 64, f32, False, 0, 0.0),
+        ("ragged_non_causal_bf16", 2, 16, 16, 333, 1000, 128, 128, bf16, False, 0, 0.0),
+        ("mqa_d256_window_bf16", 2, 10, 1, 2300, 2300, 256, 256, bf16, True, 2048, 0.0),
     ]
 
 
 def norm_cases(full: bool):
     """(name, rows, D, dtype); the first two are the main path's prefill and
-    decode rows of nbi-100m, the last two those of deepseek-moe-16b's largest
-    prefill and a decode step."""
+    decode rows of nbi-100m, then deepseek-moe-16b's largest prefill and a
+    decode step, minicpm3-4b's q_ln (768 wide) and kv_ln (256 wide) at its
+    largest prefill and a decode step (bf16, the narrow rows' kernel), and
+    mistral-large-123b's largest prefill and a decode step at D 12288, the
+    kernel's widest."""
+    f32, bf16 = torch.float32, torch.bfloat16
     if not full:
-        return [("prefill_rows", 32, 64, torch.float32), ("decode_rows", 2, 64, torch.float32),
-                ("bf16_wide", 16, 256, torch.bfloat16), ("deepseek_prefill_rows", 64, 64, torch.bfloat16),
-                ("deepseek_decode_rows", 2, 64, torch.bfloat16)]
-    return [("prefill_rows", 4096, 768, torch.float32), ("decode_rows", 8, 768, torch.float32),
-            ("bf16_4096", 2048, 4096, torch.bfloat16), ("deepseek_prefill_rows", 16384, 2048, torch.bfloat16),
-            ("deepseek_decode_rows", 8, 2048, torch.bfloat16)]
+        return [("prefill_rows", 32, 64, f32), ("decode_rows", 2, 64, f32),
+                ("bf16_wide", 16, 256, bf16), ("deepseek_prefill_rows", 64, 64, bf16),
+                ("deepseek_decode_rows", 2, 64, bf16),
+                ("mla_q_ln_prefill_rows", 32, 24, bf16), ("mla_kv_ln_prefill_rows", 32, 16, bf16),
+                ("mla_q_ln_decode_rows", 2, 24, bf16), ("mla_kv_ln_decode_rows", 2, 16, bf16),
+                ("mistral_large_prefill_rows", 32, 64, bf16), ("mistral_large_decode_rows", 2, 64, bf16)]
+    return [("prefill_rows", 4096, 768, f32), ("decode_rows", 8, 768, f32),
+            ("bf16_4096", 2048, 4096, bf16), ("deepseek_prefill_rows", 16384, 2048, bf16),
+            ("deepseek_decode_rows", 8, 2048, bf16),
+            ("mla_q_ln_prefill_rows", 16384, 768, bf16), ("mla_kv_ln_prefill_rows", 16384, 256, bf16),
+            ("mla_q_ln_decode_rows", 8, 768, bf16), ("mla_kv_ln_decode_rows", 8, 256, bf16),
+            ("mistral_large_prefill_rows", 8192, 12288, bf16), ("mistral_large_decode_rows", 8, 12288, bf16)]
 
 
 def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
@@ -305,11 +362,11 @@ def run_attention_cases(device, timer, full: bool) -> dict:
     """Every case's numbers, by case name."""
     g = torch.Generator(device=device).manual_seed(0)
     rows = {}
-    for name, B, Hq, Hkv, Sq, Skv, d, dtype, causal, window, cap in attention_cases(full):
+    for name, B, Hq, Hkv, Sq, Skv, d, dv, dtype, causal, window, cap in attention_cases(full):
         scale = 4.0 if cap else 1.0  # large logits so that the cap bites
         q = (torch.randn((B, Hq, Sq, d), generator=g, device=device) * scale).to(dtype)
         k = (torch.randn((B, Hkv, Skv, d), generator=g, device=device) * scale).to(dtype)
-        v = torch.randn((B, Hkv, Skv, d), generator=g, device=device).to(dtype)
+        v = torch.randn((B, Hkv, Skv, dv), generator=g, device=device).to(dtype)
         kw = dict(causal=causal, window=window, logit_cap=cap)
         got = ops.attention(q, k, v, **kw)
         sync(device)
@@ -338,7 +395,7 @@ def run_attention_cases(device, timer, full: bool) -> dict:
             library_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), iters=20)
         sync(device)
         pairs = B * Hq * valid_pairs(Sq, Skv, causal, window, device)
-        flops = pairs * (2 * d + 2 * d)  # q·k and p·v per kept pair
+        flops = pairs * (2 * d + 2 * dv)  # q·k and p·v per kept pair, at the real (not the tiles') widths
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
         bound_ms, bound_by = bound(flops, nbytes, dtype)
         bounds = ""
@@ -347,11 +404,11 @@ def run_attention_cases(device, timer, full: bool) -> dict:
             # the tensor-core kernel is held against this bound
             tf32_ms, tf32_by = bound(3 * flops, nbytes, "tf32")
             bounds = f" bound_f32_fma={bound_ms:.4f}ms ({bound_by}) bound_3xtf32={tf32_ms:.4f}ms ({tf32_by})"
-            if fa_kernel.kernel_kind(dtype, d, d) == fa_kernel.F32_TF32:
+            if fa_kernel.kernel_kind(dtype, d, dv) == fa_kernel.F32_TF32:
                 bound_ms, bound_by = tf32_ms, tf32_by
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)
-        say(f"[kernels] flash_attention {name}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
+        say(f"[kernels] flash_attention {name}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} dv={dv} "
             f"{str(dtype).removeprefix('torch.')} causal={causal} window={window} cap={cap} | "
             f"max_abs_err={err:.3e}{past} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library={'none' if library_ms is None else f'{library_ms:.4f}ms'} "
@@ -593,7 +650,89 @@ PATHS = {
     # batches of 8 rows of these lengths split into whole groups of 1024
     # tokens (at the smoke size, 2 rows into groups of 32)
     "deepseek-moe-16b": ((8, (128, 1024, 2048), 32, 200), (2, (8, 16, 32), 4, 12)),
+    "minicpm3-4b": ((8, (128, 512, 2048), 32, 200), (2, (8, 12, 16), 4, 12)),
+    "starcoder2-7b": ((8, (128, 1024, 2048), 32, 200), (2, (8, 12, 16), 4, 12)),
+    "mistral-large-123b": ((8, (128, 1024), 32, 200), (2, (8, 16), 4, 12)),
 }
+# paths served at full width and reduced depth: arch: layers (mistral-large-123b's
+# 88 layers of bf16 weights, about 245 GB, do not fit one card; 8 take about 24 GB)
+REDUCED_DEPTH = {"mistral-large-123b": 8}
+# the visual-prefix path, through the model's functions (the engine feeds no
+# patches, as the reference's): batch, text lengths, generated tokens, law's
+# text length, at full size and in the CPU rehearsal
+LLAVA_ARCH = "llava-next-mistral-7b"
+LLAVA_RUN = {True: (8, (128, 512), 32, 64), False: (2, (8, 12), 4, 8)}
+# continuous batching: arch: (slots, prompt lengths of the 16 requests, generated
+# tokens) at full size and in the CPU rehearsal; f32 activations
+CONTINUOUS = {
+    "minicpm3-4b": ((8, (64, 200, 512, 1000), 32), (2, (5, 8, 12), 4)),
+    "nbi-100m": ((8, (32, 100, 256, 500), 32), (2, (5, 8, 12), 4)),
+}
+
+
+def path_config(arch: str, full: bool):
+    """The path's config: full width (and depth, unless REDUCED_DEPTH cuts
+    it), or the smoke config in the CPU rehearsal."""
+    if not full:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=REDUCED_DEPTH[arch]) if arch in REDUCED_DEPTH else cfg
+
+
+def attention_counter(cfg) -> str:
+    """The launch count of the K1 kernel (or instance) that takes ``cfg``'s
+    prefill attention."""
+    d, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.attention == "mla"
+             else (cfg.resolved_head_dim,) * 2)
+    kind = fa_kernel.kernel_kind(getattr(torch, cfg.dtype), d, dv)
+    if kind == fa_kernel.BF16 and (d, dv) == fa_kernel.MLA_HEAD_DIMS:
+        return "flash_attention_bf16_mla"
+    return {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
+            fa_kernel.F32_SIMT: "flash_attention"}[kind]
+
+
+def norms_per_pass(cfg) -> int:
+    """RMSNorms of one dense forward or decode step: ln1 and ln2 a layer (and
+    MLA's q_ln and kv_ln), then the final norm."""
+    return (4 if cfg.attention == "mla" else 2) * cfg.n_layers + 1
+
+
+def zero_counters() -> None:
+    for module, count in COUNTERS.values():
+        setattr(module, count, 0)
+
+
+def read_counters() -> dict:
+    return {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
+
+
+def check_launches(what: str, launches: dict, want: dict, device) -> None:
+    """Hold the launches read around a main path to the exact counts ``want``
+    (none on the CPU, which runs the plain versions)."""
+    if device.type != "cuda":
+        want = dict.fromkeys(want, 0)
+    say(f"[launches] {what}: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches on the main path {launches} != expected {want}")
+
+
+def dense_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """Exact launches of a dense model's ``prefills`` prefill calls and
+    ``decode_steps`` decode steps: L attentions a prefill, a pass's norms
+    each."""
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({attention_counter(cfg): cfg.n_layers * prefills,
+                 "rmsnorm": norms_per_pass(cfg) * (prefills + decode_steps)})
+    return want
+
+
+def memory_line(device, held_before: int) -> str:
+    if device.type != "cuda":
+        return "max_memory_allocated not measured (cpu)"
+    peak = torch.cuda.max_memory_allocated(device)
+    return (f"max_memory_allocated {peak / 2**20:.1f} MiB, of which {held_before / 2**20:.1f} MiB was held "
+            f"before the engine or model was built: {(peak - held_before) / 2**20:.1f} MiB for weights, "
+            "cache and activations")
 
 
 def expected_launches(cfg, per_len: dict, batch: int, gen_len: int) -> dict:
@@ -604,11 +743,9 @@ def expected_launches(cfg, per_len: dict, batch: int, gen_len: int) -> dict:
     prefill_batches = sum(batches.values())
     L, steps = cfg.n_layers, prefill_batches * (1 + gen_len)
     want = dict.fromkeys(COUNTERS, 0)
-    hd = cfg.resolved_head_dim
-    fa = {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
-          fa_kernel.F32_SIMT: "flash_attention"}[fa_kernel.kernel_kind(getattr(torch, cfg.dtype), hd, hd)]
+    fa = attention_counter(cfg)
     if cfg.family == "dense":
-        want.update({fa: L * prefill_batches, "rmsnorm": (2 * L + 1) * steps})
+        want = dense_launches(cfg, prefill_batches, prefill_batches * gen_len)
     elif cfg.family == "rglru":
         n_super, tail = rg.griffin_layout(cfg)
         want.update({fa: n_super * prefill_batches, "lru_scan": (2 * n_super + tail) * prefill_batches,
@@ -638,7 +775,7 @@ def serve_path(arch: str, device, full: bool) -> dict:
     """Serve 16 greedy requests through ``arch`` with the launch counters set
     to 0 just before and read just after; then the law and the trace. Returns
     the launches of each kernel."""
-    cfg = get_config(arch) if full else get_smoke_config(arch)
+    cfg = path_config(arch, full)
     batch, lengths, gen_len, law_S = PATHS[arch][0 if full else 1]
     max_seq = max(lengths) + gen_len
     # what earlier phases left allocated (library workspaces of the timed calls)
@@ -650,12 +787,7 @@ def serve_path(arch: str, device, full: bool) -> dict:
     sync(device)
     build_peak = (f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB peak" if device.type == "cuda"
                   else "peak not measured (cpu)")
-    moe_shape = (f" E={cfg.n_experts} k={cfg.top_k} shared={cfg.n_shared_experts} moe_F={cfg.moe_d_ff} "
-                 f"dense layers={cfg.n_dense_layers} group={cfg.moe_group_tokens}"
-                 if cfg.family == "moe" else "")
-    say(f"[serve] {cfg.name}: family {cfg.family} L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} "
-        f"kv={cfg.n_kv_heads} hd={cfg.resolved_head_dim} F={cfg.d_ff}{moe_shape} V={engine.model.cfg.vocab_size} "
-        f"{cfg.dtype} | {cfg.param_count() / 1e9:.3f}B parameters | engine batch={batch} "
+    say(f"[serve] {shape_line(cfg, engine.model.cfg.vocab_size)} | engine batch={batch} "
         f"max_seq={max_seq} | built in {time.perf_counter() - t0:.2f}s, {build_peak}")
     rng = np.random.default_rng(0)
     requests = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
@@ -667,23 +799,18 @@ def serve_path(arch: str, device, full: bool) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    for module, count in COUNTERS.values():
-        setattr(module, count, 0)
+    zero_counters()
     t0 = time.perf_counter()
     outs = engine.serve_requests(requests, gen_len=gen_len)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
+    launches = read_counters()
 
     per_len = {n: sum(len(r) == n for r in requests) for n in sorted({len(r) for r in requests})}
     prefill_batches = sum(math.ceil(c / batch) for c in per_len.values())
-    want = expected_launches(cfg, per_len, batch, gen_len)
-    if device.type != "cuda":
-        want = {name: 0 for name in want}  # the CPU runs the plain versions: nothing launches
     say(f"[serve] {cfg.name}: {len(requests)} requests, prompt lengths {per_len}, {prefill_batches} "
-        f"prefill batches, gen_len {gen_len} | launches {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"{cfg.name}: kernel launches on the main path {launches} != expected {want}")
+        f"prefill batches, gen_len {gen_len}")
+    check_launches(cfg.name, launches, expected_launches(cfg, per_len, batch, gen_len), device)
     padded_vocab = engine.model.cfg.vocab_size
     for o in outs:
         if o.shape != (gen_len,) or o.min() < 0 or o.max() >= padded_vocab:
@@ -691,57 +818,71 @@ def serve_path(arch: str, device, full: bool) -> dict:
     s = engine.stats
     prefill_tps = s["prefill_tokens"] / s["prefill_s"]
     decode_tps = s["decode_tokens"] / s["decode_s"]
-    if device.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(device)
-        memory = (f"max_memory_allocated {peak / 2**20:.1f} MiB, of which {held_before / 2**20:.1f} "
-                  f"MiB was held before the engine was built: {(peak - held_before) / 2**20:.1f} MiB "
-                  f"for weights, cache and activations")
-    else:
-        memory = "max_memory_allocated not measured (cpu)"
+    memory = memory_line(device, held_before)
     say(f"[serve] {cfg.name} on {device_name(device)}: wall {wall:.3f}s | prefill {s['prefill_tokens']} "
         f"tok in {s['prefill_s']:.4f}s = {prefill_tps:.1f} tok/s | decode {s['decode_tokens']} tok in "
         f"{s['decode_s']:.4f}s = {decode_tps:.1f} tok/s | {memory}")
 
-    decode_equals_forward(engine, device, S=law_S)
+    decode_equals_forward(engine.cfg, engine.params, device, S=law_S)
     free(device)
-    trace_one_batch(engine, requests[0][None].repeat(batch, 0), gen_len=4)
+    prompts = requests[0][None].repeat(batch, 0)
+
+    def run(steps):
+        for key in engine.stats:
+            engine.stats[key] = type(engine.stats[key])()
+        engine.generate_batch(prompts, steps)
+        return engine.stats["prefill_s"] * 1e3, engine.stats["decode_s"] * 1e3
+
+    trace_one_batch(run, device, prompts.shape, gen_len=4)
     del engine, outs
     free(device)
     return launches
 
 
-def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> None:
+def shape_line(cfg, padded_vocab: int) -> str:
+    """The config's widths, as the log prints them."""
+    moe_shape = (f" E={cfg.n_experts} k={cfg.top_k} shared={cfg.n_shared_experts} moe_F={cfg.moe_d_ff} "
+                 f"dense layers={cfg.n_dense_layers} group={cfg.moe_group_tokens}"
+                 if cfg.family == "moe" else "")
+    mla = (f" MLA q_lora={cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} qk={cfg.qk_nope_dim}+{cfg.qk_rope_dim} "
+           f"v={cfg.v_head_dim}" if cfg.attention == "mla" else "")
+    full = get_config(cfg.name) if cfg.name in REDUCED_DEPTH else None
+    reduced = f" (reduced depth: {cfg.n_layers} of {full.n_layers} layers)" if full else ""
+    return (f"{cfg.name}: family {cfg.family} L={cfg.n_layers}{reduced} D={cfg.d_model} H={cfg.n_heads} "
+            f"kv={cfg.n_kv_heads} hd={cfg.resolved_head_dim}{mla} F={cfg.d_ff}{moe_shape} V={padded_vocab} "
+            f"{cfg.dtype} | {cfg.param_count() / 1e9:.3f}B parameters")
+
+
+def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
     """Where the time goes: torch.profiler over one batch with no decode step
-    (prefill alone) and over the same batch with ``gen_len`` steps; device
-    busy time (the sum of kernel times) against the host's wall time, the
-    port's kernels' share of the prefill's device time, and the kernels that
-    take the most device time."""
+    (prefill alone) and over the same batch with ``gen_len`` steps, each run
+    by ``run(steps)``, which returns its (prefill ms, decode ms) by the host's
+    clock; device busy time (the sum of kernel times) against the host's wall
+    time, the port's kernels' share of the prefill's device time, and the
+    kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if engine.device.type == "cuda":
+    if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    engine.generate_batch(prompts, gen_len)  # warm the shapes
+    run(gen_len)  # warm the shapes
     runs = {}
     for steps in (0, gen_len):
-        for key in engine.stats:
-            engine.stats[key] = type(engine.stats[key])()
         with profile(activities=acts) as prof:
-            engine.generate_batch(prompts, steps)
+            pre_ms, dec_ms = run(steps)
         kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        runs[steps] = (engine.stats["prefill_s"] * 1e3, engine.stats["decode_s"] * 1e3, busy_ms, kernels)
+        runs[steps] = (pre_ms, dec_ms, busy_ms, kernels)
     if runs[gen_len][2] <= 0:
         say("[trace] the profiler recorded no kernel: device busy share not measured")
         return
     pre_wall, _, pre_busy, pre_kernels = runs[0]
     wall_pre, wall_dec, busy, kernels = runs[gen_len]
     dec_busy = busy - pre_busy
-    B, P = prompts.shape
+    B, P = shape
     say(f"[trace] prefill {B}x{P} tokens: wall {pre_wall:.3f}ms, device busy {pre_busy:.3f}ms "
         f"= {100 * pre_busy / pre_wall:.1f}%")
-    ours = {name: sum(e.self_device_time_total for e in pre_kernels if part in e.key) / 1e3
-            for name, part in TRACE_NAMES.items()}
+    ours = trace_shares(pre_kernels)
     say("[trace] prefill device time in the port's kernels: " + (", ".join(
         f"{name} {ms:.3f}ms ({100 * ms / pre_busy:.1f}%)" for name, ms in ours.items() if ms) or "none"))
     say(f"[trace] {gen_len} decode steps of {B} rows: wall {wall_dec:.3f}ms, device busy about "
@@ -754,8 +895,9 @@ def trace_one_batch(engine: ServeEngine, prompts: np.ndarray, gen_len: int) -> N
 
 
 @torch.inference_mode()
-def decode_equals_forward(engine: ServeEngine, device, S: int) -> float:
-    """Decode-step logits at position S equal a full forward over S+1 tokens.
+def decode_equals_forward(cfg, params, device, S: int) -> float:
+    """Decode-step logits at position S equal a full forward over S+1 tokens
+    (a visual-prefix config: its patches, then S - n_patches text tokens).
 
     The law is checked with f32 activations over the engine's own weights: in
     bf16 the two sides round at different places (a scan against a step, the
@@ -764,20 +906,22 @@ def decode_equals_forward(engine: ServeEngine, device, S: int) -> float:
     For MoE it holds only where no pick is dropped (routing per group depends
     on the group's other tokens): at capacity_factor E / k every group's
     capacity is at least its token count, so routing is per token."""
-    params = engine.params
-    law_cfg = engine.cfg.replace(dtype="float32")
+    law_cfg = cfg.replace(dtype="float32")
     if law_cfg.family == "moe":
         law_cfg = law_cfg.replace(capacity_factor=law_cfg.n_experts / law_cfg.top_k)
     model = build_model(law_cfg)
     cfg = model.cfg
     g = torch.Generator(device=device).manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=device)
-    last, cache = model.prefill_fn(params, {"tokens": toks})
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S - cfg.n_patches), generator=g, device=device)}
+    if cfg.n_patches:
+        batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model), generator=g, device=device)
+    last, cache = model.prefill_fn(params, batch)
     cache = pad_cache_to(cache, model.cache_defs_fn(2, S + 8))
     nxt = last[:, -1].argmax(-1)[:, None]
     step, _ = model.decode_fn(params, cache, nxt, S)
     del cache
-    full = model.forward_fn(params, torch.cat([toks, nxt], dim=1))[:, -1]
+    toks = torch.cat([batch["tokens"], nxt], dim=1)
+    full = model.forward_fn(params, toks, patches=batch.get("patches"))[:, -1]
     sync(device)
     if step.shape != (2, 1, cfg.vocab_size) or not bool(torch.isfinite(step).all()):
         raise AssertionError(f"decode logits {tuple(step.shape)} not finite or misshapen")
@@ -798,7 +942,205 @@ SMALL_MODELS = {  # card against CPU: small models with the kernels' real head w
     # factor, in groups of 32 tokens with capacity 4: picks are dropped
     "deepseek-moe-16b": (dict(d_model=128, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=256, moe_d_ff=64,
                               n_experts=64, top_k=6, moe_group_tokens=32), 32),
+    # MLA at its real head widths (q, k 64 + 32, v 64): the card's f32 (96, 64) K1
+    "minicpm3-4b": (dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256, q_lora_rank=64, kv_lora_rank=32,
+                         qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64), 40),
+    "starcoder2-7b": (dict(d_model=128, n_heads=6, n_kv_heads=2, head_dim=64, d_ff=256), 40),
+    "mistral-large-123b": (dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256), 40),
+    # 8 patch embeddings before the 40 text tokens
+    LLAVA_ARCH: (dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256), 40),
 }
+
+
+def llava_path(device, full: bool) -> dict:
+    """The visual prefix: batches of 1152 seeded patch embeddings (bf16, as
+    the activations) and text of each length through ``Model.prefill_fn``,
+    then greedy ``decode_fn`` steps, with the launch counters set to 0 just
+    before and read just after; then the law (patches, then text) and the
+    trace. Returns the launches of each kernel."""
+    cfg = path_config(LLAVA_ARCH, full)
+    batch, lengths, gen_len, law_text = LLAVA_RUN[full]
+    P = cfg.n_patches
+    max_seq = P + max(lengths) + gen_len
+    held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    sync(device)
+    say(f"[serve] {shape_line(cfg, model.cfg.vocab_size)} | n_patches={P} | model functions, batch={batch} "
+        f"max_seq={max_seq} | built in {time.perf_counter() - t0:.2f}s")
+    g = torch.Generator(device=device).manual_seed(1)
+    dt = getattr(torch, cfg.dtype)
+    inputs = {n: {"tokens": torch.randint(0, cfg.vocab_size, (batch, n), generator=g, device=device),
+                  "patches": torch.randn((batch, P, cfg.d_model), generator=g, device=device).to(dt)}
+              for n in lengths}
+
+    @torch.inference_mode()
+    def generate(n: int, steps: int):
+        """(prefill ms, decode ms, tokens) of one batch of text length n."""
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_fn(params, inputs[n])
+        cache = pad_cache_to(cache, model.cache_defs_fn(batch, max_seq))
+        sync(device)
+        t1 = time.perf_counter()
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out = [tok]
+        for i in range(steps):
+            logits, cache = model.decode_fn(params, cache, tok, P + n + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+        sync(device)
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, torch.cat(out, dim=1)
+
+    generate(lengths[0], 2)  # warm-up: library handles, allocator
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counters()
+    runs = [generate(n, gen_len) for n in lengths]
+    launches = read_counters()
+    say(f"[serve] {cfg.name}: {len(lengths)} batches of {batch} x ({P} patches + text {lengths}), gen_len "
+        f"{gen_len}")
+    check_launches(cfg.name, launches, dense_launches(cfg, len(lengths), len(lengths) * gen_len), device)
+    for *_, toks in runs:
+        if toks.shape != (batch, 1 + gen_len) or int(toks.min()) < 0 or int(toks.max()) >= model.cfg.vocab_size:
+            raise AssertionError(f"{cfg.name}: bad generation {tuple(toks.shape)}")
+    pre_ms, dec_ms = sum(r[0] for r in runs), sum(r[1] for r in runs)
+    pre_tok = batch * sum(P + n for n in lengths)
+    memory = memory_line(device, held_before)
+    say(f"[serve] {cfg.name} on {device_name(device)}: prefill {pre_tok} tok (patches and text) in "
+        f"{pre_ms / 1e3:.4f}s = {pre_tok / pre_ms * 1e3:.1f} tok/s | decode {batch * gen_len * len(lengths)} tok "
+        f"in {dec_ms / 1e3:.4f}s = {batch * gen_len * len(lengths) / dec_ms * 1e3:.1f} tok/s | {memory}")
+    decode_equals_forward(cfg, params, device, S=P + law_text)
+    free(device)
+    trace_one_batch(lambda steps: generate(lengths[-1], steps)[:2], device, (batch, P + lengths[-1]), gen_len=4)
+    del params, inputs
+    free(device)
+    return launches
+
+
+def largest_gap(engine, requests, outs, device) -> float:
+    """The largest gap between a chosen token's logit and its position's max
+    logit in a full forward over the request's prompt and its tokens."""
+    worst = 0.0
+    with torch.inference_mode():
+        for req, out in zip(requests, outs):
+            seq = torch.as_tensor(np.concatenate([req, out[:-1]])[None], dtype=torch.long, device=device)
+            logits = engine.model.forward_fn(engine.params, seq)[0, len(req) - 1:]
+            chosen = logits.gather(-1, torch.as_tensor(out, dtype=torch.long, device=device)[:, None])[:, 0]
+            worst = max(worst, float((logits.max(-1).values - chosen).max()))
+    return worst
+
+
+@torch.inference_mode()
+def drive_staggered(engine, arrivals, gen_len: int):
+    """Greedy decode through the engine's slots with request i written by
+    ``engine._insert`` into slot s of the live cache just before decode step
+    t, for each (t, s, prompt) of ``arrivals``, while the other slots keep
+    decoding. Returns each request's ``gen_len`` tokens and the decode steps."""
+    B, device = engine.batch, engine.device
+    cache = {n: torch.zeros(d.shape, dtype=d.dtype, device=device)
+             for n, d in engine.model.cache_defs_fn(B, engine.max_seq).items()}
+    tok, pos = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    outs, slot_of = [[] for _ in arrivals], {}
+    step = 0
+    while len(slot_of) < len(arrivals) or any(len(o) < gen_len for o in outs):
+        for i, (t, s, prompt) in enumerate(arrivals):
+            if t == step:
+                if any(slot_of.get(j) == s and len(outs[j]) < gen_len for j in slot_of):
+                    raise AssertionError(f"staggered arrivals: slot {s} is busy at step {t}")
+                tok[s], pos[s] = engine._insert(cache, s, prompt), len(prompt)
+                outs[i].append(int(tok[s]))
+                slot_of[i] = s
+        logits, _ = engine.model.decode_fn(engine.params, cache, torch.as_tensor(tok[:, None], device=device),
+                                           torch.as_tensor(pos, device=device))
+        nxt = logits[:, -1].argmax(-1).cpu().numpy()
+        for i, s in slot_of.items():
+            if len(outs[i]) < gen_len:
+                outs[i].append(int(nxt[s]))
+                tok[s], pos[s] = nxt[s], pos[s] + 1
+        step += 1
+    return [np.asarray(o, np.int32) for o in outs], step
+
+
+def continuous_path(arch: str, device, full: bool) -> dict:
+    """Continuous batching on ``arch`` with f32 activations: 16 requests of
+    mixed lengths through the engine's slots, with the launch counters set to
+    0 just before and read just after (each insert a one-row prefill: L
+    attentions and a forward's norms; each decode step a step's norms); every
+    request's tokens against a full forward over its prompt and its tokens;
+    decode steps and occupancy against the static bound ceil(R/B)·gen. Then
+    inserts into a live cache beside a slot part-way through its generation
+    (``engine.serve`` fills its slots together, so they finish together):
+    request a decodes alone in slot 0, b joins slot 1 a quarter of the way
+    through a's generation, c takes slot 0 as soon as a is done while b is
+    still decoding; a's tokens must equal a
+    run of a alone, and every token passes the same full-forward check.
+    Returns the launches of each kernel."""
+    slots, lengths, gen_len = CONTINUOUS[arch][0 if full else 1]
+    cfg = path_config(arch, full).replace(dtype="float32")
+    max_seq = max(lengths) + gen_len
+    held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(cfg, batch=slots, max_seq=max_seq, seed=0, device=device)
+    sync(device)
+    say(f"[continuous] {shape_line(cfg, engine.model.cfg.vocab_size)} (params {cfg.param_dtype}) | {slots} slots "
+        f"max_seq={max_seq} | built in {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(1)
+    requests = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in rng.choice(lengths, size=16)]
+    engine.serve(requests[:1], gen_len=2)  # warm-up: library handles, allocator
+    for key in engine.stats:
+        engine.stats[key] = type(engine.stats[key])()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counters()
+    t0 = time.perf_counter()
+    outs = engine.serve(requests, gen_len=gen_len)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    st = engine.stats
+    bound = -(-len(requests) // slots) * gen_len
+    occupancy = st["occupancy_sum"] / st["decode_steps"]
+    say(f"[continuous] {cfg.name}: {st['requests']} requests (prompt lengths "
+        f"{sorted(len(r) for r in requests)}), {st['decode_steps']} decode steps (static bound ceil(R/B)·gen = "
+        f"{bound}), occupancy {occupancy:.4f}, {st['slot_tokens']} slot tokens")
+    check_launches(f"{cfg.name} continuous batching", launches,
+                   dense_launches(cfg, st["requests"], st["decode_steps"]), device)
+    if st["requests"] != len(requests) or st["decode_steps"] > bound + 2:
+        raise AssertionError(f"{cfg.name} continuous batching: {st} against the static bound {bound}")
+    if any(out.shape != (gen_len,) for out in outs):
+        raise AssertionError(f"{cfg.name} continuous batching: bad generation {[out.shape for out in outs]}")
+    tokens = sum(len(r) for r in requests) + len(requests) * gen_len
+    say(f"[continuous] {cfg.name} on {device_name(device)}: wall {wall:.3f}s for {len(requests)} requests | "
+        f"{len(requests) * gen_len / wall:.1f} generated tok/s, {tokens / wall:.1f} prompt and generated tok/s "
+        f"(inserts and decode on one clock) | {memory_line(device, held_before)}")
+    worst = largest_gap(engine, requests, outs, device)
+    say(f"[continuous] {cfg.name}: every chosen token against a full forward over its request (f32 "
+        f"activations): largest gap to the position's max logit {worst:.3e} (tolerance 1e-3)")
+    if worst > 1e-3:
+        raise AssertionError(f"{cfg.name} continuous batching: a token is {worst} below the full forward's max")
+
+    a, b, c = requests[:3]
+    alone = engine.serve([a], gen_len=gen_len)[0]
+    arrivals = [(0, 0, a), (max(1, gen_len // 4), 1, b), (gen_len - 1, 0, c)]
+    zero_counters()
+    staggered, steps = drive_staggered(engine, arrivals, gen_len)
+    sync(device)
+    staggered_launches = read_counters()
+    check_launches(f"{cfg.name} staggered inserts", staggered_launches, dense_launches(cfg, len(arrivals), steps),
+                   device)
+    worst = largest_gap(engine, [a, b, c], staggered, device)
+    say(f"[continuous] {cfg.name} staggered inserts (step, slot, prompt length) "
+        f"{[(t, s, len(p)) for t, s, p in arrivals]}, {steps} decode steps: a's tokens equal a run of a alone: "
+        f"{bool((staggered[0] == alone).all())}; largest gap to a full forward's max logit {worst:.3e} "
+        "(tolerance 1e-3)")
+    if not (staggered[0] == alone).all() or worst > 1e-3:
+        raise AssertionError(f"{cfg.name}: an insert beside a decoding slot changed the tokens")
+    launches = {name: n + staggered_launches[name] for name, n in launches.items()}
+    del engine, outs
+    free(device)
+    return launches
 
 
 def liven(params: dict) -> dict:
@@ -837,16 +1179,20 @@ def card_matches_cpu(arch: str) -> float:
     cfg = get_smoke_config(arch).replace(**overrides)
     model = build_model(cfg)
     host_params = liven(model.init(torch.Generator().manual_seed(3), "cpu"))
-    toks = torch.randint(0, cfg.vocab_size, (2, P), generator=torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(4)
+    host_batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, P), generator=gen)}
+    if cfg.n_patches:
+        host_batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model), generator=gen)
+    S = cfg.n_patches + P
     outs = {}
     dropped = []  # picks the CPU run's routing dropped, per MoE layer call
     for name in ("cuda", "cpu"):
         params = map_defs(lambda t: t.to(name), host_params)
         with count_drops(dropped if name == "cpu" else []):
-            last, cache = model.prefill_fn(params, {"tokens": toks.to(name)})
-            cache = pad_cache_to(cache, model.cache_defs_fn(2, P + 8))
+            last, cache = model.prefill_fn(params, {k: v.to(name) for k, v in host_batch.items()})
+            cache = pad_cache_to(cache, model.cache_defs_fn(2, S + 8))
             nxt = torch.full((2, 1), 7, device=name)
-            step, _ = model.decode_fn(params, cache, nxt, P)
+            step, _ = model.decode_fn(params, cache, nxt, S)
         outs[name] = (last.cpu(), step.cpu())
     worst = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
     drops = f", {sum(dropped)} picks dropped over {len(dropped)} routings" if cfg.family == "moe" else ""
@@ -882,12 +1228,9 @@ def expected_train_launches(cfg, steps: int) -> dict:
     """Each step's forward: L attentions through K1 and 2L+1 norms through
     K2; the backward recomputes the plain path and launches nothing; with
     remat every recomputed block adds its attention and two norms."""
-    fa = {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
-          fa_kernel.F32_SIMT: "flash_attention"}[fa_kernel.kernel_kind(getattr(torch, cfg.dtype),
-                                                                      cfg.resolved_head_dim, cfg.resolved_head_dim)]
     blocks = cfg.n_layers * (2 if cfg.remat != "none" else 1)
     want = dict.fromkeys(COUNTERS, 0)
-    want.update({fa: blocks * steps, "rmsnorm": (2 * blocks + 1) * steps})
+    want.update({attention_counter(cfg): blocks * steps, "rmsnorm": (2 * blocks + 1) * steps})
     return want
 
 
@@ -974,8 +1317,7 @@ def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
     say(f"[trace] train step {batch}x{seq}: wall {wall_ms:.3f}ms under the profiler, device busy {busy:.3f}ms "
         f"= {100 * busy / wall_ms:.1f}%; {100 * busy / step_ms:.1f}% of the median step without the profiler "
         f"({step_ms:.3f}ms)")
-    ours = {name: sum(e.self_device_time_total for e in kernels if part in e.key) / 1e3
-            for name, part in TRACE_NAMES.items()}
+    ours = trace_shares(kernels)
     say("[trace] train step device time in the port's kernels: " + (", ".join(
         f"{name} {ms:.3f}ms ({100 * ms / busy:.1f}%)" for name, ms in ours.items() if ms) or "none"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -1135,6 +1477,15 @@ def main(argv=None) -> int:
         if full:
             card_matches_cpu(arch)
         say(f"[serve] {arch} phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    by_path[LLAVA_ARCH] = llava_path(device, full)
+    if full:
+        card_matches_cpu(LLAVA_ARCH)
+    say(f"[serve] {LLAVA_ARCH} phase took {time.perf_counter() - t0:.1f}s")
+    for arch in CONTINUOUS:
+        t0 = time.perf_counter()
+        by_path[f"continuous {arch}"] = continuous_path(arch, device, full)
+        say(f"[continuous] {arch} phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     by_path["train"] = train_path(device, full)
     say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")

@@ -87,8 +87,18 @@
 // rows of a thread belong to one half-warp, so row max and row sum are warp
 // shuffles. At d 256 its tiles take 213,760 bytes of shared memory.
 //
-// Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256);
-// f32 at (64, 64) runs the TF32 kernel, f32 at the others the FMA kernel.
+// Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256),
+// and (96, 64), MLA's prefill (minicpm3-4b: q and k are 64 nope + 32 rope
+// columns, v 64); f32 at (64, 64) runs the TF32 kernel, f32 at the others the
+// FMA kernel.
+//
+// d 96 in the bf16 kernel is one and a half 64-column boxes. Q and K tiles
+// keep two 64-column panels in shared memory (128 columns, the swizzle
+// pattern unchanged); the tensor maps are encoded over the real 96 columns,
+// so the second box's TMA load fills columns 96..127 with zeros (and still
+// completes a full box of bytes on the barrier), and Q K^T runs d / 16 = 6
+// k16 steps, stopping at column 96. The scale is 96^-0.5, from the real d.
+// No host-side padding, so no copy of q and k.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -289,12 +299,17 @@ constexpr int ROW_BYTES = 128;                // one swizzled row: 64 bf16 colum
 template <int D, int DV>
 __host__ __device__ constexpr int stages() { return D + DV >= 512 ? 2 : 4; }
 
+// 64-column panels of a Q or K tile: d 96 takes two, the second half zeros.
+template <int D>
+__host__ __device__ constexpr int panels() { return (D + 63) / 64; }
+
 // Q, the ring of K and V tiles, the barriers, and slack to align the tiles
 // to the 1024 bytes of a swizzle pattern; flash_attention.py's
 // dynamic_smem_bytes repeats this sum.
 template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return 1024 + 2 * (static_cast<size_t>(BQ) * D + static_cast<size_t>(stages<D, DV>()) * BK * (D + DV)) +
+  constexpr size_t DP = 64 * panels<D>();
+  return 1024 + 2 * (static_cast<size_t>(BQ) * DP + static_cast<size_t>(stages<D, DV>()) * BK * (DP + DV)) +
          8 * (2 * stages<D, DV>() + 1);
 }
 
@@ -428,7 +443,8 @@ __device__ __forceinline__ void pin(float (&x)[N][M]) {
 }
 
 // S = Q K^T for one 64-key tile in d / 16 steps of 16 columns (32 bytes of a
-// 128-byte row; a new 64-column panel every four steps).
+// 128-byte row; a new 64-column panel every four steps; at d 96 the second
+// panel's zero half is never read).
 template <int D>
 __device__ __forceinline__ void mma_qk(float (&s)[32], uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
@@ -533,8 +549,8 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
   constexpr int STAGES = stages<D, DV>();
   constexpr uint32_t Q_PANEL = BQ * ROW_BYTES;  // 64 columns of the Q tile
   constexpr uint32_t KV_PANEL = BK * ROW_BYTES;  // 64 columns of a K or V tile
-  constexpr uint32_t Q_BYTES = (D / 64) * Q_PANEL;
-  constexpr uint32_t K_BYTES = (D / 64) * KV_PANEL;
+  constexpr uint32_t Q_BYTES = panels<D>() * Q_PANEL;
+  constexpr uint32_t K_BYTES = panels<D>() * KV_PANEL;
   constexpr uint32_t V_BYTES = (DV / 64) * KV_PANEL;
 
   extern __shared__ uint8_t smem_raw[];
@@ -577,14 +593,14 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       const int bh_kv = b * Hkv + hk;
       mbar_expect_tx(q_full, Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c) tma_load(sq + c * Q_PANEL, &tm_q, q_full, 64 * c, q_start, b * Hq + h);
+      for (int c = 0; c < panels<D>(); ++c) tma_load(sq + c * Q_PANEL, &tm_q, q_full, 64 * c, q_start, b * Hq + h);
       int stage = 0, round = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
         if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
         const uint32_t bar = full + 8 * stage;
         mbar_expect_tx(bar, K_BYTES + V_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c)
+        for (int c = 0; c < panels<D>(); ++c)
           tma_load(sk + stage * K_BYTES + c * KV_PANEL, &tm_k, bar, 64 * c, kt * BK, bh_kv);
 #pragma unroll
         for (int c = 0; c < DV / 64; ++c)
@@ -714,7 +730,7 @@ EncodeTiled encode_tiled() {
 
 // Tensor map of a contiguous (heads, rows, cols) bf16 or f32 array, boxes of
 // 128 bytes of columns (64 bf16, 32 f32) by box_rows rows, 128-byte swizzle,
-// zeros outside the array.
+// zeros outside the array (rows past S, columns past d 96).
 int encode(CUtensorMap* map, const void* ptr, int heads, int rows, int cols, int box_rows, bool f32) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return ENCODE_ERROR_BASE + CUDA_ERROR_NOT_FOUND;
@@ -1152,6 +1168,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
     return launch<BF16, 128, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 256 && dv == 256)
     return launch<BF16, 256, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+  if (d == 96 && dv == 64)
+    return launch<BF16, 96, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,10 @@ against 268 MB), so the design follows the unit that does them:
   P is split into bf16 hi and lo parts and both are multiplied with V: one
   bf16 rounding of P would put some outputs outside the card's limit (atol
   1e-3, rtol 2⁻⁷ against the plain version), the split keeps 16 bits of P.
+  MLA's (d, dv) = (96, 64) keeps its Q and K tiles 128 columns wide: the TMA
+  load of the second 64-column box fills columns 96..127 with zeros, Q·Kᵀ
+  stops at column 96 and the scale is 96**-0.5. q and k are not padded on
+  the host.
 - f32 at (d, dv) = (64, 64), nbi-100m's heads, runs on the tensor cores too,
   as 3×TF32: every operand is split into TF32 hi and lo parts and each
   product is hi·hi + hi·lo + lo·hi in f32 (about 22 bits; one TF32 product
@@ -20,8 +24,8 @@ against 268 MB), so the design follows the unit that does them:
   producer's three idle warps split each K and V tile in shared memory and
   write Vᵀ, since TF32 operands of ``wgmma`` must be K-major.
 - f32 at the other pairs of ``HEAD_DIM_PAIRS`` (d 128 and 256, the mixed
-  ones; no served path runs them) stays on the FMA units: 64-row blocks, f32
-  tiles in shared memory.
+  ones, MLA's (96, 64) in the f32 law checks) stays on the FMA units: 64-row
+  blocks, f32 tiles in shared memory.
 
 The wrapper checks what the kernels take and raises on anything else,
 allocates the output, and launches on PyTorch's current stream without
@@ -36,7 +40,10 @@ from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 # (d, dv) pairs the kernels are compiled for
-HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256))
+HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256), (96, 64))
+# MLA's prefill pair (minicpm3-4b: q, k 64 + 32 wide, v 64); its bf16 launches
+# have their own count
+MLA_HEAD_DIMS = (96, 64)
 # the f32 pairs of the tensor-core (3×TF32) kernel; other f32 pairs run on
 # the FMA units
 TF32_HEAD_DIM_PAIRS = ((64, 64),)
@@ -49,11 +56,12 @@ BK = 64
 F32_SIMT, BF16, F32_TF32 = 0, 1, 2
 
 # Launches since import, one count per kernel: the f32 kernel on the FMA
-# units, the bf16 kernel and the f32 tensor-core kernel. chip_smoke.py sets
-# them to 0 around the main path and reads them to show that every prefill
-# attention came here.
+# units, the bf16 kernel (at every pair but MLA's), the bf16 kernel's (96, 64)
+# instance and the f32 tensor-core kernel. chip_smoke.py sets them to 0 around
+# the main path and reads them to show that every prefill attention came here.
 launches = 0
 bf16_launches = 0
+bf16_mla_launches = 0
 tf32_launches = 0
 
 
@@ -105,17 +113,18 @@ def stages(d: int, dv: int) -> int:
 def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory one block of the kernel that takes (d, dv, dtype) asks
     for at launch (``smem_bytes`` and ``tf32_smem_bytes`` in the source).
-    bf16: the Q tile, the ring of K and V tiles, one barrier per stage for
-    full and for empty and one for Q, and 1024 bytes of slack to align the
-    tiles to their swizzle pattern. f32 on the tensor cores: the Q tile (split
+    bf16: the Q tile, the ring of K and V tiles (Q and K in whole 64-column
+    panels: d 96 takes 128), one barrier per stage for full and for empty and
+    one for Q, and 1024 bytes of slack to align the tiles to their swizzle
+    pattern. f32 on the tensor cores: the Q tile (split
     in place into Q_hi) and Q_lo, two stages of five 64-key tiles (K split in
     place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per stage and one for Q, and
     the slack. f32 on the FMA
     units: Q and K tiles padded by one float, the V tile and the P tile."""
     kind = kernel_kind(dtype, d, dv)
     if kind == BF16:
-        n = stages(d, dv)
-        return 1024 + 2 * (BQ[dtype] * d + n * BK * (d + dv)) + 8 * (2 * n + 1)
+        n, dp = stages(d, dv), -(-d // 64) * 64
+        return 1024 + 2 * (BQ[dtype] * dp + n * BK * (dp + dv)) + 8 * (2 * n + 1)
     if kind == F32_TF32:
         return 1024 + 4 * (2 * BQ_TF32 * d + 2 * BK * (3 * d + 2 * dv)) + 8 * (3 * 2 + 1)
     return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
@@ -126,7 +135,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
     device, contiguous, f32 or bf16, (d, dv) in ``HEAD_DIM_PAIRS``. Returns
     (B,Hq,Sq,dv) in q's dtype. Query head h reads KV head h // (Hq // Hkv);
     positions start at 0 for both q and k, as in the reference."""
-    global launches, bf16_launches, tf32_launches
+    global launches, bf16_launches, bf16_mla_launches, tf32_launches
     _validate(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
@@ -141,7 +150,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")
-    if kind == BF16:
+    if kind == BF16 and (d, dv) == MLA_HEAD_DIMS:
+        bf16_mla_launches += 1
+    elif kind == BF16:
         bf16_launches += 1
     elif kind == F32_TF32:
         tf32_launches += 1

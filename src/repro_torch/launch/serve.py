@@ -4,8 +4,8 @@
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch rwkv6-7b
 
-The port of ``repro.launch.serve``'s :class:`ServeEngine`, for the dense,
-Griffin and RWKV-6 families: prefill a batch of prompts (on the card every
+The port of ``repro.launch.serve``'s :class:`ServeEngine`, for the dense
+(GQA, MLA), MoE, Griffin and RWKV-6 families: prefill a batch of prompts (on the card every
 prefill attention through the flash-attention kernel, every RMSNorm through
 the RMSNorm kernel, every RG-LRU scan and WKV-6 recurrence through theirs),
 pad the prompt-sized cache into the fixed-capacity decode cache, then decode
@@ -14,9 +14,13 @@ small batcher groups queued requests into engine-sized batches of one exact
 prompt length, so no row ever sees padding and a request's output does not
 depend on its batch-mates.
 
-The engine runs on ``cuda`` unless the caller passes ``device="cpu"``.
-``ContinuousBatchingEngine`` comes in a later slice; the vector-``pos`` decode
-it needs is in :func:`repro_torch.models.transformer.dense_decode_step`.
+:class:`ContinuousBatchingEngine` is the port of the reference's slot-based
+engine for the dense families: a fixed pool of decode slots advances every
+step at per-slot positions (the vector-``pos`` path of
+:func:`repro_torch.models.transformer.dense_decode_step`), and a finished
+request's slot is refilled by a single-row, exact-length prefill.
+
+Both engines run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -157,6 +161,91 @@ class ServeEngine:
                 for row, i in enumerate(group):
                     results[i] = out[row]
         return results
+
+
+class ContinuousBatchingEngine:
+    """Slot-based continuous batching (the vLLM idiom, shapes held fixed).
+
+    A fixed pool of ``batch`` decode slots advances every step with per-slot
+    positions; when a request finishes, the next queued request is prefilled
+    (one row, exact length) and written into the free slot's cache rows while
+    the other slots keep decoding, so no generation waits on its batch-mates.
+
+    Dense families only (GQA and MLA), as in the reference: their decode is
+    row-independent, while MoE routing couples rows through capacity.
+    """
+
+    def __init__(self, cfg, *, batch: int, max_seq: int, seed: int = 0, device="cuda"):
+        if cfg.family != "dense":
+            raise ValueError(f"continuous batching takes the dense families, not {cfg.family!r} "
+                             "(its decode rows must be independent)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch = batch
+        self.max_seq = max_seq
+        self.model = build_model(cfg)
+        self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
+        self.stats = {"requests": 0, "decode_steps": 0, "slot_tokens": 0, "occupancy_sum": 0.0}
+
+    def _insert(self, cache: dict, slot: int, prompt: np.ndarray) -> int:
+        """Prefill one request and write its rows into ``slot`` of ``cache``
+        (in place); returns its first generated token."""
+        toks = torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.long, device=self.device)
+        logits, row_cache = self.model.prefill_fn(self.params, {"tokens": toks})
+        row_cache = pad_cache_to(row_cache, self.model.cache_defs_fn(1, self.max_seq))
+        for name, full in cache.items():
+            full[:, slot] = row_cache[name][:, 0]
+        return int(logits[0, -1].argmax())
+
+    @torch.inference_mode()
+    def serve(self, requests: list, gen_len: int) -> list:
+        """Greedy-decode every request; returns (gen_len,) int32 outputs in input order."""
+        B = self.batch
+        for r in requests:
+            if len(r) + gen_len > self.max_seq:
+                raise ValueError(f"prompt {len(r)} + gen {gen_len} exceeds engine capacity {self.max_seq}")
+        cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
+                 for name, d in self.model.cache_defs_fn(B, self.max_seq).items()}
+        queue = list(range(len(requests)))
+        outputs: list = [[] for _ in requests]
+        slot_req = [-1] * B  # which request occupies each slot
+        pos = np.zeros(B, np.int64)  # next write position per slot
+        cur_tok = np.zeros(B, np.int64)
+
+        def fill_free_slots():
+            for b in range(B):
+                if slot_req[b] == -1 and queue:
+                    i = queue.pop(0)
+                    tok = self._insert(cache, b, requests[i])
+                    slot_req[b] = i
+                    pos[b] = len(requests[i])
+                    cur_tok[b] = tok
+                    outputs[i].append(tok)
+                    self.stats["requests"] += 1
+
+        fill_free_slots()
+        while any(s != -1 for s in slot_req):
+            self.stats["occupancy_sum"] += float(np.mean([s != -1 for s in slot_req]))
+            self.stats["decode_steps"] += 1
+            logits, _ = self.model.decode_fn(
+                self.params, cache, torch.as_tensor(cur_tok[:, None], device=self.device),
+                torch.as_tensor(pos, device=self.device))
+            nxt = logits[:, -1].argmax(-1).cpu().numpy()
+            for b in range(B):
+                if slot_req[b] == -1:
+                    continue
+                i = slot_req[b]
+                self.stats["slot_tokens"] += 1
+                if len(outputs[i]) < gen_len:
+                    outputs[i].append(int(nxt[b]))
+                    cur_tok[b] = nxt[b]
+                    pos[b] += 1
+                if len(outputs[i]) >= gen_len:
+                    slot_req[b] = -1  # request done: the slot is free
+                    pos[b] = 0
+                    cur_tok[b] = 0
+            fill_free_slots()
+        return [np.asarray(o, np.int32) for o in outputs]
 
 
 def device_name(device: torch.device) -> str:

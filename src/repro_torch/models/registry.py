@@ -1,14 +1,17 @@
 """Model registry of the port: one API over the architecture families ported
-so far (``dense`` with GQA, ``moe``, ``rglru`` (Griffin) and ``rwkv6``).
+so far (``dense`` with GQA, MLA and the visual prefix, ``moe``, ``rglru``
+(Griffin) and ``rwkv6``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors:
 
   loss_fn(params, batch)              → (scalar loss, metrics)   [train]
-  prefill_fn(params, batch)           → (last logits, cache)     [prefill]
+  prefill_fn(params, batch)           → (last logits, cache)     [prefill;
+                                        dense reads batch["patches"] too]
   decode_fn(params, cache, tok, pos)  → (logits, cache)          [decode]
   cache_defs_fn(batch, max_seq)       → cache layout on ``meta``
   forward_fn(params, tokens)          → logits of every position
+                                        [dense takes patches= too]
 
 The reference's ``make_prefill_step`` / ``make_serve_step``
 (``repro/training/steps.py``) only wrap the prefill and decode functions with
@@ -47,7 +50,7 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs_fn: Callable  # (batch, max_seq) -> dict of meta tensors
-    forward_fn: Callable  # (params, tokens) -> logits of every position
+    forward_fn: Callable  # (params, tokens[, patches]) -> logits of every position
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Seeded weights on ``device`` (``cuda`` unless the caller asks for the CPU)."""
@@ -85,18 +88,31 @@ def _loss_fn(family: str, pcfg: ArchConfig) -> Callable:
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has {sorted(_FAMILIES)})")
-    if cfg.family in ("dense", "moe") and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
+    if cfg.family == "moe" and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
         raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attention!r} / visual prefix is not ported yet"
+            f"{cfg.name}: attention {cfg.attention!r} / visual prefix in an MoE model is not ported yet"
         )
     param_defs, prefill, decode_step, forward, cache_defs = _FAMILIES[cfg.family]
     pcfg = cfg.replace(vocab_size=padded_vocab(cfg))
+
+    def prefill_fn(params, batch):
+        if cfg.family == "dense":  # the visual prefix, as the reference's registry
+            return prefill(params, pcfg, batch["tokens"], patches=batch.get("patches"))
+        return prefill(params, pcfg, batch["tokens"])
+
+    def forward_fn(params, tokens, patches=None):
+        if cfg.family == "dense":
+            return forward(params, pcfg, tokens, patches=patches)
+        if patches is not None:
+            raise ValueError(f"family {cfg.family!r} takes no visual prefix")
+        return forward(params, pcfg, tokens)
+
     return Model(
         cfg=pcfg,
         param_defs=param_defs(pcfg),
         loss_fn=_loss_fn(cfg.family, pcfg),
-        prefill_fn=lambda p, b: prefill(p, pcfg, b["tokens"]),
+        prefill_fn=prefill_fn,
         decode_fn=lambda p, c, t, pos: decode_step(p, pcfg, c, t, pos),
         cache_defs_fn=lambda batch, seq: cache_defs(pcfg, batch, seq),
-        forward_fn=lambda p, t: forward(p, pcfg, t),
+        forward_fn=forward_fn,
     )

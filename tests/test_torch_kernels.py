@@ -228,6 +228,41 @@ def test_bf16_kernel_arithmetic_matches_jax(jx, case):
         np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_ATTN_TOL)
 
 
+# MLA's prefill pair (d, dv) = (96, 64) in the bf16 kernel: name: (B, Hq,
+# Hkv, Sq, Skv, causal, window)
+MLA_CASES = {
+    "causal": (1, 4, 4, 130, 130, True, 0),
+    "non_causal_ragged": (1, 2, 2, 77, 150, False, 0),
+    "window": (1, 2, 2, 200, 200, True, 48),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_bf16_kernel_arithmetic_at_mla_head_dims_matches_jax(jx, case):
+    """At (96, 64) the bf16 kernel's arithmetic (scale 96**-0.5 from the real
+    d) meets the card's limit against the JAX oracle and the plain version."""
+    B, Hq, Hkv, Sq, Skv, causal, window = MLA_CASES[case]
+    arrays = draw(17, (B, Hq, Sq, 96), (B, Hkv, Skv, 96), (B, Hkv, Skv, 64))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    kw = dict(causal=causal, window=window)
+    got = emulate_bf16_kernel(q, k, v, **kw).float().numpy()
+    assert got.shape == (B, Hq, Sq, 64)
+    jq, jk, jv = (jx.jnp.asarray(t.float().numpy(), jx.jnp.bfloat16) for t in (q, k, v))
+    for want in (jx.attention_ref(jq, jk, jv, **kw), ref.attention_ref(q, k, v, **kw).float()):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_ATTN_TOL)
+
+
+def test_mla_head_dims_take_whole_panels():
+    """(96, 64) runs the bf16 kernel with Q and K tiles of two 64-column
+    panels (the second half zeros) and four stages, and f32 on the FMA units."""
+    assert tfa.MLA_HEAD_DIMS in tfa.HEAD_DIM_PAIRS
+    assert tfa.kernel_kind(torch.bfloat16, 96, 64) == tfa.BF16
+    assert tfa.kernel_kind(torch.float32, 96, 64) == tfa.F32_SIMT
+    assert tfa.stages(96, 64) == 4
+    assert tfa.dynamic_smem_bytes(96, 64, torch.bfloat16) == 1024 + 2 * (128 * 128 + 4 * 64 * (128 + 64)) + 8 * 9
+    assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 4 * (64 * 97 + 64 * 97 + 64 * 64 + 64 * 65)
+
+
 def test_bf16_kernel_needs_p_in_two_parts():
     """At deepseek-moe-16b's head width, P rounded once to bf16 puts outputs
     outside the card's limit; the hi + lo split does not."""
@@ -894,6 +929,61 @@ def test_flash_attention_kernel_matches_plain(case):
     # both accumulate in f32 and round once: a bf16 output is off by one rounding step at most
     tol = dict(atol=1e-3, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# the (96, 64) instance on the card: name: (B, Hq, Hkv, Sq, Skv, causal, window)
+GPU_MLA_CASES = {
+    "minicpm3_heads": (2, 40, 40, 300, 300, True, 0),
+    "causal_sq1": (1, 4, 4, 1, 1, True, 0),
+    "non_causal": (2, 8, 8, 200, 200, False, 0),
+    "ragged_non_causal": (1, 4, 4, 130, 333, False, 0),
+    "ragged_sq_past_skv": (1, 4, 4, 150, 70, False, 0),
+    "ragged_causal": (1, 4, 4, 77, 77, True, 0),
+    "window": (1, 4, 4, 500, 500, True, 128),
+    "gqa_window": (1, 8, 2, 257, 257, True, 100),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_MLA_CASES))
+def test_flash_attention_mla_instance_matches_plain(case):
+    """bf16 at (96, 64) launches the bf16 kernel's MLA instance (its own
+    count, not the other bf16 pairs') and meets the card's bf16 limit."""
+    _need_card()
+    B, Hq, Hkv, Sq, Skv, causal, window = GPU_MLA_CASES[case]
+    arrays = draw(41, (B, Hq, Sq, 96), (B, Hkv, Skv, 96), (B, Hkv, Skv, 64))
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in arrays)
+    kw = dict(causal=causal, window=window)
+    before = (tfa.bf16_mla_launches, tfa.bf16_launches)
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.bf16_mla_launches, tfa.bf16_launches) == (before[0] + 1, before[1])
+    assert got.shape == (B, Hq, Sq, 64) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, **kw).float(), **BF16_ATTN_TOL)
+
+
+@pytest.mark.gpu
+def test_mla_attention_grads_on_the_card_match_the_cpu():
+    """bf16 ``ops.attention`` at (96, 64) under autograd: the forward is the
+    MLA instance (one launch), the backward the plain path recomputed. out is
+    held to one bf16 rounding; dq, dk, dv to ROADMAP's bf16 attention atol
+    0.05 plus two rounding steps relative, since each device rounds the
+    recompute's bf16 products at other places."""
+    _need_card()
+    arrays = draw(43, (1, 4, 150, 96), (1, 4, 150, 96), (1, 4, 150, 64), (1, 4, 150, 64))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16).requires_grad_() for a in arrays[:3])
+        before = tfa.bf16_mla_launches
+        out = ops.attention(q, k, v, causal=True, kv_chunk=64)
+        assert out.grad_fn is not None
+        grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(arrays[3]).to(dev, torch.bfloat16))
+        torch.cuda.synchronize()
+        assert tfa.bf16_mla_launches == before + (dev == "cuda")
+        results[dev] = [t.float().cpu() for t in (out, *grads)]
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], **BF16_ATTN_TOL)
+    for got, want in zip(results["cuda"][1:], results["cpu"][1:]):
+        torch.testing.assert_close(got, want, atol=0.05, rtol=2**-6)
 
 
 @pytest.mark.gpu

@@ -126,16 +126,22 @@ def test_config_copies_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    for arch in ("kimi-k2-1t-a32b", "whisper-small", "minicpm3-4b", "llava-next-mistral-7b"):
+    for arch in ("kimi-k2-1t-a32b", "whisper-small"):
         with pytest.raises(ValueError, match="not yet ported"):
             get_config(arch)
     with pytest.raises(NotImplementedError, match="family"):
         build_model(get_smoke_config("nbi-100m").replace(family="encdec"))
-    for arch in ("nbi-100m", "deepseek-moe-16b"):  # MLA in a dense or an MoE model
-        with pytest.raises(NotImplementedError, match="mla"):
-            build_model(get_smoke_config(arch).replace(attention="mla"))
-    with pytest.raises(NotImplementedError, match="visual prefix"):
-        build_model(get_smoke_config("nbi-100m").replace(n_patches=4))
+    with pytest.raises(NotImplementedError, match="mla"):  # MLA in an MoE model
+        build_model(get_smoke_config("deepseek-moe-16b").replace(attention="mla"))
+    # dense MLA and the visual prefix build: minicpm3-4b's and llava's configs
+    # and the same features on another dense config
+    mla = build_model(get_smoke_config("minicpm3-4b"))
+    assert set(mla.cache_defs_fn(1, 8)) == {"ckv", "krope"}
+    assert "wdkv" in build_model(get_smoke_config("codeqwen15_7b").replace(
+        attention="mla", q_lora_rank=24, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8, v_head_dim=8,
+    )).param_defs["blocks"]["attn"]
+    for cfg in (get_smoke_config("llava-next-mistral-7b"), get_smoke_config("nbi-100m").replace(n_patches=4)):
+        assert build_model(cfg).cfg.n_patches == cfg.n_patches
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -190,9 +196,10 @@ def test_prefill_matches_reference(arch, use_pallas, pair):
     logits, cache = model.prefill_fn(params, {"tokens": torch.from_numpy(toks)})
     assert logits.shape == want_logits.shape == (B, 1, 512)
     close(logits, want_logits)
-    assert set(cache) == set(want_cache) == {"k", "v"}
+    # (L, B, Hkv, S, hd) K/V, or MLA's (L, B, S, r) latents
+    assert set(cache) == set(want_cache) == ({"ckv", "krope"} if model.cfg.attention == "mla" else {"k", "v"})
     for name in cache:
-        assert cache[name].shape == want_cache[name].shape  # (L, B, Hkv, S, hd)
+        assert cache[name].shape == want_cache[name].shape
         close(cache[name], want_cache[name])
 
 
