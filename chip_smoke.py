@@ -8,8 +8,9 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA device
    is a failure, never a fallback to the CPU;
 2. build: compile every kernel from ``src/repro_torch/kernels/csrc`` into
-   ``build/repro_torch/`` and print ptxas registers, shared memory and spills,
-   each flash-attention instance's dynamic shared memory per dtype, and the
+   ``build/repro_torch/`` and print ptxas registers, shared memory, spills
+   and warnings, each flash-attention kernel's block per head-dim pair and
+   dtype (rows, keys a tile, stages, dynamic shared memory), and the
    WKV-6 and MoE gating launches (threads, shared memory, registers, blocks
    resident per SM) as the library reports them;
 3. kernels: hold each kernel against its plain PyTorch version on the card
@@ -29,7 +30,7 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    deepseek-moe-16b: bf16 attention, norms, and each MoE layer's routing,
    prefill and decode, through the gating kernels, the slots kernel on every
    routing whose groups span more than one tile; minicpm3-4b: each prefill
-   attention through the bf16 kernel's (96, 64) instance and 4L+1 norms,
+   attention through the bf16 MLA kernel at (96, 64) and 4L+1 norms,
    q_ln and kv_ln included, per prefill and decode step; the other dense
    paths: bf16 attention at d 128 and 2L+1 norms); check the
    decode-equals-forward law at full width and the card against the CPU on
@@ -137,7 +138,7 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
-    # the bf16 kernel's (d, dv) = (96, 64) instance, MLA's prefill
+    # the bf16 MLA kernel at (d, dv) = (96, 64), MLA's prefill
     "flash_attention_bf16_mla": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
@@ -175,9 +176,9 @@ COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": 
 ATTN_JSON_CASE = {"flash_attention": "mla_f32_insert", "flash_attention_bf16": "deepseek_prefill",
                   "flash_attention_bf16_mla": "mla_prefill", "flash_attention_tf32": "nbi100m_prefill"}
 # a part of each kernel's name as the profiler shows it; a kernel goes to the
-# first name it matches (the (96, 64) instance before the other bf16 ones)
+# first name it matches
 TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel",
-               "flash_attention_bf16_mla": "flash_attn_bf16_kernel<96, 64>",
+               "flash_attention_bf16_mla": "flash_attn_bf16_mla_kernel",
                "flash_attention_bf16": "flash_attn_bf16_kernel",
                "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
                "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
@@ -281,10 +282,13 @@ def attention_cases(full: bool):
     The first four are shapes the main paths give the kernels: a 512-token
     prefill batch of nbi-100m, a 2304-token prefill batch of
     recurrentgemma-2b, a 2048-token prefill batch of deepseek-moe-16b and one
-    of minicpm3-4b (MLA, q and k 96 wide, v 64); then MLA's instance at a
-    ragged Sq and Skv and under a window, MLA's f32 pair as the
-    continuous-batching phase's single-row inserts give it, and edges of the
-    bf16 kernel's TMA boxes and 64-key tiles at full size."""
+    of minicpm3-4b (MLA, q and k 96 wide, v 64); then the MLA kernel at a
+    ragged Sq and Skv, under a window, at minicpm3-4b's 512-token batch and
+    at 1088 rows (8.5 blocks: the last block's second warpgroup has no rows
+    and takes nine turns without products beside the first's nine tiles),
+    MLA's f32 pair as the continuous-batching phase's single-row inserts give
+    it, and edges of the bf16 kernel's TMA boxes and 64-key tiles at full
+    size."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
@@ -294,6 +298,8 @@ def attention_cases(full: bool):
             ("mla_prefill", 2, 4, 4, 16, 16, 24, 16, bf16, True, 0, 0.0),
             ("mla_ragged", 1, 4, 4, 13, 40, 24, 16, bf16, False, 0, 0.0),
             ("mla_window", 1, 4, 4, 24, 24, 24, 16, bf16, True, 8, 0.0),
+            ("mla_prefill_s512", 2, 4, 4, 12, 12, 24, 16, bf16, True, 0, 0.0),
+            ("mla_unequal_turns", 1, 4, 4, 17, 17, 24, 16, bf16, True, 0, 0.0),
             ("mla_f32_insert", 1, 4, 4, 20, 20, 24, 16, f32, True, 0, 0.0),
             ("d256_f32", 1, 2, 1, 12, 12, 16, 16, f32, True, 4, 0.0),
             ("gqa_bf16", 1, 8, 2, 24, 24, 16, 16, bf16, True, 0, 0.0),
@@ -311,6 +317,8 @@ def attention_cases(full: bool):
         ("mla_prefill", 8, 40, 40, 2048, 2048, 96, 64, bf16, True, 0, 0.0),
         ("mla_ragged", 2, 40, 40, 333, 1000, 96, 64, bf16, False, 0, 0.0),
         ("mla_window", 2, 40, 40, 1500, 1500, 96, 64, bf16, True, 512, 0.0),
+        ("mla_prefill_s512", 8, 40, 40, 512, 512, 96, 64, bf16, True, 0, 0.0),
+        ("mla_unequal_turns", 2, 40, 40, 1088, 1088, 96, 64, bf16, True, 0, 0.0),
         ("mla_f32_insert", 1, 40, 40, 1000, 1000, 96, 64, f32, True, 0, 0.0),
         ("d256_f32", 2, 10, 1, 1024, 1024, 256, 256, f32, True, 512, 0.0),
         ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
@@ -358,11 +366,14 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
     return int(keep.sum())
 
 
-def run_attention_cases(device, timer, full: bool) -> dict:
-    """Every case's numbers, by case name."""
+def run_attention_cases(device, timer, full: bool, only=None) -> dict:
+    """Every case's numbers (or those of the cases named in ``only``), by case
+    name."""
     g = torch.Generator(device=device).manual_seed(0)
     rows = {}
     for name, B, Hq, Hkv, Sq, Skv, d, dv, dtype, causal, window, cap in attention_cases(full):
+        if only is not None and name not in only:
+            continue
         scale = 4.0 if cap else 1.0  # large logits so that the cap bites
         q = (torch.randn((B, Hq, Sq, d), generator=g, device=device) * scale).to(dtype)
         k = (torch.randn((B, Hkv, Skv, d), generator=g, device=device) * scale).to(dtype)
@@ -1444,9 +1455,13 @@ def main(argv=None) -> int:
         for r in _build.ptxas_report():
             say(f"[build] {r['source']}: {r['kernel']} | registers {r['registers']} | static smem "
                 f"{r['smem_bytes']} B | spills {r['spill_store_bytes']}/{r['spill_load_bytes']} B")
+        for line in _build.ptxas_warnings():
+            say(f"[build] ptxas: {line}")
         for dtype in fa_kernel.DTYPES:
-            say(f"[build] flash_attention {str(dtype).removeprefix('torch.')} dynamic smem per block: " + ", ".join(
-                f"d={d} dv={dv}: {fa_kernel.dynamic_smem_bytes(d, dv, dtype)} B" for d, dv in fa_kernel.HEAD_DIM_PAIRS))
+            say(f"[build] flash_attention {str(dtype).removeprefix('torch.')} block (rows, keys a tile, stages, "
+                f"dynamic smem, threads): " + ", ".join(
+                    f"d={d} dv={dv}: {tuple(fa_kernel.launch_config(dtype, d, dv).values())}"
+                    for d, dv in fa_kernel.HEAD_DIM_PAIRS))
         configs = {(d, dtype): wkv_kernel.launch_config(d, dtype)
                    for d in wkv_kernel.HEAD_SIZES for dtype in wkv_kernel.DTYPES}
         say("[build] wkv6 threads, dynamic smem and blocks per SM: " + ", ".join(

@@ -33,6 +33,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, kind, causal, window, logit_cap, stream
     "repro_flash_attention_fwd": [_P, _P, _P, _P, *[_I] * 10, _F, _P],
+    # kind, d, dv, out (5 ints)
+    "repro_flash_attention_config": [*[_I] * 3, _P],
     # x, w, y, rows, D, is_bf16, eps, stream
     "repro_rmsnorm_fwd": [_P, _P, _P, _LL, _I, _I, _F, _P],
     # a, b, h0, y, h_out, B, T, W, is_bf16, stream
@@ -161,6 +163,21 @@ def ptxas_report() -> list[dict]:
                 current["registers"] = int(m.group(1))
                 current["smem_bytes"] = int(m.group(2) or 0)
     return rows
+
+
+def ptxas_warnings() -> list[str]:
+    """The compiler's warnings for the current library, one line each, with
+    the source's name (among them ptxas's notes that it serialised a
+    kernel's ``wgmma`` instructions)."""
+    library_path()
+    digest = _digest()
+    found = []
+    for src in sources():
+        log = BUILD_DIR / f"{src.stem}_{digest}.ptxas.txt"
+        if log.exists():
+            found += [f"{src.name}: {line.strip()}" for line in log.read_text().splitlines()
+                      if "warning" in line.lower() or "performance" in line.lower()]
+    return found
 
 
 def _demangle(name: str) -> str:

@@ -1,4 +1,4 @@
-// Flash attention, forward, for Hopper (sm_90a): three kernels behind one entry.
+// Flash attention, forward, for Hopper (sm_90a): four kernels behind one entry.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` and its
 // Pallas TPU kernel `_attn_kernel`. Same function: softmax(q k^T * d^-0.5)
@@ -8,7 +8,8 @@
 // acc / max(l, 1e-30) in q's dtype, masked scores at the finite -1e30 (a
 // fully masked row must not turn into NaN).
 //
-// bf16: `flash_attn_bf16_kernel`, on the tensor cores.
+// bf16: `flash_attn_bf16_kernel`, on the tensor cores, at every pair but
+// MLA's (96, 64), which has `flash_attn_bf16_mla_kernel` (below).
 //
 // What bounds it on this card: operations. At deepseek-moe-16b's prefill
 // (B 8, H 16, S 2048, d 128, causal) the kept (q, k) pairs need 137 GFLOP of
@@ -92,13 +93,67 @@
 // columns, v 64); f32 at (64, 64) runs the TF32 kernel, f32 at the others the
 // FMA kernel.
 //
-// d 96 in the bf16 kernel is one and a half 64-column boxes. Q and K tiles
-// keep two 64-column panels in shared memory (128 columns, the swizzle
-// pattern unchanged); the tensor maps are encoded over the real 96 columns,
-// so the second box's TMA load fills columns 96..127 with zeros (and still
-// completes a full box of bytes on the barrier), and Q K^T runs d / 16 = 6
-// k16 steps, stopping at column 96. The scale is 96^-0.5, from the real d.
-// No host-side padding, so no copy of q and k.
+// bf16 at (96, 64): `flash_attn_bf16_mla_kernel`, minicpm3-4b's prefill
+// attention (62 a prefill).
+//
+// What bounds it: operations. At 8 x 40 heads x 2048, causal, the kept pairs
+// need 215 GFLOP at the real widths, 0.217 ms at 989 TFLOP/s; with Q K^T
+// over six k16 steps and P V twice (P's hi and lo parts) the tensor cores do
+// 448 FLOP a pair, 301 GFLOP (0.304 ms). Per score the rest (the scale,
+// masks on edge tiles, the max, one ex2 on the 16-a-cycle special-function
+// unit, the sum into l, the hi/lo split) costs about as much issue time as
+// the products. The d 128 design (`flash_attn_bf16_kernel`) ran the two
+// halves one after the other at this pair: 0.87 ms.
+//
+// What the design does about it:
+// - the two consumer warpgroups take turns issuing their products:
+//   warpgroup w issues only inside its turn (bar.sync on named barrier
+//   TURN_BAR + w) and hands the turn over (bar.arrive on the other's) as soon
+//   as its products are issued, so that its softmax runs under the other's
+//   products instead of both warpgroups reaching their softmax together;
+// - 128-key tiles (S by m64n128k16, 64 registers a thread; P V as 8 k16
+//   steps of m64n64k16 for each part) halve the barrier waits, commits and
+//   rescales per score against 64-key tiles. A stage (K 32 KB in two panels,
+//   V 16 KB) is released after its P V is complete, one turn after its S;
+//   three stages keep one tile in flight ahead of the two in use;
+// - inside a warpgroup, turn kt issues S_kt and then O += P_{kt-1} V_{kt-1}
+//   in one go, waits for S alone (wait_group 1), runs the softmax of tile kt,
+//   waits for P V, rescales O by the moved max and splits P_kt into hi and
+//   lo (the A fragments of the next turn's P V). S, P and O each take one
+//   register fragment: S is consumed into P before the next S is issued.
+//   ptxas moves the wait for P V above the max and the exps (seen in the
+//   SASS), so a warpgroup's softmax does not run under its own P V; forcing
+//   it there (the wait made to depend on l) made the kernel slower, 1.00
+//   against 0.86 ms (H100 80GB HBM3 at 700 W; PERF.md).
+// Measured (PERF.md): the products alone, with no softmax, take 0.70 ms of
+// the 0.86, Q K^T alone 0.41 and P V alone 0.53: each wgmma chain runs at
+// about half the data-sheet rate here, and that, not the softmax or the
+// loads (no change with the ring never reloaded past its first stages, or
+// with 4 stages), is what holds the kernel now.
+// Unequal trip counts: the block's two warpgroups do not have the same live
+// tiles (a window's first live tile differs when it is under 64 keys; a
+// warpgroup past Sq has none; with 64-key tiles, the causal diagonal gave
+// the second one more). Both take one turn for every tile kt_begin ..
+// kt_end - 1 of the block plus one for the last P V, kt_end - kt_begin + 1
+// in all, and issue nothing in a turn that has no product for them (a tile
+// not live is waited for and released, as before). Warpgroup 1 arrives on
+// warpgroup 0's barrier once before its first turn and not after its last,
+// so each bar.sync meets exactly one bar.arrive and no barrier is left part
+// way when the block ends. tests/test_torch_kernels.py runs this protocol
+// (mla_turns, run_mla_block) against a model of the barriers at every
+// served shape and the edges.
+// Registers: 240 a consumer thread (S 64, P hi and lo 64, O 32), 24 for the
+// producer, as in the d 128 kernel; phase 2 of chip_smoke.py prints the
+// count and the spills. Shared memory: Q 32 KB + 3 stages
+// of 48 KB + the barriers and 1 KB of alignment slack, 181,304 bytes.
+//
+// d 96 is one and a half 64-column boxes. Q and K tiles keep two 64-column
+// panels in shared memory (128 columns, the swizzle pattern unchanged); the
+// tensor maps are encoded over the real 96 columns, so the second box's TMA
+// load fills columns 96..127 with zeros (and still completes a full box of
+// bytes on the barrier), and Q K^T runs d / 16 = 6 k16 steps, stopping at
+// column 96. The scale is 96^-0.5, from the real d. No host-side padding, so
+// no copy of q and k.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -364,7 +419,9 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+// Returns once at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory"); }
 
 // Keeps the compiler from moving a register's reads or writes across the
 // asynchronous wgmma that owns it.
@@ -442,29 +499,56 @@ __device__ __forceinline__ void pin(float (&x)[N][M]) {
   for (int i = 0; i < N; ++i) pin(x[i]);
 }
 
-// S = Q K^T for one 64-key tile in d / 16 steps of 16 columns (32 bytes of a
-// 128-byte row; a new 64-column panel every four steps; at d 96 the second
-// panel's zero half is never read).
-template <int D>
-__device__ __forceinline__ void mma_qk(float (&s)[32], uint32_t q_rows, uint32_t k_tile) {
+// d (64 x 128, f32) = a (64 x 16) b (16 x 128) + (accumulate ? d : 0), both
+// bf16 operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// S = Q K^T for one tile of N keys (64 or 128) in d / 16 steps of 16 columns
+// (32 bytes of a 128-byte row; a new 64-column panel every four steps; at d
+// 96 the second panel's zero half is never read).
+template <int D, int N = BK>
+__device__ __forceinline__ void mma_qk(float (&s)[N / 2], uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = 32 * (kk % 4);
-    wgmma_ss(s, desc(q_rows + (kk / 4) * BQ * ROW_BYTES + off), desc(k_tile + (kk / 4) * BK * ROW_BYTES + off),
-             kk > 0);
+    const uint64_t a = desc(q_rows + (kk / 4) * BQ * ROW_BYTES + off);
+    const uint64_t b = desc(k_tile + (kk / 4) * N * ROW_BYTES + off);
+    if constexpr (N == 128)
+      wgmma_ss_n128(s, a, b, kk > 0);
+    else
+      wgmma_ss(s, a, b, kk > 0);
   }
 }
 
-// O += P_hi V + P_lo V for one 64-key tile, 16 keys (2048 bytes) a step, one
-// 64-column panel of V and of acc at a time.
-template <int DV>
-__device__ __forceinline__ void mma_pv(float (&acc)[DV / 64][32], const uint32_t (&p_hi)[16],
-                                         const uint32_t (&p_lo)[16], uint32_t v_tile) {
+// O += P_hi V + P_lo V for one tile of N keys, 16 keys (2048 bytes) a step,
+// one 64-column panel of V and of acc at a time.
+template <int DV, int N = BK>
+__device__ __forceinline__ void mma_pv(float (&acc)[DV / 64][32], const uint32_t (&p_hi)[N / 4],
+                                         const uint32_t (&p_lo)[N / 4], uint32_t v_tile) {
 #pragma unroll
   for (int c = 0; c < DV / 64; ++c) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t vd = desc(v_tile + c * BK * ROW_BYTES + kk * 16 * ROW_BYTES);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint64_t vd = desc(v_tile + c * N * ROW_BYTES + kk * 16 * ROW_BYTES);
       wgmma_rs(acc[c], p_hi + 4 * kk, vd);
       wgmma_rs(acc[c], p_lo + 4 * kk, vd);
     }
@@ -479,26 +563,27 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// One tile's online-softmax step on the thread's S fragment (rows row0 and
-// row0 + 8, keys k0 + 8 j + {0, 1}): the scale, the cap and, on a tile that
-// straddles an edge, the masks, in the plain version's order; the running max
-// m; p = exp(s - m) in place; the thread's share of l. corr is the factor
-// that rescales acc. Scores and m are kept in units of log2(e), so that p is
-// one subtraction and one exp2.
-__device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], float (&l)[2], float (&corr)[2],
+// One tile's online-softmax step on the thread's S fragment of NS entries
+// (32 for 64 keys, 64 for 128; rows row0 and row0 + 8, keys k0 + 8 j + {0,
+// 1}): the scale, the cap and, on a tile that straddles an edge, the masks,
+// in the plain version's order; the running max m; p = exp(s - m) in place;
+// the thread's share of l. corr is the factor that rescales acc. Scores and m
+// are kept in units of log2(e), so that p is one subtraction and one exp2.
+template <int NS = 32>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2], float (&l)[2], float (&corr)[2],
                                              int row0, int k0, bool edge, int Skv, int causal, int window,
                                              float scale, float logit_cap) {
   constexpr float LOG2E = 1.4426950408889634f;
   if (logit_cap > 0.f) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = logit_cap * tanhf(s[i] * scale / logit_cap) * LOG2E;
+    for (int i = 0; i < NS; ++i) s[i] = logit_cap * tanhf(s[i] * scale / logit_cap) * LOG2E;
   } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] *= scale * LOG2E;
+    for (int i = 0; i < NS; ++i) s[i] *= scale * LOG2E;
   }
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int q = row0 + 8 * ((i / 2) % 2);
       const int k = k0 + 8 * (i / 4) + i % 2;
       if (k >= Skv)
@@ -509,7 +594,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], floa
   }
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  for (int i = 0; i < NS; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -520,7 +605,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], floa
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int r = (i / 2) % 2;
     s[i] = exp2_approx(s[i] - m[r]);
     l[r] += s[i];
@@ -528,9 +613,10 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], floa
 }
 
 // P as bf16 hi + lo parts: the S fragment's pairs are the A fragment's.
-__device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&p_hi)[16], uint32_t (&p_lo)[16]) {
+template <int NS = 32>
+__device__ __forceinline__ void split_p(const float (&s)[NS], uint32_t (&p_hi)[NS / 2], uint32_t (&p_lo)[NS / 2]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < NS / 2; ++i) {
     const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
     const float2 back = __bfloat1622float2(hi);
     p_hi[i] = bits(hi);
@@ -667,7 +753,7 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       wgmma_fence();
       mma_qk<D>(s, q_rows, sk + stage * K_BYTES);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin(s);
       const int k_start = kt * BK;
       const bool edge = k_start + BK > Skv || (causal && k_start + BK - 1 > first) ||
@@ -683,7 +769,7 @@ flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       wgmma_fence();
       mma_pv<DV>(acc, p_hi, p_lo, sv + stage * V_BYTES);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin(acc);
       pin(p_hi);
       pin(p_lo);
@@ -765,6 +851,254 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, scale,
                                           causal, window, logit_cap);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at (d, dv) = (96, 64), MLA's prefill: the softmax under the products
+// ---------------------------------------------------------------------------
+
+constexpr int MLA_D = 96, MLA_DV = 64;
+constexpr int MLA_PANELS = panels<MLA_D>();  // Q and K tiles: two 64-column panels
+constexpr int MLA_BK = 128;     // keys per tile
+constexpr int MLA_STAGES = 3;   // ring stages
+constexpr int TURN_BAR = 1;     // named barriers TURN_BAR + wg: wg's turn to issue products
+
+// Q, the ring of K and V tiles, the barriers and the alignment slack, as
+// smem_bytes; flash_attention.py's dynamic_smem_bytes repeats this sum.
+constexpr size_t mla_smem_bytes() {
+  return 1024 + 2 * (static_cast<size_t>(BQ) * 64 * MLA_PANELS +
+                     static_cast<size_t>(MLA_STAGES) * MLA_BK * (64 * MLA_PANELS + MLA_DV)) +
+         8 * (2 * MLA_STAGES + 1);
+}
+
+// Named barriers of two warpgroups (256 threads): bar_sync waits for the
+// other warpgroup's bar_arrive on the same id.
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory"); }
+
+// A block as flash_attn_bf16_kernel's (128 query rows of one (b, hq), a
+// producer warpgroup, two consumer warpgroups of 64 rows), with MLA_BK-key
+// tiles. Each consumer walks the block's tiles kt_begin .. kt_end - 1 and
+// takes one turn per tile plus one: in turn kt it issues S_kt = Q K_kt^T if
+// tile kt is live for its rows and O += P_{kt-1} V_{kt-1} if tile kt - 1 was,
+// hands the turn over, then waits for them, runs the softmax on S_kt,
+// releases tile kt - 1's stage, rescales O and splits P_kt. A tile that is
+// not live is only passed on. Both consumers take kt_end - kt_begin + 1 turns, whatever their live
+// tiles, so every bar_sync meets its bar_arrive: warpgroup 1 arrives once
+// before its first turn (warpgroup 0 goes first) and not after its last.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_bf16_mla_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int Hq,
+                           int Hkv, int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
+  constexpr int N = MLA_BK, NS = N / 2, STAGES = MLA_STAGES;
+  constexpr uint32_t Q_PANEL = BQ * ROW_BYTES;
+  constexpr uint32_t KV_PANEL = N * ROW_BYTES;
+  constexpr uint32_t Q_BYTES = MLA_PANELS * Q_PANEL;
+  constexpr uint32_t K_BYTES = MLA_PANELS * KV_PANEL;
+  constexpr uint32_t V_BYTES = KV_PANEL;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + Q_BYTES;
+  const uint32_t sv = sk + STAGES * K_BYTES;
+  const uint32_t q_full = sv + STAGES * V_BYTES;
+  const uint32_t full = q_full + 8;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+
+  const int n_k = (Skv + N - 1) / N;
+  int kt_end = n_k;
+  if (causal) kt_end = min(n_k, (min(q_start + BQ, Sq) - 1) / N + 1);
+  int kt_begin = 0;
+  if (causal && window > 0 && q_start - window + 1 > 0) kt_begin = (q_start - window + 1) / N;
+  kt_begin = min(kt_begin, kt_end);  // a window past a short Skv: no tile, one turn
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int bh_kv = b * Hkv + hk;
+      mbar_expect_tx(q_full, Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < MLA_PANELS; ++c) tma_load(sq + c * Q_PANEL, &tm_q, q_full, 64 * c, q_start, b * Hq + h);
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int i = kt - kt_begin, stage = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * stage, (i / STAGES - 1) & 1);
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, K_BYTES + V_BYTES);
+#pragma unroll
+        for (int c = 0; c < MLA_PANELS; ++c)
+          tma_load(sk + stage * K_BYTES + c * KV_PANEL, &tm_k, bar, 64 * c, kt * N, bh_kv);
+        tma_load(sv + stage * V_BYTES, &tm_v, bar, 0, kt * N, bh_kv);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int first = q_start + 64 * wg;
+    const int last = min(first + 63, Sq - 1);
+    const int row0 = first + 16 * (t / 32) + lane / 4;
+    const int col0 = 2 * (lane % 4);
+
+    int live_begin = kt_begin, live_end = kt_end;
+    if (causal) live_end = min(live_end, last / N + 1);
+    if (causal && window > 0 && first - window + 1 > 0) live_begin = max(live_begin, (first - window + 1) / N);
+    live_begin = min(live_begin, kt_end);
+    if (first >= Sq || live_end < live_begin) live_end = live_begin;
+
+    float acc[1][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = 0.f;
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    uint32_t p_hi[NS / 2], p_lo[NS / 2];
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
+    float corr[2];
+    const uint32_t q_rows = sq + 64 * wg * ROW_BYTES;
+
+    auto stage_of = [&](int kt) { return (kt - kt_begin) % STAGES; };
+    auto wait_full = [&](int kt) {
+      if (kt < kt_end) mbar_wait(full + 8 * stage_of(kt), ((kt - kt_begin) / STAGES) & 1);
+    };
+    auto release = [&](int kt) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage_of(kt));
+    };
+    auto take_turn = [&] { bar_sync(TURN_BAR + wg); };
+    auto hand_over = [&](int kt) {
+      if (wg == 0 || kt < kt_end) bar_arrive(TURN_BAR + 1 - wg);
+    };
+    auto pass = [&](int kt) {  // a turn without products
+      wait_full(kt);
+      take_turn();
+      hand_over(kt);
+      if (kt < kt_end) release(kt);
+    };
+    auto issue_s = [&](int kt) {
+      // Q's six descriptors are recomputed here, not kept across the loop
+      // (12 registers that spilled)
+      uint32_t q = q_rows;
+      asm volatile("" : "+r"(q));
+      mma_qk<MLA_D, N>(s, q, sk + stage_of(kt) * K_BYTES);
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int kt) {
+      mma_pv<MLA_DV, N>(acc, p_hi, p_lo, sv + stage_of(kt) * V_BYTES);
+      wgmma_commit();
+    };
+    auto softmax = [&](int kt) {
+      pin(s);
+      const int k_start = kt * N;
+      const bool edge = k_start + N > Skv || (causal && k_start + N - 1 > first) ||
+                        (window > 0 && first + 63 - k_start >= window);
+      softmax_step(s, m, l, corr, row0, k_start + col0, edge, Skv, causal, window, scale, logit_cap);
+    };
+    auto pv_done = [&](int kt) {
+      pin(acc);
+      pin(p_hi);
+      pin(p_lo);
+      release(kt);
+    };
+    auto make_p = [&] {
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {  // a row's max moved
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[0][i] *= corr[(i / 2) % 2];
+      }
+      split_p(s, p_hi, p_lo);
+    };
+
+    if (wg == 1) bar_arrive(TURN_BAR);  // warpgroup 0 takes the first turn
+    mbar_wait(q_full, 0);
+    int kt = kt_begin;
+    for (; kt < live_begin; ++kt) pass(kt);
+    if (live_begin < live_end) {
+      wait_full(kt);  // the first live tile: S alone
+      take_turn();
+      wgmma_fence();
+      issue_s(kt);
+      hand_over(kt);
+      wgmma_wait<0>();
+      softmax(kt);
+      make_p();
+      for (++kt; kt < live_end; ++kt) {
+        wait_full(kt);
+        take_turn();
+        wgmma_fence();
+        issue_s(kt);
+        issue_pv(kt - 1);
+        hand_over(kt);
+        wgmma_wait<1>();  // S_kt (ptxas moves the wait for P V up to here: see the header)
+        softmax(kt);
+        wgmma_wait<0>();
+        pv_done(kt - 1);
+        make_p();
+      }
+      wait_full(kt);  // turn live_end: the last live tile's P V
+      take_turn();
+      wgmma_fence();
+      issue_pv(kt - 1);
+      hand_over(kt);
+      wgmma_wait<0>();
+      pv_done(kt - 1);
+      if (kt < kt_end) release(kt);
+      ++kt;
+    }
+    for (; kt <= kt_end; ++kt) pass(kt);
+
+    // out = acc / max(l, 1e-30) in bf16, rows past Sq not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = row0 + 8 * r;
+      if (q >= Sq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * MLA_DV + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[0][4 * j + 2 * r] / denom, acc[0][4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+int launch_mla(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+               int causal, int window, float logit_cap, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  if (int err = encode(&tq, q, B * Hq, Sq, MLA_D, BQ, false)) return err;
+  if (int err = encode(&tk, k, B * Hkv, Skv, MLA_D, MLA_BK, false)) return err;
+  if (int err = encode(&tv, v, B * Hkv, Skv, MLA_DV, MLA_BK, false)) return err;
+  constexpr size_t smem = mla_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_bf16_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(MLA_D));
+  flash_attn_bf16_mla_kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv,
+                                                              Sq, Skv, scale, causal, window, logit_cap);
   return cudaGetLastError();
 }
 
@@ -1056,7 +1390,7 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
         wgmma_tf32_ss(small, a_lo, k_hi, 1);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin(s);
       pin(small);
 #pragma unroll
@@ -1089,7 +1423,7 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
         wgmma_tf32_rs(small, b0, b2, b1, b3, v_hi, 1);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin(pv);
       pin(small);
       pin(p_hi);
@@ -1168,8 +1502,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
     return launch<BF16, 128, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 256 && dv == 256)
     return launch<BF16, 256, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-  if (d == 96 && dv == 64)
-    return launch<BF16, 96, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+  if (d == hopper::MLA_D && dv == hopper::MLA_DV) {
+    if constexpr (BF16)
+      return hopper::launch_mla(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    else
+      return simt::launch<hopper::MLA_D, hopper::MLA_DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
+                                                          logit_cap, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1178,6 +1517,44 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
 // The kernel the wrapper chose (flash_attention.py's kernel_kind; its
 // constants repeat these).
 enum Kind { F32_SIMT = 0, BF16 = 1, F32_TF32 = 2 };
+
+namespace {
+
+// The block of the kernel that takes (kind, D, DV), as its launch sets it
+// up: query rows, keys a tile, ring stages (1: no ring), dynamic shared
+// memory in bytes, threads.
+template <int D, int DV>
+int block_shape(int kind, int* out) {
+  auto put = [out](int bq, int bk, int stages, size_t smem, int threads) {
+    const int vals[5] = {bq, bk, stages, static_cast<int>(smem), threads};
+    for (int i = 0; i < 5; ++i) out[i] = vals[i];
+    return static_cast<int>(cudaSuccess);
+  };
+  namespace hp = hopper;
+  if (kind == BF16 && D == hp::MLA_D && DV == hp::MLA_DV)
+    return put(hp::BQ, hp::MLA_BK, hp::MLA_STAGES, hp::mla_smem_bytes(), hp::THREADS);
+  if (kind == BF16) return put(hp::BQ, hp::BK, hp::stages<D, DV>(), hp::smem_bytes<D, DV>(), hp::THREADS);
+  if (kind == F32_TF32 && D == hp::TD && DV == hp::TD)
+    return put(hp::BQ, hp::BK, hp::T_STAGES, hp::tf32_smem_bytes(), hp::THREADS);
+  if (kind == F32_SIMT && !(D == hp::TD && DV == hp::TD))
+    return put(simt::BQ, simt::BK, 1, simt::smem_bytes<D, DV>(), simt::THREADS);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The block of the kernel that `kind` names at (d, dv): out[0] query rows,
+// out[1] keys a tile, out[2] stages of the K and V ring (1: none), out[3]
+// dynamic shared memory in bytes, out[4] threads. Returns the CUDA error.
+extern "C" int repro_flash_attention_config(int kind, int d, int dv, int* out) {
+  if (d == 64 && dv == 64) return block_shape<64, 64>(kind, out);
+  if (d == 128 && dv == 128) return block_shape<128, 128>(kind, out);
+  if (d == 64 && dv == 128) return block_shape<64, 128>(kind, out);
+  if (d == 128 && dv == 64) return block_shape<128, 64>(kind, out);
+  if (d == 256 && dv == 256) return block_shape<256, 256>(kind, out);
+  if (d == hopper::MLA_D && dv == hopper::MLA_DV) return block_shape<hopper::MLA_D, hopper::MLA_DV>(kind, out);
+  return cudaErrorInvalidValue;
+}
 
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq, dv),
 // all contiguous and of one type: bf16 for BF16, else f32 (F32_TF32 takes

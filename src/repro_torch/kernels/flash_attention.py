@@ -13,10 +13,15 @@ against 268 MB), so the design follows the unit that does them:
   P is split into bf16 hi and lo parts and both are multiplied with V: one
   bf16 rounding of P would put some outputs outside the card's limit (atol
   1e-3, rtol 2⁻⁷ against the plain version), the split keeps 16 bits of P.
-  MLA's (d, dv) = (96, 64) keeps its Q and K tiles 128 columns wide: the TMA
-  load of the second 64-column box fills columns 96..127 with zeros, Q·Kᵀ
-  stops at column 96 and the scale is 96**-0.5. q and k are not padded on
-  the host.
+- bf16 at MLA's (d, dv) = (96, 64) has a kernel of its own
+  (``flash_attn_bf16_mla_kernel``) whose softmax runs while the tensor cores
+  work: the same block of 128 query rows, with 128-key tiles in a ring of 3
+  stages; each consumer warpgroup issues S of a tile with P·V of the one
+  before, and the two consumers take turns issuing their products (named
+  barriers), so that one warpgroup's softmax runs under the other's
+  products. Its Q and K tiles are 128 columns wide: the TMA load of the
+  second 64-column box fills columns 96..127 with zeros, Q·Kᵀ stops at
+  column 96 and the scale is 96**-0.5. q and k are not padded on the host.
 - f32 at (d, dv) = (64, 64), nbi-100m's heads, runs on the tensor cores too,
   as 3×TF32: every operand is split into TF32 hi and lo parts and each
   product is hi·hi + hi·lo + lo·hi in f32 (about 22 bits; one TF32 product
@@ -34,6 +39,8 @@ synchronising.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -48,16 +55,19 @@ MLA_HEAD_DIMS = (96, 64)
 # the FMA units
 TF32_HEAD_DIM_PAIRS = ((64, 64),)
 # query rows per block and keys per tile, as in the kernels: the f32 FMA
-# kernel, the bf16 kernel, the f32 tensor-core kernel
+# kernel, the bf16 kernel, the f32 tensor-core kernel; the bf16 MLA kernel
+# takes MLA_BK keys a tile into a ring of MLA_STAGES
 BQ = {torch.float32: 64, torch.bfloat16: 128}
 BQ_TF32 = 128
 BK = 64
+MLA_BK = 128
+MLA_STAGES = 3
 # the C entry's kernel codes (``Kind`` in the source)
 F32_SIMT, BF16, F32_TF32 = 0, 1, 2
 
 # Launches since import, one count per kernel: the f32 kernel on the FMA
-# units, the bf16 kernel (at every pair but MLA's), the bf16 kernel's (96, 64)
-# instance and the f32 tensor-core kernel. chip_smoke.py sets them to 0 around
+# units, the bf16 kernel (at every pair but MLA's), the bf16 MLA kernel at
+# (96, 64) and the f32 tensor-core kernel. chip_smoke.py sets them to 0 around
 # the main path and reads them to show that every prefill attention came here.
 launches = 0
 bf16_launches = 0
@@ -105,29 +115,50 @@ def _validate(q, k, v) -> None:
                 raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")
 
 
+def tiles(dtype: torch.dtype, d: int, dv: int) -> tuple[int, int]:
+    """(query rows a block, keys a tile) of the kernel that takes these inputs."""
+    kind = kernel_kind(dtype, d, dv)
+    if kind == BF16:
+        return BQ[dtype], MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
+    return (BQ_TF32 if kind == F32_TF32 else BQ[dtype]), BK
+
+
 def stages(d: int, dv: int) -> int:
-    """K and V tiles in flight in the bf16 kernel's ring."""
+    """K and V tiles in flight in the ring of the bf16 kernel that takes (d, dv)."""
+    if (d, dv) == MLA_HEAD_DIMS:
+        return MLA_STAGES
     return 2 if d + dv >= 512 else 4
 
 
 def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory one block of the kernel that takes (d, dv, dtype) asks
-    for at launch (``smem_bytes`` and ``tf32_smem_bytes`` in the source).
-    bf16: the Q tile, the ring of K and V tiles (Q and K in whole 64-column
-    panels: d 96 takes 128), one barrier per stage for full and for empty and
-    one for Q, and 1024 bytes of slack to align the tiles to their swizzle
-    pattern. f32 on the tensor cores: the Q tile (split
-    in place into Q_hi) and Q_lo, two stages of five 64-key tiles (K split in
-    place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per stage and one for Q, and
-    the slack. f32 on the FMA
-    units: Q and K tiles padded by one float, the V tile and the P tile."""
+    for at launch (``smem_bytes``, ``mla_smem_bytes`` and ``tf32_smem_bytes``
+    in the source). bf16: the Q tile, the ring of K and V tiles of
+    :func:`tiles`' keys (Q and K in whole 64-column panels: d 96 takes 128),
+    one barrier per stage for full and for empty and one for Q, and 1024 bytes
+    of slack to align the tiles to their swizzle pattern. f32 on the tensor
+    cores: the Q tile (split in place into Q_hi) and Q_lo, two stages of five
+    64-key tiles (K split in place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per
+    stage and one for Q, and the slack. f32 on the FMA units: Q and K tiles
+    padded by one float, the V tile and the P tile."""
     kind = kernel_kind(dtype, d, dv)
     if kind == BF16:
-        n, dp = stages(d, dv), -(-d // 64) * 64
-        return 1024 + 2 * (BQ[dtype] * dp + n * BK * (dp + dv)) + 8 * (2 * n + 1)
+        (bq, bk), n, dp = tiles(dtype, d, dv), stages(d, dv), -(-d // 64) * 64
+        return 1024 + 2 * (bq * dp + n * bk * (dp + dv)) + 8 * (2 * n + 1)
     if kind == F32_TF32:
         return 1024 + 4 * (2 * BQ_TF32 * d + 2 * BK * (3 * d + 2 * dv)) + 8 * (3 * 2 + 1)
     return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
+
+
+def launch_config(dtype: torch.dtype, d: int, dv: int) -> dict:
+    """The block of the kernel that takes (d, dv, dtype), as the library
+    reports it: query rows ``bq``, keys a tile ``bk``, ring ``stages`` (1:
+    none), ``smem_bytes`` of dynamic shared memory, ``threads``. Builds the
+    library, so it needs the CUDA toolkit."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().repro_flash_attention_config(kernel_kind(dtype, d, dv), d, dv, out),
+                 "flash_attention config")
+    return dict(zip(("bq", "bk", "stages", "smem_bytes", "threads"), out))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float = 0.0):

@@ -16,6 +16,7 @@ JAX is imported inside a fixture, so that the card's machine, which has no
 JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
 """
 
+import itertools
 import types
 
 import numpy as np
@@ -92,26 +93,40 @@ def test_plain_attention_bf16_matches_jax(jx):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
 
 
-def kernel_tiles(Sq, Skv, causal, window, BQ):
-    """The tiles of the tensor-core attention kernels, in their order: for each
-    64-row warpgroup of a block of BQ query rows, its rows and the BK-key
-    tiles that it computes (those live for its own rows among the block's)."""
-    BK = tfa.BK
+def kernel_blocks(Sq, Skv, causal, window, BQ, BK):
+    """The blocks of the tensor-core attention kernels, in their order: for
+    each block of BQ query rows, the run [kt_begin, kt_end) of BK-key tiles
+    that the block loads and, for each of its two 64-row consumer
+    warpgroups, its rows that exist and the tiles live for them among the
+    block's (none for a warpgroup past Sq)."""
     n_k = -(-Skv // BK)
     for q0 in range(0, Sq, BQ):
         kt_end = min(n_k, (min(q0 + BQ, Sq) - 1) // BK + 1) if causal else n_k
         kt_begin = (q0 - window + 1) // BK if causal and window > 0 and q0 - window + 1 > 0 else 0
-        for first in range(q0, min(q0 + BQ, Sq), 64):
-            rows = torch.arange(first, min(first + 64, Sq))
-            last = int(rows[-1])
-            live = [torch.arange(kt * BK, min(kt * BK + BK, Skv)) for kt in range(kt_begin, kt_end)
-                    if not (causal and (kt * BK > last or (window > 0 and kt * BK + BK - 1 <= first - window)))]
-            yield rows, live
+        kt_begin = min(kt_begin, kt_end)
+        groups = []
+        for first in range(q0, q0 + BQ, 64):
+            rows = torch.arange(first, max(first, min(first + 64, Sq)))
+            last = int(rows[-1]) if len(rows) else -1
+            live = [kt for kt in range(kt_begin, kt_end) if len(rows) and not (
+                causal and (kt * BK > last or (window > 0 and kt * BK + BK - 1 <= first - window)))]
+            groups.append((rows, live))
+        yield kt_begin, kt_end, groups
 
 
-def emulate_tiled(q, k, v, scores, weigh, out_dtype, *, causal=True, window=0, logit_cap=0.0, BQ=128):
+def kernel_tiles(Sq, Skv, causal, window, BQ, BK):
+    """Each warpgroup's rows and the key positions of its live tiles, as
+    :func:`kernel_blocks` gives them."""
+    for _, _, groups in kernel_blocks(Sq, Skv, causal, window, BQ, BK):
+        for rows, live in groups:
+            if len(rows):
+                yield rows, [torch.arange(kt * BK, min(kt * BK + BK, Skv)) for kt in live]
+
+
+def emulate_tiled(q, k, v, scores, weigh, out_dtype, *, tiles, causal=True, window=0, logit_cap=0.0):
     """The online softmax of the tensor-core kernels on the CPU, over
-    :func:`kernel_tiles`: ``scores(q_rows, k_cols)`` gives S in f32 (scaled),
+    :func:`kernel_tiles` at ``tiles`` (BQ, BK): ``scores(q_rows, k_cols)``
+    gives S in f32 (scaled),
     then the tanh cap, the masks at -1e30 (keys past Skv take no part), the
     running max, p = exp(s - m) in f32, l summed from the f32 p, and
     ``weigh(p, v_cols)`` gives the tile's P·V; out = acc / max(l, 1e-30).
@@ -123,11 +138,11 @@ def emulate_tiled(q, k, v, scores, weigh, out_dtype, *, causal=True, window=0, l
     kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
     vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
     out = torch.zeros((B, Hq, Sq, dv))
-    for rows, tiles in kernel_tiles(Sq, Skv, causal, window, BQ):
+    for rows, live in kernel_tiles(Sq, Skv, causal, window, *tiles):
         m = torch.full((B, Hq, len(rows)), -1e30)
         l = torch.zeros((B, Hq, len(rows)))
         acc = torch.zeros((B, Hq, len(rows), dv))
-        for cols in tiles:
+        for cols in live:
             s = scores(qf[:, :, rows], kf[:, :, cols])
             if logit_cap > 0:
                 s = logit_cap * torch.tanh(s / logit_cap)
@@ -148,8 +163,10 @@ def emulate_tiled(q, k, v, scores, weigh, out_dtype, *, causal=True, window=0, l
 
 
 def emulate_bf16_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
-    """The arithmetic of the bf16 kernel (csrc/flash_attention.cu) on the CPU,
-    with the wrapper's tile sizes: S from the bf16 products summed in f32,
+    """The arithmetic of the bf16 kernels (csrc/flash_attention.cu) on the
+    CPU, with the wrapper's tiles for (d, dv) (``flash_attention.tiles``: 128
+    keys a tile at MLA's (96, 64), else 64): S from the bf16 products summed
+    in f32,
     times the f32 d**-0.5; P split into bf16 hi and lo (rounded once when
     ``split`` is False), each multiplied with V into the f32 acc; out in
     bf16."""
@@ -161,7 +178,8 @@ def emulate_bf16_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=
         return pv + (p - hi).bfloat16().float() @ vt if split else pv
 
     return emulate_tiled(q, k, v, lambda qt, kt: (qt @ kt.transpose(-1, -2)) * scale, weigh, torch.bfloat16,
-                         causal=causal, window=window, logit_cap=logit_cap, BQ=tfa.BQ[torch.bfloat16])
+                         tiles=tfa.tiles(torch.bfloat16, q.shape[-1], v.shape[-1]),
+                         causal=causal, window=window, logit_cap=logit_cap)
 
 
 def tf32(x):
@@ -205,7 +223,8 @@ def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=T
         return product(p[..., order], vt[..., order, :])
 
     return emulate_tiled(q * scale, k, v, lambda qt, kt: product(qt, kt.transpose(-1, -2)), weigh, torch.float32,
-                         causal=causal, window=window, logit_cap=logit_cap, BQ=tfa.BQ_TF32)
+                         tiles=tfa.tiles(torch.float32, 64, 64), causal=causal, window=window,
+                         logit_cap=logit_cap)
 
 
 # bf16 attention on the card: one output rounding of either side
@@ -228,12 +247,24 @@ def test_bf16_kernel_arithmetic_matches_jax(jx, case):
         np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_ATTN_TOL)
 
 
-# MLA's prefill pair (d, dv) = (96, 64) in the bf16 kernel: name: (B, Hq,
-# Hkv, Sq, Skv, causal, window)
+# MLA's prefill pair (d, dv) = (96, 64) in the bf16 MLA kernel (blocks of
+# 128 rows, two warpgroups of 64, 128-key tiles): name: (B, Hq, Hkv, Sq, Skv,
+# causal, window)
 MLA_CASES = {
     "causal": (1, 4, 4, 130, 130, True, 0),
     "non_causal_ragged": (1, 2, 2, 77, 150, False, 0),
     "window": (1, 2, 2, 200, 200, True, 48),
+    # Sq = 1, 63, 64 and 65 past a block: one row, a warpgroup one short, a
+    # block whose second warpgroup has no rows, a second warpgroup of one row
+    "sq_129": (1, 2, 2, 129, 129, True, 0),
+    "sq_191": (1, 2, 2, 191, 191, True, 0),
+    "sq_192": (1, 2, 2, 192, 192, True, 0),
+    "sq_193": (1, 2, 2, 193, 193, True, 0),
+    # Skv shorter than a tile, causal and not
+    "short_kv_causal": (1, 2, 2, 100, 100, True, 0),
+    "short_kv_non_causal": (1, 2, 2, 60, 100, False, 0),
+    # a window under 64 keys: a block's second warpgroup starts a tile later
+    "window_turns_differ": (1, 2, 2, 300, 300, True, 40),
 }
 
 
@@ -253,14 +284,159 @@ def test_bf16_kernel_arithmetic_at_mla_head_dims_matches_jax(jx, case):
 
 
 def test_mla_head_dims_take_whole_panels():
-    """(96, 64) runs the bf16 kernel with Q and K tiles of two 64-column
-    panels (the second half zeros) and four stages, and f32 on the FMA units."""
+    """(96, 64) runs the bf16 MLA kernel with Q and K tiles of two 64-column
+    panels (the second half zeros), 128-key tiles and three stages, and f32
+    on the FMA units; the other bf16 pairs keep 64-key tiles."""
     assert tfa.MLA_HEAD_DIMS in tfa.HEAD_DIM_PAIRS
     assert tfa.kernel_kind(torch.bfloat16, 96, 64) == tfa.BF16
     assert tfa.kernel_kind(torch.float32, 96, 64) == tfa.F32_SIMT
-    assert tfa.stages(96, 64) == 4
-    assert tfa.dynamic_smem_bytes(96, 64, torch.bfloat16) == 1024 + 2 * (128 * 128 + 4 * 64 * (128 + 64)) + 8 * 9
+    assert tfa.tiles(torch.bfloat16, 96, 64) == (128, 128)
+    assert tfa.stages(96, 64) == 3
+    assert tfa.dynamic_smem_bytes(96, 64, torch.bfloat16) == 1024 + 2 * (128 * 128 + 3 * 128 * (128 + 64)) + 8 * 7
+    assert tfa.dynamic_smem_bytes(96, 64, torch.bfloat16) == 181304
     assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 4 * (64 * 97 + 64 * 97 + 64 * 64 + 64 * 65)
+    assert {tfa.tiles(torch.bfloat16, d, dv) for d, dv in tfa.HEAD_DIM_PAIRS if (d, dv) != (96, 64)} == {(128, 64)}
+    assert {tfa.stages(d, dv) for d, dv in tfa.HEAD_DIM_PAIRS if (d, dv) != (96, 64)} == {2, 4}
+
+
+def mla_turns(wg, kt_begin, kt_end, live):
+    """The barrier operations of consumer warpgroup ``wg`` of the bf16 MLA
+    kernel, in its order (``flash_attn_bf16_mla_kernel``), given the block's
+    tiles and the run ``live`` of its own: ("full", kt) waits for tile kt,
+    ("empty", kt) releases it, ("sync", w) waits for warpgroup w's turn and
+    ("arrive", w) hands the turn to w. One turn a tile, plus one."""
+    live_begin, live_end = (live[0], live[-1] + 1) if live else (kt_end, kt_end)
+
+    def turn(kt, release=()):
+        if kt < kt_end:
+            yield "full", kt
+        yield "sync", wg
+        if wg == 0 or kt < kt_end:
+            yield "arrive", 1 - wg
+        for r in release:
+            yield "empty", r
+
+    if wg == 1:
+        yield "arrive", 0  # warpgroup 0 takes the first turn
+    for kt in range(kt_begin, live_begin):
+        yield from turn(kt, [kt])
+    kt = live_begin
+    if live_begin < live_end:
+        yield from turn(kt)  # S of the first live tile alone
+        for kt in range(live_begin + 1, live_end):
+            yield from turn(kt, [kt - 1])  # S of kt, P V of kt - 1
+        kt = live_end
+        yield from turn(kt, [kt - 1] + ([kt] if kt < kt_end else []))
+        kt += 1
+    for kt in range(kt, kt_end + 1):
+        yield from turn(kt, [kt] if kt < kt_end else [])
+
+
+def run_mla_block(kt_begin, kt_end, groups, stages, order):
+    """Run one block's producer and two consumers against a model of the
+    mbarriers (full: one TMA landing a phase; empty: one arrival a consumer
+    a phase, waits by parity) and of the two named turn barriers (a bar.sync
+    of one warpgroup and a bar.arrive of the other complete a phase), picking
+    among the agents that can move in ``order``'s sequence of choices. Fails
+    on a deadlock, on an arrival that would count twice in one phase, on a
+    parity wait two phases behind, and on a barrier left waiting."""
+    full = [0] * stages  # completed phases
+    empty = [0] * stages
+    empty_in = [set() for _ in range(stages)]  # arrivals in the open phase
+    turn_in = [set(), set()]  # named barrier w: warpgroups in the open phase
+    turn_done = [0, 0]
+
+    def producer():
+        for i, kt in enumerate(range(kt_begin, kt_end)):
+            if i >= stages:
+                yield "wait_empty", kt
+            yield "load", kt
+
+    agents = {"producer": producer(), 0: mla_turns(0, kt_begin, kt_end, groups[0][1]),
+              1: mla_turns(1, kt_begin, kt_end, groups[1][1])}
+    pending = {name: next(gen, None) for name, gen in agents.items()}
+    blocked_on = {}  # a warpgroup inside bar.sync: (barrier, phase it joined)
+    turns = {0: 0, 1: 0}
+
+    def ready(name, op):
+        kind, x = op
+        if kind in ("full", "wait_empty"):
+            i = x - kt_begin
+            phase, bars = (i // stages, full) if kind == "full" else (i // stages - 1, empty)
+            done = bars[i % stages]
+            assert done <= phase + 1, f"{name} waits on parity {phase} two phases behind"
+            return done > phase
+        if kind == "sync" and name in blocked_on:
+            w, phase = blocked_on[name]
+            return turn_done[w] > phase
+        return True
+
+    for step in itertools.count():
+        movable = [name for name, op in pending.items() if op is not None and ready(name, op)]
+        if not movable:
+            break
+        name = movable[order[step % len(order)] % len(movable)]
+        kind, x = pending[name]
+        if kind == "load":
+            full[(x - kt_begin) % stages] += 1
+        elif kind == "empty":
+            s = (x - kt_begin) % stages
+            assert name not in empty_in[s], f"warpgroup {name} releases stage {s} twice in one phase"
+            empty_in[s].add(name)
+            if len(empty_in[s]) == 2:
+                empty[s] += 1
+                empty_in[s].clear()
+        elif kind in ("sync", "arrive"):
+            if kind == "sync" and name in blocked_on:  # its phase completed
+                del blocked_on[name]
+                turns[name] += 1
+                pending[name] = next(agents[name], None)
+                continue
+            assert name not in turn_in[x], f"warpgroup {name} counts twice on turn barrier {x}"
+            turn_in[x].add(name)
+            if kind == "sync":
+                blocked_on[name] = (x, turn_done[x])
+            if len(turn_in[x]) == 2:
+                turn_done[x] += 1
+                turn_in[x].clear()
+            if kind == "sync":
+                continue
+        pending[name] = next(agents[name], None)
+    stuck = {name: op for name, op in pending.items() if op is not None}
+    assert not stuck, f"deadlock: {stuck}"
+    assert turn_in == [set(), set()] and not blocked_on, f"a turn barrier is left waiting: {turn_in}"
+    assert all(not s for s in empty_in), "an empty barrier is left part-way"
+    assert sum(full) == sum(empty) == kt_end - kt_begin  # every tile landed and was released by both
+    assert turns == {0: kt_end - kt_begin + 1, 1: kt_end - kt_begin + 1}
+
+
+# (Sq, Skv, causal, window): minicpm3-4b's served prefills (prompts of 128,
+# 512 and 2048), chip_smoke.py's (96, 64) cases, and the edges of the turns
+MLA_SCHEDULE_CASES = [
+    (128, 128, True, 0), (512, 512, True, 0), (2048, 2048, True, 0),
+    (333, 1000, False, 0), (1500, 1500, True, 512), (1088, 1088, True, 0), (65, 65, True, 0),
+    (1, 1, True, 0), (129, 129, True, 0), (191, 191, True, 0), (192, 192, True, 0), (193, 193, True, 0),
+    (100, 100, True, 0), (60, 100, False, 0), (300, 300, True, 40), (500, 500, True, 128),
+    (257, 257, True, 100), (150, 70, False, 0), (1000, 100, True, 64),
+]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", MLA_SCHEDULE_CASES)
+def test_mla_turns_never_deadlock(Sq, Skv, causal, window):
+    """Every block of the bf16 MLA kernel at these shapes runs its turn
+    protocol to the end, under in-order and shuffled interleavings, with
+    every barrier met; the shapes include blocks whose warpgroups have
+    unequal live tiles (causal edge, window, a warpgroup past Sq)."""
+    bq, bk = tfa.tiles(torch.bfloat16, 96, 64)
+    rng = np.random.default_rng(Sq * 7919 + Skv)
+    orders = [[0], [1], [2], *(rng.integers(0, 3, 64).tolist() for _ in range(3))]
+    unequal = 0
+    for kt_begin, kt_end, groups in kernel_blocks(Sq, Skv, causal, window, bq, bk):
+        unequal += len(groups[0][1]) != len(groups[1][1])
+        for order in orders:
+            run_mla_block(kt_begin, kt_end, groups, tfa.stages(96, 64), order)
+    if (Sq, Skv, causal, window) in ((1088, 1088, True, 0), (300, 300, True, 40), (1, 1, True, 0)):
+        assert unequal  # these shapes give the block's warpgroups unequal live tiles
 
 
 def test_bf16_kernel_needs_p_in_two_parts():
@@ -931,7 +1107,7 @@ def test_flash_attention_kernel_matches_plain(case):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-# the (96, 64) instance on the card: name: (B, Hq, Hkv, Sq, Skv, causal, window)
+# the (96, 64) kernel on the card: name: (B, Hq, Hkv, Sq, Skv, causal, window)
 GPU_MLA_CASES = {
     "minicpm3_heads": (2, 40, 40, 300, 300, True, 0),
     "causal_sq1": (1, 4, 4, 1, 1, True, 0),
@@ -941,14 +1117,23 @@ GPU_MLA_CASES = {
     "ragged_causal": (1, 4, 4, 77, 77, True, 0),
     "window": (1, 4, 4, 500, 500, True, 128),
     "gqa_window": (1, 8, 2, 257, 257, True, 100),
+    # the edges of its 128-row blocks, 128-key tiles and turns (MLA_CASES)
+    "sq_129": (1, 8, 8, 129, 129, True, 0),
+    "sq_191": (1, 8, 8, 191, 191, True, 0),
+    "sq_192": (1, 8, 8, 192, 192, True, 0),
+    "sq_193": (1, 8, 8, 193, 193, True, 0),
+    "short_kv_causal": (1, 8, 8, 100, 100, True, 0),
+    "short_kv_non_causal": (1, 8, 8, 60, 100, False, 0),
+    "window_turns_differ": (1, 8, 8, 300, 300, True, 40),
+    "second_warpgroup_idle": (2, 8, 8, 1088, 1088, True, 0),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(GPU_MLA_CASES))
 def test_flash_attention_mla_instance_matches_plain(case):
-    """bf16 at (96, 64) launches the bf16 kernel's MLA instance (its own
-    count, not the other bf16 pairs') and meets the card's bf16 limit."""
+    """bf16 at (96, 64) launches the bf16 MLA kernel (its own count, not the
+    other bf16 pairs') and meets the card's bf16 limit."""
     _need_card()
     B, Hq, Hkv, Sq, Skv, causal, window = GPU_MLA_CASES[case]
     arrays = draw(41, (B, Hq, Sq, 96), (B, Hkv, Skv, 96), (B, Hkv, Skv, 64))
@@ -963,9 +1148,25 @@ def test_flash_attention_mla_instance_matches_plain(case):
 
 
 @pytest.mark.gpu
+def test_flash_attention_launch_config_matches_the_wrapper():
+    """The library's blocks (query rows, keys a tile, stages, dynamic shared
+    memory, threads) are the ones the wrapper and the CPU emulation assume,
+    for every pair and dtype."""
+    _need_card()
+    for dtype in tfa.DTYPES:
+        for d, dv in tfa.HEAD_DIM_PAIRS:
+            kind = tfa.kernel_kind(dtype, d, dv)
+            bq, bk = tfa.tiles(dtype, d, dv)
+            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: 2, tfa.F32_SIMT: 1}[kind]
+            threads = 256 if kind == tfa.F32_SIMT else 384
+            assert tfa.launch_config(dtype, d, dv) == dict(
+                bq=bq, bk=bk, stages=stages, smem_bytes=tfa.dynamic_smem_bytes(d, dv, dtype), threads=threads)
+
+
+@pytest.mark.gpu
 def test_mla_attention_grads_on_the_card_match_the_cpu():
     """bf16 ``ops.attention`` at (96, 64) under autograd: the forward is the
-    MLA instance (one launch), the backward the plain path recomputed. out is
+    MLA kernel (one launch), the backward the plain path recomputed. out is
     held to one bf16 rounding; dq, dk, dv to ROADMAP's bf16 attention atol
     0.05 plus two rounding steps relative, since each device rounds the
     recompute's bf16 products at other places."""
