@@ -39,7 +39,9 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    device time, and the ops that take the most device time); then
    continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
    of mixed lengths) on minicpm3-4b at full width and on nbi-100m, with f32
-   activations: exact launches per insert and decode step, every chosen
+   activations: exact launches per insert and decode step (each insert's
+   attentions through the f32 tensor-core (3xTF32) kernel of its heads: the
+   MLA kernel at (96, 64), the d 64 kernel), every chosen
    token within 1e-3 of the max logit of a full forward over its request,
    and decode steps against the static bound; then inserts into the live
    cache beside a slot part-way through its generation, with the same
@@ -127,9 +129,9 @@ LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=
 WKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
 
 KERNEL_INFO = {
-    # K1 has three kernels: f32 on the FMA units (the f32 head-dim pairs other
-    # than (64, 64)), bf16 on the tensor cores, f32 at (64, 64) on the tensor
-    # cores as 3xTF32
+    # K1 has five kernels: f32 on the FMA units (the f32 head-dim pairs other
+    # than (64, 64) and (96, 64)), bf16 on the tensor cores, bf16 at (96, 64),
+    # f32 at (64, 64) and f32 at (96, 64) on the tensor cores as 3xTF32
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
@@ -144,6 +146,11 @@ KERNEL_INFO = {
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
     "flash_attention_tf32": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    # the f32 (3xTF32) MLA kernel at (d, dv) = (96, 64)
+    "flash_attention_tf32_mla": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
@@ -167,19 +174,22 @@ KERNEL_INFO = {
 # kernel: (wrapper module, its launch counter)
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
             "flash_attention_bf16_mla": (fa_kernel, "bf16_mla_launches"),
-            "flash_attention_tf32": (fa_kernel, "tf32_launches"), "rmsnorm": (rn_kernel, "launches"),
+            "flash_attention_tf32": (fa_kernel, "tf32_launches"),
+            "flash_attention_tf32_mla": (fa_kernel, "tf32_mla_launches"), "rmsnorm": (rn_kernel, "launches"),
             "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
             "moe_gating": (gating_kernel, "launches"), "moe_gating_slots": (gating_kernel, "slots_launches")}
 # the phase-3 case whose numbers stand for each attention kernel in the JSON
-# line: a shape a main path gives it (the FMA kernel's: the continuous-batching
-# phase's f32 MLA inserts)
-ATTN_JSON_CASE = {"flash_attention": "mla_f32_insert", "flash_attention_bf16": "deepseek_prefill",
-                  "flash_attention_bf16_mla": "mla_prefill", "flash_attention_tf32": "nbi100m_prefill"}
+# line: a shape a main path gives it (the FMA kernel, on no main path: f32 at
+# Griffin's d 256)
+ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepseek_prefill",
+                  "flash_attention_bf16_mla": "mla_prefill", "flash_attention_tf32": "nbi100m_prefill",
+                  "flash_attention_tf32_mla": "mla_f32_insert"}
 # a part of each kernel's name as the profiler shows it; a kernel goes to the
 # first name it matches
 TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel",
                "flash_attention_bf16_mla": "flash_attn_bf16_mla_kernel",
                "flash_attention_bf16": "flash_attn_bf16_kernel",
+               "flash_attention_tf32_mla": "flash_attn_tf32_mla_kernel",
                "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
                "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
 
@@ -286,9 +296,11 @@ def attention_cases(full: bool):
     ragged Sq and Skv, under a window, at minicpm3-4b's 512-token batch and
     at 1088 rows (8.5 blocks: the last block's second warpgroup has no rows
     and takes nine turns without products beside the first's nine tiles),
-    MLA's f32 pair as the continuous-batching phase's single-row inserts give
-    it, and edges of the bf16 kernel's TMA boxes and 64-key tiles at full
-    size."""
+    MLA's f32 pair as the continuous-batching phase's one-row inserts give it
+    (a request of 1000, 512, 200 and 64 tokens) and at the 3xTF32 MLA
+    kernel's edges (ragged, a window under its 32-key tiles, the cap, Skv one
+    past a tile), and edges of the bf16 kernel's TMA boxes and 64-key tiles
+    at full size."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
@@ -301,6 +313,13 @@ def attention_cases(full: bool):
             ("mla_prefill_s512", 2, 4, 4, 12, 12, 24, 16, bf16, True, 0, 0.0),
             ("mla_unequal_turns", 1, 4, 4, 17, 17, 24, 16, bf16, True, 0, 0.0),
             ("mla_f32_insert", 1, 4, 4, 20, 20, 24, 16, f32, True, 0, 0.0),
+            ("mla_f32_insert_s512", 1, 4, 4, 12, 12, 24, 16, f32, True, 0, 0.0),
+            ("mla_f32_insert_s200", 1, 4, 4, 8, 8, 24, 16, f32, True, 0, 0.0),
+            ("mla_f32_insert_s64", 1, 4, 4, 5, 5, 24, 16, f32, True, 0, 0.0),
+            ("mla_f32_ragged", 1, 4, 4, 13, 40, 24, 16, f32, False, 0, 0.0),
+            ("mla_f32_window", 1, 4, 4, 24, 24, 24, 16, f32, True, 3, 0.0),
+            ("mla_f32_logit_cap", 1, 4, 4, 16, 16, 24, 16, f32, True, 0, 30.0),
+            ("mla_f32_skv33", 1, 4, 4, 12, 9, 24, 16, f32, False, 0, 0.0),
             ("d256_f32", 1, 2, 1, 12, 12, 16, 16, f32, True, 4, 0.0),
             ("gqa_bf16", 1, 8, 2, 24, 24, 16, 16, bf16, True, 0, 0.0),
             ("ragged", 1, 4, 4, 13, 13, 16, 16, f32, True, 0, 0.0),
@@ -320,6 +339,13 @@ def attention_cases(full: bool):
         ("mla_prefill_s512", 8, 40, 40, 512, 512, 96, 64, bf16, True, 0, 0.0),
         ("mla_unequal_turns", 2, 40, 40, 1088, 1088, 96, 64, bf16, True, 0, 0.0),
         ("mla_f32_insert", 1, 40, 40, 1000, 1000, 96, 64, f32, True, 0, 0.0),
+        ("mla_f32_insert_s512", 1, 40, 40, 512, 512, 96, 64, f32, True, 0, 0.0),
+        ("mla_f32_insert_s200", 1, 40, 40, 200, 200, 96, 64, f32, True, 0, 0.0),
+        ("mla_f32_insert_s64", 1, 40, 40, 64, 64, 96, 64, f32, True, 0, 0.0),
+        ("mla_f32_ragged", 2, 40, 40, 333, 1000, 96, 64, f32, False, 0, 0.0),
+        ("mla_f32_window", 1, 40, 40, 1000, 1000, 96, 64, f32, True, 20, 0.0),
+        ("mla_f32_logit_cap", 1, 40, 40, 257, 257, 96, 64, f32, True, 0, 30.0),
+        ("mla_f32_skv33", 2, 40, 40, 129, 33, 96, 64, f32, False, 0, 0.0),
         ("d256_f32", 2, 10, 1, 1024, 1024, 256, 256, f32, True, 512, 0.0),
         ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("ragged_s300", 2, 12, 12, 300, 300, 64, 64, f32, True, 0, 0.0),
@@ -695,9 +721,13 @@ def attention_counter(cfg) -> str:
     prefill attention."""
     d, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.attention == "mla"
              else (cfg.resolved_head_dim,) * 2)
-    kind = fa_kernel.kernel_kind(getattr(torch, cfg.dtype), d, dv)
-    if kind == fa_kernel.BF16 and (d, dv) == fa_kernel.MLA_HEAD_DIMS:
+    # by kernel_kind, not launch_count: chip_variants.py runs this with older
+    # trees' wrappers
+    kind, mla = fa_kernel.kernel_kind(getattr(torch, cfg.dtype), d, dv), (d, dv) == fa_kernel.MLA_HEAD_DIMS
+    if kind == fa_kernel.BF16 and mla:
         return "flash_attention_bf16_mla"
+    if kind == fa_kernel.F32_TF32 and mla:
+        return "flash_attention_tf32_mla"
     return {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
             fa_kernel.F32_SIMT: "flash_attention"}[kind]
 

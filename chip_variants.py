@@ -4,6 +4,7 @@ card, in turns, each tree in its own process.
 
     python3 chip_variants.py [--cases NAME,...] [--time-only] ROOT [ROOT ...]
     python3 chip_variants.py --serve ARCH ROOT [ROOT ...]
+    python3 chip_variants.py --continuous ARCH ROOT [ROOT ...]
 
 A ROOT is a tree of the repo: this checkout (``.``), a ``git archive`` of
 another commit unpacked under ``build/`` (which git ignores), or a copy of
@@ -15,7 +16,10 @@ and a change, parent, change, change, parent.
 A timing process imports the root's ``repro_torch`` and then this checkout's
 ``chip_smoke``, so that every root runs the same cases with the same timer.
 ``--serve ARCH`` runs ``chip_smoke.serve_path`` for ARCH instead (serving,
-exact launch counts and the traced prefill's device time and kernel shares).
+exact launch counts and the traced prefill's device time and kernel shares);
+``--continuous ARCH`` runs ``chip_smoke.continuous_path`` for ARCH
+(continuous batching with f32 activations: exact launch counts, generated
+tok/s over the run's wall, every token against a full forward).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
-def child(root: Path, cases: list[str], time_only: bool, serve: str | None) -> None:
+def child(root: Path, cases: list[str], time_only: bool, serve: str | None, continuous: str | None) -> None:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -52,6 +56,9 @@ def child(root: Path, cases: list[str], time_only: bool, serve: str | None) -> N
     if serve:
         cs.serve_path(serve, device, True)
         return
+    if continuous:
+        cs.continuous_path(continuous, device, True)
+        return
     if not time_only:
         cs.run_attention_cases(device, cs.Timer(device), True, only=cases)
         return
@@ -74,12 +81,13 @@ def main() -> int:
     ap.add_argument("--time-only", action="store_true",
                     help="time the kernel alone, unchecked (for diagnostic variants that compute something else)")
     ap.add_argument("--serve", metavar="ARCH", help="run chip_smoke.py's serving path of ARCH, traced")
+    ap.add_argument("--continuous", metavar="ARCH", help="run chip_smoke.py's continuous-batching path of ARCH")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [r.resolve() for r in args.roots]
     cases = args.cases.split(",")
     if args.child:
-        child(roots[0], cases, args.time_only, args.serve)
+        child(roots[0], cases, args.time_only, args.serve, args.continuous)
         return 0
     build = "import sys; sys.path.insert(0, sys.argv[1]); from repro_torch.kernels import _build; _build.library_path()"
     jobs = [subprocess.Popen([sys.executable, "-c", build, str(root / "src")]) for root in dict.fromkeys(roots)]
@@ -88,7 +96,8 @@ def main() -> int:
     for r in range(2):
         for root in roots if r == 0 else roots[::-1]:
             print(f"[round {r}] {root}", flush=True)
-            flags = (["--time-only"] if args.time_only else []) + (["--serve", args.serve] if args.serve else [])
+            flags = ((["--time-only"] if args.time_only else []) + (["--serve", args.serve] if args.serve else [])
+                     + (["--continuous", args.continuous] if args.continuous else []))
             run = subprocess.run([sys.executable, __file__, "--child", *flags, "--cases", args.cases, str(root)])
             if run.returncode:
                 return run.returncode

@@ -51,7 +51,8 @@
 // single product; l is summed from the f32 p.
 //
 // f32 at (d, dv) = (64, 64), nbi-100m's heads: `flash_attn_tf32_kernel`, on
-// the tensor cores as 3xTF32. One TF32 product keeps 11 bits and cannot meet
+// the tensor cores as 3xTF32 (and MLA's (96, 64): `flash_attn_tf32_mla_kernel`,
+// the same block at other tiles, below). One TF32 product keeps 11 bits and cannot meet
 // the f32 limit (atol 2e-5, rtol 1e-4); splitting each operand into x_hi =
 // tf32(x) and x_lo = tf32(x - x_hi) (cvt.rna, low bits cleared) and summing
 // a_hi b_hi + a_hi b_lo + a_lo b_hi in f32 keeps about 22. At nbi-100m's
@@ -79,9 +80,45 @@
 // 128-byte swizzled rows hold 32 f32 columns, so d 64 is two panels; one k8
 // step of TF32 is 32 bytes, as one k16 step of bf16.
 //
-// f32 at the other pairs: `flash_attn_f32_kernel`, on the FMA units (the
-// TF32 kernel's tiles and registers are sized for d 64; no served path runs
-// f32 at these widths). One block of 256 threads owns one (b, hq, 64-row
+// f32 at (d, dv) = (96, 64), minicpm3-4b's MLA heads in f32 activations (the
+// continuous-batching engine's one-row inserts): `flash_attn_tf32_mla_kernel`,
+// the same template (`tf32_block`) as the d 64 kernel at other tiles.
+//
+// What bounds it: operations. At one insert of 1000 tokens (40 heads, causal)
+// the kept pairs need 6.41 GFLOP at the real widths, 19.2 GFLOP as three TF32
+// products: 0.0388 ms at 495 TFLOP/s, against 0.0153 ms for the 51 MB of q, k,
+// v and o at 3.35 TB/s. On the FMA units (`flash_attn_f32_kernel`, this pair's
+// kernel before) the same function took 0.4267 ms against a 0.0956 ms bound.
+//
+// What d 96 changes (the d 64 layout at d 96 would take 295,992 bytes of
+// shared memory, past the 232,448 a block may opt into):
+// - 32-key tiles, two stages: Q and Q_lo 48 KB each, a stage K 12 KB, K_lo
+//   12 KB, V 8 KB, V^T_hi and V^T_lo 8 KB each; 197,688 bytes in all (three
+//   stages would take 246,864). S is a run of 12 wgmma m64n32k8 for each of
+//   its three products (16 registers of S a thread), P V keeps m64n64k8 with P
+//   from registers over 4 k8 steps; a tile has half the d 64 tile's scores, so
+//   its barrier waits, commits and rescale votes cost twice as much a score;
+// - d 96 is exactly three 32-column panels of Q and K (boxes of 32 columns by
+//   128 rows and by 32 keys): no zero-filled columns, unlike the bf16 MLA
+//   kernel's; V^T is one panel of 32 keys by 64 rows;
+// - liveness, the edge tests and the stage protocol are the d 64 kernel's at
+//   32-key tiles: a window under 32 keys can give the block's two warpgroups
+//   different first tiles, and each still waits for and releases every stage
+//   of the block;
+// - S's small products have an accumulator of their own (16 registers): with
+//   small serving both the m64n32 and the m64n64 products ptxas serialised
+//   the wgmmas (warning C7511) and the kernel was 8% slower.
+// Registers: 232 a consumer thread, 40 for the producer, no spills; phase 2
+// of chip_smoke.py prints the count and the spills.
+// Measured (PERF.md; H100 80GB HBM3 at 700 W): 0.203 ms at that insert,
+// against 0.430 ms on the FMA units and 0.30 ms for SDPA: 5.2x the bound,
+// as the d 64 kernel is at 5.3x. Timed without parts of the work (wrong results):
+// without the producer's split of K and V 0.149 ms, without the P V
+// products 0.182, without the softmax 0.195. The split on three warps, behind
+// a ring of only two stages, is the largest part.
+//
+// f32 at the other pairs: `flash_attn_f32_kernel`, on the FMA units (no
+// served path runs f32 at these widths). One block of 256 threads owns one (b, hq, 64-row
 // query tile) and loops over 64-key tiles; Q (pre-scaled), K, V and P tiles
 // live in shared memory as f32 with padded rows, each thread keeps a 4x4
 // block of scores and a 4 x (dv/16) block of acc in registers, and the four
@@ -90,8 +127,8 @@
 //
 // Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256),
 // and (96, 64), MLA's prefill (minicpm3-4b: q and k are 64 nope + 32 rope
-// columns, v 64); f32 at (64, 64) runs the TF32 kernel, f32 at the others the
-// FMA kernel.
+// columns, v 64); f32 at (64, 64) and (96, 64) runs a TF32 kernel, f32 at the
+// others the FMA kernel.
 //
 // bf16 at (96, 64): `flash_attn_bf16_mla_kernel`, minicpm3-4b's prefill
 // attention (62 a prefill).
@@ -1103,24 +1140,42 @@ int launch_mla(const void* q, const void* k, const void* v, void* o, int B, int 
 }
 
 // ---------------------------------------------------------------------------
-// f32 at (d, dv) = (64, 64): 3xTF32 on the tensor cores
+// f32 on the tensor cores as 3xTF32: (d, dv) = (64, 64) and MLA's (96, 64)
 // ---------------------------------------------------------------------------
 
-constexpr int TD = 64;         // d = dv of the tf32 kernel
-constexpr int T_STAGES = 2;    // stages of the ring
-constexpr int SPLITTERS = 3;   // producer warps that split K and V
-constexpr uint32_t T_QPANEL = BQ * ROW_BYTES;     // 32 f32 columns of the Q tile
-constexpr uint32_t T_PANEL = BK * ROW_BYTES;      // 32 columns of a 64-row tile
-constexpr uint32_t T_TILE = (TD / 32) * T_PANEL;  // one 64 x 64 f32 tile
-constexpr uint32_t T_Q_BYTES = (TD / 32) * T_QPANEL;
-// A stage holds five tiles: K as loaded (split in place into K_hi), K_lo, V
-// as loaded, and V^T_hi, V^T_lo.
-constexpr uint32_t T_STAGE = 5 * T_TILE;
+constexpr int T_STAGES = 2;       // stages of the ring
+constexpr int SPLITTERS = 3;      // producer warps that split K and V
+constexpr int TF32_MLA_BK = 32;   // keys a tile at (96, 64)
 
-// Q as loaded (split in place into Q_hi) and Q_lo, the ring, three barriers
-// per stage and one for Q, and slack to align the tiles to the 1024 bytes of
-// a swizzle pattern; flash_attention.py's dynamic_smem_bytes repeats this sum.
-constexpr size_t tf32_smem_bytes() { return 1024 + 2 * T_Q_BYTES + T_STAGES * T_STAGE + 8 * (3 * T_STAGES + 1); }
+// The f32 pairs of the TF32 kernels, and their keys a tile.
+template <int D, int DV>
+__host__ __device__ constexpr bool tf32_pair() { return (D == 64 && DV == 64) || (D == MLA_D && DV == MLA_DV); }
+template <int D, int DV>
+__host__ __device__ constexpr int tf32_bk() { return D == MLA_D ? TF32_MLA_BK : BK; }
+
+// The tiles of the TF32 kernel at (D, DV) with TBK keys a tile. A 128-byte
+// swizzled row holds 32 f32 columns, so Q (128 rows), K and V (TBK rows each)
+// are panels of 32 columns, d 96 exactly three; V^T has DV rows, one for each
+// output column, and TBK / 32 panels of keys.
+template <int D, int DV, int TBK>
+struct Tf32Tiles {
+  static constexpr uint32_t Q_PANEL = BQ * ROW_BYTES;
+  static constexpr uint32_t KV_PANEL = TBK * ROW_BYTES;
+  static constexpr uint32_t VT_PANEL = DV * ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = (D / 32) * Q_PANEL;
+  static constexpr uint32_t K_BYTES = (D / 32) * KV_PANEL;
+  static constexpr uint32_t V_BYTES = (DV / 32) * KV_PANEL;  // V as loaded; V^T_hi and V^T_lo as much
+  // A stage: K as loaded (split in place into K_hi), K_lo, V as loaded,
+  // V^T_hi and V^T_lo.
+  static constexpr uint32_t STAGE = 2 * K_BYTES + 3 * V_BYTES;
+  // Q as loaded (split in place into Q_hi) and Q_lo, the ring, three
+  // barriers per stage and one for Q, and slack to align the tiles to the
+  // 1024 bytes of a swizzle pattern; flash_attention.py's dynamic_smem_bytes
+  // repeats this sum.
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + T_STAGES * STAGE + 8 * (3 * T_STAGES + 1);
+  static_assert(D % 32 == 0 && DV == 64 && (TBK == 32 || TBK == 64), "S is m64n{32,64}, P V m64n64");
+  static_assert(SMEM <= 232448, "a Hopper block opts into at most 232,448 bytes");
+};
 
 // Byte offset of f32 element (row, col) in a tile kept as panels of 32
 // columns, panel_bytes apart, each row 128 bytes with the 128-byte swizzle
@@ -1137,24 +1192,40 @@ __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float(r & 0xFFFFE000u);
 }
 
-// d (64 x 64, f32) = a (64 x 8) b (8 x 64) + (accumulate ? d : 0), tf32, both
-// K-major in shared memory (tf32 has no transpose).
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+// d (64 x N, f32: the first N / 2 entries) = a (64 x 8) b (8 x N) +
+// (accumulate ? d : 0), N 64 or 32, tf32, both K-major in shared memory (tf32
+// has no transpose).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    static_assert(N == 32, "m64n32k8 or m64n64k8");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
 }
 
 // d (64 x 64, f32) = a (64 x 8, tf32 fragment in registers) b (8 x 64) +
@@ -1178,9 +1249,10 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint3
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
-// Descriptor of k-step kk (8 columns, 32 bytes) of a K-major 64-row tile.
-__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk) {
-  return desc(tile + (kk / 4) * T_PANEL + 32 * (kk % 4));
+// Descriptor of k-step kk (8 columns, 32 bytes) of a K-major tile whose
+// 32-column panels are panel_bytes apart.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk, uint32_t panel_bytes) {
+  return desc(tile + (kk / 4) * panel_bytes + 32 * (kk % 4));
 }
 
 // Key of column c of V^T: the 8 keys of each group are ordered 0 2 4 6 1 3 5 7,
@@ -1194,14 +1266,16 @@ __device__ __forceinline__ int vt_key(int c) {
 // One stage, by the splitter warps (thread i of n): K_hi = tf32(K) in place
 // and K_lo = tf32(K - K_hi) at the same swizzled offsets; V^T_hi and V^T_lo,
 // transposed, keys in vt_key order, in the swizzled K-major layout.
+template <int D, int DV, int TBK>
 __device__ __forceinline__ void split_stage(uint32_t stage_base, int i, int n) {
+  using T = Tf32Tiles<D, DV, TBK>;
   uint8_t* base = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(stage_base));
   float4* k = reinterpret_cast<float4*>(base);
-  float4* k_lo = reinterpret_cast<float4*>(base + T_TILE);
-  const uint8_t* v = base + 2 * T_TILE;
-  uint8_t* vt_hi = base + 3 * T_TILE;
-  uint8_t* vt_lo = base + 4 * T_TILE;
-  for (int j = i; j < static_cast<int>(T_TILE / 16); j += n) {
+  float4* k_lo = reinterpret_cast<float4*>(base + T::K_BYTES);
+  const uint8_t* v = base + 2 * T::K_BYTES;
+  uint8_t* vt_hi = base + 2 * T::K_BYTES + T::V_BYTES;
+  uint8_t* vt_lo = vt_hi + T::V_BYTES;
+  for (int j = i; j < static_cast<int>(T::K_BYTES / 16); j += n) {
     const float4 x = k[j];
     const float4 hi = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
     k[j] = hi;
@@ -1210,53 +1284,57 @@ __device__ __forceinline__ void split_stage(uint32_t stage_base, int i, int n) {
   // V^T row r (an output column) and columns 4 q .. 4 q + 3: consecutive
   // threads take consecutive rows, so the reads of a V row and the 16-byte
   // writes meet no bank twice
-  for (int j = i; j < TD * (BK / 4); j += n) {
-    const int r = j % TD, q = j / TD;
+  for (int j = i; j < DV * (TBK / 4); j += n) {
+    const int r = j % DV, q = j / DV;
     float hi[4], lo[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float x = *reinterpret_cast<const float*>(v + swz(vt_key(4 * q + e), r, T_PANEL));
+      const float x = *reinterpret_cast<const float*>(v + swz(vt_key(4 * q + e), r, T::KV_PANEL));
       hi[e] = to_tf32(x);
       lo[e] = to_tf32(x - hi[e]);
     }
-    const uint32_t off = swz(r, 4 * q, T_PANEL);
+    const uint32_t off = swz(r, 4 * q, T::VT_PANEL);
     *reinterpret_cast<float4*>(vt_hi + off) = make_float4(hi[0], hi[1], hi[2], hi[3]);
     *reinterpret_cast<float4*>(vt_lo + off) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
-// The f32 kernel's block: 128 query rows of one (b, hq), as the bf16 kernel,
-// with the split of each operand into TF32 hi and lo parts:
-// - producer warp 0, one thread: TMA of Q once and of K and V tiles into the
-//   ring (stage full); warps 1 to 3 split each landed stage (stage ready);
+// The block of a TF32 kernel: 128 query rows of one (b, hq), as the bf16
+// kernel, with the split of each operand into TF32 hi and lo parts:
+// - producer warp 0, one thread: TMA of Q once and of K and V tiles of TBK
+//   keys into the ring (stage full); warps 1 to 3 split each landed stage
+//   (stage ready);
 // - two consumer warpgroups: each pre-scales its 64 rows of Q in f32 and
 //   splits them in shared memory once; per live tile S = Q_hi K_hi +
-//   (Q_hi K_lo + Q_lo K_hi) and O += P_hi V_hi + (P_hi V_lo + P_lo V_hi), each
-//   a run of wgmma m64n64k8 tf32, the online softmax as in the bf16 kernel,
-//   then the stage is released (stage empty).
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, int Hq, int Hkv, int Sq,
-                       int Skv, float scale, int causal, int window, float logit_cap) {
+//   (Q_hi K_lo + Q_lo K_hi), each a run of D / 8 wgmma m64nTBKk8, and O +=
+//   P_hi V_hi + (P_hi V_lo + P_lo V_hi), each a run of TBK / 8 wgmma m64n64k8,
+//   the online softmax as in the bf16 kernel, then the stage is released
+//   (stage empty).
+template <int D, int DV, int TBK>
+__device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                           const CUtensorMap& tm_v, float* __restrict__ o, int Hq, int Hkv,
+                                           int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
+  using T = Tf32Tiles<D, DV, TBK>;
+  constexpr int NS = TBK / 2;  // a thread's entries of S
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;  // Q, then Q_hi
-  const uint32_t sq_lo = sq + T_Q_BYTES;
-  const uint32_t ring = sq_lo + T_Q_BYTES;         // T_STAGES stages of T_STAGE bytes
-  const uint32_t q_full = ring + T_STAGES * T_STAGE;
-  const uint32_t full = q_full + 8;                // K and V have landed
-  const uint32_t ready = full + 8 * T_STAGES;      // the stage is split
-  const uint32_t empty = ready + 8 * T_STAGES;     // both consumers are done with it
+  const uint32_t sq_lo = sq + T::Q_BYTES;
+  const uint32_t ring = sq_lo + T::Q_BYTES;         // T_STAGES stages of T::STAGE bytes
+  const uint32_t q_full = ring + T_STAGES * T::STAGE;
+  const uint32_t full = q_full + 8;                 // K and V have landed
+  const uint32_t ready = full + 8 * T_STAGES;       // the stage is split
+  const uint32_t empty = ready + 8 * T_STAGES;      // both consumers are done with it
 
   const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
 
-  const int n_k = (Skv + BK - 1) / BK;
+  const int n_k = (Skv + TBK - 1) / TBK;
   int kt_end = n_k;
-  if (causal) kt_end = min(n_k, (min(q_start + BQ, Sq) - 1) / BK + 1);
+  if (causal) kt_end = min(n_k, (min(q_start + BQ, Sq) - 1) / TBK + 1);
   int kt_begin = 0;
-  if (causal && window > 0 && q_start - window + 1 > 0) kt_begin = (q_start - window + 1) / BK;
+  if (causal && window > 0 && q_start - window + 1 > 0) kt_begin = (q_start - window + 1) / TBK;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -1276,19 +1354,19 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     if (warp == 0) {
       if (threadIdx.x == CONSUMERS * 128) {
         const int bh_kv = b * Hkv + hk;
-        mbar_expect_tx(q_full, T_Q_BYTES);
+        mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < TD / 32; ++c) tma_load(sq + c * T_QPANEL, &tm_q, q_full, 32 * c, q_start, b * Hq + h);
+        for (int c = 0; c < D / 32; ++c) tma_load(sq + c * T::Q_PANEL, &tm_q, q_full, 32 * c, q_start, b * Hq + h);
         int stage = 0, round = 0;
         for (int kt = kt_begin; kt < kt_end; ++kt) {
           if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
-          const uint32_t bar = full + 8 * stage, st = ring + stage * T_STAGE;
-          mbar_expect_tx(bar, 2 * T_TILE);
+          const uint32_t bar = full + 8 * stage, st = ring + stage * T::STAGE;
+          mbar_expect_tx(bar, T::K_BYTES + T::V_BYTES);
 #pragma unroll
-          for (int c = 0; c < TD / 32; ++c) {
-            tma_load(st + c * T_PANEL, &tm_k, bar, 32 * c, kt * BK, bh_kv);
-            tma_load(st + 2 * T_TILE + c * T_PANEL, &tm_v, bar, 32 * c, kt * BK, bh_kv);
-          }
+          for (int c = 0; c < D / 32; ++c) tma_load(st + c * T::KV_PANEL, &tm_k, bar, 32 * c, kt * TBK, bh_kv);
+#pragma unroll
+          for (int c = 0; c < DV / 32; ++c)
+            tma_load(st + 2 * T::K_BYTES + c * T::KV_PANEL, &tm_v, bar, 32 * c, kt * TBK, bh_kv);
           if (++stage == T_STAGES) {
             stage = 0;
             ++round;
@@ -1300,7 +1378,7 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       int stage = 0, round = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
         mbar_wait(full + 8 * stage, round & 1);
-        split_stage(ring + stage * T_STAGE, i, 32 * SPLITTERS);
+        split_stage<D, DV, TBK>(ring + stage * T::STAGE, i, 32 * SPLITTERS);
         // the split parts are read by wgmma, through the async proxy
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         __syncwarp();
@@ -1321,8 +1399,8 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     const int col0 = 2 * (lane % 4);
 
     int live_begin = kt_begin, live_end = kt_end;
-    if (causal) live_end = min(live_end, last / BK + 1);
-    if (causal && window > 0 && first - window + 1 > 0) live_begin = max(live_begin, (first - window + 1) / BK);
+    if (causal) live_end = min(live_end, last / TBK + 1);
+    if (causal && window > 0 && first - window + 1 > 0) live_begin = max(live_begin, (first - window + 1) / TBK);
     live_begin = min(live_begin, kt_end);
     if (first >= Sq || live_end < live_begin) live_end = live_begin;
 
@@ -1332,8 +1410,8 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     {
       uint8_t* qs = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(sq));
       uint8_t* qs_lo = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(sq_lo));
-      for (int j = t; j < 64 * TD / 4; j += 128) {
-        const uint32_t off = (j / 512) * T_QPANEL + (64 * wg + (j / 8) % 64) * ROW_BYTES + 16 * (j % 8);
+      for (int j = t; j < 64 * D / 4; j += 128) {  // 512 chunks of 16 bytes a panel of 64 rows
+        const uint32_t off = (j / 512) * T::Q_PANEL + (64 * wg + (j / 8) % 64) * ROW_BYTES + 16 * (j % 8);
         float4 x = *reinterpret_cast<float4*>(qs + off);
         x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
         const float4 hi = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
@@ -1350,12 +1428,19 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     // products of unequal size go to separate accumulators, added once per
     // tile on the FMA units with rounding to nearest: s (Q_hi K_hi) and pv
     // (P_hi V_hi) take the large terms, small the hi-lo ones of either
-    // product; acc carries O across tiles.
+    // product; acc carries O across tiles. S's small products go to an array
+    // of S's shape: small itself at 64-key tiles (m64n64, as P V's), one of
+    // their own at 32-key tiles (one array serving m64n32 and m64n64 products
+    // made ptxas serialise the wgmmas, warning C7511: 8% slower).
     float acc[32], pv[32], small[32];
-    float s[32];  // S, then p, then P_lo
+    float s[NS];  // S, then p, then P_lo
+    float s_small_own[NS < 32 ? NS : 1];
+    float* const s_small = NS < 32 ? s_small_own : small;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = pv[i] = small[i] = s[i] = 0.f;
-    uint32_t p_hi[32];
+    for (int i = 0; i < 32; ++i) acc[i] = pv[i] = small[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = s_small[i] = 0.f;
+    uint32_t p_hi[NS];
     float m[2] = {NEG_INF, NEG_INF};
     float l[2] = {0.f, 0.f};
     float corr[2];
@@ -1378,25 +1463,26 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     }
     for (int kt = live_begin; kt < live_end; ++kt) {
       mbar_wait(ready + 8 * stage, round & 1);
-      const uint32_t st = ring + stage * T_STAGE;
+      const uint32_t st = ring + stage * T::STAGE;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TD / 8; ++kk) {
-        const uint64_t k_hi = tile_desc(st, kk), k_lo = tile_desc(st + T_TILE, kk);
-        const uint32_t off = (kk / 4) * T_QPANEL + 32 * (kk % 4);
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t k_hi = tile_desc(st, kk, T::KV_PANEL), k_lo = tile_desc(st + T::K_BYTES, kk, T::KV_PANEL);
+        const uint32_t off = (kk / 4) * T::Q_PANEL + 32 * (kk % 4);
         const uint64_t a_hi = desc(q_rows + off), a_lo = desc(q_rows_lo + off);
-        wgmma_tf32_ss(s, a_hi, k_hi, kk > 0);
-        wgmma_tf32_ss(small, a_hi, k_lo, kk > 0);
-        wgmma_tf32_ss(small, a_lo, k_hi, 1);
+        wgmma_tf32_ss<TBK>(s, a_hi, k_hi, kk > 0);
+        wgmma_tf32_ss<TBK>(s_small, a_hi, k_lo, kk > 0);
+        wgmma_tf32_ss<TBK>(s_small, a_lo, k_hi, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
       pin(s);
-      pin(small);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] += small[i];
-      const int k_start = kt * BK;
-      const bool edge = k_start + BK > Skv || (causal && k_start + BK - 1 > first) ||
+      for (int i = 0; i < NS; ++i) pin(s_small[i]);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] += s_small[i];
+      const int k_start = kt * TBK;
+      const bool edge = k_start + TBK > Skv || (causal && k_start + TBK - 1 > first) ||
                         (window > 0 && first + 63 - k_start >= window);
       softmax_step(s, m, l, corr, row0, k_start + col0, edge, Skv, causal, window, 1.f, logit_cap);
       if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
@@ -1404,17 +1490,18 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
         for (int i = 0; i < 32; ++i) acc[i] *= corr[(i / 2) % 2];
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < NS; ++i) {
         const float hi = to_tf32(s[i]);
         p_hi[i] = __float_as_uint(hi);
         s[i] = to_tf32(s[i] - hi);
       }
       wgmma_fence();
+      const uint32_t vt = st + 2 * T::K_BYTES + T::V_BYTES;  // V^T_hi, then V^T_lo
 #pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
+      for (int kk = 0; kk < TBK / 8; ++kk) {
         // A columns t, t + 4 are keys 2t, 2t + 1: entries 4kk, 4kk + 2 (rows
         // r, r + 8 of key 2t) and 4kk + 1, 4kk + 3 (key 2t + 1)
-        const uint64_t v_hi = tile_desc(st + 3 * T_TILE, kk), v_lo = tile_desc(st + 4 * T_TILE, kk);
+        const uint64_t v_hi = tile_desc(vt, kk, T::VT_PANEL), v_lo = tile_desc(vt + T::V_BYTES, kk, T::VT_PANEL);
         const uint32_t* a = p_hi + 4 * kk;
         const uint32_t b0 = __float_as_uint(s[4 * kk]), b1 = __float_as_uint(s[4 * kk + 1]),
                        b2 = __float_as_uint(s[4 * kk + 2]), b3 = __float_as_uint(s[4 * kk + 3]);
@@ -1447,31 +1534,51 @@ flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       const int q = row0 + 8 * r;
       if (q >= Sq) continue;
       const float denom = fmaxf(l[r], 1e-30f);
-      float* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * TD + col0;
+      float* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * DV + col0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[4 * j + 2 * r] / denom,
                                                                acc[4 * j + 2 * r + 1] / denom);
     }
   }
 }
 
+// nbi-100m's f32 heads, (64, 64), 64-key tiles.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, int Hq, int Hkv, int Sq,
+                       int Skv, float scale, int causal, int window, float logit_cap) {
+  tf32_block<64, 64, BK>(tm_q, tm_k, tm_v, o, Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+}
+
+// MLA's f32 heads, (96, 64), 32-key tiles.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tf32_mla_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, int Hq, int Hkv,
+                           int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
+  tf32_block<MLA_D, MLA_DV, TF32_MLA_BK>(tm_q, tm_k, tm_v, o, Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+}
+
+template <int D, int DV>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                 int causal, int window, float logit_cap, cudaStream_t stream) {
+  static_assert(tf32_pair<D, DV>(), "the TF32 kernels take (64, 64) and (96, 64)");
+  constexpr int TBK = tf32_bk<D, DV>();
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  if (int err = encode(&tq, q, B * Hq, Sq, TD, BQ, true)) return err;
-  if (int err = encode(&tk, k, B * Hkv, Skv, TD, BK, true)) return err;
-  if (int err = encode(&tv, v, B * Hkv, Skv, TD, BK, true)) return err;
-  constexpr size_t smem = tf32_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (int err = encode(&tq, q, B * Hq, Sq, D, BQ, true)) return err;
+  if (int err = encode(&tk, k, B * Hkv, Skv, D, TBK, true)) return err;
+  if (int err = encode(&tv, v, B * Hkv, Skv, DV, TBK, true)) return err;
+  constexpr size_t smem = Tf32Tiles<D, DV, TBK>::SMEM;
+  auto kernel = D == MLA_D ? flash_attn_tf32_mla_kernel : flash_attn_tf32_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(TD));
-  flash_attn_tf32_kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o), Hq, Hkv, Sq, Skv,
-                                                          scale, causal, window, logit_cap);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale, causal,
+                                          window, logit_cap);
   return cudaGetLastError();
 }
 
@@ -1505,9 +1612,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
   if (d == hopper::MLA_D && dv == hopper::MLA_DV) {
     if constexpr (BF16)
       return hopper::launch_mla(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-    else
-      return simt::launch<hopper::MLA_D, hopper::MLA_DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                                                          logit_cap, stream);
+    return cudaErrorInvalidValue;  // f32 at (96, 64) is the TF32 MLA kernel's
   }
   return cudaErrorInvalidValue;
 }
@@ -1534,10 +1639,12 @@ int block_shape(int kind, int* out) {
   if (kind == BF16 && D == hp::MLA_D && DV == hp::MLA_DV)
     return put(hp::BQ, hp::MLA_BK, hp::MLA_STAGES, hp::mla_smem_bytes(), hp::THREADS);
   if (kind == BF16) return put(hp::BQ, hp::BK, hp::stages<D, DV>(), hp::smem_bytes<D, DV>(), hp::THREADS);
-  if (kind == F32_TF32 && D == hp::TD && DV == hp::TD)
-    return put(hp::BQ, hp::BK, hp::T_STAGES, hp::tf32_smem_bytes(), hp::THREADS);
-  if (kind == F32_SIMT && !(D == hp::TD && DV == hp::TD))
-    return put(simt::BQ, simt::BK, 1, simt::smem_bytes<D, DV>(), simt::THREADS);
+  if constexpr (hp::tf32_pair<D, DV>()) {
+    constexpr int TBK = hp::tf32_bk<D, DV>();
+    if (kind == F32_TF32) return put(hp::BQ, TBK, hp::T_STAGES, hp::Tf32Tiles<D, DV, TBK>::SMEM, hp::THREADS);
+  } else {
+    if (kind == F32_SIMT) return put(simt::BQ, simt::BK, 1, simt::smem_bytes<D, DV>(), simt::THREADS);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1558,7 +1665,7 @@ extern "C" int repro_flash_attention_config(int kind, int d, int dv, int* out) {
 
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq, dv),
 // all contiguous and of one type: bf16 for BF16, else f32 (F32_TF32 takes
-// (d, dv) = (64, 64), F32_SIMT the other pairs); q, k and v 16-byte aligned
+// (d, dv) = (64, 64) and (96, 64), F32_SIMT the other pairs); q, k and v 16-byte aligned
 // for the TMA kernels (BF16, F32_TF32).
 // Returns 0 when the launch was accepted, else a CUDA error or, from the
 // tensor maps' encoding, ENCODE_ERROR_BASE plus a CUresult.
@@ -1575,8 +1682,12 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
     case F32_SIMT:
       return dispatch<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
     case F32_TF32:
-      if (d != hopper::TD || dv != hopper::TD) return cudaErrorInvalidValue;
-      return hopper::launch_tf32(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, s);
+      if (d == 64 && dv == 64)
+        return hopper::launch_tf32<64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, s);
+      if (d == hopper::MLA_D && dv == hopper::MLA_DV)
+        return hopper::launch_tf32<hopper::MLA_D, hopper::MLA_DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
+                                                                   logit_cap, s);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

@@ -28,9 +28,17 @@ against 268 MB), so the design follows the unit that does them:
   keeps 11 and misses the f32 limit of atol 2e-5). Blocks as in bf16; the
   producer's three idle warps split each K and V tile in shared memory and
   write Vᵀ, since TF32 operands of ``wgmma`` must be K-major.
+- f32 at MLA's (96, 64), minicpm3-4b's heads in f32 activations (the
+  continuous-batching engine's inserts), runs the same 3×TF32 block as a
+  kernel of its own (``flash_attn_tf32_mla_kernel``) at 32-key tiles: the
+  d 64 layout (64-key tiles) would take 295,992 bytes of shared memory at
+  d 96, past the 232,448 a block may opt into; at 32 keys it takes 197,688.
+  Q and K are exactly three 32-column panels. It is bound by operations
+  (three TF32 products: 0.0388 ms at one 1000-token insert of 40 heads) and
+  takes 0.203 ms there on an H100 80GB HBM3 at 700 W, against 0.430 ms on
+  the FMA units and 0.30 ms for SDPA (PERF.md).
 - f32 at the other pairs of ``HEAD_DIM_PAIRS`` (d 128 and 256, the mixed
-  ones, MLA's (96, 64) in the f32 law checks) stays on the FMA units: 64-row
-  blocks, f32 tiles in shared memory.
+  ones) stays on the FMA units: 64-row blocks, f32 tiles in shared memory.
 
 The wrapper checks what the kernels take and raises on anything else,
 allocates the output, and launches on PyTorch's current stream without
@@ -51,15 +59,18 @@ HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256), (96, 6
 # MLA's prefill pair (minicpm3-4b: q, k 64 + 32 wide, v 64); its bf16 launches
 # have their own count
 MLA_HEAD_DIMS = (96, 64)
-# the f32 pairs of the tensor-core (3×TF32) kernel; other f32 pairs run on
+# the f32 pairs of the tensor-core (3×TF32) kernels; other f32 pairs run on
 # the FMA units
-TF32_HEAD_DIM_PAIRS = ((64, 64),)
+TF32_HEAD_DIM_PAIRS = ((64, 64), MLA_HEAD_DIMS)
 # query rows per block and keys per tile, as in the kernels: the f32 FMA
-# kernel, the bf16 kernel, the f32 tensor-core kernel; the bf16 MLA kernel
-# takes MLA_BK keys a tile into a ring of MLA_STAGES
+# kernel, the bf16 kernel, the f32 tensor-core kernels (TF32_MLA_BK keys a
+# tile at MLA's pair) in a ring of TF32_STAGES; the bf16 MLA kernel takes
+# MLA_BK keys a tile into a ring of MLA_STAGES
 BQ = {torch.float32: 64, torch.bfloat16: 128}
 BQ_TF32 = 128
 BK = 64
+TF32_MLA_BK = 32
+TF32_STAGES = 2
 MLA_BK = 128
 MLA_STAGES = 3
 # the C entry's kernel codes (``Kind`` in the source)
@@ -67,12 +78,14 @@ F32_SIMT, BF16, F32_TF32 = 0, 1, 2
 
 # Launches since import, one count per kernel: the f32 kernel on the FMA
 # units, the bf16 kernel (at every pair but MLA's), the bf16 MLA kernel at
-# (96, 64) and the f32 tensor-core kernel. chip_smoke.py sets them to 0 around
-# the main path and reads them to show that every prefill attention came here.
+# (96, 64), the f32 tensor-core kernel at (64, 64) and the one at (96, 64).
+# chip_smoke.py sets them to 0 around the main path and reads them to show
+# that every prefill attention came here.
 launches = 0
 bf16_launches = 0
 bf16_mla_launches = 0
 tf32_launches = 0
+tf32_mla_launches = 0
 
 
 def kernel_kind(dtype: torch.dtype, d: int, dv: int) -> int:
@@ -80,6 +93,16 @@ def kernel_kind(dtype: torch.dtype, d: int, dv: int) -> int:
     if dtype == torch.bfloat16:
         return BF16
     return F32_TF32 if (d, dv) in TF32_HEAD_DIM_PAIRS else F32_SIMT
+
+
+def launch_count(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The name of the launch count that a call at (dtype, d, dv) adds one to."""
+    kind, mla = kernel_kind(dtype, d, dv), (d, dv) == MLA_HEAD_DIMS
+    if kind == BF16:
+        return "bf16_mla_launches" if mla else "bf16_launches"
+    if kind == F32_TF32:
+        return "tf32_mla_launches" if mla else "tf32_launches"
+    return "launches"
 
 
 def _validate(q, k, v) -> None:
@@ -120,7 +143,9 @@ def tiles(dtype: torch.dtype, d: int, dv: int) -> tuple[int, int]:
     kind = kernel_kind(dtype, d, dv)
     if kind == BF16:
         return BQ[dtype], MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
-    return (BQ_TF32 if kind == F32_TF32 else BQ[dtype]), BK
+    if kind == F32_TF32:
+        return BQ_TF32, TF32_MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
+    return BQ[dtype], BK
 
 
 def stages(d: int, dv: int) -> int:
@@ -132,21 +157,23 @@ def stages(d: int, dv: int) -> int:
 
 def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory one block of the kernel that takes (d, dv, dtype) asks
-    for at launch (``smem_bytes``, ``mla_smem_bytes`` and ``tf32_smem_bytes``
-    in the source). bf16: the Q tile, the ring of K and V tiles of
-    :func:`tiles`' keys (Q and K in whole 64-column panels: d 96 takes 128),
-    one barrier per stage for full and for empty and one for Q, and 1024 bytes
-    of slack to align the tiles to their swizzle pattern. f32 on the tensor
-    cores: the Q tile (split in place into Q_hi) and Q_lo, two stages of five
-    64-key tiles (K split in place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per
-    stage and one for Q, and the slack. f32 on the FMA units: Q and K tiles
-    padded by one float, the V tile and the P tile."""
+    for at launch (``smem_bytes``, ``mla_smem_bytes`` and ``Tf32Tiles::SMEM``
+    in the source). bf16:
+    the Q tile, the ring of K and V tiles of :func:`tiles`' keys (Q and K in
+    whole 64-column panels: d 96 takes 128), one barrier per stage for full
+    and for empty and one for Q, and 1024 bytes of slack to align the tiles to
+    their swizzle pattern. f32 on the tensor cores: the Q tile (split in place
+    into Q_hi) and Q_lo, two stages of five tiles of :func:`tiles`' keys (K
+    split in place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per stage and one
+    for Q, and the slack. f32 on the FMA units: Q and K tiles padded by one
+    float, the V tile and the P tile."""
     kind = kernel_kind(dtype, d, dv)
     if kind == BF16:
         (bq, bk), n, dp = tiles(dtype, d, dv), stages(d, dv), -(-d // 64) * 64
         return 1024 + 2 * (bq * dp + n * bk * (dp + dv)) + 8 * (2 * n + 1)
     if kind == F32_TF32:
-        return 1024 + 4 * (2 * BQ_TF32 * d + 2 * BK * (3 * d + 2 * dv)) + 8 * (3 * 2 + 1)
+        (bq, bk), n = tiles(dtype, d, dv), TF32_STAGES
+        return 1024 + 4 * (2 * bq * d + n * bk * (2 * d + 3 * dv)) + 8 * (3 * n + 1)
     return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
 
 
@@ -166,7 +193,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
     device, contiguous, f32 or bf16, (d, dv) in ``HEAD_DIM_PAIRS``. Returns
     (B,Hq,Sq,dv) in q's dtype. Query head h reads KV head h // (Hq // Hkv);
     positions start at 0 for both q and k, as in the reference."""
-    global launches, bf16_launches, bf16_mla_launches, tf32_launches
     _validate(q, k, v)
     B, Hq, Sq, d = q.shape
     Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
@@ -181,12 +207,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")
-    if kind == BF16 and (d, dv) == MLA_HEAD_DIMS:
-        bf16_mla_launches += 1
-    elif kind == BF16:
-        bf16_launches += 1
-    elif kind == F32_TF32:
-        tf32_launches += 1
-    else:
-        launches += 1
+    globals()[launch_count(q.dtype, d, dv)] += 1
     return out

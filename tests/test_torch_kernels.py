@@ -9,8 +9,9 @@ rtol 1e-4, bf16 atol 0.05; RMSNorm f32 1e-5, bf16 0.05; LRU 1e-5; WKV atol
 2**-7: kernel and plain version both accumulate in f32 and round once. The
 bf16 attention kernel's arithmetic (64-key tiles, P split into bf16 hi and lo
 parts for the tensor cores) is emulated on the CPU and held to that limit
-against the JAX package, and so is the f32 tensor-core kernel's (3xTF32: each
-operand split into TF32 hi and lo parts) at the f32 limit.
+against the JAX package, and so is the f32 tensor-core kernels' (3xTF32: each
+operand split into TF32 hi and lo parts; 64-key tiles at (64, 64), 32-key
+tiles at MLA's (96, 64)) at the f32 limit.
 
 JAX is imported inside a fixture, so that the card's machine, which has no
 JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
@@ -201,8 +202,10 @@ KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
 
 
 def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
-    """The arithmetic of the f32 tensor-core kernel (csrc/flash_attention.cu,
-    ``flash_attn_tf32_kernel``) on the CPU, with its tiles: q pre-scaled by
+    """The arithmetic of the f32 tensor-core kernels (csrc/flash_attention.cu,
+    ``flash_attn_tf32_kernel`` at (64, 64), ``flash_attn_tf32_mla_kernel`` at
+    (96, 64)) on the CPU, with the wrapper's tiles for the input's (d, dv)
+    (``flash_attention.tiles``: 32 keys a tile at (96, 64), else 64): q pre-scaled by
     d**-0.5 in f32, as the Pallas kernel does; S = Q_hi K_hi + Q_hi K_lo +
     Q_lo K_hi summed in f32, each part rounded by :func:`tf32`, the two small
     products summed apart and added to the large one; P·V the same three
@@ -223,7 +226,7 @@ def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=T
         return product(p[..., order], vt[..., order, :])
 
     return emulate_tiled(q * scale, k, v, lambda qt, kt: product(qt, kt.transpose(-1, -2)), weigh, torch.float32,
-                         tiles=tfa.tiles(torch.float32, 64, 64), causal=causal, window=window,
+                         tiles=tfa.tiles(torch.float32, q.shape[-1], v.shape[-1]), causal=causal, window=window,
                          logit_cap=logit_cap)
 
 
@@ -286,17 +289,37 @@ def test_bf16_kernel_arithmetic_at_mla_head_dims_matches_jax(jx, case):
 def test_mla_head_dims_take_whole_panels():
     """(96, 64) runs the bf16 MLA kernel with Q and K tiles of two 64-column
     panels (the second half zeros), 128-key tiles and three stages, and f32
-    on the FMA units; the other bf16 pairs keep 64-key tiles."""
+    on the tensor cores as 3xTF32 with Q and K tiles of three 32-column panels
+    and 32-key tiles in two stages; the other bf16 pairs keep 64-key tiles."""
     assert tfa.MLA_HEAD_DIMS in tfa.HEAD_DIM_PAIRS
     assert tfa.kernel_kind(torch.bfloat16, 96, 64) == tfa.BF16
-    assert tfa.kernel_kind(torch.float32, 96, 64) == tfa.F32_SIMT
+    assert tfa.kernel_kind(torch.float32, 96, 64) == tfa.F32_TF32
     assert tfa.tiles(torch.bfloat16, 96, 64) == (128, 128)
+    assert tfa.tiles(torch.float32, 96, 64) == (128, 32)
     assert tfa.stages(96, 64) == 3
     assert tfa.dynamic_smem_bytes(96, 64, torch.bfloat16) == 1024 + 2 * (128 * 128 + 3 * 128 * (128 + 64)) + 8 * 7
     assert tfa.dynamic_smem_bytes(96, 64, torch.bfloat16) == 181304
-    assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 4 * (64 * 97 + 64 * 97 + 64 * 64 + 64 * 65)
+    # Q and Q_lo (128 rows x 3 panels), two stages of K, K_lo (32 keys x 3
+    # panels), V, V^T_hi, V^T_lo (2 panels), the barriers, the slack
+    assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 1024 + 2 * 49152 + 2 * (2 * 12288 + 3 * 8192) + 8 * 7
+    assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 197688
     assert {tfa.tiles(torch.bfloat16, d, dv) for d, dv in tfa.HEAD_DIM_PAIRS if (d, dv) != (96, 64)} == {(128, 64)}
     assert {tfa.stages(d, dv) for d, dv in tfa.HEAD_DIM_PAIRS if (d, dv) != (96, 64)} == {2, 4}
+
+
+def test_each_kernel_has_its_own_launch_count():
+    """A call adds one to the count of the kernel that takes it: the MLA pair
+    (96, 64) has a count of its own in bf16 and in f32, apart from the other
+    pairs' tensor-core kernels, and the FMA kernel's count takes the f32 pairs
+    that are neither (64, 64) nor (96, 64)."""
+    names = {(dtype, pair): tfa.launch_count(dtype, *pair) for dtype in tfa.DTYPES for pair in tfa.HEAD_DIM_PAIRS}
+    assert names[torch.float32, (96, 64)] == "tf32_mla_launches"
+    assert names[torch.float32, (64, 64)] == "tf32_launches"
+    assert names[torch.bfloat16, (96, 64)] == "bf16_mla_launches"
+    assert {names[torch.bfloat16, pair] for pair in tfa.HEAD_DIM_PAIRS if pair != (96, 64)} == {"bf16_launches"}
+    assert {pair for pair in tfa.HEAD_DIM_PAIRS if names[torch.float32, pair] == "launches"} == {
+        (128, 128), (64, 128), (128, 64), (256, 256)}
+    assert all(isinstance(getattr(tfa, name), int) for name in names.values())
 
 
 def mla_turns(wg, kt_begin, kt_end, live):
@@ -473,15 +496,73 @@ def test_f32_kernel_arithmetic_matches_jax(jx, case):
 
 
 def test_f32_kernel_needs_three_tf32_products():
-    """At nbi-100m's head width, one TF32 product for each of Q K and P V puts
-    outputs outside the f32 limit; the 3xTF32 split does not."""
-    qn, kn, vn = draw(19, (1, 4, 512, 64), (1, 4, 512, 64), (1, 4, 512, 64))
+    """At nbi-100m's head width and at MLA's (96, 64), one TF32 product for
+    each of Q K and P V puts outputs outside the f32 limit; the 3xTF32 split
+    does not."""
+    for d, dv in tfa.TF32_HEAD_DIM_PAIRS:
+        qn, kn, vn = draw(19, (1, 4, 512, d), (1, 4, 512, d), (1, 4, 512, dv))
+        q, k, v = map(torch.from_numpy, (qn, kn, vn))
+        want = ref.attention_ref(q, k, v)
+        limit = F32_ATTN_TOL["atol"] + F32_ATTN_TOL["rtol"] * want.abs()
+        outside = {split: int(((emulate_f32_kernel(q, k, v, split=split) - want).abs() > limit).sum())
+                   for split in (True, False)}
+        assert outside[True] == 0 < outside[False], (d, dv, outside)
+
+
+# MLA's f32 pair (d, dv) = (96, 64) in the f32 tensor-core MLA kernel (blocks
+# of 128 rows, two warpgroups of 64, 32-key tiles): name: (B, Hq, Hkv, Sq,
+# Skv, causal, window, logit_cap, input scale)
+F32_MLA_CASES = {
+    "causal": (1, 2, 2, 130, 130, True, 0, 0.0, 1.0),
+    "ragged_non_causal": (1, 2, 2, 77, 150, False, 0, 0.0, 1.0),
+    "gqa_window": (1, 4, 2, 160, 160, True, 48, 0.0, 1.0),
+    "logit_cap": (1, 2, 2, 70, 70, True, 0, 30.0, 4.0),
+    # a window under 32 keys: a block's second warpgroup starts two tiles later
+    "window_turns_differ": (1, 2, 2, 200, 200, True, 20, 0.0, 1.0),
+    # Skv one short of a tile, a tile, one past it
+    "skv_31": (1, 2, 2, 40, 31, False, 0, 0.0, 1.0),
+    "skv_32": (1, 2, 2, 40, 32, False, 0, 0.0, 1.0),
+    "skv_33": (1, 2, 2, 40, 33, False, 0, 0.0, 1.0),
+    # Sq of one row, a warpgroup, one past it, a block, one past it
+    "sq_1": (1, 2, 2, 1, 1, True, 0, 0.0, 1.0),
+    "sq_64": (1, 2, 2, 64, 64, True, 0, 0.0, 1.0),
+    "sq_65": (1, 2, 2, 65, 65, True, 0, 0.0, 1.0),
+    "sq_128": (1, 2, 2, 128, 128, True, 0, 0.0, 1.0),
+    "sq_129": (1, 2, 2, 129, 129, True, 0, 0.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_MLA_CASES))
+def test_f32_kernel_arithmetic_at_mla_head_dims_matches_jax(jx, case):
+    """At (96, 64) the f32 tensor-core MLA kernel's arithmetic (3xTF32, 32-key
+    tiles, scale 96**-0.5) meets the f32 limit against the JAX Pallas kernel
+    in interpret mode, the JAX oracle and the plain version."""
+    B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = F32_MLA_CASES[case]
+    qn, kn, vn = draw(22, (B, Hq, Sq, 96), (B, Hkv, Skv, 96), (B, Hkv, Skv, 64), scale=scale)
+    vn = vn / scale
+    kw = dict(causal=causal, window=window, logit_cap=cap)
     q, k, v = map(torch.from_numpy, (qn, kn, vn))
-    want = ref.attention_ref(q, k, v)
-    limit = F32_ATTN_TOL["atol"] + F32_ATTN_TOL["rtol"] * want.abs()
-    outside = {split: int(((emulate_f32_kernel(q, k, v, split=split) - want).abs() > limit).sum())
-               for split in (True, False)}
-    assert outside[True] == 0 < outside[False]
+    got = emulate_f32_kernel(q, k, v, **kw).numpy()
+    assert got.shape == (B, Hq, Sq, 64)
+    jq, jk, jv = map(jx.jnp.asarray, (qn, kn, vn))
+    pallas = jx.flash_attention(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jx.attention_ref(jq, jk, jv, **kw), ref.attention_ref(q, k, v, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), **F32_ATTN_TOL)
+
+
+def test_f32_mla_cases_reach_the_tile_edges():
+    """The (96, 64) cases above reach what the 32-key tiles make an edge: a
+    block whose two warpgroups have different first live tiles, a block whose
+    second warpgroup has no rows, and a last tile of 31, 32 and 33 keys."""
+    bq, bk = tfa.tiles(torch.float32, 96, 64)
+    assert (bq, bk) == (128, 32)
+    differ = idle = False
+    for _, _, _, Sq, Skv, causal, window, _, _ in F32_MLA_CASES.values():
+        for _, _, ((rows0, live0), (rows1, live1)) in kernel_blocks(Sq, Skv, causal, window, bq, bk):
+            differ |= bool(live0 and live1 and live0[0] != live1[0])
+            idle |= not len(rows1)
+    assert differ and idle
+    assert {31, 32, 33} <= {case[4] for case in F32_MLA_CASES.values()}
 
 
 def test_tf32_rounds_to_nearest_away():
@@ -1007,7 +1088,9 @@ def test_flash_attention_smem_fits_a_block():
     and dtype) fits the 232,448 bytes a Hopper block may opt into. The
     largest are bf16 at d 256 (Q 64 KB and two stages of K and V) and f32 at
     (64, 64) on the tensor cores (Q_hi and Q_lo, 32 KB each, and two stages of
-    five 16 KB tiles); the f32 FMA kernel's largest is d 256."""
+    five 16 KB tiles); f32 at (96, 64) on the tensor cores takes 32-key tiles
+    (the d 64 layout at d 96 would take 295,992 bytes, three stages of 32 keys
+    246,864); the f32 FMA kernel's largest is d 256."""
     largest = {torch.bfloat16: (256, 256), torch.float32: (64, 64)}
     for dtype in tfa.DTYPES:
         sizes = {pair: tfa.dynamic_smem_bytes(*pair, dtype) for pair in tfa.HEAD_DIM_PAIRS}
@@ -1015,12 +1098,16 @@ def test_flash_attention_smem_fits_a_block():
     assert tfa.dynamic_smem_bytes(256, 256, torch.float32) == 213760
     assert tfa.dynamic_smem_bytes(256, 256, torch.bfloat16) == 1024 + 2 * (128 * 256 + 2 * 64 * 512) + 8 * 5
     assert tfa.dynamic_smem_bytes(64, 64, torch.float32) == 1024 + 2 * 32768 + 2 * 5 * 16384 + 8 * 7
+    assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 197688
+    d64_layout_at_d96 = 1024 + 2 * 49152 + 2 * (2 * 24576 + 3 * 16384) + 56
+    three_stages = 1024 + 2 * 49152 + 3 * (2 * 12288 + 3 * 8192) + 8 * 10
+    assert (d64_layout_at_d96, three_stages) == (295992, 246864) and min(d64_layout_at_d96, three_stages) > 232448
 
 
 def test_ops_send_cpu_tensors_to_plain_versions():
     qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
     q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
-    before = (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, trn.launches)
+    before = (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, tfa.tf32_mla_launches, trn.launches)
     for dtype in (torch.float32, torch.bfloat16):
         qt, kt, vt = (t.to(dtype) for t in (q, k, v))
         torch.testing.assert_close(
@@ -1028,7 +1115,7 @@ def test_ops_send_cpu_tensors_to_plain_versions():
             ref.attention_ref(qt, kt, vt, causal=True, window=8, logit_cap=5.0), rtol=0, atol=0,
         )
     torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w), rtol=0, atol=0)
-    assert (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, trn.launches) == before
+    assert (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, tfa.tf32_mla_launches, trn.launches) == before
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -1082,7 +1169,8 @@ GPU_ATTN_CASES = {
 }
 
 
-COUNT_OF_KIND = {tfa.F32_SIMT: "launches", tfa.BF16: "bf16_launches", tfa.F32_TF32: "tf32_launches"}
+# the wrapper's launch counts, one a kernel
+COUNTS = ("launches", "bf16_launches", "bf16_mla_launches", "tf32_launches", "tf32_mla_launches")
 
 
 @pytest.mark.gpu
@@ -1096,7 +1184,7 @@ def test_flash_attention_kernel_matches_plain(case):
     arrays = draw(5, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d), scale=scale)
     q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
     kw = dict(causal=causal, window=window, logit_cap=cap)
-    count = COUNT_OF_KIND[tfa.kernel_kind(dtype, d, d)]
+    count = tfa.launch_count(dtype, d, d)
     before = getattr(tfa, count)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -1147,6 +1235,39 @@ def test_flash_attention_mla_instance_matches_plain(case):
     torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, **kw).float(), **BF16_ATTN_TOL)
 
 
+# the f32 (96, 64) kernel on the card: the CPU cases' edges (F32_MLA_CASES) at
+# more heads, and the main path's shapes: name: (B, Hq, Hkv, Sq, Skv, causal,
+# window, logit_cap, input scale)
+GPU_F32_MLA_CASES = {
+    **{name: (B, 4 * Hq, 4 * Hkv, *rest) for name, (B, Hq, Hkv, *rest) in F32_MLA_CASES.items()},
+    "minicpm3_insert": (1, 40, 40, 1000, 1000, True, 0, 0.0, 1.0),
+    "minicpm3_insert_64": (1, 40, 40, 64, 64, True, 0, 0.0, 1.0),
+    "ragged_sq_past_skv": (1, 4, 4, 150, 70, False, 0, 0.0, 1.0),
+    "window_128": (1, 4, 4, 500, 500, True, 128, 0.0, 1.0),
+    "second_warpgroup_idle": (2, 8, 8, 1088, 1088, True, 0, 0.0, 1.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_F32_MLA_CASES))
+def test_flash_attention_f32_mla_instance_matches_plain(case):
+    """f32 at (96, 64) launches the 3xTF32 MLA kernel (its own count: one a
+    call, and none on the FMA kernel's or the d 64 kernel's) and meets the f32
+    limit."""
+    _need_card()
+    B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = GPU_F32_MLA_CASES[case]
+    qn, kn, vn = draw(42, (B, Hq, Sq, 96), (B, Hkv, Skv, 96), (B, Hkv, Skv, 64), scale=scale)
+    q, k, v = (torch.from_numpy(a).cuda() for a in (qn, kn, vn / scale))
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    counts = {name: getattr(tfa, name) for name in COUNTS}
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    counts["tf32_mla_launches"] += 1
+    assert counts == {name: getattr(tfa, name) for name in COUNTS}
+    assert got.shape == (B, Hq, Sq, 64) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw), **F32_ATTN_TOL)
+
+
 @pytest.mark.gpu
 def test_flash_attention_launch_config_matches_the_wrapper():
     """The library's blocks (query rows, keys a tile, stages, dynamic shared
@@ -1157,7 +1278,7 @@ def test_flash_attention_launch_config_matches_the_wrapper():
         for d, dv in tfa.HEAD_DIM_PAIRS:
             kind = tfa.kernel_kind(dtype, d, dv)
             bq, bk = tfa.tiles(dtype, d, dv)
-            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: 2, tfa.F32_SIMT: 1}[kind]
+            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: tfa.TF32_STAGES, tfa.F32_SIMT: 1}[kind]
             threads = 256 if kind == tfa.F32_SIMT else 384
             assert tfa.launch_config(dtype, d, dv) == dict(
                 bq=bq, bk=bk, stages=stages, smem_bytes=tfa.dynamic_smem_bytes(d, dv, dtype), threads=threads)
@@ -1188,6 +1309,29 @@ def test_mla_attention_grads_on_the_card_match_the_cpu():
 
 
 @pytest.mark.gpu
+def test_f32_mla_attention_grads_on_the_card_match_the_cpu():
+    """f32 ``ops.attention`` at (96, 64) under autograd: the forward is one
+    launch of the 3xTF32 MLA kernel, the backward the plain path recomputed
+    (no launch); out, dq, dk, dv agree with the CPU's at the f32 attention
+    limit, as at d 64."""
+    _need_card()
+    arrays = draw(44, (1, 4, 150, 96), (1, 2, 150, 96), (1, 2, 150, 64), (1, 4, 150, 64))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in arrays[:3])
+        before = {name: getattr(tfa, name) for name in COUNTS}
+        out = ops.attention(q, k, v, causal=True, window=100, kv_chunk=64)
+        assert out.grad_fn is not None
+        grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(arrays[3]).to(dev))
+        torch.cuda.synchronize()
+        before["tf32_mla_launches"] += dev == "cuda"
+        assert before == {name: getattr(tfa, name) for name in COUNTS}
+        results[dev] = [t.cpu() for t in (out, *grads)]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(64, 128), (128, 64)])
 def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
@@ -1205,18 +1349,18 @@ def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
 @pytest.mark.parametrize("d,dv", tfa.HEAD_DIM_PAIRS)
 def test_f32_head_dims_run_their_kernel(d, dv):
     """Each f32 head-dim pair launches the kernel that takes it, the tensor
-    cores' at (64, 64) and the FMA units' at the others, and meets the f32
-    limit."""
+    cores' at (64, 64) and (96, 64) (each its own count) and the FMA units' at
+    the others, and meets the f32 limit."""
     _need_card()
     arrays = draw(21, (1, 4, 200, d), (1, 2, 200, d), (1, 2, 200, dv))
     q, k, v = (torch.from_numpy(a).cuda() for a in arrays)
     kind = tfa.kernel_kind(torch.float32, d, dv)
     assert (kind == tfa.F32_TF32) == ((d, dv) in tfa.TF32_HEAD_DIM_PAIRS)
-    counts = {name: getattr(tfa, name) for name in COUNT_OF_KIND.values()}
+    counts = {name: getattr(tfa, name) for name in COUNTS}
     got = ops.attention(q, k, v, causal=True, window=150)
     torch.cuda.synchronize()
-    counts[COUNT_OF_KIND[kind]] += 1
-    assert counts == {name: getattr(tfa, name) for name in COUNT_OF_KIND.values()}
+    counts[tfa.launch_count(torch.float32, d, dv)] += 1
+    assert counts == {name: getattr(tfa, name) for name in COUNTS}
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True, window=150), **F32_ATTN_TOL)
 
 
