@@ -18,8 +18,10 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    never calls) with CUDA events around replays of a CUDA graph of the calls;
 4. main paths, one engine at a time, each freed before the next: serve 16
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b,
-   deepseek-moe-16b, minicpm3-4b (MLA), starcoder2-7b and mistral-large-123b
-   (full width, 8 of its 88 layers) with seeded weights, and feed
+   deepseek-moe-16b, kimi-k2-1t-a32b (full width, 2 of its 61 layers: 384
+   experts, top-8, groups of 256), minicpm3-4b (MLA), starcoder2-7b and
+   mistral-large-123b (full width, 8 of its 88 layers) with seeded weights,
+   and feed
    llava-next-mistral-7b's model functions 1152 seeded patch embeddings
    before each text; count every kernel's launches around each path and
    require the exact counts (nbi-100m: each prefill attention through the
@@ -27,7 +29,7 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    the RMSNorm kernel; Griffin: each prefill attention through the bf16
    flash-attention kernel and each RG-LRU prefill scan through the LRU
    kernel; RWKV-6: each WKV prefill through the WKV kernel;
-   deepseek-moe-16b: bf16 attention, norms, and each MoE layer's routing,
+   the MoE paths: bf16 attention, norms, and each MoE layer's routing,
    prefill and decode, through the gating kernels, the slots kernel on every
    routing whose groups span more than one tile; minicpm3-4b: each prefill
    attention through the bf16 MLA kernel at (96, 64) and 4L+1 norms,
@@ -59,6 +61,17 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    train step of a small model on the card against the CPU, and resume
    equivalence: 2N straight steps against N steps, a checkpoint, a fresh
    restore and N more, bitwise under ``torch.use_deterministic_algorithms``.
+   Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (8 of 32) and
+   recurrentgemma-2b (14 of 26) at full width for 10 steps each through the
+   launcher's pieces (the config's optimizer with cosine warmup, the train
+   state drawn on the card, the train step, the data pipeline), with the
+   counts set to 0 just before and read just after: under remat "full"
+   every forward kernel runs twice a step (the forward, then the backward's
+   recompute of each layer), K5 (route and slots) per MoE routing, K4 per
+   RWKV-6 layer, K3 per recurrent layer, K1 per attention layer, K2 per
+   RMSNorm, and no backward launches one; the loss must fall. Then each
+   family's step ms, tok/s, peak memory, one traced step and a small
+   model's train step on the card against the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
@@ -300,7 +313,10 @@ def attention_cases(full: bool):
     (a request of 1000, 512, 200 and 64 tokens) and at the 3xTF32 MLA
     kernel's edges (ragged, a window under its 32-key tiles, the cap, Skv one
     past a tile), and edges of the bf16 kernel's TMA boxes and 64-key tiles
-    at full size."""
+    at full size; last, the shapes the train paths and kimi-k2's serving give
+    the bf16 kernel (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
+    d 256 under its window at 2 x 2048, kimi-k2's 64 over 8 heads at 8 x
+    1024)."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
@@ -328,6 +344,9 @@ def attention_cases(full: bool):
             ("non_causal", 1, 4, 4, 10, 20, 16, 16, f32, False, 0, 0.0),
             ("ragged_non_causal_bf16", 1, 4, 4, 13, 40, 16, 16, bf16, False, 0, 0.0),
             ("mqa_d256_window_bf16", 1, 4, 1, 23, 23, 16, 16, bf16, True, 8, 0.0),
+            ("deepseek_train", 2, 4, 4, 32, 32, 16, 16, bf16, True, 0, 0.0),
+            ("griffin_train", 2, 4, 1, 16, 16, 16, 16, bf16, True, 8, 0.0),
+            ("kimi_prefill", 2, 8, 2, 32, 32, 16, 16, bf16, True, 0, 0.0),
         ]
     return [
         ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, 64, f32, True, 0, 0.0),
@@ -354,6 +373,9 @@ def attention_cases(full: bool):
         ("non_causal_sq200_skv512", 2, 12, 12, 200, 512, 64, 64, f32, False, 0, 0.0),
         ("ragged_non_causal_bf16", 2, 16, 16, 333, 1000, 128, 128, bf16, False, 0, 0.0),
         ("mqa_d256_window_bf16", 2, 10, 1, 2300, 2300, 256, 256, bf16, True, 2048, 0.0),
+        ("deepseek_train", 4, 16, 16, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
+        ("griffin_train", 2, 10, 1, 2048, 2048, 256, 256, bf16, True, 2048, 0.0),
+        ("kimi_prefill", 8, 64, 8, 1024, 1024, 128, 128, bf16, True, 0, 0.0),
     ]
 
 
@@ -363,7 +385,8 @@ def norm_cases(full: bool):
     decode step, minicpm3-4b's q_ln (768 wide) and kv_ln (256 wide) at its
     largest prefill and a decode step (bf16, the narrow rows' kernel), and
     mistral-large-123b's largest prefill and a decode step at D 12288, the
-    kernel's widest."""
+    kernel's widest; then kimi-k2's largest prefill and a decode step at D
+    7168, and recurrentgemma-2b's train step (2 x 2048 rows at D 2560)."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [("prefill_rows", 32, 64, f32), ("decode_rows", 2, 64, f32),
@@ -371,13 +394,17 @@ def norm_cases(full: bool):
                 ("deepseek_decode_rows", 2, 64, bf16),
                 ("mla_q_ln_prefill_rows", 32, 24, bf16), ("mla_kv_ln_prefill_rows", 32, 16, bf16),
                 ("mla_q_ln_decode_rows", 2, 24, bf16), ("mla_kv_ln_decode_rows", 2, 16, bf16),
-                ("mistral_large_prefill_rows", 32, 64, bf16), ("mistral_large_decode_rows", 2, 64, bf16)]
+                ("mistral_large_prefill_rows", 32, 64, bf16), ("mistral_large_decode_rows", 2, 64, bf16),
+                ("kimi_prefill_rows", 32, 64, bf16), ("kimi_decode_rows", 2, 64, bf16),
+                ("griffin_train_rows", 64, 64, bf16)]
     return [("prefill_rows", 4096, 768, f32), ("decode_rows", 8, 768, f32),
             ("bf16_4096", 2048, 4096, bf16), ("deepseek_prefill_rows", 16384, 2048, bf16),
             ("deepseek_decode_rows", 8, 2048, bf16),
             ("mla_q_ln_prefill_rows", 16384, 768, bf16), ("mla_kv_ln_prefill_rows", 16384, 256, bf16),
             ("mla_q_ln_decode_rows", 8, 768, bf16), ("mla_kv_ln_decode_rows", 8, 256, bf16),
-            ("mistral_large_prefill_rows", 8192, 12288, bf16), ("mistral_large_decode_rows", 8, 12288, bf16)]
+            ("mistral_large_prefill_rows", 8192, 12288, bf16), ("mistral_large_decode_rows", 8, 12288, bf16),
+            ("kimi_prefill_rows", 8192, 7168, bf16), ("kimi_decode_rows", 8, 7168, bf16),
+            ("griffin_train_rows", 4096, 2560, bf16)]
 
 
 def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
@@ -486,13 +513,16 @@ def lru_cases(full: bool):
     prefill gives the kernel (a, b f32, W 2560): a batch of 8 prompts of 2304
     tokens, one long prompt alone, and the batch of 8 prompts of 256 tokens
     that the main path serves; then bf16 rows that are 4-byte but not
-    16-byte aligned (W 2500), which take the 4-byte copies."""
+    16-byte aligned (W 2500), which take the 4-byte copies; last, its train
+    step's 2 x 2048 (the only case at 32-wide tiles)."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [("griffin_prefill", 2, 20, 64, f32), ("griffin_prefill_b1", 1, 40, 64, f32),
-                ("griffin_prefill_s256", 2, 8, 64, f32), ("bf16_ragged", 1, 13, 40, bf16)]
+                ("griffin_prefill_s256", 2, 8, 64, f32), ("bf16_ragged", 1, 13, 40, bf16),
+                ("griffin_train", 2, 16, 64, f32)]
     return [("griffin_prefill", 8, 2304, 2560, f32), ("griffin_prefill_b1", 1, 2304, 2560, f32),
-            ("griffin_prefill_s256", 8, 256, 2560, f32), ("bf16_ragged", 4, 1001, 2500, bf16)]
+            ("griffin_prefill_s256", 8, 256, 2560, f32), ("bf16_ragged", 4, 1001, 2500, bf16),
+            ("griffin_train", 2, 2048, 2560, f32)]
 
 
 def lru_launch_line(B: int, T: int, W: int, dtype) -> str:
@@ -547,15 +577,18 @@ def run_lru_cases(device, timer, full: bool) -> dict:
 
 
 def wkv_cases(full: bool):
-    """(name, B, H, T, d, dtype, nonzero s0); the first is the RWKV-6 prefill."""
+    """(name, B, H, T, d, dtype, nonzero s0); the first is the RWKV-6 prefill,
+    the last rwkv6-7b's train step (4 x 2048)."""
     if not full:
         return [("rwkv6_prefill", 2, 4, 24, 16, torch.bfloat16, False),
                 ("f32_s0", 1, 2, 13, 16, torch.float32, True),
-                ("rwkv6_long_s0", 1, 2, 40, 16, torch.bfloat16, True)]
+                ("rwkv6_long_s0", 1, 2, 40, 16, torch.bfloat16, True),
+                ("rwkv6_train", 2, 4, 32, 16, torch.bfloat16, False)]
     return [("rwkv6_prefill", 8, 64, 1024, 64, torch.bfloat16, False),
             ("f32_s0_ragged", 2, 64, 300, 64, torch.float32, True),
             # a long prompt from a carried state: f32 drift over T held by WKV_TOL
-            ("rwkv6_long_s0", 2, 64, 4096, 64, torch.bfloat16, True)]
+            ("rwkv6_long_s0", 2, 64, 4096, 64, torch.bfloat16, True),
+            ("rwkv6_train", 4, 64, 2048, 64, torch.bfloat16, False)]
 
 
 def run_wkv_cases(device, timer, full: bool) -> dict:
@@ -598,21 +631,30 @@ def gating_cases(full: bool):
     group, as 8 rows of 128 tokens give; and a decode step of 8 rows) at the
     router's logit scale at full width (about 0.1); then groups of several
     tiles with N off every tile and drops, an odd shape whose popular experts
-    drop picks, kimi-k2's routing widths, and every token wanting expert 0."""
+    drop picks, kimi-k2's routing widths, and every token wanting expert 0;
+    last, deepseek-moe-16b's train step (4 x 2048 tokens in 8 groups) and
+    kimi-k2's largest prefill (8 x 1024 tokens in 32 groups of 256) and a
+    decode step of 8 rows."""
     if not full:
         return [("deepseek_prefill", 2, 32, 8, 2, 10, 0.1, 0.0, False),
                 ("deepseek_prefill_g1", 1, 32, 8, 2, 10, 0.1, 0.0, False),
                 ("deepseek_decode", 1, 2, 8, 2, 4, 0.1, 0.0, False),
                 ("odd_drops", 3, 20, 40, 3, 3, 1.0, 1.0, False),
                 ("kimi_routing", 2, 16, 40, 4, 4, 1.0, 0.0, False),
-                ("everyone_expert_0", 1, 32, 8, 1, 5, 0.1, 0.0, True)]
+                ("everyone_expert_0", 1, 32, 8, 1, 5, 0.1, 0.0, True),
+                ("deepseek_train", 2, 32, 8, 2, 10, 0.1, 0.0, False),
+                ("kimi_prefill", 4, 16, 40, 4, 4, 0.1, 0.0, False),
+                ("kimi_decode", 1, 2, 40, 4, 4, 0.1, 0.0, False)]
     return [("deepseek_prefill", 16, 1024, 64, 6, 120, 0.1, 0.0, False),
             ("deepseek_prefill_g1", 1, 1024, 64, 6, 120, 0.1, 0.0, False),
             ("deepseek_decode", 1, 8, 64, 6, 4, 0.1, 0.0, False),
             ("ragged_tiles_drops", 3, 1000, 64, 6, 94, 1.0, 1.0, False),
             ("odd_drops", 3, 100, 160, 8, 13, 1.0, 1.0, False),
             ("kimi_routing", 4, 256, 384, 8, math.ceil(8 * 256 / 384 * 1.25), 1.0, 0.0, False),
-            ("everyone_expert_0", 2, 1024, 64, 6, 120, 0.1, 0.0, True)]
+            ("everyone_expert_0", 2, 1024, 64, 6, 120, 0.1, 0.0, True),
+            ("deepseek_train", 8, 1024, 64, 6, 120, 0.1, 0.0, False),
+            ("kimi_prefill", 32, 256, 384, 8, math.ceil(8 * 256 / 384 * 1.25), 0.1, 0.0, False),
+            ("kimi_decode", 1, 8, 384, 8, 4, 0.1, 0.0, False)]
 
 
 def run_gating_cases(device, timer, full: bool) -> dict:
@@ -687,13 +729,18 @@ PATHS = {
     # batches of 8 rows of these lengths split into whole groups of 1024
     # tokens (at the smoke size, 2 rows into groups of 32)
     "deepseek-moe-16b": ((8, (128, 1024, 2048), 32, 200), (2, (8, 16, 32), 4, 12)),
+    # groups of 256 tokens (E 384, top-8): 8 rows of each length split into
+    # whole groups; the law's 2 x 100 and 2 x 101 tokens are one group each
+    "kimi-k2-1t-a32b": ((8, (128, 512, 1024), 32, 100), (2, (16, 32), 4, 12)),
     "minicpm3-4b": ((8, (128, 512, 2048), 32, 200), (2, (8, 12, 16), 4, 12)),
     "starcoder2-7b": ((8, (128, 1024, 2048), 32, 200), (2, (8, 12, 16), 4, 12)),
     "mistral-large-123b": ((8, (128, 1024), 32, 200), (2, (8, 16), 4, 12)),
 }
 # paths served at full width and reduced depth: arch: layers (mistral-large-123b's
-# 88 layers of bf16 weights, about 245 GB, do not fit one card; 8 take about 24 GB)
-REDUCED_DEPTH = {"mistral-large-123b": 8}
+# 88 layers of bf16 weights, about 245 GB, do not fit one card; 8 take about 24 GB.
+# kimi-k2-1t-a32b's 61 layers are about 1.03 T parameters; its leading dense
+# layer and one MoE layer of 384 experts are 19.97 B, about 40 GB in bf16)
+REDUCED_DEPTH = {"mistral-large-123b": 8, "kimi-k2-1t-a32b": 2}
 # the visual-prefix path, through the model's functions (the engine feeds no
 # patches, as the reference's): batch, text lengths, generated tokens, law's
 # text length, at full size and in the CPU rehearsal
@@ -807,8 +854,10 @@ def expected_launches(cfg, per_len: dict, batch: int, gen_len: int) -> dict:
 
 
 def free(device) -> None:
-    gc.collect()
+    """Return the card's cached memory between paths (the CPU rehearsal has
+    nothing to return)."""
     if device.type == "cuda":
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -864,6 +913,7 @@ def serve_path(arch: str, device, full: bool) -> dict:
         f"tok in {s['prefill_s']:.4f}s = {prefill_tps:.1f} tok/s | decode {s['decode_tokens']} tok in "
         f"{s['decode_s']:.4f}s = {decode_tps:.1f} tok/s | {memory}")
 
+    free(device)  # the law's f32 activations cast whole weight stacks (kimi-k2's experts: 21 GiB)
     decode_equals_forward(engine.cfg, engine.params, device, S=law_S)
     free(device)
     prompts = requests[0][None].repeat(batch, 0)
@@ -983,6 +1033,10 @@ SMALL_MODELS = {  # card against CPU: small models with the kernels' real head w
     # factor, in groups of 32 tokens with capacity 4: picks are dropped
     "deepseek-moe-16b": (dict(d_model=128, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=256, moe_d_ff=64,
                               n_experts=64, top_k=6, moe_group_tokens=32), 32),
+    # kimi-k2's routing widths (384 experts, top-8) in its groups of 256
+    # tokens, capacity 7: picks are dropped
+    "kimi-k2-1t-a32b": (dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=128, d_ff=256, moe_d_ff=64,
+                             n_experts=384, top_k=8, moe_group_tokens=256), 128),
     # MLA at its real head widths (q, k 64 + 32, v 64): the card's f32 (96, 64) K1
     "minicpm3-4b": (dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256, q_lora_rank=64, kv_lora_rank=32,
                          qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64), 40),
@@ -1258,21 +1312,32 @@ TRAIN_ARCH = "nbi-100m"
 # the small model of the card-against-CPU train step: SMALL_MODELS' nbi-100m
 # (head dim 64, so that K1 runs), one AdamW step at a constant lr
 TRAIN_SMALL_LR = 1e-3
+# the other families trained at full width: arch: (layers, global batch,
+# sequence); depth cut so that weights, gradients and AdamW state fit one card
+# (deepseek-moe-16b: its leading dense layer and 3 MoE layers of 28; rwkv6-7b
+# 8 of 32; recurrentgemma-2b 14 of 26, 4 super-layers and 2 tail pairs: all 26
+# ran out of an H100 80GB's memory at 74.2 GiB, the AdamW update holding old and
+# new weights and moments and two f32 gradient trees). RWKV-6's sequence is a
+# multiple of 64 (the gradient's chunked form); MoE's 4 x 2048 tokens are 8
+# groups of 1024
+TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (8, 4, 2048), "recurrentgemma-2b": (14, 2, 2048)}
+# steps and warmup of each family's run (one more step is traced), at full
+# size and in the CPU rehearsal (smoke configs at 4 x 32 under their full
+# configs' remat)
+TRAIN_FAMILY_RUN = {True: (10, 3), False: (3, 1)}
+# arch: (overrides of the smoke config, (batch, sequence)) of the card-against-
+# CPU train step: the kernels' real head widths, the families' remat "full"
+TRAIN_SMALL_MODELS = {
+    TRAIN_ARCH: (SMALL_MODELS[TRAIN_ARCH][0], (4, 64)),
+    "deepseek-moe-16b": ({**SMALL_MODELS["deepseek-moe-16b"][0], "remat": "full"}, (4, 64)),
+    "rwkv6-7b": ({**SMALL_MODELS["rwkv6-7b"][0], "remat": "full"}, (2, 128)),
+    "recurrentgemma-2b": ({**SMALL_MODELS["recurrentgemma-2b"][0], "remat": "full"}, (2, 64)),
+}
 
 
 def train_args(device, full: bool, *argv):
     return train_argparser().parse_args(
         ["--arch", TRAIN_ARCH, "--device", device.type, *map(str, argv), *([] if full else ["--smoke"])])
-
-
-def expected_train_launches(cfg, steps: int) -> dict:
-    """Each step's forward: L attentions through K1 and 2L+1 norms through
-    K2; the backward recomputes the plain path and launches nothing; with
-    remat every recomputed block adds its attention and two norms."""
-    blocks = cfg.n_layers * (2 if cfg.remat != "none" else 1)
-    want = dict.fromkeys(COUNTERS, 0)
-    want.update({attention_counter(cfg): blocks * steps, "rmsnorm": (2 * blocks + 1) * steps})
-    return want
 
 
 def train_path(device, full: bool) -> dict:
@@ -1293,7 +1358,7 @@ def train_path(device, full: bool) -> dict:
                    on_metrics=lambda m: stamps.append(time.perf_counter()))
     wall = time.perf_counter() - t0
     launches = {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
-    want = expected_train_launches(cfg, steps) if device.type == "cuda" else dict.fromkeys(COUNTERS, 0)
+    want = expected_train_launches(cfg, batch, seq, steps) if device.type == "cuda" else dict.fromkeys(COUNTERS, 0)
     say(f"[train] {cfg.name}: L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} hd={cfg.resolved_head_dim} "
         f"F={cfg.d_ff} V={build_model(cfg).cfg.vocab_size} {cfg.dtype} remat={cfg.remat} | "
         f"{cfg.param_count() / 1e6:.1f}M parameters | {cfg.optimizer}, cosine warmup {warmup} | "
@@ -1324,13 +1389,104 @@ def train_path(device, full: bool) -> dict:
     return launches
 
 
-def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
-    """One train step (after two warm-up steps) under torch.profiler: device
-    busy time against the host's wall time under the profiler and against
-    ``step_ms``, the median step without it; K1's and K2's shares of the
-    step's device time, and the ops that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
+    """Each step's forward through the kernels, twice under remat "full" (the
+    forward, then the backward's recompute of each wrapped layer); every
+    backward launches none. Dense and MoE: K1 and 2 norms a layer, and for
+    MoE K5 a routing (and its slots kernel where a group spans more than one
+    tile); RWKV-6: K4 a layer; Griffin: K3 a recurrent layer, K1 an attention
+    layer, 2 norms a layer; then the final norm once."""
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"no launch count for remat {cfg.remat!r}")
+    r = 2 if cfg.remat == "full" else 1
+    L = cfg.n_layers
+    want = dict.fromkeys(COUNTERS, 0)
+    if cfg.family in ("dense", "moe"):
+        want.update({attention_counter(cfg): r * L * steps, "rmsnorm": (2 * r * L + 1) * steps})
+    if cfg.family == "moe":
+        routings = r * (L - cfg.n_dense_layers) * steps
+        spans = min(cfg.moe_group_tokens, batch * seq) > gating_kernel.TILE
+        want.update({"moe_gating": routings, "moe_gating_slots": routings * spans})
+    elif cfg.family == "rwkv6":
+        want.update(wkv6=r * L * steps)
+    elif cfg.family == "rglru":
+        n_super, tail = rg.griffin_layout(cfg)
+        want.update({attention_counter(cfg): r * n_super * steps, "lru_scan": r * (2 * n_super + tail) * steps,
+                     "rmsnorm": (2 * r * L + 1) * steps})
+    return want
 
+
+def family_train_path(arch: str, device, full: bool) -> dict:
+    """Train ``arch`` at full width and TRAIN_FAMILIES' depth through the
+    launcher's pieces (the config's optimizer with cosine warmup, the train
+    state drawn on the card, the train step, the data pipeline) with the
+    launch counters set to 0 just before the steps and read just after; the
+    loss must fall. Then step ms, tok/s and peak memory, one more step traced
+    and, on the card, a small model's step against the CPU. Returns the
+    launches of each kernel."""
+    steps, warmup = TRAIN_FAMILY_RUN[full]
+    if full:
+        layers, batch, seq = TRAIN_FAMILIES[arch]
+        cfg = get_config(arch).replace(n_layers=layers)
+    else:
+        batch, seq = 4, 32
+        cfg = get_smoke_config(arch).replace(remat=get_config(arch).remat)
+    held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, warmup, steps))
+    state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
+    step = make_train_step(model, opt)
+    loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()} for _ in range(steps + 1)]
+    loader.close()
+    sync(device)
+    say(f"[train] {shape_line(cfg, model.cfg.vocab_size)} | remat={cfg.remat} {cfg.optimizer}, cosine warmup "
+        f"{warmup} | {steps} steps of {batch} x {seq} tokens | state built in {time.perf_counter() - t0:.2f}s")
+    zero_counters()
+    losses, aux, stamps = [], [], [time.perf_counter()]
+    for b in batches[:steps]:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        aux.append(float(metrics.get("aux_loss", math.nan)))
+        stamps.append(time.perf_counter())
+    launches = read_counters()
+    check_launches(f"{cfg.name} training", launches, expected_train_launches(cfg, batch, seq, steps), device)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} training: the loss did not fall: {losses}")
+    step_ms = np.diff(stamps[2:]) * 1e3  # the first two steps warm up the allocator and library handles
+    med = float(np.median(step_ms))
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device)
+        memory = (f"max_memory_allocated {peak / 2**20:.1f} MiB ({held_before / 2**20:.1f} MiB held before "
+                  f"the run)")
+    else:
+        memory = "max_memory_allocated not measured (cpu)"
+    aux_line = f" | aux_loss {aux[0]:.4f} -> {aux[-1]:.4f}" if cfg.family == "moe" else ""
+    first = ", ".join(f"{x:.1f}" for x in np.diff(stamps[:3]) * 1e3)
+    say(f"[train] {cfg.name} on {device_name(device)}: losses {[round(x, 4) for x in losses]}{aux_line} | "
+        f"step ms median {med:.3f} (min {step_ms.min():.3f}, max {step_ms.max():.3f}, steps 3 to {steps}; "
+        f"steps 1 and 2: {first}) = {batch * seq / med * 1e3:.1f} tok/s | {memory}")
+
+    def traced():
+        nonlocal state
+        state, metrics = step(state, batches[steps])
+        float(metrics["loss"])
+
+    if full:  # the CPU rehearsal records no kernel (nbi-100m's trace rehearses profile_step)
+        profile_step(device, traced, f"{cfg.name} {batch}x{seq}", med)
+    del state, batches, step
+    free(device)
+    if full:
+        train_card_matches_cpu(arch)
+    return launches
+
+
+def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
+    """One nbi-100m train step (after two warm-up steps) under torch.profiler,
+    from a fresh state (the launcher's is gone): :func:`profile_step`."""
     model = build_model(cfg)
     opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
     state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
@@ -1341,21 +1497,33 @@ def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
     for b in batches[:2]:
         state, metrics = step(state, b)
     float(metrics["loss"])
+    profile_step(device, lambda: float(step(state, batches[2])[1]["loss"]), f"{batch}x{seq}", step_ms)
+
+
+def profile_step(device, run_step, what: str, step_ms: float) -> None:
+    """``run_step()`` (one train step that waits for its loss) under
+    torch.profiler: device busy time against the host's wall time under the
+    profiler and against ``step_ms``, the median step without it; each of the
+    port's kernels' share of the step's device time, and the ops that take
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     sync(device)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    # the card's kernels only: recording every host op of a step of tens of
+    # thousands of ops costs more than the step
+    acts = [ProfilerActivity.CUDA] if device.type == "cuda" else [ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state, metrics = step(state, batches[2])
-        float(metrics["loss"])
+        run_step()
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy <= 0:
-        say(f"[trace] train step {batch}x{seq}: wall {wall_ms:.3f}ms under the profiler; no kernel recorded: "
+        say(f"[trace] train step {what}: wall {wall_ms:.3f}ms under the profiler; no kernel recorded: "
             "device busy share not measured")
         return
-    say(f"[trace] train step {batch}x{seq}: wall {wall_ms:.3f}ms under the profiler, device busy {busy:.3f}ms "
+    say(f"[trace] train step {what}: wall {wall_ms:.3f}ms under the profiler, device busy {busy:.3f}ms "
         f"= {100 * busy / wall_ms:.1f}%; {100 * busy / step_ms:.1f}% of the median step without the profiler "
         f"({step_ms:.3f}ms)")
     ours = trace_shares(kernels)
@@ -1366,25 +1534,27 @@ def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
         say(f"[trace]   {e.key[:72]:72s} calls {e.count:5d} device {dev:9.3f}ms ({100 * dev / busy:5.1f}%)")
 
 
-def train_card_matches_cpu() -> None:
-    """One AdamW step of the small nbi-100m model from the same host-drawn
-    weights and batch on the card and on the CPU.
+def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
+    """One AdamW step of ``arch``'s small model (:data:`TRAIN_SMALL_MODELS`)
+    from the same host-drawn weights and batch on the card and on the CPU.
 
     Tolerances. Loss rtol 1e-5 and grad_norm rtol 1e-4: K1's 3xTF32 products
     keep about 22 bits (atol 2e-5 on attention outputs) and the f32 GEMMs
     sum in other orders. The clipped gradients, read from the new first
     moment m = 0.1 g, within 1e-4 of each leaf's largest. The new params:
-    Adam's first step moves an entry by lr g / (|g| + eps), which two
-    gradients g1, g2 change by at most lr |g1 - g2| / (max(|g1|, |g2|) +
-    eps), so each entry may differ by that (from the two runs' own g) plus
-    1e-6: tight where a gradient is well above its rounding, loose only where
-    it is at its noise floor."""
-    overrides, _ = SMALL_MODELS[TRAIN_ARCH]
-    cfg = get_smoke_config(TRAIN_ARCH).replace(**overrides)
+    Adam's first step moves an entry by lr g / (|g| + eps) (plus the same
+    weight decay on both), so each entry may differ by lr |f(g1) - f(g2)|,
+    f(g) = g / (|g| + eps), from the two runs' own g, plus 1e-6: tight where
+    a gradient is well above its rounding, loose only where it is at its
+    noise floor, where the two runs' g may even differ in sign."""
+    overrides, (batch, seq) = TRAIN_SMALL_MODELS[arch]
+    cfg = get_smoke_config(arch).replace(**overrides)
     model = build_model(cfg)
     opt = make_optimizer("adamw", lr=TRAIN_SMALL_LR)
     host_params = model.init(torch.Generator().manual_seed(3), "cpu")
-    loader = make_train_loader(model.cfg.vocab_size, 4, 64, seed=5)
+    if arch != TRAIN_ARCH:
+        host_params = liven(host_params)
+    loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=5)
     host_batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
     loader.close()
     outs = {}
@@ -1397,11 +1567,14 @@ def train_card_matches_cpu() -> None:
                       {p: t.cpu() / 0.1 for p, t in tree_leaves(new_state["opt"]["m"])})
     (loss_c, gn_c, p_c, g_c), (loss_h, gn_h, p_h, g_h) = outs["cuda"], outs["cpu"]
     g_err = max(float((g_c[k] - g_h[k]).abs().max() / g_h[k].abs().max().clamp_min(1e-30)) for k in g_h)
+    def adam_step(g):
+        return g / (g.abs() + 1e-8)
+
     p_excess = max(float(((p_c[k] - p_h[k]).abs()
-                          - TRAIN_SMALL_LR * (g_c[k] - g_h[k]).abs()
-                          / (torch.maximum(g_c[k].abs(), g_h[k].abs()) + 1e-8)).max()) for k in p_h)
+                          - TRAIN_SMALL_LR * (adam_step(g_c[k]) - adam_step(g_h[k])).abs()).max()) for k in p_h)
     p_err = max(float((p_c[k] - p_h[k]).abs().max()) for k in p_h)
-    say(f"[train] small dense model ({TRAIN_ARCH} smoke, {overrides}), one AdamW step, card against CPU: "
+    say(f"[train] small {cfg.family} model ({arch} smoke, {overrides}, remat {cfg.remat}, {batch} x {seq} "
+        f"tokens), one AdamW step, card against CPU: "
         f"loss {loss_c:.7f} / {loss_h:.7f}, grad_norm {gn_c:.7f} / {gn_h:.7f}, clipped grads max err "
         f"{g_err:.3e} of each leaf's largest (tolerance 1e-4), params max abs err {p_err:.3e}, past the "
         f"Adam bound by at most {p_excess:.3e} (tolerance 1e-6)")
@@ -1503,6 +1676,9 @@ def main(argv=None) -> int:
                 f"{lru_launch_line(B, T, W, dtype)}")
     else:
         device = torch.device("cpu")
+        # smoke sizes: one thread runs them as fast as many, and does not stall
+        # behind other processes on a loaded host
+        torch.set_num_threads(1)
         say("[device] rehearsal on the CPU: plain versions, smoke sizes, no kernel is built")
 
     timer = Timer(device)
@@ -1533,6 +1709,11 @@ def main(argv=None) -> int:
         say(f"[continuous] {arch} phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     by_path["train"] = train_path(device, full)
+    say(f"[train] {TRAIN_ARCH} phase took {time.perf_counter() - t0:.1f}s")
+    for arch in TRAIN_FAMILIES:
+        t1 = time.perf_counter()
+        by_path[f"train {arch}"] = family_train_path(arch, device, full)
+        say(f"[train] {arch} phase took {time.perf_counter() - t1:.1f}s")
     say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")
 
     kernels = [

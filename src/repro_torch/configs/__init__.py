@@ -1,6 +1,6 @@
-"""Architecture configs of the port: the configs its serving path runs (six
-dense, one of them MLA and one with a visual prefix; one MoE, one Griffin, one
-RWKV-6), copied from ``repro.configs`` with the same values.
+"""Architecture configs of the port: six dense (one of them MLA and one with a
+visual prefix), two MoE, one Griffin and one RWKV-6, copied from
+``repro.configs`` with the same values.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 returns the reduced same-family config the CPU tests use.
@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["codeqwen15_7b", "deepseek_moe_16b", "llava_next_mistral_7b", "minicpm3_4b", "mistral_large_123b",
-         "nbi100m", "recurrentgemma_2b", "rwkv6_7b", "starcoder2_7b"]
+ARCHS = ["codeqwen15_7b", "deepseek_moe_16b", "kimi_k2_1t_a32b", "llava_next_mistral_7b", "minicpm3_4b",
+         "mistral_large_123b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b", "starcoder2_7b"]
 
 _ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "minicpm3-4b": "minicpm3_4b",
     "mistral-large-123b": "mistral_large_123b",

@@ -7,14 +7,25 @@ the kernel to the plain version, and ``ArchConfig.use_pallas`` switches nothing
 here.
 
 Gradients, as in the reference's ``custom_vjp``s (``repro/kernels/ops.py``):
-``attention`` and ``rmsnorm`` are ``torch.autograd.Function``s whose forward
-is the kernel (or, on the CPU, the plain version) and whose backward takes
-the gradient of the plain PyTorch path under autograd, recomputed from the
-saved inputs: :func:`repro_torch.models.common.attention_chunked` for
-attention, :func:`.ref.rmsnorm_ref` (the reference's ``rms_norm``) for the
-norm. The backward launches no kernel. ``lru_scan``, ``wkv6`` and
-``moe_gating`` have no backward yet: on a tensor off the CPU that requires
-grad they raise, and never return a result cut from the graph.
+``attention``, ``rmsnorm``, ``lru_scan`` and ``wkv6`` are
+``torch.autograd.Function``s whose forward is the kernel (or, on the CPU, the
+plain version) and whose backward takes the gradient of the reference's XLA
+path under autograd, recomputed from the saved inputs:
+
+* ``attention``: :func:`repro_torch.models.common.attention_chunked`;
+* ``rmsnorm``: :func:`.ref.rmsnorm_ref` (the reference's ``rms_norm``);
+* ``lru_scan``: :func:`lru_assoc`, the log-depth associative scan in f32 with
+  h0 folded into the first step (the reference's ``_lru_xla``), for a, b and
+  h0;
+* ``wkv6``: :func:`repro_torch.models.rwkv6.wkv6_chunked`, the chunked form
+  (the reference's ``_wkv6_bwd``), for r, k, v, w, u and s0. It needs
+  T % min(64, T) == 0, so ``wkv6`` refuses another T up front when a
+  gradient is required.
+
+No backward launches a kernel. ``moe_gating`` has no backward, as the
+reference's gating kernel has none: on a tensor off the CPU that requires grad
+it raises, and never returns a result cut from the graph (the MoE layer routes
+on detached logits and recomputes its gates differentiably).
 """
 
 from __future__ import annotations
@@ -31,14 +42,6 @@ from . import rwkv6_scan as _wkv
 
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _no_grad_on_card(name: str, *tensors) -> None:
-    if _wants_grad(*tensors):
-        raise NotImplementedError(
-            f"ops.{name}: the kernel has no backward yet; on {tensors[0].device} it runs "
-            "only where no gradient is required (torch.no_grad / inference_mode)"
-        )
 
 
 def _grad_of(fn, inputs, grad_out):
@@ -115,27 +118,94 @@ def rmsnorm(x, w, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# Forward-only kernels
+# RG-LRU linear recurrence
 # ---------------------------------------------------------------------------
+
+
+def lru_assoc(a, b, h0):
+    """The reference's ``_lru_xla``: h_t = a_t ⊙ h_{t-1} + b_t in f32 with h0
+    folded into the first step (b_0 + a_0·h0), as a log-depth scan of
+    (a2, b2) ∘ (a1, b1) = (a1·a2, a2·b1 + b2): ceil(log2 T) doubling steps,
+    each combining every position with the one ``shift`` before it. Returns
+    (h_seq in a's dtype, h_final f32)."""
+    A, Bc = a.float(), b.float()
+    Bc = torch.cat([Bc[:, :1] + A[:, :1] * h0.float()[:, None], Bc[:, 1:]], dim=1)
+    shift = 1
+    while shift < a.shape[1]:
+        Bc = torch.cat([Bc[:, :shift], Bc[:, :-shift] * A[:, shift:] + Bc[:, shift:]], dim=1)
+        A = torch.cat([A[:, :shift], A[:, :-shift] * A[:, shift:]], dim=1)
+        shift *= 2
+    return Bc.to(a.dtype), Bc[:, -1]
+
+
+def _lru_fwd(a, b, h0):
+    if a.device.type == "cpu":
+        return ref.lru_ref(a, b, h0)
+    return _lru.lru_scan(a, b, h0)
+
+
+class _LRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.save_for_backward(a, b, h0)
+        return _lru_fwd(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, g_seq, g_final):
+        return _grad_of(lru_assoc, ctx.saved_tensors, (g_seq, g_final))
 
 
 def lru_scan(a, b, h0):
     """h_t = a_t ⊙ h_{t-1} + b_t over (B, T, W) from h0 (B, W) f32; returns
     (h_seq in a's dtype, h_final f32). Any T."""
-    if a.device.type == "cpu":
-        return ref.lru_ref(a, b, h0)
-    _no_grad_on_card("lru_scan", a, b, h0)
-    return _lru.lru_scan(a, b, h0)
+    if _wants_grad(a, b, h0):
+        return _LRUScan.apply(a, b, h0)
+    return _lru_fwd(a, b, h0)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV
+# ---------------------------------------------------------------------------
+
+WKV_CHUNK = 64  # the chunk of the backward's recompute, the reference's default
+
+
+def _wkv6_fwd(r, k, v, w, u, s0):
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0)
+    return _wkv.wkv6(r, k, v, w, u, s0)
+
+
+class _WKV6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _wkv6_fwd(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_s):
+        from repro_torch.models.rwkv6 import wkv6_chunked  # rwkv6 imports this module
+
+        return _grad_of(lambda *x: wkv6_chunked(*x, chunk=WKV_CHUNK), ctx.saved_tensors, (g_y, g_s))
 
 
 def wkv6(r, k, v, w, u, s0):
     """RWKV-6 WKV recurrence. r, k, w: (B, H, T, dk); v: (B, H, T, dv); u:
     (H, dk); s0: (B, H, dk, dv) f32. Returns (y in r's dtype, S_final f32).
-    Any T."""
-    if r.device.type == "cpu":
-        return ref.wkv6_ref(r, k, v, w, u, s0)
-    _no_grad_on_card("wkv6", r, k, v, w, u, s0)
-    return _wkv.wkv6(r, k, v, w, u, s0)
+    Any T without a gradient; with one, T % min(64, T) == 0, the chunked
+    form's rule (ROADMAP H4)."""
+    if _wants_grad(r, k, v, w, u, s0):
+        T = r.shape[2]
+        if T % min(WKV_CHUNK, T):
+            raise ValueError(f"ops.wkv6: the gradient's chunked form takes T % min({WKV_CHUNK}, T) == 0, "
+                             f"not T = {T}")
+        return _WKV6.apply(r, k, v, w, u, s0)
+    return _wkv6_fwd(r, k, v, w, u, s0)
+
+
+# ---------------------------------------------------------------------------
+# MoE gating (forward only)
+# ---------------------------------------------------------------------------
 
 
 def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
@@ -143,5 +213,9 @@ def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
     int32, gate (G, N, k) f32, pos (G, N, k) int32, -1 where dropped)."""
     if logits.device.type == "cpu":
         return ref.moe_gating_ref(logits, top_k=top_k, capacity=capacity, renormalise=renormalise)
-    _no_grad_on_card("moe_gating", logits)
+    if _wants_grad(logits):
+        raise NotImplementedError(
+            f"ops.moe_gating: the kernel has no backward; on {logits.device} it runs only where "
+            "no gradient is required (route on detached logits, or under torch.no_grad)"
+        )
     return _gating.moe_gating(logits, top_k=top_k, capacity=capacity, renormalise=renormalise)

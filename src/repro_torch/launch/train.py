@@ -3,6 +3,10 @@
     python -m repro_torch.launch.train --arch nbi-100m --steps 300 \
         --global-batch 16 --seq 512 --ckpt-dir ckpt/nbi100m
     python -m repro_torch.launch.train --arch nbi-100m --smoke --device cpu
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
+
+``--arch`` takes every ported config: the dense family, MoE (deepseek-moe-16b,
+kimi-k2-1t-a32b; the log adds the router's ``aux_loss``), RWKV-6 and Griffin.
 
 The port of ``repro.launch.train``: config → model → optimizer (the config's,
 with ``cosine_warmup``) → data pipeline → train step → checkpoint manager, on
@@ -128,9 +132,10 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
                 metrics_hist.append(m)
                 if on_metrics:
                     on_metrics(m)
+                aux = f" aux_loss={m['aux_loss']:.4f}" if "aux_loss" in m else ""  # MoE's load balance
                 print(
                     f"[train] step {step + 1}/{args.steps} loss={m['loss']:.4f} "
-                    f"acc={m.get('accuracy', 0):.3f} tok/s={m['tokens_per_s']:.0f}",
+                    f"acc={m.get('accuracy', 0):.3f}{aux} tok/s={m['tokens_per_s']:.0f}",
                     flush=True,
                 )
             if manager and (step + 1) % args.ckpt_every == 0:

@@ -1,6 +1,6 @@
-"""Mixture-of-Experts family, serving path (the port of ``repro.models.moe``
-for DeepSeek-MoE: fine-grained routed experts, shared experts, leading dense
-layers).
+"""Mixture-of-Experts family (the port of ``repro.models.moe``): DeepSeek-MoE
+and Kimi-K2, with fine-grained routed experts, shared experts and leading
+dense layers; serving and training.
 
 GShard-style capacity routing as in the reference: tokens are grouped
 (``moe_group_tokens`` per group, groups spanning the rows of the batch in
@@ -8,15 +8,24 @@ row-major order), routed top-k with a per-expert capacity
 ``C = max(4, ceil(k·N/E · capacity_factor))`` per group, and picks past an
 expert's capacity are dropped. The routing decision (softmax, top-k, gates,
 capacity slots) goes through :func:`repro_torch.kernels.ops.moe_gating`: the
-Hopper kernel on the card, its plain version on the CPU.
+Hopper kernel on the card, its plain version on the CPU, on detached logits.
+
+Training gives the router its gradient as the reference's ``top_k_routing``
+does: the gates are the softmax gathered at the kernel's picks and
+renormalised (the reference's ``jax.lax.top_k(probs)``), recomputed under
+autograd when the logits require grad; the load-balance loss
+E · mean_g Σ_e f_e·p_e takes p, the mean router probability, with its
+gradient, and f, each expert's kept picks over the group's tokens, without;
+only :func:`moe_forward` asks for it, so serving's routings skip it. Under
+``torch.no_grad`` the kernel's own gates combine, so serving is unchanged by
+training.
 
 The reference dispatches and combines with one-hot (G, N, E, C) einsums, which
 it chose for the wire cost of expert parallelism across TPU chips. On one card
 the port moves rows by index instead: the same function (a one-hot with one 1
 selects exactly, an empty slot is 0 in both), without the einsums' O(N·E·C·D)
-work. :func:`top_k_routing` keeps the dense dispatch and combine tensors for
-the tests and for training. Aux loss, ``moe_loss`` and the cache's logical
-axes come with training.
+work. :func:`top_k_routing` builds the dense dispatch and combine tensors for
+the tests.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .common import ParamDef, map_defs, rms_norm, swiglu, torch_dtype
+from .common import ParamDef, cross_entropy, map_defs, rms_norm, swiglu, torch_dtype
 from .config import ArchConfig
 from .transformer import (
     _stack,
@@ -38,6 +47,7 @@ from .transformer import (
     gqa_attention,
     gqa_decode_attn,
     layer_params,
+    remat_wrap,
     unembed,
 )
 
@@ -99,30 +109,52 @@ def capacity(cfg: ArchConfig, tokens_per_group: int) -> int:
     return max(4, int(c))
 
 
+def _aux_loss(logits, idx, kept):
+    """The load-balance loss E · mean_g Σ_e f_e · p_e of one routing: f_e the
+    fraction of the group's tokens whose pick of e was kept (no gradient), p_e
+    the mean router probability of e (with its gradient). logits: (G, N, E)
+    f32; idx, kept: (G, N, k)."""
+    G, N, E = logits.shape
+    f = torch.zeros((G, E), dtype=torch.float32, device=logits.device)
+    f.scatter_add_(1, idx.reshape(G, -1).long(), kept.reshape(G, -1).float())
+    p = torch.softmax(logits, dim=-1).mean(dim=1)
+    return E * (f / N * p).sum(-1).mean()
+
+
+def _routing(logits, cfg: ArchConfig, cap: int):
+    """(idx, gate, pos) of one routing. The kernel decides on the detached
+    logits; where they require grad the gates are recomputed from the softmax
+    at its picks, renormalised by max(sum, 1e-9) (the reference's
+    ``top_k(probs)`` and renormalisation; they differ from the kernel's by an
+    f32 rounding)."""
+    idx, gate, pos = ops.moe_gating(logits.detach(), top_k=cfg.top_k, capacity=cap)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        gate = torch.softmax(logits, dim=-1).gather(-1, idx.long())
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return idx, gate, pos
+
+
 def top_k_routing(logits, cfg: ArchConfig, cap: int):
-    """GShard top-k with per-slot positions, from :func:`ops.moe_gating`.
-    logits: (G, N, E) f32.
+    """GShard top-k with per-slot positions as the reference's dense tensors,
+    from :func:`_routing`. logits: (G, N, E) f32.
 
     Returns dispatch (G, N, E, C) bool, combine (G, N, E, C) f32 and the
-    load-balance auxiliary loss E · mean_g Σ_e f_e · p_e (f: fraction of the
-    group's tokens kept for e, p: mean router probability), as the reference.
+    load-balance auxiliary loss, as the reference.
     """
     G, N, E = logits.shape
-    idx, gate, pos = ops.moe_gating(logits, top_k=cfg.top_k, capacity=cap)
+    idx, gate, pos = _routing(logits, cfg, cap)
     g, n, j = (pos >= 0).nonzero(as_tuple=True)
     e, c = idx[g, n, j].long(), pos[g, n, j].long()
     dispatch = torch.zeros((G, N, E, cap), dtype=torch.bool, device=logits.device)
     combine = torch.zeros((G, N, E, cap), dtype=torch.float32, device=logits.device)
     dispatch[g, n, e, c] = True
     combine[g, n, e, c] = gate[g, n, j]  # a token picks an expert once: no slot is hit twice
-    f = dispatch.any(-1).float().mean(dim=1)
-    p = torch.softmax(logits.float(), dim=-1).mean(dim=1)
-    aux = E * (f * p).sum(-1).mean()
-    return dispatch, combine, aux
+    return dispatch, combine, _aux_loss(logits, idx, pos >= 0)
 
 
-def _route(p, xg, cfg: ArchConfig, cap: int):
-    """The routed experts over groups xg: (G, N, D) → (G, N, D).
+def _route(p, xg, cfg: ArchConfig, cap: int, aux: bool = False):
+    """The routed experts over groups xg: (G, N, D) → ((G, N, D), the aux
+    loss, or None unless ``aux`` asks for it: serving does not).
 
     Each kept pick (g, n, j) copies x[g, n] into slot pos of expert idx's
     buffer; the expert MLPs run as batched products over E; each token then
@@ -135,7 +167,7 @@ def _route(p, xg, cfg: ArchConfig, cap: int):
     G, N, D = xg.shape
     E, k = cfg.n_experts, cfg.top_k
     logits = xg.float() @ p["router"].float()
-    idx, gate, pos = ops.moe_gating(logits, top_k=k, capacity=cap)
+    idx, gate, pos = _routing(logits, cfg, cap)
     idx, kept = idx.long(), pos >= 0
     slot = torch.where(kept, pos.long(), cap)
     groups = torch.arange(G, device=xg.device)[:, None, None]
@@ -152,7 +184,7 @@ def _route(p, xg, cfg: ArchConfig, cap: int):
     for j in range(k):
         picked = expert_out[idx[..., j], groups[..., 0], slot[..., j]].float()
         y += torch.where(kept[..., j, None], weight[..., j, None] * picked, 0.0)
-    return y.to(dt)
+    return y.to(dt), (_aux_loss(logits, idx, kept) if aux else None)
 
 
 def _shared(p, x, cfg: ArchConfig):
@@ -160,39 +192,51 @@ def _shared(p, x, cfg: ArchConfig):
     return swiglu(x, sh["wg"], sh["wi"], sh["wo"], torch_dtype(cfg.dtype))
 
 
-def moe_ffn(p, x, cfg: ArchConfig):
-    """x: (B, S, D) → (B, S, D). Groups of N = min(moe_group_tokens, B·S)
-    tokens span the batch's rows in order, so a row's routing depends on its
-    batch-mates (ROADMAP H6); B·S must be a multiple of N, as the reference
-    asserts (H7)."""
+def moe_ffn(p, x, cfg: ArchConfig, aux: bool = False):
+    """x: (B, S, D) → ((B, S, D), aux loss or None, as :func:`_route`). Groups of N =
+    min(moe_group_tokens, B·S) tokens span the batch's rows in order, so a
+    row's routing depends on its batch-mates (ROADMAP H6); B·S must be a
+    multiple of N, as the reference asserts (H7)."""
     B, S, D = x.shape
     N = min(cfg.moe_group_tokens, B * S)
     if (B * S) % N:
         raise ValueError(f"moe_ffn: {B}x{S} tokens do not split into groups of {N}")
-    y = _route(p, x.reshape((B * S) // N, N, D), cfg, capacity(cfg, N)).reshape(B, S, D)
+    y, layer_aux = _route(p, x.reshape((B * S) // N, N, D), cfg, capacity(cfg, N), aux)
+    y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
         y = y + _shared(p, x, cfg)
-    return y
+    return y, layer_aux
 
 
 def moe_decode_ffn(p, x, cfg: ArchConfig):
     """Decode-time MoE: one group over the step's B·S tokens, capacity
     ``max(4, ceil(k·B·S/E·cf))``."""
     B, S, D = x.shape
-    y = _route(p, x.reshape(1, B * S, D), cfg, capacity(cfg, B * S)).reshape(B, S, D)
+    y = _route(p, x.reshape(1, B * S, D), cfg, capacity(cfg, B * S))[0].reshape(B, S, D)
     if cfg.n_shared_experts:
         y = y + _shared(p, x, cfg)
     return y
 
 
-def _ffn(p, h, cfg: ArchConfig, decode: bool = False):
+def _ffn(p, h, cfg: ArchConfig, decode: bool = False, aux: bool = False):
     """The feed-forward half of a layer on the normed residual: SwiGLU for a
-    leading dense layer, the routed and shared experts for an MoE layer."""
+    leading dense layer, the routed and shared experts for an MoE layer.
+    Returns (y, the layer's aux loss where ``aux`` asks for it: 0 for a dense
+    layer)."""
     x = rms_norm(h, p["ln2"])
     if "mlp" in p:
         m = p["mlp"]
-        return swiglu(x, m["wg"], m["wi"], m["wo"], torch_dtype(cfg.dtype))
-    return (moe_decode_ffn if decode else moe_ffn)(p["moe"], x, cfg)
+        return swiglu(x, m["wg"], m["wi"], m["wo"], torch_dtype(cfg.dtype)), 0.0
+    if decode:
+        return moe_decode_ffn(p["moe"], x, cfg), None
+    return moe_ffn(p["moe"], x, cfg, aux)
+
+
+def moe_block(p, x, cfg: ArchConfig, positions):
+    """One layer (a leading dense layer or an MoE layer): (x out, aux loss)."""
+    x = x + gqa_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, positions)
+    y, aux = _ffn(p, x, cfg, aux=True)
+    return x + y, aux
 
 
 def _layers(params):
@@ -206,19 +250,35 @@ def _layers(params):
 
 
 # ---------------------------------------------------------------------------
-# Forward / prefill / decode
+# Forward / loss / prefill / decode
 # ---------------------------------------------------------------------------
 
 
 def moe_forward(params, cfg: ArchConfig, tokens):
-    """tokens: (B, S) int → logits (B, S, V). (The aux loss comes with training.)"""
+    """tokens: (B, S) int → (logits (B, S, V), the sum of the MoE layers' aux
+    losses (f32)), as the reference. Each layer runs under ``cfg.remat``
+    when autograd records (the reference's ``remat_wrap`` over its dense
+    stack and its scan over MoE layers)."""
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
+    body = remat_wrap(lambda p, x: moe_block(p, x, cfg, positions), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, _, p in _layers(params):
-        h = h + gqa_attention(p["attn"], rms_norm(h, p["ln1"]), cfg, positions)
-        h = h + _ffn(p, h, cfg)
+        h, layer_aux = body(p, h)
+        aux = aux + layer_aux
     h = rms_norm(h, params["final_ln"])
-    return unembed(params, cfg, h)
+    return unembed(params, cfg, h), aux
+
+
+def moe_loss(params, cfg: ArchConfig, batch):
+    """batch: {"tokens", "labels"} (B, S) int → (loss + router_aux_weight ·
+    aux / n_moe, {"ce", "accuracy", "aux_loss"}), aux_loss the MoE layers'
+    mean."""
+    logits, aux = moe_forward(params, cfg, batch["tokens"])
+    loss, metrics = cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
+    aux_mean = aux / max(1, cfg.n_layers - cfg.n_dense_layers)
+    metrics["aux_loss"] = aux_mean.detach()
+    return loss + cfg.router_aux_weight * aux_mean, metrics
 
 
 def moe_prefill(params, cfg: ArchConfig, tokens):
@@ -231,7 +291,7 @@ def moe_prefill(params, cfg: ArchConfig, tokens):
     for name, _, p in _layers(params):
         y, kv = gqa_attention(p["attn"], rms_norm(h, p["ln1"]), cfg, positions, collect=True)
         h = h + y
-        h = h + _ffn(p, h, cfg)
+        h = h + _ffn(p, h, cfg)[0]
         kvs.setdefault(name, []).append(kv)
     cache = {name: {t: torch.stack([kv[t] for kv in layers]) for t in ("k", "v")}
              for name, layers in kvs.items()}
@@ -262,6 +322,6 @@ def moe_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
         layer_cache = {"k": cache[name]["k"][i], "v": cache[name]["v"][i]}
         y, _ = gqa_decode_attn(p["attn"], layer_cache, rms_norm(h, p["ln1"]), cfg, pos)
         h = h + y
-        h = h + _ffn(p, h, cfg, decode=True)
+        h = h + _ffn(p, h, cfg, decode=True)[0]
     h = rms_norm(h, params["final_ln"])
     return unembed(params, cfg, h), cache

@@ -16,8 +16,9 @@ functions on tensors:
 The reference's ``make_prefill_step`` / ``make_serve_step``
 (``repro/training/steps.py``) only wrap the prefill and decode functions with
 sharding rules; on one card there are none, so they are these functions
-themselves. ``loss_fn`` is ported for the dense family; the others raise
-``NotImplementedError`` from it until their training halves land.
+themselves. Every family trains through ``loss_fn`` (MoE's metrics add the
+``aux_loss``); ``build_model`` raises ``NotImplementedError`` for a family not
+ported yet (``encdec``, Whisper).
 """
 
 from __future__ import annotations
@@ -70,19 +71,8 @@ _FAMILIES = {
 }
 
 
-# family: loss(params, cfg, batch); the other families' training halves are
-# not ported yet
-_LOSSES = {"dense": tx.dense_loss}
-
-
-def _loss_fn(family: str, pcfg: ArchConfig) -> Callable:
-    if family in _LOSSES:
-        return lambda p, b: _LOSSES[family](p, pcfg, b)
-
-    def loss_fn(params, batch):
-        raise NotImplementedError(f"family {family!r}: the training loss is not ported yet")
-
-    return loss_fn
+# family: loss(params, cfg, batch) → (loss, metrics)
+_LOSSES = {"dense": tx.dense_loss, "moe": moe.moe_loss, "rglru": rg.griffin_loss, "rwkv6": rw.rwkv_loss}
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -105,12 +95,13 @@ def build_model(cfg: ArchConfig) -> Model:
             return forward(params, pcfg, tokens, patches=patches)
         if patches is not None:
             raise ValueError(f"family {cfg.family!r} takes no visual prefix")
-        return forward(params, pcfg, tokens)
+        out = forward(params, pcfg, tokens)
+        return out[0] if cfg.family == "moe" else out  # MoE's forward adds its aux loss
 
     return Model(
         cfg=pcfg,
         param_defs=param_defs(pcfg),
-        loss_fn=_loss_fn(cfg.family, pcfg),
+        loss_fn=lambda p, b: _LOSSES[cfg.family](p, pcfg, b),
         prefill_fn=prefill_fn,
         decode_fn=lambda p, c, t, pos: decode_step(p, pcfg, c, t, pos),
         cache_defs_fn=lambda batch, seq: cache_defs(pcfg, batch, seq),

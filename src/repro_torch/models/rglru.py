@@ -17,8 +17,12 @@ recurrent layer and a ring buffer of ``window`` slots per attention layer;
 its one-token recurrence and attention are plain PyTorch, as they are XLA in
 the reference. Decode writes the cache in place and takes a scalar ``pos``.
 
-``griffin_loss`` and ``griffin_cache_logical`` come with training and
-sharding.
+Training (:func:`griffin_loss`) runs each super-layer and each tail pair
+under ``cfg.remat``. The forward still goes through the kernels; the
+recurrence's gradient recomputes the reference's associative scan
+(:func:`repro_torch.kernels.ops.lru_assoc`) and the local attention's
+recomputes ``attention_chunked`` at KV chunks of min(attn_chunk, window), as
+the reference's ``local_attention``.
 """
 
 from __future__ import annotations
@@ -29,9 +33,27 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .common import ParamDef, apply_rope, attention_single_shot, geglu, map_defs, rms_norm, torch_dtype
+from .common import (
+    ParamDef,
+    apply_rope,
+    attention_single_shot,
+    cross_entropy,
+    geglu,
+    map_defs,
+    rms_norm,
+    torch_dtype,
+)
 from .config import ArchConfig
-from .transformer import _stack, block_defs, embed_tokens, gqa_attention, layer_params, mlp_defs, unembed
+from .transformer import (
+    _stack,
+    block_defs,
+    embed_tokens,
+    gqa_attention,
+    layer_params,
+    mlp_defs,
+    remat_wrap,
+    unembed,
+)
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -242,23 +264,33 @@ def _layers(params):
 
 
 def _griffin_body(params, cfg: ArchConfig, tokens):
-    """Embedding and all pairs: (h (B, S, D) before the final norm, the
-    recurrent states of rec1, rec2 and tail, and each attention layer's
-    full-sequence K and V)."""
+    """Embedding and all pairs, each super-layer and each tail pair under
+    ``cfg.remat`` when autograd records (the reference's ``remat_wrap`` over
+    its two scan bodies): (h (B, S, D) before the final norm, the recurrent
+    states of rec1, rec2 and tail, and each attention layer's full-sequence
+    K and V)."""
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     supers, tails = _layers(params)
+
+    def super_body(p, h):
+        h, c1 = rec_pair(p["rec1"], h, cfg)
+        h, c2 = rec_pair(p["rec2"], h, cfg)
+        h, kv = attn_pair(p["attn"], h, cfg, positions)
+        return h, c1, c2, kv
+
+    super_body = remat_wrap(super_body, cfg)
+    tail_body = remat_wrap(lambda p, h: rec_pair(p, h, cfg), cfg)
     states = {"rec1": [], "rec2": [], "tail": []}
     ks, vs = [], []
     for p in supers:
-        for name in ("rec1", "rec2"):
-            h, c = rec_pair(p[name], h, cfg)
-            states[name].append(c)
-        h, (k, v) = attn_pair(p["attn"], h, cfg, positions)
+        h, c1, c2, (k, v) = super_body(p, h)
+        states["rec1"].append(c1)
+        states["rec2"].append(c2)
         ks.append(k)
         vs.append(v)
     for p in tails:
-        h, c = rec_pair(p, h, cfg)
+        h, c = tail_body(p, h)
         states["tail"].append(c)
     return h, states, ks, vs
 
@@ -267,6 +299,11 @@ def griffin_forward(params, cfg: ArchConfig, tokens):
     """tokens: (B, S) int → logits (B, S, V)."""
     h, _, _, _ = _griffin_body(params, cfg, tokens)
     return unembed(params, cfg, rms_norm(h, params["final_ln"]))
+
+
+def griffin_loss(params, cfg: ArchConfig, batch):
+    """batch: {"tokens", "labels"} (B, S) int → (mean loss, {"ce", "accuracy"})."""
+    return cross_entropy(griffin_forward(params, cfg, batch["tokens"]), batch["labels"], z_loss=cfg.z_loss)
 
 
 def griffin_prefill(params, cfg: ArchConfig, tokens):

@@ -13,8 +13,10 @@ one token in plain PyTorch (:func:`wkv6_step`), as it is XLA in the
 reference, and writes its states into the cache in place. LayerNorms are
 plain PyTorch, as in the reference.
 
-``wkv6_chunked`` (the reference's XLA and backward path) and ``rwkv_loss``
-come with training.
+Training (:func:`rwkv_loss`) runs each block under ``cfg.remat``; the WKV
+forward is still the kernel, and its gradient recomputes
+:func:`wkv6_chunked`, the reference's chunked form, which takes S % 64 == 0
+(or S < 64).
 """
 
 from __future__ import annotations
@@ -24,13 +26,63 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .common import ParamDef, layer_norm, map_defs, torch_dtype
+from torch.utils.checkpoint import checkpoint
+
+from .common import ParamDef, cross_entropy, layer_norm, map_defs, torch_dtype
 from .config import ArchConfig
-from .transformer import _stack, embed_tokens, layer_params, unembed
+from .transformer import _stack, embed_tokens, layer_params, remat_wrap, unembed
 
 # ---------------------------------------------------------------------------
-# WKV recurrence, one token (decode)
+# WKV recurrence: the chunked form (the gradient's path) and one token (decode)
 # ---------------------------------------------------------------------------
+
+
+def _wkv6_chunk(s, rb, kb, vb, wb, uf):
+    """One chunk of C tokens from state s (B, H, dk, dv): (y (B, H, C, dv),
+    the state after the chunk), all in f32."""
+    C = rb.shape[2]
+    logw = torch.log(torch.clamp(wb, min=1e-38))  # w ∈ (0, 1)
+    lc = torch.cumsum(logw, dim=2)  # inclusive log-cumsum (B, H, C, dk)
+    lc_excl = lc - logw
+    # in-chunk pairs: A[t, s] = Σ_i r_t,i k_s,i e^{lc_excl_t - lc_s}, s < t
+    ratio = torch.exp(lc_excl[:, :, :, None, :] - lc[:, :, None, :, :])  # (B, H, C, C, dk)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=rb.device), diagonal=-1)[None, None, :, :, None]
+    ratio = torch.where(tri, ratio, 0.0)
+    A = torch.einsum("bhti,bhtsi,bhsi->bhts", rb, ratio, kb)
+    # the bonus diagonal: y_t += (r_t · u ⊙ k_t) v_t
+    diag = torch.einsum("bhti,bhti->bht", rb * uf[None, :, None, :], kb)
+    y = torch.einsum("bhts,bhsv->bhtv", A, vb) + diag[..., None] * vb
+    # across chunks: y_t += (r_t ⊙ e^{lc_excl_t}) S
+    y = y + torch.einsum("bhti,bhiv->bhtv", rb * torch.exp(lc_excl), s)
+    # S' = e^{lc_C} ⊙ S + Σ_s (e^{lc_C - lc_s} ⊙ k_s) v_s
+    k_scaled = kb * torch.exp(lc[:, :, -1:, :] - lc)
+    s_new = torch.exp(lc[:, :, -1, :])[..., None] * s + torch.einsum("bhsi,bhsv->bhiv", k_scaled, vb)
+    return y, s_new
+
+
+def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 64):
+    """The reference's chunked WKV form, differentiable by autograd. r, k, w:
+    (B, H, T, dk); v: (B, H, T, dv); u: (H, dk); s0: (B, H, dk, dv). T must be
+    a multiple of min(chunk, T). Within a chunk of C tokens every pairwise
+    decay ratio e^{lc_excl_t - lc_s} (s < t, at most 1) is a (C, C, dk)
+    tensor; each chunk runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(step)``), so the backward recomputes that tensor rather
+    than keep one per chunk. Returns (y (B, H, T, dv) in r's dtype, S_final
+    f32); every sum in f32."""
+    B, H, T, dk = r.shape
+    dv = v.shape[-1]
+    C = min(chunk, T)
+    if T % C:
+        raise ValueError(f"wkv6_chunked: T = {T} is not a multiple of the chunk {C}")
+    rc, kc, vc, wc = (x.float().reshape(B, H, T // C, C, x.shape[-1]) for x in (r, k, v, w))
+    uf = u.float()
+    s = s0.float()
+    ys = []
+    for i in range(T // C):
+        y, s = checkpoint(_wkv6_chunk, s, rc[:, :, i], kc[:, :, i], vc[:, :, i], wc[:, :, i], uf,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.stack(ys, dim=2).reshape(B, H, T, dv).to(r.dtype), s
 
 
 def wkv6_step(r, k, v, w, u, s):
@@ -194,13 +246,16 @@ def rwkv_block(p, x, cfg: ArchConfig, cache=None):
 
 
 def _rwkv_body(params, cfg: ArchConfig, tokens):
-    """Embedding and blocks: (h (B, S, D) before the final LayerNorm, the
-    per-layer states stacked as :func:`rwkv_cache_defs`)."""
+    """Embedding and blocks, each block under ``cfg.remat`` when autograd
+    records (the reference's ``remat_wrap`` over its scan body): (h (B, S, D)
+    before the final LayerNorm, the per-layer states stacked as
+    :func:`rwkv_cache_defs`)."""
     h = embed_tokens(params, cfg, tokens)
     h = layer_norm(h, params["ln0_w"], params["ln0_b"])
+    body = remat_wrap(lambda p, x: rwkv_block(p, x, cfg), cfg)
     caches = []
     for i in range(cfg.n_layers):
-        h, c = rwkv_block(layer_params(params["blocks"], i), h, cfg)
+        h, c = body(layer_params(params["blocks"], i), h)
         caches.append(c)
     return h, {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
 
@@ -209,6 +264,11 @@ def rwkv_forward(params, cfg: ArchConfig, tokens):
     """tokens: (B, S) int → logits (B, S, V)."""
     h, _ = _rwkv_body(params, cfg, tokens)
     return unembed(params, cfg, layer_norm(h, params["final_ln_w"], params["final_ln_b"]))
+
+
+def rwkv_loss(params, cfg: ArchConfig, batch):
+    """batch: {"tokens", "labels"} (B, S) int → (mean loss, {"ce", "accuracy"})."""
+    return cross_entropy(rwkv_forward(params, cfg, batch["tokens"]), batch["labels"], z_loss=cfg.z_loss)
 
 
 def rwkv_prefill(params, cfg: ArchConfig, tokens):

@@ -132,7 +132,10 @@ def gqa_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
     k = apply_rope(k, positions, cfg.rope_theta).contiguous()
     # compact (B, Hkv, S, hd) K/V: the kernel maps query head h to h // G
     window = cfg.window if cfg.attention == "local" else 0
-    out = ops.attention(q, k, v, causal=True, window=window, logit_cap=cfg.logit_cap, kv_chunk=cfg.attn_chunk)
+    # the backward's recompute chunks KV as the reference: Griffin's
+    # local_attention at min(attn_chunk, window), the dense path at attn_chunk
+    kv_chunk = min(cfg.attn_chunk, window) if window > 0 else cfg.attn_chunk
+    out = ops.attention(q, k, v, causal=True, window=window, logit_cap=cfg.logit_cap, kv_chunk=kv_chunk)
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
     if collect:
         return y, {"k": k, "v": v}

@@ -126,9 +126,8 @@ def test_config_copies_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    for arch in ("kimi-k2-1t-a32b", "whisper-small"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            get_config(arch)
+    with pytest.raises(ValueError, match="not yet ported"):
+        get_config("whisper-small")
     with pytest.raises(NotImplementedError, match="family"):
         build_model(get_smoke_config("nbi-100m").replace(family="encdec"))
     with pytest.raises(NotImplementedError, match="mla"):  # MLA in an MoE model

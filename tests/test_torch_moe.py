@@ -1,5 +1,5 @@
-"""The port's MoE serving path (deepseek-moe-16b) against the JAX package, on
-the CPU at smoke size.
+"""The port's MoE serving path (deepseek-moe-16b; kimi-k2-1t-a32b's prefill and
+decode too) against the JAX package, on the CPU at smoke size.
 
 Weights come from the reference's own init and cross with
 ``repro_torch.convert.params_from_jax``; tokens come from a seeded numpy
@@ -7,7 +7,8 @@ generator. The reference is called through ``build_model(cfg).prefill_fn`` /
 ``decode_fn`` with no sharding rules (ROADMAP hazard H1), with ``use_pallas``
 both ways. The smoke config routes groups of 32 tokens over 8 experts, top-2,
 capacity 10 per group, so a 2 × 16 prefill is one group and a 4 × 16 prefill
-two (G > 1), and picks are dropped. Tolerance: atol 1e-4 / rtol 1e-4 (f32,
+two (G > 1), and picks are dropped; kimi-k2's smoke config routes the same
+groups with one shared expert and GQA (4 query heads over 2 KV heads). Tolerance: atol 1e-4 / rtol 1e-4 (f32,
 different summation orders); the routing decision itself is exact.
 """
 
@@ -30,6 +31,7 @@ from repro_torch.models.registry import build_model
 from test_torch_model import assert_bf16_logits_close, bf16_logits
 
 ARCH = "deepseek_moe_16b"
+KIMI = "kimi_k2_1t_a32b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 USE_PALLAS = pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas"])
 SHAPES = pytest.mark.parametrize("batch,seq", [(2, 16), (4, 16)], ids=["one_group", "two_groups"])
@@ -38,30 +40,30 @@ SHAPES = pytest.mark.parametrize("batch,seq", [(2, 16), (4, 16)], ids=["one_grou
 @pytest.fixture(scope="module")
 def pair():
     """(reference model, reference params, port model, port params) per
-    use_pallas, built once."""
+    use_pallas and arch, built once."""
     built = {}
 
-    def get(use_pallas=False):
-        if use_pallas not in built:
-            ref_model = jax_build_model(jax_get_smoke_config(ARCH).replace(use_pallas=use_pallas))
+    def get(use_pallas=False, arch=ARCH):
+        if (arch, use_pallas) not in built:
+            ref_model = jax_build_model(jax_get_smoke_config(arch).replace(use_pallas=use_pallas))
             ref_params = ref_model.init(jax.random.PRNGKey(0))
-            model = build_model(get_smoke_config(ARCH).replace(use_pallas=use_pallas))
+            model = build_model(get_smoke_config(arch).replace(use_pallas=use_pallas))
             params = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, ref_params), device="cpu")
-            built[use_pallas] = (ref_model, ref_params, model, params)
-        return built[use_pallas]
+            built[arch, use_pallas] = (ref_model, ref_params, model, params)
+        return built[arch, use_pallas]
 
     return get
 
 
 @pytest.fixture(scope="module")
 def prefilled(pair):
-    """Reference and port prefill outputs per (use_pallas, batch, seq)."""
+    """Reference and port prefill outputs per (use_pallas, batch, seq, arch)."""
     done = {}
 
-    def get(use_pallas, batch, seq):
-        key = (use_pallas, batch, seq)
+    def get(use_pallas, batch, seq, arch=ARCH):
+        key = (use_pallas, batch, seq, arch)
         if key not in done:
-            ref_model, ref_params, model, params = pair(use_pallas)
+            ref_model, ref_params, model, params = pair(use_pallas, arch)
             toks = tokens(seq, batch, seq)
             want = jax.jit(ref_model.prefill_fn)(ref_params, {"tokens": jnp.asarray(toks)})
             got = model.prefill_fn(params, {"tokens": torch.from_numpy(toks)})
@@ -88,20 +90,16 @@ def check_cache(got, want):
             close(got[stack][name], want[stack][name])
 
 
-@USE_PALLAS
-@SHAPES
-def test_prefill_matches_reference(batch, seq, use_pallas, prefilled):
-    (want_logits, want_cache), (logits, cache) = prefilled(use_pallas, batch, seq)
+def check_prefill(arch, batch, seq, use_pallas, prefilled):
+    (want_logits, want_cache), (logits, cache) = prefilled(use_pallas, batch, seq, arch)
     assert logits.shape == want_logits.shape == (batch, 1, 512)
     close(logits, want_logits)
     check_cache(cache, want_cache)
 
 
-@USE_PALLAS
-@SHAPES
-def test_decode_matches_reference(batch, seq, use_pallas, pair, prefilled):
-    ref_model, ref_params, model, params = pair(use_pallas)
-    (_, want_cache), (_, cache) = prefilled(use_pallas, batch, seq)
+def check_decode(arch, batch, seq, use_pallas, pair, prefilled):
+    ref_model, ref_params, model, params = pair(use_pallas, arch)
+    (_, want_cache), (_, cache) = prefilled(use_pallas, batch, seq, arch)
     want_cache = jax_pad_cache_to(want_cache, ref_model.cache_defs_fn(batch, seq + 8))
     cache = pad_cache_to(convert.map_defs(torch.clone, cache), model.cache_defs_fn(batch, seq + 8))
     nxt = tokens(3, batch, 1)
@@ -110,6 +108,30 @@ def test_decode_matches_reference(batch, seq, use_pallas, pair, prefilled):
     logits, new = model.decode_fn(params, cache, torch.from_numpy(nxt), seq)
     close(logits, want_logits)
     check_cache(new, want_new)
+
+
+@USE_PALLAS
+@SHAPES
+def test_prefill_matches_reference(batch, seq, use_pallas, prefilled):
+    check_prefill(ARCH, batch, seq, use_pallas, prefilled)
+
+
+@USE_PALLAS
+@SHAPES
+def test_decode_matches_reference(batch, seq, use_pallas, pair, prefilled):
+    check_decode(ARCH, batch, seq, use_pallas, pair, prefilled)
+
+
+@USE_PALLAS
+@SHAPES
+def test_kimi_prefill_matches_reference(batch, seq, use_pallas, prefilled):
+    check_prefill(KIMI, batch, seq, use_pallas, prefilled)
+
+
+@USE_PALLAS
+@SHAPES
+def test_kimi_decode_matches_reference(batch, seq, use_pallas, pair, prefilled):
+    check_decode(KIMI, batch, seq, use_pallas, pair, prefilled)
 
 
 @USE_PALLAS
@@ -208,7 +230,7 @@ def test_index_dispatch_equals_one_hot_einsums(pair):
     cfg = model.cfg
     p = moe.layer_params(params["moe_blocks"], 0)["moe"]
     x = torch.from_numpy(np.random.default_rng(9).standard_normal((4, 16, cfg.d_model)).astype(np.float32))
-    got = moe.moe_ffn(p, x, cfg)
+    got, _ = moe.moe_ffn(p, x, cfg)
     xg = x.reshape(2, 32, cfg.d_model)
     dispatch, combine, _ = moe.top_k_routing(xg @ p["router"], cfg, moe.capacity(cfg, 32))
     expert_in = torch.einsum("gnec,gnd->egcd", dispatch.float(), xg)
