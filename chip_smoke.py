@@ -12,7 +12,8 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    and warnings, each flash-attention kernel's block per head-dim pair and
    dtype (rows, keys a tile, stages, dynamic shared memory), and the
    WKV-6 and MoE gating launches (threads, shared memory, registers, blocks
-   resident per SM) as the library reports them;
+   resident per SM) and each RMSNorm case's (path, warps a row, vectors a
+   thread, blocks, blocks resident per SM) as the library reports them;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
@@ -24,7 +25,8 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    and feed
    llava-next-mistral-7b's model functions 1152 seeded patch embeddings
    before each text; count every kernel's launches around each path and
-   require the exact counts (nbi-100m: each prefill attention through the
+   require the exact counts, and no launch of the RMSNorm kernel's generic
+   path on any path (nbi-100m: each prefill attention through the
    f32 tensor-core (3xTF32) flash-attention kernel and each RMSNorm through
    the RMSNorm kernel; Griffin: each prefill attention through the bf16
    flash-attention kernel and each RG-LRU prefill scan through the LRU
@@ -189,6 +191,7 @@ COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": 
             "flash_attention_bf16_mla": (fa_kernel, "bf16_mla_launches"),
             "flash_attention_tf32": (fa_kernel, "tf32_launches"),
             "flash_attention_tf32_mla": (fa_kernel, "tf32_mla_launches"), "rmsnorm": (rn_kernel, "launches"),
+            "rmsnorm_generic": (rn_kernel, "generic_launches"),
             "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
             "moe_gating": (gating_kernel, "launches"), "moe_gating_slots": (gating_kernel, "slots_launches")}
 # the phase-3 case whose numbers stand for each attention kernel in the JSON
@@ -383,10 +386,13 @@ def norm_cases(full: bool):
     """(name, rows, D, dtype); the first two are the main path's prefill and
     decode rows of nbi-100m, then deepseek-moe-16b's largest prefill and a
     decode step, minicpm3-4b's q_ln (768 wide) and kv_ln (256 wide) at its
-    largest prefill and a decode step (bf16, the narrow rows' kernel), and
+    largest prefill and a decode step, and
     mistral-large-123b's largest prefill and a decode step at D 12288, the
     kernel's widest; then kimi-k2's largest prefill and a decode step at D
-    7168, and recurrentgemma-2b's train step (2 x 2048 rows at D 2560)."""
+    7168, recurrentgemma-2b's train step (2 x 2048 rows at D 2560),
+    minicpm3-4b's residual norms (D 2560) and starcoder2-7b's (D 4608) at
+    their largest prefill, and last a D that is not a multiple of 8 (bf16),
+    the generic path's."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [("prefill_rows", 32, 64, f32), ("decode_rows", 2, 64, f32),
@@ -396,7 +402,8 @@ def norm_cases(full: bool):
                 ("mla_q_ln_decode_rows", 2, 24, bf16), ("mla_kv_ln_decode_rows", 2, 16, bf16),
                 ("mistral_large_prefill_rows", 32, 64, bf16), ("mistral_large_decode_rows", 2, 64, bf16),
                 ("kimi_prefill_rows", 32, 64, bf16), ("kimi_decode_rows", 2, 64, bf16),
-                ("griffin_train_rows", 64, 64, bf16)]
+                ("griffin_train_rows", 64, 64, bf16), ("minicpm_prefill_rows", 64, 40, bf16),
+                ("starcoder2_prefill_rows", 64, 72, bf16), ("generic_d1004", 7, 20, bf16)]
     return [("prefill_rows", 4096, 768, f32), ("decode_rows", 8, 768, f32),
             ("bf16_4096", 2048, 4096, bf16), ("deepseek_prefill_rows", 16384, 2048, bf16),
             ("deepseek_decode_rows", 8, 2048, bf16),
@@ -404,7 +411,8 @@ def norm_cases(full: bool):
             ("mla_q_ln_decode_rows", 8, 768, bf16), ("mla_kv_ln_decode_rows", 8, 256, bf16),
             ("mistral_large_prefill_rows", 8192, 12288, bf16), ("mistral_large_decode_rows", 8, 12288, bf16),
             ("kimi_prefill_rows", 8192, 7168, bf16), ("kimi_decode_rows", 8, 7168, bf16),
-            ("griffin_train_rows", 4096, 2560, bf16)]
+            ("griffin_train_rows", 4096, 2560, bf16), ("minicpm_prefill_rows", 16384, 2560, bf16),
+            ("starcoder2_prefill_rows", 16384, 4608, bf16), ("generic_d1004", 7, 1004, bf16)]
 
 
 def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
@@ -481,14 +489,34 @@ def run_attention_cases(device, timer, full: bool, only=None) -> dict:
     return rows
 
 
-def run_norm_cases(device, timer, full: bool) -> dict:
+def norm_launch_line(rows: int, D: int, dtype) -> str:
+    c = rn_kernel.launch_config(rows, D, dtype)
+    return (f"path={c['path']} team={c['team_warps']} warps vectors a thread={c['vectors_per_thread']} "
+            f"threads={c['threads']} teams a block={c['teams']} blocks={c['blocks']} on {c['sms']} SMs, "
+            f"{c['blocks_per_sm']} resident per SM, rows a team={c['rows_per_team']}"
+            + (", x past L1 (larger than L2)" if c["stream_x"] else ""))
+
+
+def run_norm_cases(device, timer, full: bool, only=None) -> dict:
+    """Every case's numbers (or those of the cases named in ``only``), by case
+    name. On the card each call must take the path ``launch_config`` names:
+    the vector path at every width of 8 bf16 or 4 f32 values, the generic
+    path otherwise."""
     g = torch.Generator(device=device).manual_seed(1)
-    first = None
+    out = {}
     for name, rows, D, dtype in norm_cases(full):
+        if only is not None and name not in only:
+            continue
         x = torch.randn((rows, D), generator=g, device=device).to(dtype)
         w = 1.0 + 0.1 * torch.randn((D,), generator=g, device=device)
+        generic_before = getattr(rn_kernel, "generic_launches", 0)
         got = ops.rmsnorm(x, w)
         sync(device)
+        if device.type == "cuda" and hasattr(rn_kernel, "launch_config"):  # older trees (chip_variants.py): one path
+            generic = rn_kernel.generic_launches - generic_before
+            path = rn_kernel.launch_config(rows, D, dtype)["path"]
+            if generic != (path == "generic") or (path == "generic") == rn_kernel.takes_vector_path(D, dtype):
+                raise AssertionError(f"rmsnorm[{name}]: path {path}, generic launches {generic}")
         want = ref.rmsnorm_ref(x, w)
         sync(device)
         err = check_close(got, want, what=f"rmsnorm[{name}]", **NORM_TOL[dtype])
@@ -496,6 +524,9 @@ def run_norm_cases(device, timer, full: bool) -> dict:
         plain_ms = timer(lambda: ref.rmsnorm_ref(x, w), iters=20)
         w_lib = w.to(dtype)
         library_ms = timer(lambda: F.rms_norm(x, (D,), w_lib, eps=1e-6), iters=50)
+        # the card's streaming rate at the same bytes: a copy of x into y (not
+        # the same function: no library_ms)
+        copy_ms = timer(lambda: got.copy_(x), iters=50)
         sync(device)
         nbytes = (2 * x.numel()) * x.element_size() + w.numel() * w.element_size()
         bound_ms, bound_by = bound(4 * x.numel(), nbytes, dtype)
@@ -503,9 +534,11 @@ def run_norm_cases(device, timer, full: bool) -> dict:
                    bound_by=bound_by, library_ms=library_ms)
         say(f"[kernels] rmsnorm {name}: rows={rows} D={D} {str(dtype).removeprefix('torch.')} | "
             f"max_abs_err={err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-            f"library={library_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) MB={nbytes / 1e6:.2f}")
-        first = first or row
-    return first
+            f"library={library_ms:.4f}ms copy={copy_ms:.4f}ms bound={bound_ms:.4f}ms ({bound_by}) "
+            f"{100 * bound_ms / ms:.1f}% of bound "
+            f"MB={nbytes / 1e6:.2f}")
+        out[name] = row
+    return out
 
 
 def lru_cases(full: bool):
@@ -791,7 +824,8 @@ def zero_counters() -> None:
 
 
 def read_counters() -> dict:
-    return {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
+    # an older tree's wrapper (chip_variants.py) may lack a count: zero_counters set it
+    return {name: getattr(module, count, 0) for name, (module, count) in COUNTERS.items()}
 
 
 def check_launches(what: str, launches: dict, want: dict, device) -> None:
@@ -1350,14 +1384,13 @@ def train_path(device, full: bool) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     stamps = []
-    for module, count in COUNTERS.values():
-        setattr(module, count, 0)
+    zero_counters()
     t0 = time.perf_counter()
     result = train(train_args(device, full, "--steps", steps, "--global-batch", batch, "--seq", seq,
                               "--warmup", warmup, "--log-every", 1),
                    on_metrics=lambda m: stamps.append(time.perf_counter()))
     wall = time.perf_counter() - t0
-    launches = {name: getattr(module, count) for name, (module, count) in COUNTERS.items()}
+    launches = read_counters()
     want = expected_train_launches(cfg, batch, seq, steps) if device.type == "cuda" else dict.fromkeys(COUNTERS, 0)
     say(f"[train] {cfg.name}: L={cfg.n_layers} D={cfg.d_model} H={cfg.n_heads} hd={cfg.resolved_head_dim} "
         f"F={cfg.d_ff} V={build_model(cfg).cfg.vocab_size} {cfg.dtype} remat={cfg.remat} | "
@@ -1671,6 +1704,9 @@ def main(argv=None) -> int:
             f"d={d} {str(dtype).removeprefix('torch.')}: {c['threads']} threads {c['smem_bytes']} B "
             f"{c['blocks_per_sm']} blocks" for (d, dtype), c in configs.items()))
         say(f"[build] moe_gating {gating_launch_line()}")
+        for name, rows, D, dtype in norm_cases(full):
+            say(f"[build] rmsnorm {name} ({rows} x {D} {str(dtype).removeprefix('torch.')}): "
+                f"{norm_launch_line(rows, D, dtype)}")
         for name, B, T, W, dtype in lru_cases(full):
             say(f"[build] lru_scan {name} ({B} x {T} x {W} {str(dtype).removeprefix('torch.')}): "
                 f"{lru_launch_line(B, T, W, dtype)}")
@@ -1685,7 +1721,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     attention = run_attention_cases(device, timer, full)
     results = {**{name: attention[case] for name, case in ATTN_JSON_CASE.items()},
-               "rmsnorm": run_norm_cases(device, timer, full),
+               "rmsnorm": run_norm_cases(device, timer, full)["prefill_rows"],
                "lru_scan": run_lru_cases(device, timer, full),
                "wkv6": run_wkv_cases(device, timer, full),
                "moe_gating": run_gating_cases(device, timer, full)}
@@ -1724,6 +1760,9 @@ def main(argv=None) -> int:
     # of moe_gating's launches, the calls that also ran its slots kernel
     kernels[list(KERNEL_INFO).index("moe_gating")]["slots_launches"] = sum(
         n["moe_gating_slots"] for n in by_path.values())
+    # of rmsnorm's launches, those of its generic path (phases 4-5 require none)
+    kernels[list(KERNEL_INFO).index("rmsnorm")]["generic_launches"] = sum(
+        n["rmsnorm_generic"] for n in by_path.values())
     if not full:
         say(json.dumps({"kernels": kernels}))
         say(json.dumps({"ok": True, "rehearsal": "cpu"}))

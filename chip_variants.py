@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time chip_smoke.py's attention cases from several trees of the repo on one
-card, in turns, each tree in its own process.
+"""Time chip_smoke.py's attention and RMSNorm cases from several trees of the
+repo on one card, in turns, each tree in its own process.
 
     python3 chip_variants.py [--cases NAME,...] [--time-only] ROOT [ROOT ...]
     python3 chip_variants.py --serve ARCH ROOT [ROOT ...]
@@ -10,7 +10,10 @@ A ROOT is a tree of the repo: this checkout (``.``), a ``git archive`` of
 another commit unpacked under ``build/`` (which git ignores), or a copy of
 ``src/`` there with other constants in a kernel's
 source. Every root builds its kernels first, all at once, each into its own
-``ROOT/build/``, and prints its attention kernels' registers and spills.
+``ROOT/build/``, and prints its attention and RMSNorm kernels' registers and
+spills. ``--cases`` takes chip_smoke.py's attention case names and its RMSNorm
+case names (``norm_cases``), in any mix; a tree whose RMSNorm wrapper has
+``launch_config`` prints each RMSNorm case's launch too.
 Then every root is timed once in order and once in reverse: for a parent
 and a change, parent, change, change, parent.
 A timing process imports the root's ``repro_torch`` and then this checkout's
@@ -50,7 +53,7 @@ def child(root: Path, cases: list[str], time_only: bool, serve: str | None, cont
     torch.zeros(1, device=device)  # the allocator exists before serve_path resets its peak
     cs.say(f"[root] {root} | {cs.nvidia_smi_line()}")
     for r in _build.ptxas_report():
-        if "attn" in r["kernel"]:
+        if "attn" in r["kernel"] or "rmsnorm" in r["kernel"]:
             cs.say(f"[root] {r['kernel']} | registers {r['registers']} | spills "
                    f"{r['spill_store_bytes']}/{r['spill_load_bytes']} B")
     if serve:
@@ -59,8 +62,18 @@ def child(root: Path, cases: list[str], time_only: bool, serve: str | None, cont
     if continuous:
         cs.continuous_path(continuous, device, True)
         return
+    attention = [c for c in cases if c in {a[0] for a in cs.attention_cases(True)}]
+    norms = {n[0]: n[1:] for n in cs.norm_cases(True) if n[0] in cases}
+    if unknown := set(cases) - set(attention) - set(norms):
+        raise SystemExit(f"chip_variants: no such case {sorted(unknown)}")
     if not time_only:
-        cs.run_attention_cases(device, cs.Timer(device), True, only=cases)
+        if attention:
+            cs.run_attention_cases(device, cs.Timer(device), True, only=attention)
+        for name, (rows, D, dtype) in norms.items():
+            if hasattr(cs.rn_kernel, "launch_config"):
+                cs.say(f"[root] rmsnorm {name}: {cs.norm_launch_line(rows, D, dtype)}")
+        if norms:
+            cs.run_norm_cases(device, cs.Timer(device), True, only=norms)
         return
     # a diagnostic variant computes another function: time it, check nothing
     g = torch.Generator(device=device).manual_seed(0)

@@ -52,6 +52,9 @@ def jx():
     )
 
 
+H100_SMS = 132
+
+
 def draw(seed, *shapes, scale=1.0):
     rng = np.random.default_rng(seed)
     return [(rng.standard_normal(s) * scale).astype(np.float32) for s in shapes]
@@ -595,6 +598,109 @@ def test_plain_rmsnorm_bf16_matches_jax(jx):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
 
 
+# The RMSNorm kernel's vector path (csrc/rmsnorm.cu, MAX_VPT and
+# MAX_TEAM_WARPS); test_rmsnorm_launch_config holds rmsnorm_plan to the
+# library's launch_config on the card.
+NORM_MAX_VPT = 8
+NORM_MAX_TEAM_WARPS = 16
+NORM_FEW_ROWS_WARPS = 8
+# every norm width of the port's configs, and the smoke configs' widths
+NORM_WIDTHS = (16, 24, 64, 256, 768, 2048, 2560, 4096, 4608, 7168, 12288)
+NORM_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
+
+
+def rmsnorm_plan(D, elt, rows=1 << 20, sms=H100_SMS):
+    """(warps a row, 16-byte vectors a thread) of the vector path for ``rows``
+    rows of D ``elt``-byte values: one warp up to 256 vectors a row, else the
+    fewest of 2, 4, 8, 16 warps that leave a thread at most 8 vectors; then,
+    while the rows give the SMs fewer than 8 warps each, twice the warps,
+    down to one vector a thread."""
+    nvec = D * elt // 16
+    team = 1
+    while team < NORM_MAX_TEAM_WARPS and nvec > 32 * team * NORM_MAX_VPT:
+        team *= 2
+    while team < NORM_MAX_TEAM_WARPS and -(-nvec // (32 * team)) > 1 and rows * team < NORM_FEW_ROWS_WARPS * sms:
+        team *= 2
+    return team, -(-nvec // (32 * team))
+
+
+def emulate_rmsnorm_kernel(x, w, plan, eps=1e-6):
+    """The vector path's arithmetic on the CPU at ``plan`` (warps a row,
+    vectors a thread), in its f32 order: the squares of each 16-byte vector
+    by an FMA chain from 0; a thread's vectors (vector c of a row to thread
+    c mod 32T, T the team's warps) added in order; the lane tree of each
+    warp; the team's warps added in order; then x * rsqrt(sum / D + eps) *
+    w, rounded once to x's dtype."""
+    rows, D = x.shape
+    V = 16 // x.element_size()
+    team, vpt = plan
+    a = x.float().reshape(rows, D // V, V)
+    s = torch.zeros(rows, D // V)
+    for j in range(V):
+        s = fma(a[..., j], a[..., j], s)
+    threads = 32 * team
+    s = torch.nn.functional.pad(s, (0, vpt * threads - D // V)).reshape(rows, vpt, threads)
+    ss = torch.zeros(rows, threads)
+    for k in range(vpt):
+        ss = ss + s[:, k]
+    warps = halve(ss.reshape(rows, team, 32), 2)
+    total = warps[:, 0]
+    for i in range(1, team):
+        total = total + warps[:, i]
+    r = torch.rsqrt(total / D + eps)
+    return (x.float() * r[:, None] * w.float()).to(x.dtype)
+
+
+def test_rmsnorm_plan_covers_every_width():
+    """Every D up to MAX_D that the vector path takes fits a team of at most
+    16 warps of at most 8 vectors, with no warp of the team idle; the
+    widths of the design (D 12288 bf16: 8 warps of 6 vectors)."""
+    for elt in (2, 4):
+        for D in range(16 // elt, trn.MAX_D + 1, 16 // elt):
+            team, vpt = rmsnorm_plan(D, elt)
+            nvec = D * elt // 16
+            assert 1 <= vpt <= NORM_MAX_VPT and team <= NORM_MAX_TEAM_WARPS, (D, elt)
+            assert 32 * team * (vpt - 1) < nvec <= 32 * team * vpt, (D, elt)
+            assert team == 1 or nvec > 32 * (team // 2) * NORM_MAX_VPT, (D, elt)
+    assert [rmsnorm_plan(D, 2) for D in (256, 768, 2048, 2560, 4608, 7168, 12288)] == [
+        (1, 1), (1, 3), (1, 8), (2, 5), (4, 5), (4, 7), (8, 6)]
+    assert rmsnorm_plan(12288, 4) == (16, 6) and rmsnorm_plan(768, 4) == (1, 6)
+    # a decode batch of 8 rows: one vector a thread, or 16 warps a row
+    assert [rmsnorm_plan(D, 2, rows=8) for D in (256, 768, 2048, 7168, 12288)] == [
+        (1, 1), (4, 1), (8, 1), (16, 2), (16, 3)]
+    assert rmsnorm_plan(2048, 2, rows=132 * 8) == (1, 8) and rmsnorm_plan(2048, 2, rows=132 * 8 - 1) == (2, 4)
+
+
+def test_rmsnorm_vector_path_rule():
+    """The wrapper counts a generic launch where the library takes its generic
+    path: D off the vector width (8 bf16, 4 f32 values), or x or y off a
+    16-byte boundary."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert trn.takes_vector_path(16, bf16) and trn.takes_vector_path(1004, f32)
+    assert not trn.takes_vector_path(1004, bf16) and not trn.takes_vector_path(1002, f32)
+    assert not trn.takes_vector_path(2560, bf16, misalign=2) and not trn.takes_vector_path(768, f32, misalign=4)
+    assert trn.takes_vector_path(768, f32, misalign=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+def test_rmsnorm_kernel_arithmetic_matches_jax(jx, D, dtype):
+    """The vector path's summation order, at the plan of a prefill and of a
+    decode batch, against the Pallas kernel in interpret mode, at every norm
+    width, on rows whose scales span 1e-3 to 1e2 (f32 1e-5; bf16 atol 0.05
+    plus one rounding step relative)."""
+    xn, wn = draw(40 + D, (5, D), (D,))
+    xn *= np.array([1e-3, 0.1, 1.0, 10.0, 100.0], np.float32)[:, None]
+    x, w = torch.from_numpy(xn).to(dtype), torch.from_numpy(wn)
+    jdtype = jx.jnp.bfloat16 if dtype == torch.bfloat16 else jx.jnp.float32
+    want = jx.rmsnorm_pallas(jx.jnp.asarray(xn, jdtype), jx.jnp.asarray(wn), interpret=True)
+    for rows in (16384, 8):
+        got = emulate_rmsnorm_kernel(x, w, rmsnorm_plan(D, x.element_size(), rows=rows))
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **NORM_TOL[dtype])
+        torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **NORM_TOL[dtype])
+
+
 def lru_inputs(seed, B, T, W):
     """a in (0, 1) like RG-LRU decays, b and h0 normal."""
     rng = np.random.default_rng(seed)
@@ -650,7 +756,6 @@ def test_plain_lru_any_length_and_bf16_match_jax_oracle(jx):
 LRU_STAGES = 3
 LRU_IN_FLIGHT = 4 << 20
 LRU_STEP_ALIGN = 16
-H100_SMS = 132
 
 
 def lru_plan(B, T, W, elt, sms=H100_SMS):
@@ -1364,25 +1469,108 @@ def test_f32_head_dims_run_their_kernel(d, dv):
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True, window=150), **F32_ATTN_TOL)
 
 
+# (shape, dtype): the vector path at each team size of a prefill's plan
+# (warps a row: 1 at (4096, 768) f32, 2 at D 2560 and 4096 bf16, 4 at D
+# 7168, 8 at 12288 bf16, 16 at 12288 f32) and of a few rows' widened plan
+# (one vector a thread, or 16 warps), rows that leave teams idle, ragged
+# vectors a thread (f32 D 1004, bf16 D 4608), an x larger than L2 (4096 x
+# 8192 bf16, loaded past L1); the generic path at D off the vector width
+# (bf16 D 1004 and 4998, f32 D 1002)
+GPU_NORM_CASES = [
+    ((4096, 768), torch.float32), ((8, 768), torch.float32), ((2048, 4096), torch.bfloat16),
+    ((3, 5, 12288), torch.float32), ((7, 1000), torch.bfloat16), ((1000, 2560), torch.bfloat16),
+    ((65, 4608), torch.bfloat16), ((129, 7168), torch.bfloat16), ((2000, 7168), torch.bfloat16),
+    ((1100, 12288), torch.bfloat16), ((8, 12288), torch.bfloat16), ((16384, 256), torch.bfloat16),
+    ((5, 1004), torch.float32), ((7, 1004), torch.bfloat16), ((3, 4998), torch.bfloat16),
+    ((5, 1002), torch.float32), ((4096, 8192), torch.bfloat16),
+]
+
+
+def test_gpu_norm_cases_reach_every_team_size():
+    """The card's K2 cases take every team size (1 to 16 warps), one and
+    eight vectors a thread, and the generic path."""
+    plans = {rmsnorm_plan(shape[-1], 2 if dtype == torch.bfloat16 else 4, int(np.prod(shape[:-1])))
+             for shape, dtype in GPU_NORM_CASES if trn.takes_vector_path(shape[-1], dtype)}
+    assert {team for team, _ in plans} == {1, 2, 4, 8, 16}
+    assert {1, 8} <= {vpt for _, vpt in plans}
+    assert not all(trn.takes_vector_path(shape[-1], dtype) for shape, dtype in GPU_NORM_CASES)
+
+
+def norm_counts():
+    return trn.launches, trn.generic_launches
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "shape,dtype",
-    [((4096, 768), torch.float32), ((8, 768), torch.float32), ((2048, 4096), torch.bfloat16),
-     ((3, 5, 12288), torch.float32), ((7, 1000), torch.bfloat16)],
-)
+@pytest.mark.parametrize("shape,dtype", GPU_NORM_CASES)
 def test_rmsnorm_kernel_matches_plain(shape, dtype):
+    """Within the norm limit of the plain version, one launch a call, and a
+    generic launch exactly where launch_config names the generic path."""
     _need_card()
     xn, wn = draw(6, shape, shape[-1:])
     x = torch.from_numpy(xn).to("cuda", dtype)
     w = torch.from_numpy(wn).to("cuda")
-    before = trn.launches
+    D, rows = shape[-1], x.numel() // shape[-1]
+    generic = trn.launch_config(rows, D, dtype)["path"] == "generic"
+    assert generic == (not trn.takes_vector_path(D, dtype))
+    launches, generic_launches = norm_counts()
     got = ops.rmsnorm(x, w)
     torch.cuda.synchronize()
-    assert trn.launches == before + 1
+    assert norm_counts() == (launches + 1, generic_launches + generic)
     # bf16 keeps 8 significant bits, so one rounding step of a value near 10
     # is 0.0625: the bf16 bound is atol 0.05 plus one step relative (2**-7)
-    tol = dict(atol=0.05, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **tol)
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **NORM_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", GPU_NORM_CASES)
+def test_rmsnorm_launch_config(shape, dtype):
+    """The library's launch for each case: rmsnorm_plan's team and vectors a
+    thread on the vector path, 256 threads a block (one team when wider), a
+    row a team (narrow rows: enough that a block reads 16 KB, while every SM
+    still gets a block), and every team's rows within one of the others'."""
+    _need_card()
+    D = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    elt = 2 if dtype == torch.bfloat16 else 4
+    c = trn.launch_config(rows, D, dtype)
+    if not trn.takes_vector_path(D, dtype):  # PR 11's kernels: a warp a row up to D 1024, else a block
+        assert c["path"] == "generic" and c["vectors_per_thread"] == 0 and c["threads"] == 256, c
+        assert c["team_warps"] == (1 if D <= 1024 else 8) and c["rows_per_team"] == 1, c
+        return
+    assert c["path"] == "vector", c
+    assert (c["team_warps"], c["vectors_per_thread"]) == rmsnorm_plan(D, elt, rows, c["sms"]), c
+    assert c["threads"] == max(256, 32 * c["team_warps"]) == 32 * c["team_warps"] * c["teams"], c
+    row_bytes = D * elt
+    assert c["rows_per_team"] == min(-(-16384 // (row_bytes * c["teams"])), -(-rows // (c["teams"] * c["sms"]))), c
+    assert (c["blocks"] - 1) * c["teams"] * c["rows_per_team"] < rows <= c["blocks"] * c["teams"] * c["rows_per_team"], c
+    assert c["blocks_per_sm"] >= 1, c
+    assert c["stream_x"] == (rows * D * elt > c["l2_bytes"]), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_misaligned_views(dtype):
+    """A contiguous x one element past a 16-byte boundary takes the generic
+    path (the counters show it); a weight off the boundary keeps the vector
+    path (the wrapper copies it to a fresh allocation)."""
+    _need_card()
+    rows, D = 37, 2560
+    xn, wn = draw(7, (rows, D), (D,))
+    xbuf = torch.zeros(rows * D + 1, device="cuda", dtype=dtype)
+    xbuf[1:] = torch.from_numpy(xn).to("cuda", dtype).flatten()
+    shifted = xbuf[1:].view(rows, D)
+    wbuf = torch.zeros(D + 1, device="cuda")
+    wbuf[1:] = torch.from_numpy(wn).to("cuda")
+    w_shifted = wbuf[1:]
+    aligned = torch.from_numpy(xn).to("cuda", dtype)
+    assert shifted.data_ptr() % 16 and w_shifted.data_ptr() % 16 and aligned.data_ptr() % 16 == 0
+    assert trn.launch_config(rows, D, dtype, shifted.data_ptr())["path"] == "generic"
+    for x, w, generic in ((shifted, w_shifted, 1), (aligned, w_shifted, 0), (shifted, wbuf[1:].clone(), 1)):
+        launches, generic_launches = norm_counts()
+        got = ops.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        assert norm_counts() == (launches + 1, generic_launches + generic)
+        torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(), **NORM_TOL[dtype])
 
 
 @pytest.mark.gpu
