@@ -20,9 +20,10 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 4. main paths, one engine at a time, each freed before the next: serve 16
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b,
    deepseek-moe-16b, kimi-k2-1t-a32b (full width, 2 of its 61 layers: 384
-   experts, top-8, groups of 256), minicpm3-4b (MLA), starcoder2-7b and
-   mistral-large-123b (full width, 8 of its 88 layers) with seeded weights,
-   and feed
+   experts, top-8, groups of 256), minicpm3-4b (MLA), starcoder2-7b,
+   mistral-large-123b (full width, 8 of its 88 layers) and whisper-small
+   (full width and depth, fed zero audio frames as the engine feeds them)
+   with seeded weights, and feed
    llava-next-mistral-7b's model functions 1152 seeded patch embeddings
    before each text; count every kernel's launches around each path and
    require the exact counts, and no launch of the RMSNorm kernel's generic
@@ -36,7 +37,9 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    routing whose groups span more than one tile; minicpm3-4b: each prefill
    attention through the bf16 MLA kernel at (96, 64) and 4L+1 norms,
    q_ln and kv_ln included, per prefill and decode step; the other dense
-   paths: bf16 attention at d 128 and 2L+1 norms); check the
+   paths: bf16 attention at d 128 and 2L+1 norms; whisper-small: each of
+   its 12 encoder, 12 self- and 12 cross-attentions a prefill batch through
+   the bf16 kernel at d 64, and no other launch); check the
    decode-equals-forward law at full width and the card against the CPU on
    a small model of each family, then trace one batch with torch.profiler
    (device busy share, each of the port's kernels' share of the prefill's
@@ -63,15 +66,18 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    train step of a small model on the card against the CPU, and resume
    equivalence: 2N straight steps against N steps, a checkpoint, a fresh
    restore and N more, bitwise under ``torch.use_deterministic_algorithms``.
-   Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (8 of 32) and
-   recurrentgemma-2b (14 of 26) at full width for 10 steps each through the
+   Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (8 of 32),
+   recurrentgemma-2b (14 of 26) and whisper-small (all 12 + 12 layers, 8
+   rows of 448 tokens against 8 x 1500 seeded audio frames, which the data
+   pipeline does not make) at full width for 10 steps each through the
    launcher's pieces (the config's optimizer with cosine warmup, the train
    state drawn on the card, the train step, the data pipeline), with the
    counts set to 0 just before and read just after: under remat "full"
    every forward kernel runs twice a step (the forward, then the backward's
    recompute of each layer), K5 (route and slots) per MoE routing, K4 per
-   RWKV-6 layer, K3 per recurrent layer, K1 per attention layer, K2 per
-   RMSNorm, and no backward launches one; the loss must fall. Then each
+   RWKV-6 layer, K3 per recurrent layer, K1 per attention layer (Whisper's
+   encoder, self- and cross-attentions), K2 per RMSNorm, and no backward
+   launches one; the loss must fall. Then each
    family's step ms, tok/s, peak memory, one traced step and a small
    model's train step on the card against the CPU.
 
@@ -101,6 +107,12 @@ from pathlib import Path
 # resume check of phase 5 runs under torch.use_deterministic_algorithms, which
 # needs one of the two fixed settings. 8 x 4 MiB is PyTorch's default on Hopper.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# The family train paths run near the card's memory (deepseek-moe-16b's peak
+# is about 67 of 79 GiB). With fixed-size segments, blocks split by the
+# earlier paths left 14 GiB reserved but unallocated there and its AdamW
+# update ran out of memory; expandable segments grow in place instead. The
+# allocator reads this when CUDA starts.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
@@ -319,7 +331,10 @@ def attention_cases(full: bool):
     at full size; last, the shapes the train paths and kimi-k2's serving give
     the bf16 kernel (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
     d 256 under its window at 2 x 2048, kimi-k2's 64 over 8 heads at 8 x
-    1024)."""
+    1024); then whisper-small's bf16 d 64 kernel as its prefill batch of 8
+    gives it: the encoder over 1500 frames (ragged against the 128-row blocks
+    and the 64-key tiles), cross-attention from 384 prompt tokens over them,
+    and the decoder's causal self-attention over the 384."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
         return [
@@ -350,6 +365,9 @@ def attention_cases(full: bool):
             ("deepseek_train", 2, 4, 4, 32, 32, 16, 16, bf16, True, 0, 0.0),
             ("griffin_train", 2, 4, 1, 16, 16, 16, 16, bf16, True, 8, 0.0),
             ("kimi_prefill", 2, 8, 2, 32, 32, 16, 16, bf16, True, 0, 0.0),
+            ("whisper_encoder", 2, 4, 4, 24, 24, 16, 16, bf16, False, 0, 0.0),
+            ("whisper_cross", 2, 4, 4, 12, 24, 16, 16, bf16, False, 0, 0.0),
+            ("whisper_decoder_prefill", 2, 4, 4, 12, 12, 16, 16, bf16, True, 0, 0.0),
         ]
     return [
         ("nbi100m_prefill", 8, 12, 12, 512, 512, 64, 64, f32, True, 0, 0.0),
@@ -379,6 +397,9 @@ def attention_cases(full: bool):
         ("deepseek_train", 4, 16, 16, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("griffin_train", 2, 10, 1, 2048, 2048, 256, 256, bf16, True, 2048, 0.0),
         ("kimi_prefill", 8, 64, 8, 1024, 1024, 128, 128, bf16, True, 0, 0.0),
+        ("whisper_encoder", 8, 12, 12, 1500, 1500, 64, 64, bf16, False, 0, 0.0),
+        ("whisper_cross", 8, 12, 12, 384, 1500, 64, 64, bf16, False, 0, 0.0),
+        ("whisper_decoder_prefill", 8, 12, 12, 384, 384, 64, 64, bf16, True, 0, 0.0),
     ]
 
 
@@ -768,6 +789,9 @@ PATHS = {
     "minicpm3-4b": ((8, (128, 512, 2048), 32, 200), (2, (8, 12, 16), 4, 12)),
     "starcoder2-7b": ((8, (128, 1024, 2048), 32, 200), (2, (8, 12, 16), 4, 12)),
     "mistral-large-123b": ((8, (128, 1024), 32, 200), (2, (8, 16), 4, 12)),
+    # the longest request, 384 + 32 tokens, within Whisper's 448-token
+    # decoder context; every prefill batch encodes 8 x 1500 zero frames
+    "whisper-small": ((8, (32, 128, 384), 32, 200), (2, (6, 8, 12), 4, 10)),
 }
 # paths served at full width and reduced depth: arch: layers (mistral-large-123b's
 # 88 layers of bf16 weights, about 245 GB, do not fit one card; 8 take about 24 GB.
@@ -874,6 +898,8 @@ def expected_launches(cfg, per_len: dict, batch: int, gen_len: int) -> dict:
                      "rmsnorm": (2 * L + 1) * steps})
     elif cfg.family == "rwkv6":
         want.update(wkv6=L * prefill_batches)
+    elif cfg.family == "encdec":  # the encoder's attentions, then the decoder's self- and cross-attentions
+        want.update({fa: (cfg.n_enc_layers + 2 * L) * prefill_batches})
     elif cfg.family == "moe":
         # groups of min(moe_group_tokens, rows x tokens a row) tokens; the
         # slots kernel runs when a group spans more than one tile
@@ -971,9 +997,10 @@ def shape_line(cfg, padded_vocab: int) -> str:
                  if cfg.family == "moe" else "")
     mla = (f" MLA q_lora={cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} qk={cfg.qk_nope_dim}+{cfg.qk_rope_dim} "
            f"v={cfg.v_head_dim}" if cfg.attention == "mla" else "")
+    encdec = f" encoder L={cfg.n_enc_layers} enc_len={cfg.enc_len}" if cfg.family == "encdec" else ""
     full = get_config(cfg.name) if cfg.name in REDUCED_DEPTH else None
     reduced = f" (reduced depth: {cfg.n_layers} of {full.n_layers} layers)" if full else ""
-    return (f"{cfg.name}: family {cfg.family} L={cfg.n_layers}{reduced} D={cfg.d_model} H={cfg.n_heads} "
+    return (f"{cfg.name}: family {cfg.family} L={cfg.n_layers}{reduced}{encdec} D={cfg.d_model} H={cfg.n_heads} "
             f"kv={cfg.n_kv_heads} hd={cfg.resolved_head_dim}{mla} F={cfg.d_ff}{moe_shape} V={padded_vocab} "
             f"{cfg.dtype} | {cfg.param_count() / 1e9:.3f}B parameters")
 
@@ -1022,7 +1049,8 @@ def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
 @torch.inference_mode()
 def decode_equals_forward(cfg, params, device, S: int) -> float:
     """Decode-step logits at position S equal a full forward over S+1 tokens
-    (a visual-prefix config: its patches, then S - n_patches text tokens).
+    (a visual-prefix config: its patches, then S - n_patches text tokens; an
+    encoder-decoder: both against the same seeded audio frames).
 
     The law is checked with f32 activations over the engine's own weights: in
     bf16 the two sides round at different places (a scan against a step, the
@@ -1040,13 +1068,15 @@ def decode_equals_forward(cfg, params, device, S: int) -> float:
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S - cfg.n_patches), generator=g, device=device)}
     if cfg.n_patches:
         batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model), generator=g, device=device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.enc_len, cfg.d_model), generator=g, device=device)
     last, cache = model.prefill_fn(params, batch)
     cache = pad_cache_to(cache, model.cache_defs_fn(2, S + 8))
     nxt = last[:, -1].argmax(-1)[:, None]
     step, _ = model.decode_fn(params, cache, nxt, S)
     del cache
     toks = torch.cat([batch["tokens"], nxt], dim=1)
-    full = model.forward_fn(params, toks, patches=batch.get("patches"))[:, -1]
+    full = model.forward_fn(params, toks, patches=batch.get("patches"), frames=batch.get("frames"))[:, -1]
     sync(device)
     if step.shape != (2, 1, cfg.vocab_size) or not bool(torch.isfinite(step).all()):
         raise AssertionError(f"decode logits {tuple(step.shape)} not finite or misshapen")
@@ -1078,6 +1108,10 @@ SMALL_MODELS = {  # card against CPU: small models with the kernels' real head w
     "mistral-large-123b": (dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256), 40),
     # 8 patch embeddings before the 40 text tokens
     LLAVA_ARCH: (dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256), 40),
+    # 2 + 2 layers of 2 heads of 64: the f32 (64, 64) K1 over a ragged
+    # 100-frame encoder and cross-attention from 40 tokens over it
+    "whisper-small": (dict(n_layers=2, n_enc_layers=2, d_model=128, n_heads=2, n_kv_heads=2, d_ff=256,
+                           enc_len=100), 40),
 }
 
 
@@ -1312,6 +1346,8 @@ def card_matches_cpu(arch: str) -> float:
     host_batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, P), generator=gen)}
     if cfg.n_patches:
         host_batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model), generator=gen)
+    if cfg.family == "encdec":
+        host_batch["frames"] = torch.randn((2, cfg.enc_len, cfg.d_model), generator=gen)
     S = cfg.n_patches + P
     outs = {}
     dropped = []  # picks the CPU run's routing dropped, per MoE layer call
@@ -1353,8 +1389,11 @@ TRAIN_SMALL_LR = 1e-3
 # ran out of an H100 80GB's memory at 74.2 GiB, the AdamW update holding old and
 # new weights and moments and two f32 gradient trees). RWKV-6's sequence is a
 # multiple of 64 (the gradient's chunked form); MoE's 4 x 2048 tokens are 8
-# groups of 1024
-TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (8, 4, 2048), "recurrentgemma-2b": (14, 2, 2048)}
+# groups of 1024. whisper-small trains at its full depth (12 + 12 layers) on
+# 8 rows of 448 tokens, its published decoder context, each against 1500
+# seeded audio frames
+TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (8, 4, 2048), "recurrentgemma-2b": (14, 2, 2048),
+                  "whisper-small": (12, 8, 448)}
 # steps and warmup of each family's run (one more step is traced), at full
 # size and in the CPU rehearsal (smoke configs at 4 x 32 under their full
 # configs' remat)
@@ -1366,6 +1405,7 @@ TRAIN_SMALL_MODELS = {
     "deepseek-moe-16b": ({**SMALL_MODELS["deepseek-moe-16b"][0], "remat": "full"}, (4, 64)),
     "rwkv6-7b": ({**SMALL_MODELS["rwkv6-7b"][0], "remat": "full"}, (2, 128)),
     "recurrentgemma-2b": ({**SMALL_MODELS["recurrentgemma-2b"][0], "remat": "full"}, (2, 64)),
+    "whisper-small": ({**SMALL_MODELS["whisper-small"][0], "remat": "full"}, (4, 64)),
 }
 
 
@@ -1428,7 +1468,9 @@ def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
     backward launches none. Dense and MoE: K1 and 2 norms a layer, and for
     MoE K5 a routing (and its slots kernel where a group spans more than one
     tile); RWKV-6: K4 a layer; Griffin: K3 a recurrent layer, K1 an attention
-    layer, 2 norms a layer; then the final norm once."""
+    layer, 2 norms a layer; then the final norm once; Whisper: K1 an encoder
+    layer and twice a decoder layer (self- and cross-attention), no norm
+    kernel (its norms are LayerNorms)."""
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"no launch count for remat {cfg.remat!r}")
     r = 2 if cfg.remat == "full" else 1
@@ -1442,6 +1484,8 @@ def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
         want.update({"moe_gating": routings, "moe_gating_slots": routings * spans})
     elif cfg.family == "rwkv6":
         want.update(wkv6=r * L * steps)
+    elif cfg.family == "encdec":
+        want.update({attention_counter(cfg): r * (cfg.n_enc_layers + 2 * L) * steps})
     elif cfg.family == "rglru":
         n_super, tail = rg.griffin_layout(cfg)
         want.update({attention_counter(cfg): r * n_super * steps, "lru_scan": r * (2 * n_super + tail) * steps,
@@ -1475,6 +1519,7 @@ def family_train_path(arch: str, device, full: bool) -> dict:
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
     batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()} for _ in range(steps + 1)]
     loader.close()
+    add_frames(cfg, batches, device)
     sync(device)
     say(f"[train] {shape_line(cfg, model.cfg.vocab_size)} | remat={cfg.remat} {cfg.optimizer}, cosine warmup "
         f"{warmup} | {steps} steps of {batch} x {seq} tokens | state built in {time.perf_counter() - t0:.2f}s")
@@ -1515,6 +1560,18 @@ def family_train_path(arch: str, device, full: bool) -> dict:
     if full:
         train_card_matches_cpu(arch)
     return launches
+
+
+def add_frames(cfg, batches: list, device) -> None:
+    """Seeded audio frames (B, enc_len, D) in the activations' dtype for each
+    batch of an encoder-decoder config: the data pipeline makes tokens only,
+    as the reference's."""
+    if cfg.family != "encdec":
+        return
+    g = torch.Generator(device=device).manual_seed(6)
+    for b in batches:
+        b["frames"] = torch.randn((b["tokens"].shape[0], cfg.enc_len, cfg.d_model), generator=g,
+                                  device=device).to(getattr(torch, cfg.dtype))
 
 
 def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
@@ -1590,6 +1647,7 @@ def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=5)
     host_batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
     loader.close()
+    add_frames(cfg, [host_batch], torch.device("cpu"))
     outs = {}
     for name in ("cuda", "cpu"):
         params = map_defs(lambda t: t.to(name), host_params)

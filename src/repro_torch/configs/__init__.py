@@ -1,6 +1,6 @@
 """Architecture configs of the port: six dense (one of them MLA and one with a
-visual prefix), two MoE, one Griffin and one RWKV-6, copied from
-``repro.configs`` with the same values.
+visual prefix), two MoE, one Griffin, one RWKV-6 and one encoder-decoder
+(Whisper), copied from ``repro.configs`` with the same values.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 returns the reduced same-family config the CPU tests use.
@@ -11,7 +11,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ["codeqwen15_7b", "deepseek_moe_16b", "kimi_k2_1t_a32b", "llava_next_mistral_7b", "minicpm3_4b",
-         "mistral_large_123b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b", "starcoder2_7b"]
+         "mistral_large_123b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b", "starcoder2_7b", "whisper_small"]
 
 _ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
@@ -24,13 +24,14 @@ _ALIASES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-7b": "rwkv6_7b",
     "starcoder2-7b": "starcoder2_7b",
+    "whisper-small": "whisper_small",
 }
 
 
 def _module(name: str):
     mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", ""))
     if mod_name not in ARCHS:
-        raise ValueError(f"unknown or not yet ported architecture {name!r}; the port has {ARCHS}")
+        raise ValueError(f"unknown architecture {name!r}; the port has {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 

@@ -3,11 +3,14 @@
     python -m repro_torch.launch.serve --arch nbi-100m [--smoke] [--device cpu]
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch rwkv6-7b
+    python -m repro_torch.launch.serve --arch whisper-small
 
-The port of ``repro.launch.serve``'s :class:`ServeEngine`, for the dense
-(GQA, MLA), MoE, Griffin and RWKV-6 families: prefill a batch of prompts (on the card every
-prefill attention through the flash-attention kernel, every RMSNorm through
-the RMSNorm kernel, every RG-LRU scan and WKV-6 recurrence through theirs),
+The port of ``repro.launch.serve``'s :class:`ServeEngine`, for every family
+(dense with GQA and MLA, MoE, Griffin, RWKV-6, and Whisper's encoder-decoder,
+fed zero audio frames as the reference's engine feeds them): prefill a batch
+of prompts (on the card every prefill attention through the flash-attention
+kernel, every RMSNorm through the RMSNorm kernel, every RG-LRU scan and WKV-6
+recurrence through theirs),
 pad the prompt-sized cache into the fixed-capacity decode cache, then decode
 one token at a time at a scalar position (greedy or temperature sampling). A
 small batcher groups queued requests into engine-sized batches of one exact
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import resolve_device, torch_dtype
 from repro_torch.models.registry import build_model
 
 
@@ -96,8 +99,11 @@ class ServeEngine:
         if P + gen_len > self.max_seq:
             raise ValueError(f"prompt {P} + gen {gen_len} exceeds engine capacity {self.max_seq}")
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
-        logits, cache = self.model.prefill_fn(self.params, {"tokens": tokens})
+        batch_in = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)}
+        if self.cfg.family == "encdec":  # the stub audio front end: zero frames, as the reference's engine
+            batch_in["frames"] = torch.zeros((B, self.cfg.enc_len, self.cfg.d_model),
+                                             dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        logits, cache = self.model.prefill_fn(self.params, batch_in)
         cache = pad_cache_to(cache, self.model.cache_defs_fn(B, self.max_seq))
         self._sync()
         t1 = time.perf_counter()

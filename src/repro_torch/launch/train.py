@@ -5,8 +5,11 @@
     python -m repro_torch.launch.train --arch nbi-100m --smoke --device cpu
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
 
-``--arch`` takes every ported config: the dense family, MoE (deepseek-moe-16b,
-kimi-k2-1t-a32b; the log adds the router's ``aux_loss``), RWKV-6 and Griffin.
+``--arch`` takes the dense family, MoE (deepseek-moe-16b, kimi-k2-1t-a32b;
+the log adds the router's ``aux_loss``), RWKV-6 and Griffin. Not Whisper: the
+data pipeline makes tokens and no audio frames, as the reference's, so
+whisper-small trains through ``build_model(cfg).loss_fn`` and
+:func:`repro_torch.training.make_train_step` with frames added to each batch.
 
 The port of ``repro.launch.train``: config → model → optimizer (the config's,
 with ``cosine_warmup``) → data pipeline → train step → checkpoint manager, on

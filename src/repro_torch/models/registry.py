@@ -1,24 +1,27 @@
-"""Model registry of the port: one API over the architecture families ported
-so far (``dense`` with GQA, MLA and the visual prefix, ``moe``, ``rglru``
-(Griffin) and ``rwkv6``).
+"""Model registry of the port: one API over every architecture family of the
+reference (``dense`` with GQA, MLA and the visual prefix, ``moe``, ``rglru``
+(Griffin), ``rwkv6`` and ``encdec`` (Whisper)).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors:
 
-  loss_fn(params, batch)              → (scalar loss, metrics)   [train]
+  loss_fn(params, batch)              → (scalar loss, metrics)   [train;
+                                        encdec reads batch["frames"] too]
   prefill_fn(params, batch)           → (last logits, cache)     [prefill;
-                                        dense reads batch["patches"] too]
+                                        dense reads batch["patches"] too,
+                                        encdec batch["frames"]]
   decode_fn(params, cache, tok, pos)  → (logits, cache)          [decode]
   cache_defs_fn(batch, max_seq)       → cache layout on ``meta``
   forward_fn(params, tokens)          → logits of every position
-                                        [dense takes patches= too]
+                                        [dense takes patches= too; encdec
+                                        needs frames=]
 
 The reference's ``make_prefill_step`` / ``make_serve_step``
 (``repro/training/steps.py``) only wrap the prefill and decode functions with
 sharding rules; on one card there are none, so they are these functions
 themselves. Every family trains through ``loss_fn`` (MoE's metrics add the
-``aux_loss``); ``build_model`` raises ``NotImplementedError`` for a family not
-ported yet (``encdec``, Whisper).
+``aux_loss``); ``build_model`` raises ``NotImplementedError`` for MLA or a
+visual prefix in an MoE model, which the reference does not build either.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from . import moe
 from . import rglru as rg
 from . import rwkv6 as rw
 from . import transformer as tx
+from . import whisper as wh
 from .common import init_params, resolve_device
 from .config import ArchConfig
 
@@ -51,7 +55,7 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs_fn: Callable  # (batch, max_seq) -> dict of meta tensors
-    forward_fn: Callable  # (params, tokens[, patches]) -> logits of every position
+    forward_fn: Callable  # (params, tokens[, patches | frames]) -> logits of every position
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Seeded weights on ``device`` (``cuda`` unless the caller asks for the CPU)."""
@@ -68,16 +72,19 @@ _FAMILIES = {
               rg.griffin_cache_defs),
     "rwkv6": (rw.rwkv_param_defs, rw.rwkv_prefill, rw.rwkv_decode_step, rw.rwkv_forward,
               rw.rwkv_cache_defs),
+    "encdec": (wh.whisper_param_defs, wh.whisper_prefill, wh.whisper_decode_step, wh.whisper_forward,
+               wh.whisper_cache_defs),
 }
 
 
 # family: loss(params, cfg, batch) → (loss, metrics)
-_LOSSES = {"dense": tx.dense_loss, "moe": moe.moe_loss, "rglru": rg.griffin_loss, "rwkv6": rw.rwkv_loss}
+_LOSSES = {"dense": tx.dense_loss, "moe": moe.moe_loss, "rglru": rg.griffin_loss, "rwkv6": rw.rwkv_loss,
+           "encdec": wh.whisper_loss}
 
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port has {sorted(_FAMILIES)})")
+        raise NotImplementedError(f"unknown family {cfg.family!r} (the port has {sorted(_FAMILIES)})")
     if cfg.family == "moe" and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} / visual prefix in an MoE model is not ported yet"
@@ -88,13 +95,20 @@ def build_model(cfg: ArchConfig) -> Model:
     def prefill_fn(params, batch):
         if cfg.family == "dense":  # the visual prefix, as the reference's registry
             return prefill(params, pcfg, batch["tokens"], patches=batch.get("patches"))
+        if cfg.family == "encdec":  # the audio memory, as the reference's registry
+            return prefill(params, pcfg, batch["frames"], batch["tokens"])
         return prefill(params, pcfg, batch["tokens"])
 
-    def forward_fn(params, tokens, patches=None):
+    def forward_fn(params, tokens, patches=None, frames=None):
+        if (frames is not None) != (cfg.family == "encdec"):
+            raise ValueError(f"family {cfg.family!r} " + ("needs the audio frames (frames=)" if frames is None
+                                                            else "takes no audio frames"))
         if cfg.family == "dense":
             return forward(params, pcfg, tokens, patches=patches)
         if patches is not None:
             raise ValueError(f"family {cfg.family!r} takes no visual prefix")
+        if cfg.family == "encdec":
+            return forward(params, pcfg, tokens, frames)
         out = forward(params, pcfg, tokens)
         return out[0] if cfg.family == "moe" else out  # MoE's forward adds its aux loss
 

@@ -40,6 +40,7 @@ from .common import (
     rms_norm,
     swiglu,
     torch_dtype,
+    tree_leaves,
 )
 from .config import ArchConfig
 
@@ -201,10 +202,11 @@ def remat_wrap(fn, cfg: ArchConfig):
 
 
 def run_stack(blocks, x, cfg: ArchConfig, apply_block):
-    """Apply ``apply_block(layer params, x)`` over the stacked layers in order
-    (the reference's ``lax.scan``), each call under ``cfg.remat``."""
+    """Apply ``apply_block(layer params, x)`` over the layers stacked on the
+    leading axis of ``blocks`` in order (the reference's ``lax.scan``), each
+    call under ``cfg.remat``."""
     body = remat_wrap(apply_block, cfg)
-    for i in range(cfg.n_layers):
+    for i in range(tree_leaves(blocks)[0][1].shape[0]):
         x = body(layer_params(blocks, i), x)
     return x
 

@@ -126,10 +126,10 @@ def test_config_copies_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_config("whisper-small")
-    with pytest.raises(NotImplementedError, match="family"):
-        build_model(get_smoke_config("nbi-100m").replace(family="encdec"))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("whisper-medium")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        build_model(get_smoke_config("nbi-100m").replace(family="encoder-only"))
     with pytest.raises(NotImplementedError, match="mla"):  # MLA in an MoE model
         build_model(get_smoke_config("deepseek-moe-16b").replace(attention="mla"))
     # dense MLA and the visual prefix build: minicpm3-4b's and llava's configs
@@ -151,12 +151,14 @@ def test_param_defs_and_converter_round_trip(arch, pair):
     def_shapes = convert.map_defs(lambda d: tuple(d.shape), model.param_defs)
     assert port_shapes == ref_shapes == def_shapes
     # stacked per-layer weights: "blocks" of L layers, Griffin's super-layers
-    # and tail pairs, or MoE's leading dense layers and MoE layers
+    # and tail pairs, MoE's leading dense layers and MoE layers, or Whisper's
+    # encoder and decoder layers
     cfg = model.cfg
     n_super = cfg.n_layers // 3
     stacks = ({"blocks": cfg.n_layers} if "blocks" in params else
               {"dense_blocks": cfg.n_dense_layers, "moe_blocks": cfg.n_layers - cfg.n_dense_layers}
-              if cfg.family == "moe" else {"super": n_super, "tail": cfg.n_layers - 3 * n_super})
+              if cfg.family == "moe" else {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+              if cfg.family == "encdec" else {"super": n_super, "tail": cfg.n_layers - 3 * n_super})
     for key, n in stacks.items():
         assert all(t.shape[0] == n for t in jax.tree_util.tree_leaves(params[key]))
     back = convert.params_to_numpy(params)

@@ -261,18 +261,32 @@ def test_dense_loss_and_every_grad_match_reference(dense_pair, arch, remat):
 
 @pytest.mark.parametrize("family_arch", ["whisper_small"])
 def test_loss_fn_of_unported_families_raises(family_arch):
-    """Every family but Whisper's ``encdec`` trains (their losses are held in
-    tests/test_torch_family_training.py); ``build_model`` refuses Whisper, the
-    reference's config copied field by field into the port's ArchConfig."""
+    """Every family trains now, Whisper's ``encdec`` the last (its gradients
+    are held in tests/test_torch_whisper.py): the reference's config, copied
+    field by field into the port's ArchConfig, builds, and its ``loss_fn``
+    on the reference's weights and a seeded batch equals the reference's."""
     import dataclasses
 
     from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
     from repro_torch.models.config import ArchConfig
 
     cfg = ArchConfig(**dataclasses.asdict(jax_get_config(family_arch)))
-    assert cfg.family == "encdec"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg)
+    assert cfg.family == "encdec" and cfg == get_config(family_arch)
+    small = dict(n_layers=1, n_enc_layers=1, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=512,
+                 enc_len=24, attn_chunk=8, param_dtype="float32", dtype="float32")
+    ref_model = jax_build_model(jax_get_config(family_arch).replace(**small))
+    model = build_model(cfg.replace(**small))
+    assert model.cfg.family == "encdec" and model.cfg.remat == "full"
+    np_params = to_numpy(ref_model.init(jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(12)
+    batch = {**lm_batch(12), "frames": rng.standard_normal((2, 24, 64)).astype(np.float32)}
+    jloss, jmetrics = ref_model.loss_fn(to_jax(np_params), to_jax(batch))
+    loss, metrics = model.loss_fn(convert.params_from_jax(np_params, device="cpu"),
+                                  {k: torch.from_numpy(v) for k, v in batch.items()})
+    close(loss, jloss, atol=1e-5, rtol=1e-5)
+    for k in jmetrics:
+        close(metrics[k], jmetrics[k], atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
