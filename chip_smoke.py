@@ -45,10 +45,11 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    (device busy share, each of the port's kernels' share of the prefill's
    device time, and the ops that take the most device time); then
    continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
-   of mixed lengths) on minicpm3-4b at full width and on nbi-100m, with f32
-   activations: exact launches per insert and decode step (each insert's
-   attentions through the f32 tensor-core (3xTF32) kernel of its heads: the
-   MLA kernel at (96, 64), the d 64 kernel), every chosen
+   of mixed lengths) on minicpm3-4b at full width, on nbi-100m and on
+   codeqwen1.5-7b at full width and depth, with f32 activations: exact
+   launches per insert and decode step (each insert's attentions through the
+   f32 tensor-core (3xTF32) kernel of its heads: the MLA kernel at (96, 64),
+   the d 64 kernel, the d 128 kernel; none through the FMA kernel), every chosen
    token within 1e-3 of the max logit of a full forward over its request,
    and decode steps against the static bound; then inserts into the live
    cache beside a slot part-way through its generation, with the same
@@ -156,9 +157,10 @@ LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=
 WKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
 
 KERNEL_INFO = {
-    # K1 has five kernels: f32 on the FMA units (the f32 head-dim pairs other
-    # than (64, 64) and (96, 64)), bf16 on the tensor cores, bf16 at (96, 64),
-    # f32 at (64, 64) and f32 at (96, 64) on the tensor cores as 3xTF32
+    # K1 has six kernels: f32 on the FMA units (the f32 head-dim pairs other
+    # than (64, 64), (96, 64) and (128, 128)), bf16 on the tensor cores, bf16
+    # at (96, 64), and f32 at (64, 64), at (96, 64) and at (128, 128) on the
+    # tensor cores as 3xTF32
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
@@ -178,6 +180,11 @@ KERNEL_INFO = {
     ),
     # the f32 (3xTF32) MLA kernel at (d, dv) = (96, 64)
     "flash_attention_tf32_mla": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    # the f32 (3xTF32) kernel at (d, dv) = (128, 128), 16-key tiles
+    "flash_attention_tf32_d128": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
@@ -202,7 +209,8 @@ KERNEL_INFO = {
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
             "flash_attention_bf16_mla": (fa_kernel, "bf16_mla_launches"),
             "flash_attention_tf32": (fa_kernel, "tf32_launches"),
-            "flash_attention_tf32_mla": (fa_kernel, "tf32_mla_launches"), "rmsnorm": (rn_kernel, "launches"),
+            "flash_attention_tf32_mla": (fa_kernel, "tf32_mla_launches"),
+            "flash_attention_tf32_d128": (fa_kernel, "tf32_d128_launches"), "rmsnorm": (rn_kernel, "launches"),
             "rmsnorm_generic": (rn_kernel, "generic_launches"),
             "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
             "moe_gating": (gating_kernel, "launches"), "moe_gating_slots": (gating_kernel, "slots_launches")}
@@ -211,13 +219,14 @@ COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": 
 # Griffin's d 256)
 ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepseek_prefill",
                   "flash_attention_bf16_mla": "mla_prefill", "flash_attention_tf32": "nbi100m_prefill",
-                  "flash_attention_tf32_mla": "mla_f32_insert"}
+                  "flash_attention_tf32_mla": "mla_f32_insert", "flash_attention_tf32_d128": "codeqwen_f32_insert"}
 # a part of each kernel's name as the profiler shows it; a kernel goes to the
 # first name it matches
 TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel",
                "flash_attention_bf16_mla": "flash_attn_bf16_mla_kernel",
                "flash_attention_bf16": "flash_attn_bf16_kernel",
                "flash_attention_tf32_mla": "flash_attn_tf32_mla_kernel",
+               "flash_attention_tf32_d128": "flash_attn_tf32_d128_kernel",
                "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
                "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
 
@@ -327,7 +336,10 @@ def attention_cases(full: bool):
     MLA's f32 pair as the continuous-batching phase's one-row inserts give it
     (a request of 1000, 512, 200 and 64 tokens) and at the 3xTF32 MLA
     kernel's edges (ragged, a window under its 32-key tiles, the cap, Skv one
-    past a tile), and edges of the bf16 kernel's TMA boxes and 64-key tiles
+    past a tile), f32 at (128, 128) as codeqwen1.5-7b's inserts of 1000, 512,
+    200 and 64 tokens give it (32 heads) and at the 3xTF32 d 128 kernel's
+    edges (ragged, a window over its 16-key tiles, the cap, Skv one past two
+    tiles, 32 query heads over 8 KV heads as mistral's), and edges of the bf16 kernel's TMA boxes and 64-key tiles
     at full size; last, the shapes the train paths and kimi-k2's serving give
     the bf16 kernel (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
     d 256 under its window at 2 x 2048, kimi-k2's 64 over 8 heads at 8 x
@@ -354,6 +366,15 @@ def attention_cases(full: bool):
             ("mla_f32_window", 1, 4, 4, 24, 24, 24, 16, f32, True, 3, 0.0),
             ("mla_f32_logit_cap", 1, 4, 4, 16, 16, 24, 16, f32, True, 0, 30.0),
             ("mla_f32_skv33", 1, 4, 4, 12, 9, 24, 16, f32, False, 0, 0.0),
+            ("codeqwen_f32_insert", 1, 4, 4, 20, 20, 16, 16, f32, True, 0, 0.0),
+            ("codeqwen_f32_insert_s512", 1, 4, 4, 12, 12, 16, 16, f32, True, 0, 0.0),
+            ("codeqwen_f32_insert_s200", 1, 4, 4, 8, 8, 16, 16, f32, True, 0, 0.0),
+            ("codeqwen_f32_insert_s64", 1, 4, 4, 5, 5, 16, 16, f32, True, 0, 0.0),
+            ("codeqwen_f32_ragged", 1, 4, 4, 13, 40, 16, 16, f32, False, 0, 0.0),
+            ("codeqwen_f32_window", 1, 4, 4, 24, 24, 16, 16, f32, True, 3, 0.0),
+            ("codeqwen_f32_logit_cap", 1, 4, 4, 16, 16, 16, 16, f32, True, 0, 30.0),
+            ("codeqwen_f32_skv33", 1, 4, 4, 12, 9, 16, 16, f32, False, 0, 0.0),
+            ("codeqwen_f32_gqa", 1, 8, 2, 20, 20, 16, 16, f32, True, 0, 0.0),
             ("d256_f32", 1, 2, 1, 12, 12, 16, 16, f32, True, 4, 0.0),
             ("gqa_bf16", 1, 8, 2, 24, 24, 16, 16, bf16, True, 0, 0.0),
             ("ragged", 1, 4, 4, 13, 13, 16, 16, f32, True, 0, 0.0),
@@ -386,6 +407,15 @@ def attention_cases(full: bool):
         ("mla_f32_window", 1, 40, 40, 1000, 1000, 96, 64, f32, True, 20, 0.0),
         ("mla_f32_logit_cap", 1, 40, 40, 257, 257, 96, 64, f32, True, 0, 30.0),
         ("mla_f32_skv33", 2, 40, 40, 129, 33, 96, 64, f32, False, 0, 0.0),
+        ("codeqwen_f32_insert", 1, 32, 32, 1000, 1000, 128, 128, f32, True, 0, 0.0),
+        ("codeqwen_f32_insert_s512", 1, 32, 32, 512, 512, 128, 128, f32, True, 0, 0.0),
+        ("codeqwen_f32_insert_s200", 1, 32, 32, 200, 200, 128, 128, f32, True, 0, 0.0),
+        ("codeqwen_f32_insert_s64", 1, 32, 32, 64, 64, 128, 128, f32, True, 0, 0.0),
+        ("codeqwen_f32_ragged", 2, 32, 32, 333, 1000, 128, 128, f32, False, 0, 0.0),
+        ("codeqwen_f32_window", 1, 32, 32, 1000, 1000, 128, 128, f32, True, 20, 0.0),
+        ("codeqwen_f32_logit_cap", 1, 32, 32, 257, 257, 128, 128, f32, True, 0, 30.0),
+        ("codeqwen_f32_skv33", 2, 32, 32, 129, 33, 128, 128, f32, False, 0, 0.0),
+        ("codeqwen_f32_gqa", 1, 32, 8, 1000, 1000, 128, 128, f32, True, 0, 0.0),
         ("d256_f32", 2, 10, 1, 1024, 1024, 256, 256, f32, True, 512, 0.0),
         ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("ragged_s300", 2, 12, 12, 300, 300, 64, 64, f32, True, 0, 0.0),
@@ -808,6 +838,9 @@ LLAVA_RUN = {True: (8, (128, 512), 32, 64), False: (2, (8, 12), 4, 8)}
 CONTINUOUS = {
     "minicpm3-4b": ((8, (64, 200, 512, 1000), 32), (2, (5, 8, 12), 4)),
     "nbi-100m": ((8, (32, 100, 256, 500), 32), (2, (5, 8, 12), 4)),
+    # full width and depth: 32 layers of 32 heads of 128, about 16 GB of bf16
+    # weights and an f32 cache of 8 x 1032 tokens (8.65 GB)
+    "codeqwen1.5-7b": ((8, (64, 200, 512, 1000), 32), (2, (5, 8, 12), 4)),
 }
 
 
@@ -832,6 +865,8 @@ def attention_counter(cfg) -> str:
         return "flash_attention_bf16_mla"
     if kind == fa_kernel.F32_TF32 and mla:
         return "flash_attention_tf32_mla"
+    if kind == fa_kernel.F32_TF32 and (d, dv) == (128, 128):
+        return "flash_attention_tf32_d128"
     return {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
             fa_kernel.F32_SIMT: "flash_attention"}[kind]
 

@@ -31,8 +31,8 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    # q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, kind, causal, window, logit_cap, stream
-    "repro_flash_attention_fwd": [_P, _P, _P, _P, *[_I] * 10, _F, _P],
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, kind, causal, window, logit_cap, ws, ws_floats, stream
+    "repro_flash_attention_fwd": [_P, _P, _P, _P, *[_I] * 10, _F, _P, _LL, _P],
     # kind, d, dv, out (5 ints)
     "repro_flash_attention_config": [*[_I] * 3, _P],
     # x, w, y, rows, D, is_bf16, eps, stream

@@ -1,4 +1,4 @@
-// Flash attention, forward, for Hopper (sm_90a): four kernels behind one entry.
+// Flash attention, forward, for Hopper (sm_90a): six kernels behind one entry.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` and its
 // Pallas TPU kernel `_attn_kernel`. Same function: softmax(q k^T * d^-0.5)
@@ -117,6 +117,42 @@
 // products 0.182, without the softmax 0.195. The split on three warps, behind
 // a ring of only two stages, is the largest part.
 //
+// f32 at (d, dv) = (128, 128), codeqwen1.5-7b's heads in f32 activations
+// (the continuous-batching engine's one-row inserts, 32 heads):
+// `flash_attn_tf32_d128_kernel`, the same template at 16-key tiles.
+//
+// What bounds it: operations. At one insert of 1000 tokens (32 heads,
+// causal) the kept pairs need 8.20 GFLOP at the real widths, 24.6 GFLOP as
+// three TF32 products: 0.0497 ms at 495 TFLOP/s, against 0.0196 ms for the
+// 65.5 MB of q, k, v and o at 3.35 TB/s, and 0.122 ms on the FMA units.
+//
+// What d 128 changes (Q and Q_lo alone take 128 KB; a stage of 64 keys
+// would take 160 KB and one of 32 keys 80 KB, so a ring fits only at 16
+// keys):
+// - 16-key tiles. S is a run of 16 wgmma m64n16k8 for each of its three
+//   products (8 registers of S a thread, and 8 of its own for the small
+//   products);
+// - K and V come split. At 16 keys the block's own split (two stages of K,
+//   K_lo, V, V^T_hi, V^T_lo, 214,072 bytes) made the split the longest part
+//   and left only two stages against the TMA's latency: 0.344 ms at the
+//   insert. A first kernel, `tf32_split_kv_kernel`, splits K and V of each
+//   KV head once per call into scratch in global memory (K_hi, K_lo in K's
+//   layout; V^T_hi, V^T_lo transposed, keys in vt_key order, padded to 32
+//   keys with zeros), and the block loads them by TMA into three stages of
+//   K_hi, K_lo, V^T_hi and V^T_lo, 230,456 bytes in all; a landed stage is
+//   ready, and the producer's other three warps idle. The split kernel moves
+//   98 MB at that insert; the pair takes 0.293 ms (PERF.md);
+// - V^T at 16 keys has rows of 64 bytes: it is kept with the 64-byte swizzle
+//   (a row's 16-byte chunk c at c ^ ((row / 2) % 4)), loaded by TMA boxes of
+//   16 keys by 128 rows with that swizzle, and read through descriptors of
+//   that layout (type 2, 8-row groups 512 bytes apart);
+// - O is 128 columns: acc holds both 64-column halves (64 registers), and
+//   P V runs each half in turn, m64n64k8 over the two k8 steps into pv and
+//   small (32 registers each), added into its half of acc on the FMA units
+//   before the next half, so that the arithmetic is the d 64 kernel's.
+// Measured (PERF.md; H100 80GB HBM3 at 700 W): 0.293 ms at that insert,
+// against 0.533 ms on the FMA units and 0.274 ms for SDPA.
+//
 // f32 at the other pairs: `flash_attn_f32_kernel`, on the FMA units (no
 // served path runs f32 at these widths). One block of 256 threads owns one (b, hq, 64-row
 // query tile) and loops over 64-key tiles; Q (pre-scaled), K, V and P tiles
@@ -127,8 +163,8 @@
 //
 // Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256),
 // and (96, 64), MLA's prefill (minicpm3-4b: q and k are 64 nope + 32 rope
-// columns, v 64); f32 at (64, 64) and (96, 64) runs a TF32 kernel, f32 at the
-// others the FMA kernel.
+// columns, v 64); f32 at (64, 64), (96, 64) and (128, 128) runs a TF32
+// kernel, f32 at the others ((64, 128), (128, 64), (256, 256)) the FMA kernel.
 //
 // bf16 at (96, 64): `flash_attn_bf16_mla_kernel`, minicpm3-4b's prefill
 // attention (62 a prefill).
@@ -853,20 +889,22 @@ EncodeTiled encode_tiled() {
 
 // Tensor map of a contiguous (heads, rows, cols) bf16 or f32 array, boxes of
 // 128 bytes of columns (64 bf16, 32 f32) by box_rows rows, 128-byte swizzle,
-// zeros outside the array (rows past S, columns past d 96).
-int encode(CUtensorMap* map, const void* ptr, int heads, int rows, int cols, int box_rows, bool f32) {
+// zeros outside the array (rows past S, columns past d 96); or boxes of
+// box_cols columns under another swizzle (V^T's 16 keys, 64-byte swizzle).
+int encode(CUtensorMap* map, const void* ptr, int heads, int rows, int cols, int box_rows, bool f32,
+           int box_cols = 0, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return ENCODE_ERROR_BASE + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * size, static_cast<cuuint64_t>(rows) * cols * size};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(ROW_BYTES / size), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols ? box_cols : ROW_BYTES / size),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + static_cast<int>(r);
 }
 
@@ -1140,40 +1178,56 @@ int launch_mla(const void* q, const void* k, const void* v, void* o, int B, int 
 }
 
 // ---------------------------------------------------------------------------
-// f32 on the tensor cores as 3xTF32: (d, dv) = (64, 64) and MLA's (96, 64)
+// f32 on the tensor cores as 3xTF32: (d, dv) = (64, 64), MLA's (96, 64) and
+// (128, 128)
 // ---------------------------------------------------------------------------
 
-constexpr int T_STAGES = 2;       // stages of the ring
-constexpr int SPLITTERS = 3;      // producer warps that split K and V
-constexpr int TF32_MLA_BK = 32;   // keys a tile at (96, 64)
+constexpr int T_STAGES = 2;        // stages of the ring where the block splits K and V
+constexpr int SPLITTERS = 3;       // producer warps that split K and V
+constexpr int TF32_MLA_BK = 32;    // keys a tile at (96, 64)
+constexpr int TF32_D128_BK = 16;   // keys a tile at (128, 128)
+constexpr int PRESPLIT_STAGES = 3; // stages of the ring at (128, 128), whose K and V come split
+constexpr int SPLIT_KEYS = 32;     // keys a block of the split kernel; V^T's keys are padded to it
 
 // The f32 pairs of the TF32 kernels, and their keys a tile.
 template <int D, int DV>
-__host__ __device__ constexpr bool tf32_pair() { return (D == 64 && DV == 64) || (D == MLA_D && DV == MLA_DV); }
+__host__ __device__ constexpr bool tf32_pair() {
+  return (D == 64 && DV == 64) || (D == MLA_D && DV == MLA_DV) || (D == 128 && DV == 128);
+}
 template <int D, int DV>
-__host__ __device__ constexpr int tf32_bk() { return D == MLA_D ? TF32_MLA_BK : BK; }
+__host__ __device__ constexpr int tf32_bk() { return D == MLA_D ? TF32_MLA_BK : D == 128 ? TF32_D128_BK : BK; }
+// (128, 128) reads K and V split once per call into global memory by
+// tf32_split_kv_kernel; the other pairs split each tile in the block.
+template <int D, int DV>
+__host__ __device__ constexpr bool tf32_presplit() { return D == 128 && DV == 128; }
 
 // The tiles of the TF32 kernel at (D, DV) with TBK keys a tile. A 128-byte
 // swizzled row holds 32 f32 columns, so Q (128 rows), K and V (TBK rows each)
 // are panels of 32 columns, d 96 exactly three; V^T has DV rows, one for each
-// output column, and TBK / 32 panels of keys.
+// output column, and TBK / 32 panels of keys, or at 16 keys rows of 64 bytes
+// with the 64-byte swizzle (vt_desc).
 template <int D, int DV, int TBK>
 struct Tf32Tiles {
+  static constexpr bool PRESPLIT = tf32_presplit<D, DV>();
+  static constexpr int STAGES = PRESPLIT ? PRESPLIT_STAGES : T_STAGES;
   static constexpr uint32_t Q_PANEL = BQ * ROW_BYTES;
   static constexpr uint32_t KV_PANEL = TBK * ROW_BYTES;
-  static constexpr uint32_t VT_PANEL = DV * ROW_BYTES;
   static constexpr uint32_t Q_BYTES = (D / 32) * Q_PANEL;
   static constexpr uint32_t K_BYTES = (D / 32) * KV_PANEL;
   static constexpr uint32_t V_BYTES = (DV / 32) * KV_PANEL;  // V as loaded; V^T_hi and V^T_lo as much
-  // A stage: K as loaded (split in place into K_hi), K_lo, V as loaded,
-  // V^T_hi and V^T_lo.
-  static constexpr uint32_t STAGE = 2 * K_BYTES + 3 * V_BYTES;
-  // Q as loaded (split in place into Q_hi) and Q_lo, the ring, three
-  // barriers per stage and one for Q, and slack to align the tiles to the
-  // 1024 bytes of a swizzle pattern; flash_attention.py's dynamic_smem_bytes
-  // repeats this sum.
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + T_STAGES * STAGE + 8 * (3 * T_STAGES + 1);
-  static_assert(D % 32 == 0 && DV == 64 && (TBK == 32 || TBK == 64), "S is m64n{32,64}, P V m64n64");
+  // A stage: K_hi (K as loaded, split in place, or loaded split), K_lo, V as
+  // loaded (not when it comes split), V^T_hi and V^T_lo; V^T_hi at VT.
+  static constexpr uint32_t VT = 2 * K_BYTES + (PRESPLIT ? 0 : V_BYTES);
+  static constexpr uint32_t STAGE = VT + 2 * V_BYTES;
+  // the bytes TMA brings into a stage
+  static constexpr uint32_t LOADED = PRESPLIT ? STAGE : K_BYTES + V_BYTES;
+  // Q as loaded (split in place into Q_hi) and Q_lo, the ring, a barrier for
+  // Q and per stage full, ready (not when K and V come split) and empty, and
+  // slack to align the tiles to the 1024 bytes of a swizzle pattern;
+  // flash_attention.py's dynamic_smem_bytes repeats this sum.
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE + 8 * ((PRESPLIT ? 2 : 3) * STAGES + 1);
+  static_assert(D % 32 == 0 && DV % 64 == 0 && (TBK == 16 || TBK == 32 || TBK == 64),
+                "S is m64n{16,32,64}, P V m64n64 a 64-column half of O");
   static_assert(SMEM <= 232448, "a Hopper block opts into at most 232,448 bytes");
 };
 
@@ -1193,7 +1247,7 @@ __device__ __forceinline__ float to_tf32(float x) {
 }
 
 // d (64 x N, f32: the first N / 2 entries) = a (64 x 8) b (8 x N) +
-// (accumulate ? d : 0), N 64 or 32, tf32, both K-major in shared memory (tf32
+// (accumulate ? d : 0), N 64, 32 or 16, tf32, both K-major in shared memory (tf32
 // has no transpose).
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t a, uint64_t b, int accumulate) {
@@ -1213,8 +1267,7 @@ __device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t a, uint64_t b, 
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
           "+f"(d[31])
         : "l"(a), "l"(b), "r"(accumulate));
-  } else {
-    static_assert(N == 32, "m64n32k8 or m64n64k8");
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
@@ -1224,6 +1277,16 @@ __device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t a, uint64_t b, 
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    static_assert(N == 16, "m64n16k8, m64n32k8 or m64n64k8");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
         : "l"(a), "l"(b), "r"(accumulate));
   }
 }
@@ -1253,6 +1316,22 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint3
 // 32-column panels are panel_bytes apart.
 __device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk, uint32_t panel_bytes) {
   return desc(tile + (kk / 4) * panel_bytes + 32 * (kk % 4));
+}
+
+// Descriptor of k-step kk of the 64-column half c of a V^T tile: at 16 keys
+// (rows of 64 bytes, as TMA's 64-byte swizzle lays them out: a row's 16-byte
+// chunk j at j ^ ((row / 2) % 4)) a 64-byte-swizzled operand (layout type 2)
+// whose 8-row groups are 512 bytes apart, the k-step 32 bytes into each row;
+// else panels of 32 keys as swz.
+template <int DV, int TBK>
+__device__ __forceinline__ uint64_t vt_desc(uint32_t vt, int c, int kk) {
+  if constexpr (TBK == 16) {
+    const uint32_t addr = vt + c * 64 * 64 + 32 * kk;
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+           (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
+  } else {
+    return tile_desc(vt + c * 64 * ROW_BYTES, kk, DV * ROW_BYTES);
+  }
 }
 
 // Key of column c of V^T: the 8 keys of each group are ordered 0 2 4 6 1 3 5 7,
@@ -1293,7 +1372,7 @@ __device__ __forceinline__ void split_stage(uint32_t stage_base, int i, int n) {
       hi[e] = to_tf32(x);
       lo[e] = to_tf32(x - hi[e]);
     }
-    const uint32_t off = swz(r, 4 * q, T::VT_PANEL);
+    const uint32_t off = swz(r, 4 * q, DV * ROW_BYTES);
     *reinterpret_cast<float4*>(vt_hi + off) = make_float4(hi[0], hi[1], hi[2], hi[3]);
     *reinterpret_cast<float4*>(vt_lo + off) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
@@ -1303,27 +1382,31 @@ __device__ __forceinline__ void split_stage(uint32_t stage_base, int i, int n) {
 // kernel, with the split of each operand into TF32 hi and lo parts:
 // - producer warp 0, one thread: TMA of Q once and of K and V tiles of TBK
 //   keys into the ring (stage full); warps 1 to 3 split each landed stage
-//   (stage ready);
+//   (stage ready). When K and V come split (tf32_presplit), the thread loads
+//   K_hi, K_lo (tm_k, tm_k_lo), V^T_hi and V^T_lo (tm_v, tm_v_lo) instead, a
+//   landed stage is ready, and warps 1 to 3 have nothing to do;
 // - two consumer warpgroups: each pre-scales its 64 rows of Q in f32 and
 //   splits them in shared memory once; per live tile S = Q_hi K_hi +
 //   (Q_hi K_lo + Q_lo K_hi), each a run of D / 8 wgmma m64nTBKk8, and O +=
-//   P_hi V_hi + (P_hi V_lo + P_lo V_hi), each a run of TBK / 8 wgmma m64n64k8,
-//   the online softmax as in the bf16 kernel, then the stage is released
-//   (stage empty).
+//   P_hi V_hi + (P_hi V_lo + P_lo V_hi), each a run of TBK / 8 wgmma m64n64k8
+//   for each 64-column half of O in turn, the online softmax as in the bf16
+//   kernel, then the stage is released (stage empty).
 template <int D, int DV, int TBK>
 __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                           const CUtensorMap& tm_v, float* __restrict__ o, int Hq, int Hkv,
+                                           const CUtensorMap& tm_v, const CUtensorMap& tm_k_lo,
+                                           const CUtensorMap& tm_v_lo, float* __restrict__ o, int Hq, int Hkv,
                                            int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
   using T = Tf32Tiles<D, DV, TBK>;
   constexpr int NS = TBK / 2;  // a thread's entries of S
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;  // Q, then Q_hi
   const uint32_t sq_lo = sq + T::Q_BYTES;
-  const uint32_t ring = sq_lo + T::Q_BYTES;         // T_STAGES stages of T::STAGE bytes
-  const uint32_t q_full = ring + T_STAGES * T::STAGE;
+  const uint32_t ring = sq_lo + T::Q_BYTES;         // T::STAGES stages of T::STAGE bytes
+  const uint32_t q_full = ring + T::STAGES * T::STAGE;
   const uint32_t full = q_full + 8;                 // K and V have landed
-  const uint32_t ready = full + 8 * T_STAGES;       // the stage is split
-  const uint32_t empty = ready + 8 * T_STAGES;      // both consumers are done with it
+  // the stage is split (a landed stage, when K and V come split)
+  const uint32_t ready = T::PRESPLIT ? full : full + 8 * T::STAGES;
+  const uint32_t empty = ready + 8 * T::STAGES;     // both consumers are done with it
 
   const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
   const int h = blockIdx.y;
@@ -1338,9 +1421,9 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < T_STAGES; ++s) {
+    for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(ready + 8 * s, SPLITTERS);
+      if (!T::PRESPLIT) mbar_init(ready + 8 * s, SPLITTERS);
       mbar_init(empty + 8 * s, CONSUMERS * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -1361,19 +1444,28 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
         for (int kt = kt_begin; kt < kt_end; ++kt) {
           if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
           const uint32_t bar = full + 8 * stage, st = ring + stage * T::STAGE;
-          mbar_expect_tx(bar, T::K_BYTES + T::V_BYTES);
+          mbar_expect_tx(bar, T::LOADED);
 #pragma unroll
           for (int c = 0; c < D / 32; ++c) tma_load(st + c * T::KV_PANEL, &tm_k, bar, 32 * c, kt * TBK, bh_kv);
+          if constexpr (T::PRESPLIT) {
 #pragma unroll
-          for (int c = 0; c < DV / 32; ++c)
-            tma_load(st + 2 * T::K_BYTES + c * T::KV_PANEL, &tm_v, bar, 32 * c, kt * TBK, bh_kv);
-          if (++stage == T_STAGES) {
+            for (int c = 0; c < D / 32; ++c)
+              tma_load(st + T::K_BYTES + c * T::KV_PANEL, &tm_k_lo, bar, 32 * c, kt * TBK, bh_kv);
+            // V^T's boxes: TBK keys of all DV rows (64-byte swizzle)
+            tma_load(st + T::VT, &tm_v, bar, kt * TBK, 0, bh_kv);
+            tma_load(st + T::VT + T::V_BYTES, &tm_v_lo, bar, kt * TBK, 0, bh_kv);
+          } else {
+#pragma unroll
+            for (int c = 0; c < DV / 32; ++c)
+              tma_load(st + 2 * T::K_BYTES + c * T::KV_PANEL, &tm_v, bar, 32 * c, kt * TBK, bh_kv);
+          }
+          if (++stage == T::STAGES) {
             stage = 0;
             ++round;
           }
         }
       }
-    } else {
+    } else if constexpr (!T::PRESPLIT) {
       const int i = threadIdx.x % 128 - 32;
       int stage = 0, round = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -1383,7 +1475,7 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         __syncwarp();
         if (i % 32 == 0) mbar_arrive(ready + 8 * stage);
-        if (++stage == T_STAGES) {
+        if (++stage == T::STAGES) {
           stage = 0;
           ++round;
         }
@@ -1431,13 +1523,16 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
     // product; acc carries O across tiles. S's small products go to an array
     // of S's shape: small itself at 64-key tiles (m64n64, as P V's), one of
     // their own at 32-key tiles (one array serving m64n32 and m64n64 products
-    // made ptxas serialise the wgmmas, warning C7511: 8% slower).
-    float acc[32], pv[32], small[32];
+    // made ptxas serialise the wgmmas, warning C7511: 8% slower). At dv 128
+    // acc holds both halves of O, and pv and small serve one half at a time.
+    float acc[DV / 2], pv[32], small[32];
     float s[NS];  // S, then p, then P_lo
     float s_small_own[NS < 32 ? NS : 1];
     float* const s_small = NS < 32 ? s_small_own : small;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = pv[i] = small[i] = 0.f;
+    for (int i = 0; i < 32; ++i) pv[i] = small[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = s_small[i] = 0.f;
     uint32_t p_hi[NS];
@@ -1447,7 +1542,7 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
 
     int stage = 0, round = 0;
     auto advance = [&] {
-      if (++stage == T_STAGES) {
+      if (++stage == T::STAGES) {
         stage = 0;
         ++round;
       }
@@ -1487,7 +1582,7 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
       softmax_step(s, m, l, corr, row0, k_start + col0, edge, Skv, causal, window, 1.f, logit_cap);
       if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] *= corr[(i / 2) % 2];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i / 2) % 2];
       }
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
@@ -1495,28 +1590,31 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
         p_hi[i] = __float_as_uint(hi);
         s[i] = to_tf32(s[i] - hi);
       }
-      wgmma_fence();
-      const uint32_t vt = st + 2 * T::K_BYTES + T::V_BYTES;  // V^T_hi, then V^T_lo
+      const uint32_t vt = st + T::VT;  // V^T_hi, then V^T_lo
 #pragma unroll
-      for (int kk = 0; kk < TBK / 8; ++kk) {
-        // A columns t, t + 4 are keys 2t, 2t + 1: entries 4kk, 4kk + 2 (rows
-        // r, r + 8 of key 2t) and 4kk + 1, 4kk + 3 (key 2t + 1)
-        const uint64_t v_hi = tile_desc(vt, kk, T::VT_PANEL), v_lo = tile_desc(vt + T::V_BYTES, kk, T::VT_PANEL);
-        const uint32_t* a = p_hi + 4 * kk;
-        const uint32_t b0 = __float_as_uint(s[4 * kk]), b1 = __float_as_uint(s[4 * kk + 1]),
-                       b2 = __float_as_uint(s[4 * kk + 2]), b3 = __float_as_uint(s[4 * kk + 3]);
-        wgmma_tf32_rs(pv, a[0], a[2], a[1], a[3], v_hi, kk > 0);
-        wgmma_tf32_rs(small, a[0], a[2], a[1], a[3], v_lo, kk > 0);
-        wgmma_tf32_rs(small, b0, b2, b1, b3, v_hi, 1);
+      for (int c = 0; c < DV / 64; ++c) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TBK / 8; ++kk) {
+          // A columns t, t + 4 are keys 2t, 2t + 1: entries 4kk, 4kk + 2 (rows
+          // r, r + 8 of key 2t) and 4kk + 1, 4kk + 3 (key 2t + 1)
+          const uint64_t v_hi = vt_desc<DV, TBK>(vt, c, kk), v_lo = vt_desc<DV, TBK>(vt + T::V_BYTES, c, kk);
+          const uint32_t* a = p_hi + 4 * kk;
+          const uint32_t b0 = __float_as_uint(s[4 * kk]), b1 = __float_as_uint(s[4 * kk + 1]),
+                         b2 = __float_as_uint(s[4 * kk + 2]), b3 = __float_as_uint(s[4 * kk + 3]);
+          wgmma_tf32_rs(pv, a[0], a[2], a[1], a[3], v_hi, kk > 0);
+          wgmma_tf32_rs(small, a[0], a[2], a[1], a[3], v_lo, kk > 0);
+          wgmma_tf32_rs(small, b0, b2, b1, b3, v_hi, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(pv);
+        pin(small);
+        pin(p_hi);
+        pin(s);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[32 * c + i] += pv[i] + small[i];
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(pv);
-      pin(small);
-      pin(p_hi);
-      pin(s);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += pv[i] + small[i];
       release();
     }
     for (int kt = live_end; kt < kt_end; ++kt) {
@@ -1548,7 +1646,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attn_tf32_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, int Hq, int Hkv, int Sq,
                        int Skv, float scale, int causal, int window, float logit_cap) {
-  tf32_block<64, 64, BK>(tm_q, tm_k, tm_v, o, Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+  tf32_block<64, 64, BK>(tm_q, tm_k, tm_v, tm_k, tm_v, o, Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
 }
 
 // MLA's f32 heads, (96, 64), 32-key tiles.
@@ -1556,29 +1654,116 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attn_tf32_mla_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, int Hq, int Hkv,
                            int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
-  tf32_block<MLA_D, MLA_DV, TF32_MLA_BK>(tm_q, tm_k, tm_v, o, Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+  tf32_block<MLA_D, MLA_DV, TF32_MLA_BK>(tm_q, tm_k, tm_v, tm_k, tm_v, o, Hq, Hkv, Sq, Skv, scale, causal, window,
+                                         logit_cap);
+}
+
+// f32 heads of 128, (128, 128), 16-key tiles: Q and Q_lo take 128 KB, so a
+// stage of 32 keys would not fit twice. K and V come split: tm_k K_hi, tm_k_lo
+// K_lo, tm_v V^T_hi, tm_v_lo V^T_lo (tf32_split_kv_kernel).
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tf32_d128_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_k_lo,
+                            const __grid_constant__ CUtensorMap tm_v_lo, float* __restrict__ o, int Hq, int Hkv,
+                            int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
+  tf32_block<128, 128, TF32_D128_BK>(tm_q, tm_k, tm_v, tm_k_lo, tm_v_lo, o, Hq, Hkv, Sq, Skv, scale, causal, window,
+                                     logit_cap);
+}
+
+// K and V of one (b, hkv) split into TF32 hi and lo parts in global memory,
+// SPLIT_KEYS keys a block: k_hi and k_lo in K's layout (Skv rows of D);
+// v^T_hi and v^T_lo transposed, DV rows of keys_pad keys (Skv rounded up to
+// SPLIT_KEYS, the keys past Skv zero), the keys of each group of 8 in vt_key
+// order, as split_stage writes a tile of V^T. V goes through shared memory
+// (rows padded by one float), so that both its reads and the V^T rows'
+// writes are coalesced.
+template <int D, int DV>
+__global__ void __launch_bounds__(256)
+tf32_split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ k_hi,
+                     float* __restrict__ k_lo, float* __restrict__ vt_hi, float* __restrict__ vt_lo, int Skv,
+                     int keys_pad) {
+  __shared__ float sv[SPLIT_KEYS][DV + 1];
+  const int bh = blockIdx.y, k0 = blockIdx.x * SPLIT_KEYS;
+  const int keys = min(SPLIT_KEYS, Skv - k0);  // at least 1: k0 < Skv
+  const size_t row0 = static_cast<size_t>(bh) * Skv + k0;
+  const float4* k4 = reinterpret_cast<const float4*>(k + row0 * D);
+  float4* hi4 = reinterpret_cast<float4*>(k_hi + row0 * D);
+  float4* lo4 = reinterpret_cast<float4*>(k_lo + row0 * D);
+  for (int j = threadIdx.x; j < keys * D / 4; j += blockDim.x) {
+    const float4 x = k4[j];
+    const float4 hi = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+    hi4[j] = hi;
+    lo4[j] = make_float4(to_tf32(x.x - hi.x), to_tf32(x.y - hi.y), to_tf32(x.z - hi.z), to_tf32(x.w - hi.w));
+  }
+  for (int j = threadIdx.x; j < SPLIT_KEYS * DV; j += blockDim.x) {
+    const int key = j / DV, col = j % DV;
+    sv[key][col] = key < keys ? v[(row0 + key) * DV + col] : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < SPLIT_KEYS * DV; j += blockDim.x) {
+    const int c = j % SPLIT_KEYS, r = j / SPLIT_KEYS;
+    const float x = sv[vt_key(c)][r];
+    const float hi = to_tf32(x);
+    const size_t at = (static_cast<size_t>(bh) * DV + r) * keys_pad + k0 + c;
+    vt_hi[at] = hi;
+    vt_lo[at] = to_tf32(x - hi);
+  }
+}
+
+// f32 the kernel at (D, DV) needs besides its output (flash_attention.py's
+// workspace_floats repeats this): K_hi, K_lo, V^T_hi, V^T_lo when K and V
+// come split, else none.
+template <int D, int DV>
+long long tf32_workspace_floats(int B, int Hkv, int Skv) {
+  if constexpr (!tf32_presplit<D, DV>()) return 0;
+  const long long keys_pad = (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS * SPLIT_KEYS;
+  return 2LL * B * Hkv * (static_cast<long long>(Skv) * D + static_cast<long long>(DV) * keys_pad);
 }
 
 template <int D, int DV>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                int causal, int window, float logit_cap, cudaStream_t stream) {
-  static_assert(tf32_pair<D, DV>(), "the TF32 kernels take (64, 64) and (96, 64)");
+                int causal, int window, float logit_cap, float* ws, long long ws_floats, cudaStream_t stream) {
+  static_assert(tf32_pair<D, DV>(), "the TF32 kernels take (64, 64), (96, 64) and (128, 128)");
   constexpr int TBK = tf32_bk<D, DV>();
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorMisalignedAddress;
-  CUtensorMap tq, tk, tv;
-  if (int err = encode(&tq, q, B * Hq, Sq, D, BQ, true)) return err;
-  if (int err = encode(&tk, k, B * Hkv, Skv, D, TBK, true)) return err;
-  if (int err = encode(&tv, v, B * Hkv, Skv, DV, TBK, true)) return err;
   constexpr size_t smem = Tf32Tiles<D, DV, TBK>::SMEM;
-  auto kernel = D == MLA_D ? flash_attn_tf32_mla_kernel : flash_attn_tf32_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale, causal,
-                                          window, logit_cap);
+  CUtensorMap tq, tk, tv;
+  if (int err = encode(&tq, q, B * Hq, Sq, D, BQ, true)) return err;
+  if constexpr (tf32_presplit<D, DV>()) {
+    if (ws == nullptr || ws_floats < tf32_workspace_floats<D, DV>(B, Hkv, Skv) ||
+        reinterpret_cast<uintptr_t>(ws) % 16)
+      return cudaErrorInvalidValue;
+    const int keys_pad = (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS * SPLIT_KEYS;
+    const size_t k_floats = static_cast<size_t>(B) * Hkv * Skv * D;
+    const size_t vt_floats = static_cast<size_t>(B) * Hkv * DV * keys_pad;
+    float *k_hi = ws, *k_lo = k_hi + k_floats, *vt_hi = k_lo + k_floats, *vt_lo = vt_hi + vt_floats;
+    tf32_split_kv_kernel<D, DV><<<dim3(keys_pad / SPLIT_KEYS, B * Hkv), 256, 0, stream>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), k_hi, k_lo, vt_hi, vt_lo, Skv, keys_pad);
+    CUtensorMap tk_lo, tv_lo;
+    if (int err = encode(&tk, k_hi, B * Hkv, Skv, D, TBK, true)) return err;
+    if (int err = encode(&tk_lo, k_lo, B * Hkv, Skv, D, TBK, true)) return err;
+    // V^T: boxes of TBK keys by all DV rows
+    if (int err = encode(&tv, vt_hi, B * Hkv, DV, keys_pad, DV, true, TBK, CU_TENSOR_MAP_SWIZZLE_64B)) return err;
+    if (int err = encode(&tv_lo, vt_lo, B * Hkv, DV, keys_pad, DV, true, TBK, CU_TENSOR_MAP_SWIZZLE_64B))
+      return err;
+    cudaError_t err = cudaFuncSetAttribute(flash_attn_tf32_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    flash_attn_tf32_d128_kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, tk_lo, tv_lo, static_cast<float*>(o),
+                                                                  Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+  } else {
+    if (int err = encode(&tk, k, B * Hkv, Skv, D, TBK, true)) return err;
+    if (int err = encode(&tv, v, B * Hkv, Skv, DV, TBK, true)) return err;
+    auto kernel = D == MLA_D ? flash_attn_tf32_mla_kernel : flash_attn_tf32_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale, causal,
+                                            window, logit_cap);
+  }
   return cudaGetLastError();
 }
 
@@ -1601,8 +1786,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
       return launch<BF16, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
     return cudaErrorInvalidValue;  // f32 at (64, 64) is the TF32 kernel's
   }
-  if (d == 128 && dv == 128)
-    return launch<BF16, 128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+  if (d == 128 && dv == 128) {
+    if constexpr (BF16)
+      return launch<BF16, 128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
+    return cudaErrorInvalidValue;  // f32 at (128, 128) is the TF32 d 128 kernel's
+  }
   if (d == 64 && dv == 128)
     return launch<BF16, 64, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
   if (d == 128 && dv == 64)
@@ -1641,7 +1829,8 @@ int block_shape(int kind, int* out) {
   if (kind == BF16) return put(hp::BQ, hp::BK, hp::stages<D, DV>(), hp::smem_bytes<D, DV>(), hp::THREADS);
   if constexpr (hp::tf32_pair<D, DV>()) {
     constexpr int TBK = hp::tf32_bk<D, DV>();
-    if (kind == F32_TF32) return put(hp::BQ, TBK, hp::T_STAGES, hp::Tf32Tiles<D, DV, TBK>::SMEM, hp::THREADS);
+    using T = hp::Tf32Tiles<D, DV, TBK>;
+    if (kind == F32_TF32) return put(hp::BQ, TBK, T::STAGES, T::SMEM, hp::THREADS);
   } else {
     if (kind == F32_SIMT) return put(simt::BQ, simt::BK, 1, simt::smem_bytes<D, DV>(), simt::THREADS);
   }
@@ -1665,14 +1854,16 @@ extern "C" int repro_flash_attention_config(int kind, int d, int dv, int* out) {
 
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq, dv),
 // all contiguous and of one type: bf16 for BF16, else f32 (F32_TF32 takes
-// (d, dv) = (64, 64) and (96, 64), F32_SIMT the other pairs); q, k and v 16-byte aligned
-// for the TMA kernels (BF16, F32_TF32).
+// (d, dv) = (64, 64), (96, 64) and (128, 128), F32_SIMT the other pairs); q, k and v 16-byte aligned
+// for the TMA kernels (BF16, F32_TF32). ws: ws_floats f32 of scratch, 16-byte
+// aligned: none but for F32_TF32 at (128, 128), which splits K and V into at
+// least tf32_workspace_floats.
 // Returns 0 when the launch was accepted, else a CUDA error or, from the
 // tensor maps' encoding, ENCODE_ERROR_BASE plus a CUresult.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int B, int Hq, int Hkv, int Sq, int Skv, int d, int dv,
                                          int kind, int causal, int window, float logit_cap,
-                                         void* stream) {
+                                         void* ws, long long ws_floats, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -1683,10 +1874,13 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
       return dispatch<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
     case F32_TF32:
       if (d == 64 && dv == 64)
-        return hopper::launch_tf32<64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, s);
+        return hopper::launch_tf32<64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, nullptr, 0, s);
       if (d == hopper::MLA_D && dv == hopper::MLA_DV)
         return hopper::launch_tf32<hopper::MLA_D, hopper::MLA_DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                                                                   logit_cap, s);
+                                                                   logit_cap, nullptr, 0, s);
+      if (d == 128 && dv == 128)
+        return hopper::launch_tf32<128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap,
+                                             static_cast<float*>(ws), ws_floats, s);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;

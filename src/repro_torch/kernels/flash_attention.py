@@ -37,8 +37,21 @@ against 268 MB), so the design follows the unit that does them:
   (three TF32 products: 0.0388 ms at one 1000-token insert of 40 heads) and
   takes 0.203 ms there on an H100 80GB HBM3 at 700 W, against 0.430 ms on
   the FMA units and 0.30 ms for SDPA (PERF.md).
-- f32 at the other pairs of ``HEAD_DIM_PAIRS`` (d 128 and 256, the mixed
-  ones) stays on the FMA units: 64-row blocks, f32 tiles in shared memory.
+- f32 at (128, 128), codeqwen1.5-7b's heads in f32 activations (its
+  continuous-batching inserts), runs the same 3×TF32 block as a kernel of
+  its own (``flash_attn_tf32_d128_kernel``) at 16-key tiles: Q and Q_lo take
+  128 KB, so the ring fits only at 16 keys (32 keys would take 295,992
+  bytes). K and V come split: a first kernel (``tf32_split_kv_kernel``)
+  writes K_hi, K_lo and Vᵀ_hi, Vᵀ_lo once per call into a scratch tensor the
+  wrapper allocates (:func:`workspace_floats`), and the block loads them by
+  TMA into three stages (230,456 bytes), so that no block repeats the split
+  of a tile and the splitting warps leave the ring's path. Vᵀ's rows of 16
+  keys are 64 bytes, kept with the 64-byte swizzle, and P·V runs each
+  64-column half of O in turn. Bound by operations: 0.0497 ms at one
+  1000-token insert of 32 heads.
+- f32 at the other pairs of ``HEAD_DIM_PAIRS`` ((64, 128), (128, 64),
+  (256, 256)) stays on the FMA units: 64-row blocks, f32 tiles in shared
+  memory.
 
 The wrapper checks what the kernels take and raises on anything else,
 allocates the output, and launches on PyTorch's current stream without
@@ -59,18 +72,26 @@ HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256), (96, 6
 # MLA's prefill pair (minicpm3-4b: q, k 64 + 32 wide, v 64); its bf16 launches
 # have their own count
 MLA_HEAD_DIMS = (96, 64)
+# f32 (128, 128), codeqwen1.5-7b's heads: its tensor-core launches have their
+# own count
+D128_HEAD_DIMS = (128, 128)
 # the f32 pairs of the tensor-core (3×TF32) kernels; other f32 pairs run on
 # the FMA units
-TF32_HEAD_DIM_PAIRS = ((64, 64), MLA_HEAD_DIMS)
+TF32_HEAD_DIM_PAIRS = ((64, 64), MLA_HEAD_DIMS, D128_HEAD_DIMS)
 # query rows per block and keys per tile, as in the kernels: the f32 FMA
 # kernel, the bf16 kernel, the f32 tensor-core kernels (TF32_MLA_BK keys a
-# tile at MLA's pair) in a ring of TF32_STAGES; the bf16 MLA kernel takes
-# MLA_BK keys a tile into a ring of MLA_STAGES
+# tile at MLA's pair, TF32_D128_BK at (128, 128)) in a ring of TF32_STAGES;
+# (TF32_D128_STAGES at (128, 128), whose K and V come split, and whose
+# scratch pads Vᵀ's keys to SPLIT_KEYS); the bf16 MLA kernel takes MLA_BK
+# keys a tile into a ring of MLA_STAGES
 BQ = {torch.float32: 64, torch.bfloat16: 128}
 BQ_TF32 = 128
 BK = 64
 TF32_MLA_BK = 32
+TF32_D128_BK = 16
 TF32_STAGES = 2
+TF32_D128_STAGES = 3
+SPLIT_KEYS = 32
 MLA_BK = 128
 MLA_STAGES = 3
 # the C entry's kernel codes (``Kind`` in the source)
@@ -78,7 +99,7 @@ F32_SIMT, BF16, F32_TF32 = 0, 1, 2
 
 # Launches since import, one count per kernel: the f32 kernel on the FMA
 # units, the bf16 kernel (at every pair but MLA's), the bf16 MLA kernel at
-# (96, 64), the f32 tensor-core kernel at (64, 64) and the one at (96, 64).
+# (96, 64), the f32 tensor-core kernels at (64, 64), (96, 64) and (128, 128).
 # chip_smoke.py sets them to 0 around the main path and reads them to show
 # that every prefill attention came here.
 launches = 0
@@ -86,6 +107,7 @@ bf16_launches = 0
 bf16_mla_launches = 0
 tf32_launches = 0
 tf32_mla_launches = 0
+tf32_d128_launches = 0
 
 
 def kernel_kind(dtype: torch.dtype, d: int, dv: int) -> int:
@@ -101,7 +123,8 @@ def launch_count(dtype: torch.dtype, d: int, dv: int) -> str:
     if kind == BF16:
         return "bf16_mla_launches" if mla else "bf16_launches"
     if kind == F32_TF32:
-        return "tf32_mla_launches" if mla else "tf32_launches"
+        names = {MLA_HEAD_DIMS: "tf32_mla_launches", D128_HEAD_DIMS: "tf32_d128_launches"}
+        return names.get((d, dv), "tf32_launches")
     return "launches"
 
 
@@ -144,7 +167,7 @@ def tiles(dtype: torch.dtype, d: int, dv: int) -> tuple[int, int]:
     if kind == BF16:
         return BQ[dtype], MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
     if kind == F32_TF32:
-        return BQ_TF32, TF32_MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
+        return BQ_TF32, {MLA_HEAD_DIMS: TF32_MLA_BK, D128_HEAD_DIMS: TF32_D128_BK}.get((d, dv), BK)
     return BQ[dtype], BK
 
 
@@ -153,6 +176,23 @@ def stages(d: int, dv: int) -> int:
     if (d, dv) == MLA_HEAD_DIMS:
         return MLA_STAGES
     return 2 if d + dv >= 512 else 4
+
+
+def tf32_stages(d: int, dv: int) -> int:
+    """Stages of the ring of the f32 tensor-core kernel that takes (d, dv)."""
+    return TF32_D128_STAGES if (d, dv) == D128_HEAD_DIMS else TF32_STAGES
+
+
+def workspace_floats(dtype: torch.dtype, B: int, Hkv: int, Skv: int, d: int, dv: int) -> int:
+    """f32 of scratch the kernel that takes these inputs needs besides its
+    output (``tf32_workspace_floats`` in the source, which checks what it is
+    given against this sum): at f32 (128, 128), K_hi
+    and K_lo (K's shape) and Vᵀ_hi and Vᵀ_lo (dv rows of Skv keys rounded up
+    to SPLIT_KEYS) a KV head; else none."""
+    if kernel_kind(dtype, d, dv) != F32_TF32 or (d, dv) != D128_HEAD_DIMS:
+        return 0
+    keys_pad = -(-Skv // SPLIT_KEYS) * SPLIT_KEYS
+    return 2 * B * Hkv * (Skv * d + dv * keys_pad)
 
 
 def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
@@ -165,14 +205,18 @@ def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> i
     their swizzle pattern. f32 on the tensor cores: the Q tile (split in place
     into Q_hi) and Q_lo, two stages of five tiles of :func:`tiles`' keys (K
     split in place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per stage and one
-    for Q, and the slack. f32 on the FMA units: Q and K tiles padded by one
-    float, the V tile and the P tile."""
+    for Q, and the slack; at (128, 128), whose K and V come split, three
+    stages of four tiles (K_hi, K_lo, Vᵀ_hi, Vᵀ_lo) and two barriers a stage.
+    f32 on the FMA units: Q and K tiles padded by one float, the V tile and
+    the P tile."""
     kind = kernel_kind(dtype, d, dv)
     if kind == BF16:
         (bq, bk), n, dp = tiles(dtype, d, dv), stages(d, dv), -(-d // 64) * 64
         return 1024 + 2 * (bq * dp + n * bk * (dp + dv)) + 8 * (2 * n + 1)
     if kind == F32_TF32:
-        (bq, bk), n = tiles(dtype, d, dv), TF32_STAGES
+        (bq, bk), n = tiles(dtype, d, dv), tf32_stages(d, dv)
+        if (d, dv) == D128_HEAD_DIMS:
+            return 1024 + 4 * (2 * bq * d + n * bk * (2 * d + 2 * dv)) + 8 * (2 * n + 1)
         return 1024 + 4 * (2 * bq * d + n * bk * (2 * d + 3 * dv)) + 8 * (3 * n + 1)
     return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
 
@@ -198,12 +242,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap:
     Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
     out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
     kind = kernel_kind(q.dtype, d, dv)
+    n_ws = workspace_floats(q.dtype, B, Hkv, Skv, d, dv)
+    # freed after the launch: the allocator reuses it only in stream order
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Hq, Hkv, Sq, Skv, d, dv, kind,
             int(causal), int(window), float(logit_cap),
+            ws.data_ptr() if ws is not None else None, n_ws,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "flash_attention")

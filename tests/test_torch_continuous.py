@@ -141,3 +141,32 @@ def test_capacity_guard():
     with pytest.raises(ValueError, match="capacity"):
         cb.serve(requests(5, (4, 13)), gen_len=4)
     assert cb.stats["requests"] == 0
+
+
+@pytest.mark.parametrize("arch, counter", [("codeqwen1.5-7b", "flash_attention_tf32_d128"),
+                                           ("minicpm3-4b", "flash_attention_tf32_mla"),
+                                           ("nbi-100m", "flash_attention_tf32")])
+def test_chip_smoke_counts_continuous_launches(arch, counter):
+    """``chip_smoke.py``'s exact counts for continuous batching with f32
+    activations at full depth: each one-row insert's L attentions on the
+    3xTF32 kernel of the arch's heads ((128, 128) for codeqwen1.5-7b: 32 an
+    insert), none on the FMA kernel, and a pass's norms an insert and a
+    decode step."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+
+    root = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    cfg = chip_smoke.path_config(arch, True).replace(dtype="float32")
+    assert cfg.n_layers == get_config(arch).n_layers
+    assert chip_smoke.attention_counter(cfg) == counter
+    want = chip_smoke.dense_launches(cfg, prefills=16, decode_steps=64)
+    norms = (4 if cfg.attention == "mla" else 2) * cfg.n_layers + 1
+    assert want.pop(counter) == 16 * cfg.n_layers and want.pop("rmsnorm") == norms * (16 + 64)
+    assert not any(want.values())

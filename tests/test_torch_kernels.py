@@ -11,7 +11,7 @@ bf16 attention kernel's arithmetic (64-key tiles, P split into bf16 hi and lo
 parts for the tensor cores) is emulated on the CPU and held to that limit
 against the JAX package, and so is the f32 tensor-core kernels' (3xTF32: each
 operand split into TF32 hi and lo parts; 64-key tiles at (64, 64), 32-key
-tiles at MLA's (96, 64)) at the f32 limit.
+tiles at MLA's (96, 64), 16-key tiles at (128, 128)) at the f32 limit.
 
 JAX is imported inside a fixture, so that the card's machine, which has no
 JAX, can run the ``gpu`` tests of this file (``python -m pytest -m gpu``).
@@ -207,8 +207,9 @@ KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
 def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
     """The arithmetic of the f32 tensor-core kernels (csrc/flash_attention.cu,
     ``flash_attn_tf32_kernel`` at (64, 64), ``flash_attn_tf32_mla_kernel`` at
-    (96, 64)) on the CPU, with the wrapper's tiles for the input's (d, dv)
-    (``flash_attention.tiles``: 32 keys a tile at (96, 64), else 64): q pre-scaled by
+    (96, 64), ``flash_attn_tf32_d128_kernel`` at (128, 128)) on the CPU, with
+    the wrapper's tiles for the input's (d, dv) (``flash_attention.tiles``: 32
+    keys a tile at (96, 64), 16 at (128, 128), else 64): q pre-scaled by
     d**-0.5 in f32, as the Pallas kernel does; S = Q_hi K_hi + Q_hi K_lo +
     Q_lo K_hi summed in f32, each part rounded by :func:`tf32`, the two small
     products summed apart and added to the large one; P·V the same three
@@ -293,7 +294,9 @@ def test_mla_head_dims_take_whole_panels():
     """(96, 64) runs the bf16 MLA kernel with Q and K tiles of two 64-column
     panels (the second half zeros), 128-key tiles and three stages, and f32
     on the tensor cores as 3xTF32 with Q and K tiles of three 32-column panels
-    and 32-key tiles in two stages; the other bf16 pairs keep 64-key tiles."""
+    and 32-key tiles in two stages; f32 (128, 128) runs on the tensor cores
+    too, at 16-key tiles in three stages of K and V split beforehand; the
+    other bf16 pairs keep 64-key tiles."""
     assert tfa.MLA_HEAD_DIMS in tfa.HEAD_DIM_PAIRS
     assert tfa.kernel_kind(torch.bfloat16, 96, 64) == tfa.BF16
     assert tfa.kernel_kind(torch.float32, 96, 64) == tfa.F32_TF32
@@ -306,23 +309,42 @@ def test_mla_head_dims_take_whole_panels():
     # panels), V, V^T_hi, V^T_lo (2 panels), the barriers, the slack
     assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 1024 + 2 * 49152 + 2 * (2 * 12288 + 3 * 8192) + 8 * 7
     assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 197688
+    # Q and Q_lo (128 rows x 4 panels), three stages of K_hi, K_lo (16 keys x
+    # 4 panels), V^T_hi, V^T_lo (128 rows of 16 keys), two barriers a stage
+    # and one for Q, the slack
+    assert tfa.kernel_kind(torch.float32, 128, 128) == tfa.F32_TF32
+    assert tfa.tiles(torch.float32, 128, 128) == (128, 16)
+    assert tfa.tf32_stages(128, 128) == 3 and tfa.tf32_stages(96, 64) == tfa.tf32_stages(64, 64) == 2
+    assert tfa.dynamic_smem_bytes(128, 128, torch.float32) == 1024 + 2 * 65536 + 3 * (4 * 8192) + 8 * 7
+    assert tfa.dynamic_smem_bytes(128, 128, torch.float32) == 230456
     assert {tfa.tiles(torch.bfloat16, d, dv) for d, dv in tfa.HEAD_DIM_PAIRS if (d, dv) != (96, 64)} == {(128, 64)}
     assert {tfa.stages(d, dv) for d, dv in tfa.HEAD_DIM_PAIRS if (d, dv) != (96, 64)} == {2, 4}
 
 
 def test_each_kernel_has_its_own_launch_count():
     """A call adds one to the count of the kernel that takes it: the MLA pair
-    (96, 64) has a count of its own in bf16 and in f32, apart from the other
-    pairs' tensor-core kernels, and the FMA kernel's count takes the f32 pairs
-    that are neither (64, 64) nor (96, 64)."""
+    (96, 64) has a count of its own in bf16 and in f32, and f32 (128, 128)
+    one of its own, apart from the other pairs' tensor-core kernels, and the
+    FMA kernel's count takes the f32 pairs that are none of (64, 64),
+    (96, 64) and (128, 128)."""
     names = {(dtype, pair): tfa.launch_count(dtype, *pair) for dtype in tfa.DTYPES for pair in tfa.HEAD_DIM_PAIRS}
     assert names[torch.float32, (96, 64)] == "tf32_mla_launches"
     assert names[torch.float32, (64, 64)] == "tf32_launches"
+    assert names[torch.float32, (128, 128)] == "tf32_d128_launches"
     assert names[torch.bfloat16, (96, 64)] == "bf16_mla_launches"
     assert {names[torch.bfloat16, pair] for pair in tfa.HEAD_DIM_PAIRS if pair != (96, 64)} == {"bf16_launches"}
     assert {pair for pair in tfa.HEAD_DIM_PAIRS if names[torch.float32, pair] == "launches"} == {
-        (128, 128), (64, 128), (128, 64), (256, 256)}
+        (64, 128), (128, 64), (256, 256)}
     assert all(isinstance(getattr(tfa, name), int) for name in names.values())
+
+
+def test_only_f32_d128_needs_a_workspace():
+    """Only f32 (128, 128) asks for scratch: K_hi and K_lo in K's shape, and
+    V^T_hi and V^T_lo over keys padded to the split kernel's 32."""
+    sizes = {(dtype, pair): tfa.workspace_floats(dtype, 2, 4, 33, *pair)
+             for dtype in tfa.DTYPES for pair in tfa.HEAD_DIM_PAIRS}
+    assert {key for key, n in sizes.items() if n} == {(torch.float32, (128, 128))}
+    assert sizes[torch.float32, (128, 128)] == 2 * (2 * 4 * 33 * 128) + 2 * (2 * 4 * 128 * 64)
 
 
 def mla_turns(wg, kt_begin, kt_end, live):
@@ -499,7 +521,7 @@ def test_f32_kernel_arithmetic_matches_jax(jx, case):
 
 
 def test_f32_kernel_needs_three_tf32_products():
-    """At nbi-100m's head width and at MLA's (96, 64), one TF32 product for
+    """At nbi-100m's head width, at MLA's (96, 64) and at (128, 128), one TF32 product for
     each of Q K and P V puts outputs outside the f32 limit; the 3xTF32 split
     does not."""
     for d, dv in tfa.TF32_HEAD_DIM_PAIRS:
@@ -566,6 +588,67 @@ def test_f32_mla_cases_reach_the_tile_edges():
             idle |= not len(rows1)
     assert differ and idle
     assert {31, 32, 33} <= {case[4] for case in F32_MLA_CASES.values()}
+
+
+# f32 (d, dv) = (128, 128) in the f32 tensor-core d 128 kernel (blocks of 128
+# rows, two warpgroups of 64, 16-key tiles): codeqwen1.5-7b's one-row inserts
+# at smoke size and the tiles' edges: name: (B, Hq, Hkv, Sq, Skv, causal,
+# window, logit_cap, input scale)
+F32_D128_CASES = {
+    "insert": (1, 2, 2, 150, 150, True, 0, 0.0, 1.0),
+    "insert_64": (1, 2, 2, 64, 64, True, 0, 0.0, 1.0),
+    "ragged_non_causal": (1, 2, 2, 77, 150, False, 0, 0.0, 1.0),
+    "gqa": (1, 4, 1, 130, 130, True, 0, 0.0, 1.0),
+    "logit_cap": (1, 2, 2, 70, 70, True, 0, 30.0, 4.0),
+    # a window over several 16-key tiles, and one under a tile: a block's
+    # second warpgroup starts tiles later than its first
+    "window": (1, 2, 2, 200, 200, True, 40, 0.0, 1.0),
+    "window_under_a_tile": (1, 2, 2, 140, 140, True, 10, 0.0, 1.0),
+    # Skv under a tile, a tile, one past it (insert shapes longer than the keys)
+    "skv_15": (1, 2, 2, 40, 15, False, 0, 0.0, 1.0),
+    "skv_16": (1, 2, 2, 40, 16, False, 0, 0.0, 1.0),
+    "skv_17": (1, 2, 2, 40, 17, False, 0, 0.0, 1.0),
+    # one row; a block of one row (its second warpgroup idle); a block whose
+    # second warpgroup has one row
+    "sq_1": (1, 2, 2, 1, 1, True, 0, 0.0, 1.0),
+    "sq_129": (1, 2, 2, 129, 129, True, 0, 0.0, 1.0),
+    "sq_193": (1, 2, 2, 193, 193, True, 0, 0.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_D128_CASES))
+def test_f32_kernel_arithmetic_at_d128_matches_jax(jx, case):
+    """At (128, 128) the f32 tensor-core d 128 kernel's arithmetic (3xTF32,
+    16-key tiles, scale 128**-0.5) meets the f32 limit against the JAX Pallas
+    kernel in interpret mode, the JAX oracle and the plain version."""
+    B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = F32_D128_CASES[case]
+    qn, kn, vn = draw(23, (B, Hq, Sq, 128), (B, Hkv, Skv, 128), (B, Hkv, Skv, 128), scale=scale)
+    vn = vn / scale
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    q, k, v = map(torch.from_numpy, (qn, kn, vn))
+    got = emulate_f32_kernel(q, k, v, **kw).numpy()
+    assert got.shape == (B, Hq, Sq, 128)
+    jq, jk, jv = map(jx.jnp.asarray, (qn, kn, vn))
+    pallas = jx.flash_attention(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jx.attention_ref(jq, jk, jv, **kw), ref.attention_ref(q, k, v, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), **F32_ATTN_TOL)
+
+
+def test_f32_d128_cases_reach_the_tile_edges():
+    """The (128, 128) cases above reach what the 16-key tiles make an edge: a
+    block whose two warpgroups have different first live tiles, a second
+    warpgroup with no rows and one with a single row, and a last tile of 15,
+    16 and 17 keys."""
+    bq, bk = tfa.tiles(torch.float32, 128, 128)
+    assert (bq, bk) == (128, 16)
+    differ = idle = single = False
+    for _, _, _, Sq, Skv, causal, window, _, _ in F32_D128_CASES.values():
+        for _, _, ((rows0, live0), (rows1, live1)) in kernel_blocks(Sq, Skv, causal, window, bq, bk):
+            differ |= bool(live0 and live1 and live0[0] != live1[0])
+            idle |= not len(rows1)
+            single |= len(rows1) == 1
+    assert differ and idle and single
+    assert {15, 16, 17} <= {case[4] for case in F32_D128_CASES.values()}
 
 
 def test_tf32_rounds_to_nearest_away():
@@ -1195,7 +1278,9 @@ def test_flash_attention_smem_fits_a_block():
     (64, 64) on the tensor cores (Q_hi and Q_lo, 32 KB each, and two stages of
     five 16 KB tiles); f32 at (96, 64) on the tensor cores takes 32-key tiles
     (the d 64 layout at d 96 would take 295,992 bytes, three stages of 32 keys
-    246,864); the f32 FMA kernel's largest is d 256."""
+    246,864) and f32 at (128, 128) 16-key tiles (32 keys would take 295,992
+    bytes too; splitting K and V in the block, two stages of 16 keys
+    214,072); the f32 FMA kernel's largest is d 256."""
     largest = {torch.bfloat16: (256, 256), torch.float32: (64, 64)}
     for dtype in tfa.DTYPES:
         sizes = {pair: tfa.dynamic_smem_bytes(*pair, dtype) for pair in tfa.HEAD_DIM_PAIRS}
@@ -1207,12 +1292,20 @@ def test_flash_attention_smem_fits_a_block():
     d64_layout_at_d96 = 1024 + 2 * 49152 + 2 * (2 * 24576 + 3 * 16384) + 56
     three_stages = 1024 + 2 * 49152 + 3 * (2 * 12288 + 3 * 8192) + 8 * 10
     assert (d64_layout_at_d96, three_stages) == (295992, 246864) and min(d64_layout_at_d96, three_stages) > 232448
+    assert tfa.dynamic_smem_bytes(128, 128, torch.float32) == 230456
+    keys_32_at_d128 = 1024 + 2 * 65536 + 2 * (2 * 16384 + 3 * 16384) + 56
+    split_in_the_block = 1024 + 2 * 65536 + 2 * (2 * 8192 + 3 * 8192) + 56
+    assert keys_32_at_d128 == 295992 > 232448 and split_in_the_block == 214072
 
 
 def test_ops_send_cpu_tensors_to_plain_versions():
     qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
     q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
-    before = (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, tfa.tf32_mla_launches, trn.launches)
+    def counts():
+        return (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, tfa.tf32_mla_launches, tfa.tf32_d128_launches,
+                trn.launches)
+
+    before = counts()
     for dtype in (torch.float32, torch.bfloat16):
         qt, kt, vt = (t.to(dtype) for t in (q, k, v))
         torch.testing.assert_close(
@@ -1220,7 +1313,7 @@ def test_ops_send_cpu_tensors_to_plain_versions():
             ref.attention_ref(qt, kt, vt, causal=True, window=8, logit_cap=5.0), rtol=0, atol=0,
         )
     torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w), rtol=0, atol=0)
-    assert (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, tfa.tf32_mla_launches, trn.launches) == before
+    assert counts() == before
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -1275,7 +1368,8 @@ GPU_ATTN_CASES = {
 
 
 # the wrapper's launch counts, one a kernel
-COUNTS = ("launches", "bf16_launches", "bf16_mla_launches", "tf32_launches", "tf32_mla_launches")
+COUNTS = ("launches", "bf16_launches", "bf16_mla_launches", "tf32_launches", "tf32_mla_launches",
+          "tf32_d128_launches")
 
 
 @pytest.mark.gpu
@@ -1373,6 +1467,42 @@ def test_flash_attention_f32_mla_instance_matches_plain(case):
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw), **F32_ATTN_TOL)
 
 
+# the f32 (128, 128) kernel on the card: the CPU cases' edges (F32_D128_CASES)
+# at more heads, and codeqwen1.5-7b's inserts (32 heads; mistral's 32 over 8
+# KV heads): name: (B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, input scale)
+GPU_F32_D128_CASES = {
+    **{name: (B, 4 * Hq, 4 * Hkv, *rest) for name, (B, Hq, Hkv, *rest) in F32_D128_CASES.items()},
+    "codeqwen_insert": (1, 32, 32, 1000, 1000, True, 0, 0.0, 1.0),
+    "codeqwen_insert_512": (1, 32, 32, 512, 512, True, 0, 0.0, 1.0),
+    "codeqwen_insert_200": (1, 32, 32, 200, 200, True, 0, 0.0, 1.0),
+    "codeqwen_insert_64": (1, 32, 32, 64, 64, True, 0, 0.0, 1.0),
+    "gqa_32_over_8": (1, 32, 8, 1000, 1000, True, 0, 0.0, 1.0),
+    "ragged_sq_past_skv": (1, 4, 4, 150, 70, False, 0, 0.0, 1.0),
+    "window_128": (1, 4, 4, 500, 500, True, 128, 0.0, 1.0),
+    "second_warpgroup_idle": (2, 8, 8, 1088, 1088, True, 0, 0.0, 1.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_F32_D128_CASES))
+def test_flash_attention_f32_d128_instance_matches_plain(case):
+    """f32 at (128, 128) launches the 3xTF32 d 128 kernel (its own count: one
+    a call, and none on the FMA kernel's or the other TF32 kernels') and
+    meets the f32 limit."""
+    _need_card()
+    B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = GPU_F32_D128_CASES[case]
+    qn, kn, vn = draw(45, (B, Hq, Sq, 128), (B, Hkv, Skv, 128), (B, Hkv, Skv, 128), scale=scale)
+    q, k, v = (torch.from_numpy(a).cuda() for a in (qn, kn, vn / scale))
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    counts = {name: getattr(tfa, name) for name in COUNTS}
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    counts["tf32_d128_launches"] += 1
+    assert counts == {name: getattr(tfa, name) for name in COUNTS}
+    assert got.shape == (B, Hq, Sq, 128) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw), **F32_ATTN_TOL)
+
+
 @pytest.mark.gpu
 def test_flash_attention_launch_config_matches_the_wrapper():
     """The library's blocks (query rows, keys a tile, stages, dynamic shared
@@ -1383,7 +1513,7 @@ def test_flash_attention_launch_config_matches_the_wrapper():
         for d, dv in tfa.HEAD_DIM_PAIRS:
             kind = tfa.kernel_kind(dtype, d, dv)
             bq, bk = tfa.tiles(dtype, d, dv)
-            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: tfa.TF32_STAGES, tfa.F32_SIMT: 1}[kind]
+            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: tfa.tf32_stages(d, dv), tfa.F32_SIMT: 1}[kind]
             threads = 256 if kind == tfa.F32_SIMT else 384
             assert tfa.launch_config(dtype, d, dv) == dict(
                 bq=bq, bk=bk, stages=stages, smem_bytes=tfa.dynamic_smem_bytes(d, dv, dtype), threads=threads)
@@ -1437,6 +1567,29 @@ def test_f32_mla_attention_grads_on_the_card_match_the_cpu():
 
 
 @pytest.mark.gpu
+def test_f32_d128_attention_grads_on_the_card_match_the_cpu():
+    """f32 ``ops.attention`` at (128, 128) under autograd: the forward is one
+    launch of the 3xTF32 d 128 kernel, the backward the plain path recomputed
+    (no launch); out, dq, dk, dv agree with the CPU's at the f32 attention
+    limit, as at d 64 and (96, 64)."""
+    _need_card()
+    arrays = draw(46, (1, 4, 150, 128), (1, 2, 150, 128), (1, 2, 150, 128), (1, 4, 150, 128))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in arrays[:3])
+        before = {name: getattr(tfa, name) for name in COUNTS}
+        out = ops.attention(q, k, v, causal=True, window=100, kv_chunk=64)
+        assert out.grad_fn is not None
+        grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(arrays[3]).to(dev))
+        torch.cuda.synchronize()
+        before["tf32_d128_launches"] += dev == "cuda"
+        assert before == {name: getattr(tfa, name) for name in COUNTS}
+        results[dev] = [t.cpu() for t in (out, *grads)]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(64, 128), (128, 64)])
 def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
@@ -1454,8 +1607,8 @@ def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
 @pytest.mark.parametrize("d,dv", tfa.HEAD_DIM_PAIRS)
 def test_f32_head_dims_run_their_kernel(d, dv):
     """Each f32 head-dim pair launches the kernel that takes it, the tensor
-    cores' at (64, 64) and (96, 64) (each its own count) and the FMA units' at
-    the others, and meets the f32 limit."""
+    cores' at (64, 64), (96, 64) and (128, 128) (each its own count) and the
+    FMA units' at the others, and meets the f32 limit."""
     _need_card()
     arrays = draw(21, (1, 4, 200, d), (1, 2, 200, d), (1, 2, 200, dv))
     q, k, v = (torch.from_numpy(a).cuda() for a in arrays)
