@@ -18,9 +18,10 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    and time kernel, plain version and one library call (a yardstick the port
    never calls) with CUDA events around replays of a CUDA graph of the calls;
 4. main paths, one engine at a time, each freed before the next: serve 16
-   greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b,
-   deepseek-moe-16b, kimi-k2-1t-a32b (full width, 2 of its 61 layers: 384
-   experts, top-8, groups of 256), minicpm3-4b (MLA), starcoder2-7b,
+   greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b (full
+   width, 8 of its 32 layers), deepseek-moe-16b (8 of 28),
+   kimi-k2-1t-a32b (full width, 2 of its 61 layers: 384
+   experts, top-8, groups of 256), minicpm3-4b (MLA, 16 of 62), starcoder2-7b,
    mistral-large-123b (full width, 8 of its 88 layers) and whisper-small
    (full width and depth, fed zero audio frames as the engine feeds them)
    with seeded weights, and feed
@@ -45,7 +46,7 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    (device busy share, each of the port's kernels' share of the prefill's
    device time, and the ops that take the most device time); then
    continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
-   of mixed lengths) on minicpm3-4b at full width, on nbi-100m and on
+   of mixed lengths) on minicpm3-4b at full width (16 of 62 layers), on nbi-100m and on
    codeqwen1.5-7b at full width and depth, with f32 activations: exact
    launches per insert and decode step (each insert's attentions through the
    f32 tensor-core (3xTF32) kernel of its heads: the MLA kernel at (96, 64),
@@ -80,7 +81,22 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    encoder, self- and cross-attentions), K2 per RMSNorm, and no backward
    launches one; the loss must fall. Then each
    family's step ms, tok/s, peak memory, one traced step and a small
-   model's train step on the card against the CPU.
+   model's train step on the card against the CPU. Then the data-parallel
+   step in a process group of one rank (NCCL, ``tcp://localhost``): at the
+   resume check's shapes, nbi-100m's exact DP step (``compress=False``)
+   equals ``make_train_step`` bit for bit after N steps under
+   ``torch.use_deterministic_algorithms``, with the same exact K1 and K2
+   launches (counted as a path); both steps timed in turns; the compressed
+   step runs, the mean of 20 error-fed syncs of a constant tracks it (rtol
+   0.02), and the int8 payload, scales and error-feedback carry on the card
+   equal the CPU's (a gloo group) bit for bit. Then eco-preemption through
+   the launcher plugin ``launchers/torch_h100.py`` in a subprocess (this
+   script imports nothing of ``repro``), with ``NBISLURM_CONFIG`` an empty
+   file: started at the first instant of the default peak hours, the run
+   stops after one step with "eco-preempt", saves step 1 and prints the next
+   eco window's ``--begin``; rerun without the flag (in this process) it
+   resumes to N steps, bitwise equal to N straight steps. Every leg prints
+   its seconds, and the script its total.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. ``--rehearse-cpu`` runs phases 3
@@ -98,6 +114,7 @@ import itertools
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -129,6 +146,7 @@ from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import make_train_loader  # noqa: E402
+from repro_torch.launch.distributed import dp_groups, initialize  # noqa: E402
 from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, device_name, pad_cache_to  # noqa: E402
 from repro_torch.launch.train import build_argparser as train_argparser  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -136,7 +154,8 @@ from repro_torch.models import rglru as rg  # noqa: E402
 from repro_torch.models.common import map_defs, tree_leaves  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import cosine_warmup, make_optimizer  # noqa: E402
-from repro_torch.training import init_train_state, make_train_step  # noqa: E402
+from repro_torch.parallel import ef_compressed_psum, init_ef_state, quant_int8  # noqa: E402
+from repro_torch.training import init_dp_state, init_train_state, make_dp_train_step, make_train_step  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # dense rates without sparsity, f32 outside the tensor cores, TF32 on them.
@@ -826,8 +845,13 @@ PATHS = {
 # paths served at full width and reduced depth: arch: layers (mistral-large-123b's
 # 88 layers of bf16 weights, about 245 GB, do not fit one card; 8 take about 24 GB.
 # kimi-k2-1t-a32b's 61 layers are about 1.03 T parameters; its leading dense
-# layer and one MoE layer of 384 experts are 19.97 B, about 40 GB in bf16)
-REDUCED_DEPTH = {"mistral-large-123b": 8, "kimi-k2-1t-a32b": 2}
+# layer and one MoE layer of 384 experts are 19.97 B, about 40 GB in bf16).
+# minicpm3-4b (serving and continuous batching), deepseek-moe-16b and rwkv6-7b
+# are cut to keep the script near 480 s with phase 5's data-parallel and
+# eco-preemption legs: their decode is host-bound, so a path's time grows
+# with its depth (minicpm3-4b's two phases took 116 s at 62 layers)
+REDUCED_DEPTH = {"mistral-large-123b": 8, "kimi-k2-1t-a32b": 2, "minicpm3-4b": 16, "deepseek-moe-16b": 8,
+                 "rwkv6-7b": 8}
 # the visual-prefix path, through the model's functions (the engine feeds no
 # patches, as the reference's): batch, text lengths, generated tokens, law's
 # text length, at full size and in the CPU rehearsal
@@ -1758,6 +1782,187 @@ def resume_equivalence(device, full: bool) -> None:
         f"{time.perf_counter() - t0:.1f}s")
 
 
+# The data-parallel leg: timed steps of each step in turns (after the N
+# checked ones), and the error-feedback syncs of a constant
+DP_TIMED_STEPS = {True: 10, False: 2}
+EF_STEPS = 20
+# the eco-preemption leg: the first instant of the default peak hours
+# (17:00-20:00) on a Monday, and the --begin of the next eco window that the
+# default config (weekdays 00:00-06:00) gives a job of an hour from there
+ECO_PEAK_START = "2026-10-19T17:00:00"
+ECO_BEGIN = "2026-10-20T00:00:00"
+PLUGIN = Path(__file__).resolve().parent / "launchers" / "torch_h100.py"
+# runs the plugin's __main__ under torch.use_deterministic_algorithms
+DETERMINISTIC_RUN = ("import runpy, sys, torch; torch.use_deterministic_algorithms(True); "
+                     "sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__')")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_path(device, full: bool) -> dict:
+    """The data-parallel step in a process group of one rank: exact against
+    the plain step (bitwise, same launches), both timed in turns, the
+    compressed step, error feedback on a constant and the int8 payload and
+    carry against the CPU's. Returns the exact DP run's launches."""
+    _, (batch, seq, n) = TRAIN_RUN[full]
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
+    timed = DP_TIMED_STEPS[full]
+    loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()} for _ in range(n + 2 * timed)]
+    loader.close()
+    initialize(device, 0, 1, f"localhost:{free_port()}")
+    try:
+        groups = dp_groups()
+        backend = torch.distributed.get_backend()
+        plain = make_train_step(model, opt)
+        exact = make_dp_train_step(model, opt, groups, compress=False)
+        states, launches = {}, {}
+        with deterministic(device):
+            for name, step, state in (
+                    ("plain", plain, init_train_state(model, opt, torch.Generator(device=device).manual_seed(0),
+                                                      device)),
+                    ("dp", exact, init_dp_state(model, opt, torch.Generator(device=device).manual_seed(0), device,
+                                                compress=False))):
+                zero_counters()
+                for b in batches[:n]:
+                    state, metrics = step(state, b)
+                float(metrics["loss"])
+                launches[name] = read_counters()
+                states[name] = state
+        differ = [p for (p, a), (_, b) in zip(tree_leaves(states["plain"]), tree_leaves(states["dp"]))
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"DP step: the exact DP step differs from the plain step at {differ}")
+        check_launches("DP step (exact)", launches["dp"], expected_train_launches(cfg, batch, seq, n), device)
+        if launches["dp"] != launches["plain"]:
+            raise AssertionError(f"DP step: launches {launches['dp']} != the plain step's {launches['plain']}")
+        say(f"[dp] {cfg.name} in a {backend} group of one rank, {n} steps of {batch} x {seq}: the exact DP step "
+            f"equals make_train_step bit for bit ({len(tree_leaves(states['dp']))} leaves of params and AdamW "
+            f"state, under torch.use_deterministic_algorithms) | launches {launches['dp']}")
+
+        ms = {"plain": [], "dp": []}
+        rest = iter(batches[n:])
+        for name in ("plain", "dp", "dp", "plain"):  # in turns
+            step = plain if name == "plain" else exact
+            for _ in range(timed // 2):
+                sync(device)
+                t = time.perf_counter()
+                states[name], metrics = step(states[name], next(rest))
+                float(metrics["loss"])
+                ms[name].append((time.perf_counter() - t) * 1e3)
+        say(f"[dp] step ms (host clock to the loss, {timed} steps each in turns plain, dp, dp, plain): DP exact "
+            f"median {np.median(ms['dp']):.3f} (min {min(ms['dp']):.3f}) against the plain step's median "
+            f"{np.median(ms['plain']):.3f} (min {min(ms['plain']):.3f})")
+
+        state = init_dp_state(model, opt, torch.Generator(device=device).manual_seed(0), device, compress=True)
+        step = make_dp_train_step(model, opt, groups, compress=True)
+        losses = []
+        for b in batches[:n]:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        carry = max(float(t.abs().max()) for _, t in tree_leaves(state["ef"]))
+        if not all(math.isfinite(x) for x in losses) or not carry > 0:
+            raise AssertionError(f"compressed DP step: losses {losses}, largest carry {carry}")
+        say(f"[dp] compressed DP step ({n} steps): losses {[round(x, 4) for x in losses]}, largest carry "
+            f"{carry:.3e}")
+
+        g = {"w": torch.full((4, 64), 0.003, device=device)}
+        e, total = init_ef_state(g), torch.zeros((4, 64), device=device)
+        for _ in range(EF_STEPS):
+            synced, e = ef_compressed_psum(g, e, groups["pod"], 1)
+            total += synced["w"]
+        mean_err = float(((total / EF_STEPS - 0.003).abs() / 0.003).max())
+        if mean_err > 0.02:
+            raise AssertionError(f"error feedback: the mean synced constant is off by {mean_err} (rtol 0.02)")
+
+        # a gradient-like tree whose rows span six decades, on both devices
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal((768, 2048)).astype(np.float32)
+        x *= (10.0 ** rng.integers(-6, 3, (768, 1))).astype(np.float32)
+        cpu_group = torch.distributed.new_group([0], backend="gloo")
+        runs = {}
+        for where, group in ((device, groups["pod"]), (torch.device("cpu"), cpu_group)):
+            g = {"w": torch.from_numpy(x).to(where)}
+            e, payload = init_ef_state(g), []
+            for _ in range(EF_STEPS):
+                payload.append(quant_int8(g["w"] + e["w"]))
+                synced, e = ef_compressed_psum(g, e, group, 1)
+            runs[where.type] = [(q.cpu(), s.cpu()) for q, s in payload], e["w"].cpu(), synced["w"].cpu()
+        (pay_a, e_a, s_a), (pay_b, e_b, s_b) = runs[device.type], runs["cpu"]
+        differ = [f"{what} at sync {i}" for i, ((qa, sa), (qb, sb)) in enumerate(zip(pay_a, pay_b))
+                  for what, a, b in (("int8 payload", qa, qb), ("scales", sa, sb)) if not torch.equal(a, b)]
+        differ += [what for what, a, b in (("carry", e_a, e_b), ("synced mean", s_a, s_b)) if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"error feedback: the card differs from the CPU: {differ[:8]}")
+        say(f"[dp] error feedback: a constant 0.003 through {EF_STEPS} syncs, mean off by {mean_err:.2e} "
+            f"(rtol 0.02); {EF_STEPS} syncs of a 768 x 2048 tree (rows over six decades): int8 payload, "
+            f"scales, carry and synced mean on {device_name(device)} equal the CPU's bit for bit")
+    finally:
+        torch.distributed.destroy_process_group()
+    del states, batches
+    free(device)
+    say(f"[dp] leg took {time.perf_counter() - t0:.1f}s")
+    return launches["dp"]
+
+
+def eco_path(device, full: bool) -> None:
+    """Eco-preemption through the launcher plugin, in subprocesses with an
+    empty NBI-Slurm config (the default peak and eco windows): a run started
+    at the first instant of peak hours stops after one step with
+    "eco-preempt", saves step 1 and prints the next eco window's --begin; the
+    rerun without the flag resumes to N steps, bitwise equal to N straight
+    steps (the rerun and the straight run in this process)."""
+    _, (batch, seq, n) = TRAIN_RUN[full]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = Path(tmp) / "nbislurm.config"
+        config.write_text("")
+        env = {**os.environ, "NBISLURM_CONFIG": str(config),
+               "PYTHONPATH": str(PLUGIN.parent.parent / "src")}
+        ckpt, straight = Path(tmp) / "eco", Path(tmp) / "straight"
+        argv = ["--steps", n, "--global-batch", batch, "--seq", seq, "--log-every", 1]
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", DETERMINISTIC_RUN, str(PLUGIN), "train", "--arch", TRAIN_ARCH,
+                              "--device", device.type, *map(str, argv), "--ckpt-dir", str(ckpt),
+                              *([] if full else ["--smoke"]), "--eco-preempt", "--now", ECO_PEAK_START],
+                             env=env, capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            raise AssertionError(f"eco leg: the plugin exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+                                 f"{out.stderr[-3000:]}")
+        say(f"[eco] the plugin's process: {time.perf_counter() - t:.1f}s")
+        log = out.stdout
+        begins = [line.split("--begin=", 1)[1].strip() for line in log.splitlines() if "--begin=" in line]
+        manager = CheckpointManager(ckpt)
+        stopped = json.loads((manager.step_dir(1) / "MANIFEST.json").read_text())["extra"].get("stopped") \
+            if manager.all_steps() == [1] else None
+        if "[train] step 1/" not in log or "[train] step 2/" in log or stopped != "eco-preempt" \
+                or begins != [ECO_BEGIN]:
+            raise AssertionError(f"eco leg: expected one step, stopped 'eco-preempt', --begin={ECO_BEGIN}; got "
+                                 f"steps {manager.all_steps()}, stopped {stopped!r}, begins {begins}:\n{log}")
+        say(f"[eco] started at {ECO_PEAK_START} (peak) through {PLUGIN.name}: stopped after step 1 with "
+            f"'{stopped}', saved step 1, resubmit with --begin={begins[0]}")
+        with deterministic(device):
+            rerun = train(train_args(device, full, *argv, "--ckpt-dir", ckpt))
+            train(train_args(device, full, *argv, "--ckpt-dir", straight))
+        if rerun["completed_steps"] != n or len(rerun["metrics"]) != n - 1 or manager.latest_step() != n:
+            raise AssertionError(f"eco leg: the rerun did not resume from step 1 to {n}: {rerun}")
+        a, b = manager.step_dir(n), CheckpointManager(straight).step_dir(n)
+        manifests = [json.loads((d / "MANIFEST.json").read_text()) for d in (a, b)]
+        differ = [r["keypath"] for r in manifests[0]["leaves"]
+                  if not filecmp.cmp(a / r["file"], b / r["file"], shallow=False)]
+        if manifests[0]["leaves"] != manifests[1]["leaves"] or differ:
+            raise AssertionError(f"eco leg: the resumed run differs from {n} straight steps at {differ}")
+    say(f"[eco] 1 step, eco-preempt, resume to {n} == {n} straight steps, "
+        f"{len(manifests[0]['leaves'])} leaves identical byte for byte; leg took {time.perf_counter() - t0:.1f}s")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1766,6 +1971,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse-cpu", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     full = not args.rehearse_cpu
+    t_script = time.perf_counter()
 
     if full:
         if not torch.cuda.is_available():
@@ -1777,7 +1983,8 @@ def main(argv=None) -> int:
         smi = nvidia_smi_line()
         say(f"[device] {smi}")
         say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | "
-            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
+            f"{torch.cuda.get_device_properties(0).total_memory} bytes of device memory")
         t0 = time.perf_counter()
         lib = _build.library_path()
         say(f"[build] {lib.name} in {time.perf_counter() - t0:.2f}s")
@@ -1843,7 +2050,10 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         by_path[f"train {arch}"] = family_train_path(arch, device, full)
         say(f"[train] {arch} phase took {time.perf_counter() - t1:.1f}s")
+    by_path[f"train dp {TRAIN_ARCH}"] = dp_path(device, full)
+    eco_path(device, full)
     say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")
+    say(f"[time] chip_smoke.py took {time.perf_counter() - t_script:.1f}s")
 
     kernels = [
         {"name": name, **KERNEL_INFO[name], "launches": sum(n[name] for n in by_path.values()),

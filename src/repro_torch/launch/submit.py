@@ -1,0 +1,215 @@
+"""GPU sizing and job commands for the port (the port of
+``repro.launch.submit``'s ``TrainLauncher`` / ``ServeLauncher`` arithmetic).
+
+The paper's Kraken2 wrapper measures its database at submission time and
+inflates the memory request. The same is done here from the model config and
+the port's own numerics on an NVIDIA H100 80GB HBM3: bytes a GPU (weights,
+gradients, the optimizer's state and its update's transients, activations
+and logits), the GPUs and hosts of the job, host memory and a wall time, and
+the command each task runs. The data-parallel step replicates the model, so
+one GPU must hold it: a config that does not fit is refused (sharding it over
+GPUs is ROADMAP M17), never submitted to run out of memory.
+
+Plain functions of the config, importing nothing of ``repro``: the launcher
+plugin ``launchers/torch_h100.py`` wraps them for ``nbilaunch``.
+"""
+
+from __future__ import annotations
+
+import math
+import shlex
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models.common import tree_leaves, torch_dtype
+from repro_torch.models.registry import build_model
+
+from .distributed import multinode_sbatch
+
+# Bytes a job's peak may reach on one GPU: the NVIDIA H100 80GB HBM3's
+# nominal 80 GB. recurrentgemma-2b's 26-layer train step ran out of memory
+# there with 74.2 GiB (79.7e9 bytes) allocated (chip_smoke.py phase 5, PERF.md).
+GPU_MEMORY_BYTES = 80e9
+GPUS_PER_HOST = 8
+# host memory: the reference's rule (48 GB an accelerator plus the paper's
+# fixed 100 GB overhead)
+HOST_RAM_PER_GPU_GB = 48
+FIXED_OVERHEAD_GB = 100
+# NVIDIA's data-sheet peaks of an H100 SXM at 700 W, dense: bf16 on the
+# tensor cores, f32 outside them (the port's f32 GEMMs run without TF32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Train throughput measured by chip_smoke.py phase 5 on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (the lowest tok/s of each path's runs in PERF.md
+# section 5): arch, layers (None: all), tok/s. MFU = 6 * active parameters *
+# tok/s / the config dtype's peak: nbi-100m 30.0%, deepseek-moe-16b 9.1%,
+# recurrentgemma-2b 8.8%, rwkv6-7b 4.2%.
+MEASURED_TRAIN = [("nbi-100m", None, 30401.0), ("deepseek-moe-16b", 4, 19633.8),
+                  ("rwkv6-7b", 8, 2989.1), ("recurrentgemma-2b", 14, 8337.9)]
+
+# AdamW's peak, per parameter: old and new weights, two f32 gradient trees
+# (the cast and the clipped one) and old and new moments (PERF.md section 6:
+# about 28 bytes in bf16); the 8-bit moments are 1 byte each, Lion has
+# one f32 moment
+_STATE_BYTES = {"adamw": 8, "adamw8bit": 2, "lion": 4}
+# Calibrated on chip_smoke.py phase 5's peaks (NVIDIA H100 80GB HBM3, 700.00 W,
+# PERF.md section 5: nbi-100m 8 x 512 7242.3 MiB, deepseek-moe-16b 4 layers
+# 4 x 2048 68238.4, rwkv6-7b 8 layers 65978.2, recurrentgemma-2b 14 layers
+# 2 x 2048 53743.5; the model gives 0.98 to 1.01 of each): the update's f32
+# temporaries of the largest leaf, f32 logits copies a token (logits, their
+# softmax terms and gradient), and the f32 activations a layer keeps a token
+# in units of (D, d_ff) under remat "none", or that one layer's recompute
+# holds under remat "full" (which keeps each layer's input besides)
+_UPDATE_TEMPS = 3
+_LOGIT_COPIES = 5
+_LAYER_ACTS = (10, 4)
+
+
+class DoesNotFit(ValueError):
+    """The job's peak does not fit one GPU."""
+
+
+def _model(cfg):
+    """(model, parameters, weight bytes, largest leaf's parameters)."""
+    model = build_model(cfg)
+    defs = [d for _, d in tree_leaves(model.param_defs)]
+    sizes = [math.prod(d.shape) for d in defs]
+    return model, sum(sizes), sum(n * d.dtype.itemsize for n, d in zip(sizes, defs)), max(sizes)
+
+
+def _act_bytes(cfg) -> int:
+    return torch_dtype(cfg.dtype).itemsize
+
+
+def train_memory_model(cfg, batch: int, seq: int) -> int:
+    """Peak bytes on one GPU of a train step of ``batch`` x ``seq`` tokens on
+    one GPU: the larger of the optimizer update's peak and the backward's
+    (weights, moments, gradients, activations and logits)."""
+    model, params, weights, largest = _model(cfg)
+    state = _STATE_BYTES.get(cfg.optimizer, 8)
+    update = 2 * weights + 8 * params + 2 * state * params + 4 * _UPDATE_TEMPS * largest
+    tokens = batch * seq // max(1, cfg.microbatch)
+    layer = tokens * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * cfg.d_ff) * 4
+    if cfg.remat == "none":
+        acts = cfg.n_layers * layer
+    else:
+        acts = cfg.n_layers * tokens * cfg.d_model * _act_bytes(cfg) + layer
+    logits = tokens * model.cfg.vocab_size * 4 * _LOGIT_COPIES
+    backward = 2 * weights + state * params + acts + logits
+    return int(max(update, backward))
+
+
+def serve_memory_model(cfg, batch: int, max_seq: int) -> int:
+    """Peak bytes on one GPU of serving ``batch`` requests of up to
+    ``max_seq`` tokens: the weights, the cache (its exact layout) and a
+    prefill's working set and last logits. Against kimi-k2-1t-a32b's measured
+    serving peak (2 of 61 layers, 8 x 1056 tokens, 42852.0 MiB on an NVIDIA
+    H100 80GB HBM3 at 700.00 W, PERF.md section 5) it gives 40499 MiB."""
+    model, _, weights, _ = _model(cfg)
+    cache = sum(t.numel() * t.element_size() for _, t in tree_leaves(model.cache_defs_fn(batch, max_seq)))
+    ff = max(cfg.d_ff, cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts))
+    work = batch * max_seq * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * ff) * _act_bytes(cfg)
+    return int(weights + cache + work + batch * model.cfg.vocab_size * 4)
+
+
+def train_mfu_floor() -> float:
+    """The lowest model-FLOP utilisation of :data:`MEASURED_TRAIN`."""
+    def mfu(arch, layers, tok_s):
+        cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=layers) if layers else cfg
+        return 6 * cfg.active_param_count() * tok_s / PEAK_FLOPS[cfg.dtype]
+
+    return min(mfu(*run) for run in MEASURED_TRAIN)
+
+
+def _config(arch: str, smoke: bool):
+    return get_smoke_config(arch) if smoke else get_config(arch)
+
+
+def _fits(what: str, need: int, device: str) -> None:
+    if device == "cuda" and need > GPU_MEMORY_BYTES:
+        raise DoesNotFit(
+            f"{what} needs {need / 1e9:.1f} GB on one GPU, more than an H100's {GPU_MEMORY_BYTES / 1e9:.0f} GB: "
+            "the data-parallel step replicates the model on every GPU; sharding it over GPUs is ROADMAP M17")
+
+
+def _placement(gpus: int, device: str) -> dict:
+    if gpus < 1:
+        raise ValueError(f"gpus must be at least 1, got {gpus}")
+    if device != "cuda":  # one process on the CPU
+        return {"gpus": 0, "hosts": 1, "gpus_per_host": 0, "tasks": 1, "gres": "",
+                "host_mem_gb": FIXED_OVERHEAD_GB}
+    hosts = math.ceil(gpus / GPUS_PER_HOST)
+    if gpus % hosts:
+        raise ValueError(f"{gpus} GPUs do not spread evenly over {hosts} hosts of {GPUS_PER_HOST}")
+    per_host = gpus // hosts
+    return {"gpus": gpus, "hosts": hosts, "gpus_per_host": per_host, "tasks": gpus, "gres": f"gpu:h100:{per_host}",
+            "host_mem_gb": HOST_RAM_PER_GPU_GB * per_host + FIXED_OVERHEAD_GB}
+
+
+def size_train(arch: str, *, global_batch: int, seq: int, steps: int, gpus: int = 1, smoke: bool = False,
+               device: str = "cuda") -> dict:
+    """GPUs, hosts, gres, host memory, bytes a GPU and wall time of a train
+    job: one task a GPU, each on ``global_batch / gpus`` rows. Raises
+    :class:`DoesNotFit` when one GPU cannot hold its step."""
+    cfg = _config(arch, smoke)
+    if cfg.family == "encdec":
+        raise ValueError(f"{arch}: the train launcher's data pipeline makes no audio frames (as the reference's)")
+    sizing = _placement(gpus, device)
+    if global_batch % sizing["tasks"]:
+        raise ValueError(f"global batch {global_batch} does not split over {sizing['tasks']} tasks")
+    need = train_memory_model(cfg, global_batch // sizing["tasks"], seq)
+    _fits(f"training {arch} on {global_batch // sizing['tasks']} x {seq} tokens a GPU", need, device)
+    # wall time: 6 N D at the lowest MFU the card has shown, twice, plus ten minutes
+    flops = 6 * cfg.active_param_count() * steps * global_batch * seq
+    secs = flops / (max(1, sizing["gpus"]) * PEAK_FLOPS[cfg.dtype] * train_mfu_floor())
+    return {**sizing, "bytes_per_gpu": need, "time_s": int(secs * 2) + 600}
+
+
+def size_serve(arch: str, *, batch: int, max_seq: int, smoke: bool = False, device: str = "cuda") -> dict:
+    """One GPU (one task) of a serve job; raises :class:`DoesNotFit`."""
+    cfg = _config(arch, smoke)
+    need = serve_memory_model(cfg, batch, max_seq)
+    _fits(f"serving {arch} at batch {batch} x {max_seq} tokens", need, device)
+    return {**_placement(1, device), "bytes_per_gpu": need}
+
+
+def _python(*words) -> str:
+    return shlex.join(["python", *map(str, words)])
+
+
+def train_command(arch: str, *, steps: int, global_batch: int, seq: int, ckpt_dir: str, smoke: bool = False,
+                  device: str = "cuda", tasks: int = 1, eco_preempt: bool = False, plugin: str = "") -> str:
+    """The job's command: ``python -m repro_torch.launch.train ...``, or the
+    plugin's ``python <plugin> train ... --eco-preempt`` (the port does not
+    import the eco scheduler); under ``srun`` with more than one task."""
+    args = ["--arch", arch, "--steps", steps, "--global-batch", global_batch, "--seq", seq, "--ckpt-dir", ckpt_dir]
+    if smoke:
+        args.append("--smoke")
+    if device != "cuda":
+        args += ["--device", device]
+    if eco_preempt:
+        if not plugin:
+            raise ValueError("--eco-preempt runs through the launcher plugin: name its file")
+        cmd = _python(plugin, "train", *args, "--eco-preempt")
+    else:
+        cmd = _python("-m", "repro_torch.launch.train", *args)
+    return f"srun --kill-on-bad-exit=1 {cmd}" if tasks > 1 else cmd
+
+
+def serve_command(arch: str, *, batch: int, prompt_len: int, gen_len: int, smoke: bool = False,
+                  device: str = "cuda") -> str:
+    args = ["--arch", arch, "--batch", batch, "--prompt-len", prompt_len, "--gen-len", gen_len]
+    if smoke:
+        args.append("--smoke")
+    if device != "cuda":
+        args += ["--device", device]
+    return _python("-m", "repro_torch.launch.serve", *args)
+
+
+def train_sbatch(arch: str, sizing: dict, command: str, *, time: str, mem_mb: int, partition: str = "") -> str:
+    """Standalone sbatch script of a train job (the deploy artifact for big
+    runs): one srun task a GPU on every host."""
+    return multinode_sbatch(
+        job_name=f"train-{arch}", hosts=sizing["hosts"], tasks_per_host=max(1, sizing["gpus_per_host"]),
+        command=command.removeprefix("srun --kill-on-bad-exit=1 "), time=time, partition=partition,
+        gres=sizing["gres"], mem_mb=mem_mb,
+    )

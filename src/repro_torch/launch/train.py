@@ -4,6 +4,8 @@
         --global-batch 16 --seq 512 --ckpt-dir ckpt/nbi100m
     python -m repro_torch.launch.train --arch nbi-100m --smoke --device cpu
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
+    srun python -m repro_torch.launch.train --arch nbi-100m ...   # one task a GPU
+    python launchers/torch_h100.py train --arch nbi-100m ... --eco-preempt
 
 ``--arch`` takes the dense family, MoE (deepseek-moe-16b, kimi-k2-1t-a32b;
 the log adds the router's ``aux_loss``), RWKV-6 and Griffin. Not Whisper: the
@@ -13,18 +15,29 @@ whisper-small trains through ``build_model(cfg).loss_fn`` and
 
 The port of ``repro.launch.train``: config → model → optimizer (the config's,
 with ``cosine_warmup``) → data pipeline → train step → checkpoint manager, on
-one device (``cuda`` unless ``--device cpu``), with:
+one device (``cuda`` unless ``--device cpu``) or, as a multi-task SLURM job,
+on one GPU a task, with:
+
+* **data parallelism** — under ``srun`` with more than one task, ``train``
+  joins the process group first (:func:`repro_torch.launch.distributed.
+  maybe_initialize`), each rank reads its shard of every global batch, and
+  the step averages the gradients over the ranks exactly
+  (:func:`repro_torch.training.make_dp_train_step` with ``compress=False``,
+  the average the reference's GSPMD step computes); rank 0 writes the
+  checkpoints and every rank restores them;
 
 * **restart safety** — on start, the latest checkpoint (weights, optimizer
   state, step, data cursor) is restored if present; SIGTERM/SIGINT triggers a
   final synchronous save, so preemption loses at most the steps since the
   last periodic (asynchronous) save;
-* **eco-preemption** — ``train(args, eco=...)`` takes a scheduler with
-  ``next_peak_start(now)`` and ``begin_directive(duration_s, now)`` (the
-  reference's ``EcoScheduler`` has both): the loop checkpoints and exits at
-  the next peak-hours boundary and returns the ``--begin`` directive for the
-  next eco window. The CLI flag ``--eco-preempt`` comes with the scheduler
-  glue (ROADMAP M10); the port imports nothing of ``repro``;
+* **eco-preemption** — with ``--eco-preempt`` the loop checkpoints and exits
+  at the next peak-hours boundary and prints the ``--begin`` directive for
+  the next eco window. The scheduler is an object with
+  ``next_peak_start(now)`` and ``begin_directive(duration_s, now)``, handed
+  in as ``main(argv, eco=...)`` or ``train(args, eco=...)``: the port imports
+  nothing of ``repro``, so the launcher plugin ``launchers/torch_h100.py``
+  builds the reference's ``EcoScheduler`` and passes it. The flag without a
+  scheduler is an error, never ignored;
 * **throughput accounting** — tokens/s in the log.
 """
 
@@ -36,6 +49,7 @@ import time
 from datetime import datetime, timedelta
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
@@ -43,7 +57,13 @@ from repro_torch.data import make_train_loader
 from repro_torch.models.common import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.optim import cosine_warmup, make_optimizer
-from repro_torch.training import init_train_state, make_train_step
+from repro_torch.training import init_train_state, make_dp_train_step, make_train_step
+
+from .distributed import dp_groups, maybe_initialize
+
+NO_SCHEDULER = ("--eco-preempt needs the eco scheduler, which the port does not import: run through the "
+                "launcher plugin (python launchers/torch_h100.py train ... --eco-preempt, or nbilaunch "
+                "--launcher-dir launchers torch-train ... eco_preempt=1)")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -62,6 +82,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--host-index", type=int, default=0)
     ap.add_argument("--host-count", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--eco-preempt", action="store_true",
+                    help="checkpoint + exit at the next peak-hours boundary (needs the launcher plugin)")
     ap.add_argument("--now", default=None, help=argparse.SUPPRESS)  # tests
     return ap
 
@@ -70,11 +92,21 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
     """Run ``args.steps`` steps (from the latest checkpoint, if any). Returns
     ``{"completed_steps", "stopped", "metrics", "final_loss"}`` and, after an
     eco-preemption, ``"resubmit_begin"``."""
+    if args.eco_preempt and eco is None:
+        raise ValueError(NO_SCHEDULER)
     device = resolve_device(args.device)
+    # under a multi-task SLURM job, join the process group and take this
+    # rank's data shard; a no-op in single-process runs
+    rank, world = maybe_initialize(device)
+    if world > 1 and args.host_count == 1:
+        args.host_index, args.host_count = rank, world
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     optimizer = make_optimizer(cfg.optimizer, lr=cosine_warmup(args.lr, args.warmup, max(args.steps, 1)))
-    step_fn = make_train_step(model, optimizer)
+    if world > 1:
+        step_fn = make_dp_train_step(model, optimizer, dp_groups(), compress=False)
+    else:
+        step_fn = make_train_step(model, optimizer)
 
     # ---- state: fresh init or checkpoint restore --------------------------
     manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
@@ -141,16 +173,17 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
                     f"acc={m.get('accuracy', 0):.3f}{aux} tok/s={m['tokens_per_s']:.0f}",
                     flush=True,
                 )
-            if manager and (step + 1) % args.ckpt_every == 0:
+            if manager and rank == 0 and (step + 1) % args.ckpt_every == 0:
                 manager.save(
                     step + 1, state,
                     extra={"data_cursor": loader.state_dict()["cursor"], "arch": args.arch},
                     blocking=False,
                 )
-            if stop["reason"]:
-                break
-            if eco_deadline and clock() >= eco_deadline:
+            if not stop["reason"] and eco_deadline and clock() >= eco_deadline:
                 stop["reason"] = "eco-preempt"
+            if world > 1:  # every rank stops after the same step
+                stop["reason"] = _agree_stop(stop["reason"], device)
+            if stop["reason"]:
                 break
     finally:
         for s, h in old_handlers.items():
@@ -163,7 +196,7 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
         "metrics": metrics_hist,
         "final_loss": metrics_hist[-1]["loss"] if metrics_hist else None,
     }
-    if manager and (stop["reason"] or args.steps > start_step):
+    if manager and rank == 0 and (stop["reason"] or args.steps > start_step):
         manager.save(
             steps_done, state,
             extra={"data_cursor": loader.state_dict()["cursor"], "arch": args.arch,
@@ -177,9 +210,24 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
     return result
 
 
-def main(argv=None) -> int:
-    args = build_argparser().parse_args(argv)
-    result = train(args)
+def _agree_stop(reason, device):
+    """The stop decision of every rank: any rank's reason stops them all."""
+    flag = torch.tensor([0 if reason is None else 1 if reason == "eco-preempt" else 2], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    code = int(flag)
+    if code == 0:
+        return None
+    return reason or ("eco-preempt" if code == 1 else "signal on another rank")
+
+
+def main(argv=None, *, eco=None) -> int:
+    """The CLI. ``eco`` is the scheduler ``--eco-preempt`` uses (the launcher
+    plugin passes the reference's ``EcoScheduler``)."""
+    ap = build_argparser()
+    args = ap.parse_args(argv)
+    if args.eco_preempt and eco is None:
+        ap.error(NO_SCHEDULER)
+    result = train(args, eco=eco if args.eco_preempt else None)
     if result["final_loss"] is not None:
         print(f"[train] done: steps={result['completed_steps']} final_loss={result['final_loss']:.4f}")
     return 0

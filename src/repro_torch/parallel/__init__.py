@@ -1,0 +1,6 @@
+"""Parallelism of the port (the port of :mod:`repro.parallel`): the int8
+error-feedback compression of the data-parallel step's inter-node leg."""
+
+from .compression import dequant_int8, ef_compressed_psum, init_ef_state, quant_int8, wire_bytes_per_param
+
+__all__ = ["dequant_int8", "ef_compressed_psum", "init_ef_state", "quant_int8", "wire_bytes_per_param"]

@@ -34,11 +34,11 @@ def init_train_state(model: Model, optimizer: Optimizer, generator: torch.Genera
     }
 
 
-def make_train_step(model: Model, optimizer: Optimizer):
-    """``train_step(state, batch) → (new_state, metrics)``; batch is a dict of
-    (B, ...) tensors on the state's device. Metrics are 0-dim tensors (no
-    host sync): the loss function's, ``loss`` and ``grad_norm``, the norm of
-    the unclipped f32 gradients."""
+def make_grad_fn(model: Model):
+    """``grads(params, batch) → (loss, metrics, f32 grads)``: the loss and its
+    gradient by autograd, over ``cfg.microbatch`` microbatches (summed in
+    f32, then divided) when it is above 1. Shared by :func:`make_train_step`
+    and the data-parallel step."""
     mb = max(1, model.cfg.microbatch)
 
     def value_and_grad(params, batch):
@@ -50,25 +50,35 @@ def make_train_step(model: Model, optimizer: Optimizer):
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(params, grads)
 
-    def train_step(state, batch):
-        params = state["params"]
+    def grads_fn(params, batch):
         if mb == 1:
             loss, metrics, grads = value_and_grad(params, batch)
-            grads = map_defs(lambda g: g.float(), grads)
-        else:
-            micro = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:]) for k, x in batch.items()}
-            gsum = map_defs(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0][1].device)
-            ms = []
-            for i in range(mb):
-                l, m, g = value_and_grad(params, {k: x[i] for k, x in micro.items()})
-                gsum = map_defs(lambda a, b: a + b.float(), gsum, g)
-                lsum = lsum + l
-                ms.append(m)
-            grads = map_defs(lambda g: g / mb, gsum)
-            loss = lsum / mb
-            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+            return loss, metrics, map_defs(lambda g: g.float(), grads)
+        micro = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:]) for k, x in batch.items()}
+        gsum = map_defs(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        lsum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0][1].device)
+        ms = []
+        for i in range(mb):
+            l, m, g = value_and_grad(params, {k: x[i] for k, x in micro.items()})
+            gsum = map_defs(lambda a, b: a + b.float(), gsum, g)
+            lsum = lsum + l
+            ms.append(m)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        return lsum / mb, metrics, map_defs(lambda g: g / mb, gsum)
 
+    return grads_fn
+
+
+def make_train_step(model: Model, optimizer: Optimizer):
+    """``train_step(state, batch) → (new_state, metrics)``; batch is a dict of
+    (B, ...) tensors on the state's device. Metrics are 0-dim tensors (no
+    host sync): the loss function's, ``loss`` and ``grad_norm``, the norm of
+    the unclipped f32 gradients."""
+    grads_fn = make_grad_fn(model)
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, metrics, grads = grads_fn(params, batch)
         new_params, new_opt = optimizer.update(grads, state["opt"], params)
         metrics = dict(metrics)
         metrics.update({"loss": loss, "grad_norm": global_norm(grads)})

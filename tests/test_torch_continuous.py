@@ -148,10 +148,11 @@ def test_capacity_guard():
                                            ("nbi-100m", "flash_attention_tf32")])
 def test_chip_smoke_counts_continuous_launches(arch, counter):
     """``chip_smoke.py``'s exact counts for continuous batching with f32
-    activations at full depth: each one-row insert's L attentions on the
-    3xTF32 kernel of the arch's heads ((128, 128) for codeqwen1.5-7b: 32 an
-    insert), none on the FMA kernel, and a pass's norms an insert and a
-    decode step."""
+    activations at full width and the path's depth (full, or
+    ``REDUCED_DEPTH``'s: minicpm3-4b 16 of 62 layers): each one-row insert's
+    L attentions on the 3xTF32 kernel of the arch's heads ((128, 128) for
+    codeqwen1.5-7b: 32 an insert), none on the FMA kernel, and a pass's
+    norms an insert and a decode step."""
     import sys
     from pathlib import Path
 
@@ -164,7 +165,7 @@ def test_chip_smoke_counts_continuous_launches(arch, counter):
     finally:
         sys.path.remove(root)
     cfg = chip_smoke.path_config(arch, True).replace(dtype="float32")
-    assert cfg.n_layers == get_config(arch).n_layers
+    assert cfg.n_layers == chip_smoke.REDUCED_DEPTH.get(arch, get_config(arch).n_layers)
     assert chip_smoke.attention_counter(cfg) == counter
     want = chip_smoke.dense_launches(cfg, prefills=16, decode_steps=64)
     norms = (4 if cfg.attention == "mla" else 2) * cfg.n_layers + 1

@@ -566,12 +566,13 @@ def test_train_cli_runs_on_the_cpu_and_refuses_cuda_without_a_card(nano, capsys)
 
 
 def test_train_driver_flags_are_the_references():
-    """The port's driver takes the reference's flags, less ``--eco-preempt``
-    (wired with the scheduler glue) and plus ``--device``."""
+    """The port's driver takes the reference's flags, ``--eco-preempt``
+    included (its scheduler comes from the launcher plugin), plus
+    ``--device``."""
     from repro.launch.train import build_argparser as jax_argparser
     from repro_torch.launch.train import build_argparser
 
     ref_flags = {a.dest for a in jax_argparser()._actions}
     port_flags = {a.dest for a in build_argparser()._actions}
-    assert ref_flags - port_flags == {"eco_preempt"}
+    assert ref_flags - port_flags == set()
     assert port_flags - ref_flags == {"device"}
