@@ -50,7 +50,7 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    codeqwen1.5-7b at full width and depth, with f32 activations: exact
    launches per insert and decode step (each insert's attentions through the
    f32 tensor-core (3xTF32) kernel of its heads: the MLA kernel at (96, 64),
-   the d 64 kernel, the d 128 kernel; none through the FMA kernel), every chosen
+   the d 64 kernel, the d 128 kernel; none through the other f32 kernels), every chosen
    token within 1e-3 of the max logit of a full forward over its request,
    and decode steps against the static bound; then inserts into the live
    cache beside a slot part-way through its generation, with the same
@@ -176,14 +176,9 @@ LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: dict(atol=
 WKV_TOL = {torch.float32: dict(atol=5e-4, rtol=1e-3), torch.bfloat16: dict(atol=0.05, rtol=2**-7)}
 
 KERNEL_INFO = {
-    # K1 has six kernels: f32 on the FMA units (the f32 head-dim pairs other
-    # than (64, 64), (96, 64) and (128, 128)), bf16 on the tensor cores, bf16
-    # at (96, 64), and f32 at (64, 64), at (96, 64) and at (128, 128) on the
-    # tensor cores as 3xTF32
-    "flash_attention": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:111",
-    ),
+    # K1 has eight kernels: bf16 on the tensor cores, bf16 at (96, 64), and
+    # f32 on the tensor cores as 3xTF32 at (64, 64), (96, 64), (128, 128),
+    # (128, 64), (64, 128) and (256, 256), the last a cluster of two blocks
     "flash_attention_bf16": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
@@ -202,8 +197,22 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
-    # the f32 (3xTF32) kernel at (d, dv) = (128, 128), 16-key tiles
+    # the f32 (3xTF32) kernels whose K and V come split, 16-key tiles:
+    # (128, 128), (128, 64), (64, 128), and (256, 256) on a cluster of two
+    # blocks that split the head dims
     "flash_attention_tf32_d128": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    "flash_attention_tf32_d128_dv64": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    "flash_attention_tf32_d64_dv128": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:111",
+    ),
+    "flash_attention_tf32_d256": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:111",
     ),
@@ -225,27 +234,34 @@ KERNEL_INFO = {
     ),
 }
 # kernel: (wrapper module, its launch counter)
-COUNTERS = {"flash_attention": (fa_kernel, "launches"), "flash_attention_bf16": (fa_kernel, "bf16_launches"),
+COUNTERS = {"flash_attention_bf16": (fa_kernel, "bf16_launches"),
             "flash_attention_bf16_mla": (fa_kernel, "bf16_mla_launches"),
             "flash_attention_tf32": (fa_kernel, "tf32_launches"),
             "flash_attention_tf32_mla": (fa_kernel, "tf32_mla_launches"),
-            "flash_attention_tf32_d128": (fa_kernel, "tf32_d128_launches"), "rmsnorm": (rn_kernel, "launches"),
+            "flash_attention_tf32_d128": (fa_kernel, "tf32_d128_launches"),
+            "flash_attention_tf32_d128_dv64": (fa_kernel, "tf32_d128_dv64_launches"),
+            "flash_attention_tf32_d64_dv128": (fa_kernel, "tf32_d64_dv128_launches"),
+            "flash_attention_tf32_d256": (fa_kernel, "tf32_d256_launches"), "rmsnorm": (rn_kernel, "launches"),
             "rmsnorm_generic": (rn_kernel, "generic_launches"),
             "lru_scan": (lru_kernel, "launches"), "wkv6": (wkv_kernel, "launches"),
             "moe_gating": (gating_kernel, "launches"), "moe_gating_slots": (gating_kernel, "slots_launches")}
 # the phase-3 case whose numbers stand for each attention kernel in the JSON
-# line: a shape a main path gives it (the FMA kernel, on no main path: f32 at
-# Griffin's d 256)
-ATTN_JSON_CASE = {"flash_attention": "d256_f32", "flash_attention_bf16": "deepseek_prefill",
+# line: a shape a main path gives it (the kernels on no main path: f32 at
+# Griffin's d 256, and the mixed pairs at 2 x 16 heads x 1024, causal)
+ATTN_JSON_CASE = {"flash_attention_bf16": "deepseek_prefill",
                   "flash_attention_bf16_mla": "mla_prefill", "flash_attention_tf32": "nbi100m_prefill",
-                  "flash_attention_tf32_mla": "mla_f32_insert", "flash_attention_tf32_d128": "codeqwen_f32_insert"}
+                  "flash_attention_tf32_mla": "mla_f32_insert", "flash_attention_tf32_d128": "codeqwen_f32_insert",
+                  "flash_attention_tf32_d128_dv64": "f32_d128_dv64", "flash_attention_tf32_d64_dv128": "f32_d64_dv128",
+                  "flash_attention_tf32_d256": "d256_f32"}
 # a part of each kernel's name as the profiler shows it; a kernel goes to the
 # first name it matches
-TRACE_NAMES = {"flash_attention": "flash_attn_f32_kernel",
-               "flash_attention_bf16_mla": "flash_attn_bf16_mla_kernel",
+TRACE_NAMES = {"flash_attention_bf16_mla": "flash_attn_bf16_mla_kernel",
                "flash_attention_bf16": "flash_attn_bf16_kernel",
                "flash_attention_tf32_mla": "flash_attn_tf32_mla_kernel",
                "flash_attention_tf32_d128": "flash_attn_tf32_d128_kernel",
+               "flash_attention_tf32_d128_dv64": "flash_attn_tf32_d128_dv64_kernel",
+               "flash_attention_tf32_d64_dv128": "flash_attn_tf32_d64_dv128_kernel",
+               "flash_attention_tf32_d256": "flash_attn_tf32_d256_kernel",
                "flash_attention_tf32": "flash_attn_tf32_kernel", "rmsnorm": "rmsnorm_",
                "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
 
@@ -358,7 +374,10 @@ def attention_cases(full: bool):
     past a tile), f32 at (128, 128) as codeqwen1.5-7b's inserts of 1000, 512,
     200 and 64 tokens give it (32 heads) and at the 3xTF32 d 128 kernel's
     edges (ragged, a window over its 16-key tiles, the cap, Skv one past two
-    tiles, 32 query heads over 8 KV heads as mistral's), and edges of the bf16 kernel's TMA boxes and 64-key tiles
+    tiles, 32 query heads over 8 KV heads as mistral's), f32 at Griffin's
+    (256, 256) under its window (the 3xTF32 cluster kernel) and at (64, 128)
+    and (128, 64) (2 x 16 heads x 1024, causal; on no main path), and edges of
+    the bf16 kernel's TMA boxes and 64-key tiles
     at full size; last, the shapes the train paths and kimi-k2's serving give
     the bf16 kernel (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
     d 256 under its window at 2 x 2048, kimi-k2's 64 over 8 heads at 8 x
@@ -395,6 +414,8 @@ def attention_cases(full: bool):
             ("codeqwen_f32_skv33", 1, 4, 4, 12, 9, 16, 16, f32, False, 0, 0.0),
             ("codeqwen_f32_gqa", 1, 8, 2, 20, 20, 16, 16, f32, True, 0, 0.0),
             ("d256_f32", 1, 2, 1, 12, 12, 16, 16, f32, True, 4, 0.0),
+            ("f32_d64_dv128", 1, 4, 4, 12, 12, 8, 16, f32, True, 0, 0.0),
+            ("f32_d128_dv64", 1, 4, 4, 12, 12, 16, 8, f32, True, 0, 0.0),
             ("gqa_bf16", 1, 8, 2, 24, 24, 16, 16, bf16, True, 0, 0.0),
             ("ragged", 1, 4, 4, 13, 13, 16, 16, f32, True, 0, 0.0),
             ("window", 1, 4, 4, 24, 24, 16, 16, f32, True, 8, 0.0),
@@ -436,6 +457,8 @@ def attention_cases(full: bool):
         ("codeqwen_f32_skv33", 2, 32, 32, 129, 33, 128, 128, f32, False, 0, 0.0),
         ("codeqwen_f32_gqa", 1, 32, 8, 1000, 1000, 128, 128, f32, True, 0, 0.0),
         ("d256_f32", 2, 10, 1, 1024, 1024, 256, 256, f32, True, 512, 0.0),
+        ("f32_d64_dv128", 2, 16, 16, 1024, 1024, 64, 128, f32, True, 0, 0.0),
+        ("f32_d128_dv64", 2, 16, 16, 1024, 1024, 128, 64, f32, True, 0, 0.0),
         ("gqa_bf16_s2048", 1, 32, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("ragged_s300", 2, 12, 12, 300, 300, 64, 64, f32, True, 0, 0.0),
         ("window_128", 2, 12, 12, 512, 512, 64, 64, f32, True, 128, 0.0),
@@ -882,17 +905,8 @@ def attention_counter(cfg) -> str:
     prefill attention."""
     d, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.attention == "mla"
              else (cfg.resolved_head_dim,) * 2)
-    # by kernel_kind, not launch_count: chip_variants.py runs this with older
-    # trees' wrappers
-    kind, mla = fa_kernel.kernel_kind(getattr(torch, cfg.dtype), d, dv), (d, dv) == fa_kernel.MLA_HEAD_DIMS
-    if kind == fa_kernel.BF16 and mla:
-        return "flash_attention_bf16_mla"
-    if kind == fa_kernel.F32_TF32 and mla:
-        return "flash_attention_tf32_mla"
-    if kind == fa_kernel.F32_TF32 and (d, dv) == (128, 128):
-        return "flash_attention_tf32_d128"
-    return {fa_kernel.BF16: "flash_attention_bf16", fa_kernel.F32_TF32: "flash_attention_tf32",
-            fa_kernel.F32_SIMT: "flash_attention"}[kind]
+    names = {count: name for name, (module, count) in COUNTERS.items() if module is fa_kernel}
+    return names[fa_kernel.launch_count(getattr(torch, cfg.dtype), d, dv)]
 
 
 def norms_per_pass(cfg) -> int:
@@ -1995,7 +2009,7 @@ def main(argv=None) -> int:
             say(f"[build] ptxas: {line}")
         for dtype in fa_kernel.DTYPES:
             say(f"[build] flash_attention {str(dtype).removeprefix('torch.')} block (rows, keys a tile, stages, "
-                f"dynamic smem, threads): " + ", ".join(
+                f"dynamic smem, threads, blocks a cluster, clusters resident): " + ", ".join(
                     f"d={d} dv={dv}: {tuple(fa_kernel.launch_config(dtype, d, dv).values())}"
                     for d, dv in fa_kernel.HEAD_DIM_PAIRS))
         configs = {(d, dtype): wkv_kernel.launch_config(d, dtype)

@@ -1,4 +1,4 @@
-// Flash attention, forward, for Hopper (sm_90a): six kernels behind one entry.
+// Flash attention, forward, for Hopper (sm_90a): eight kernels behind one entry.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` and its
 // Pallas TPU kernel `_attn_kernel`. Same function: softmax(q k^T * d^-0.5)
@@ -87,8 +87,8 @@
 // What bounds it: operations. At one insert of 1000 tokens (40 heads, causal)
 // the kept pairs need 6.41 GFLOP at the real widths, 19.2 GFLOP as three TF32
 // products: 0.0388 ms at 495 TFLOP/s, against 0.0153 ms for the 51 MB of q, k,
-// v and o at 3.35 TB/s. On the FMA units (`flash_attn_f32_kernel`, this pair's
-// kernel before) the same function took 0.4267 ms against a 0.0956 ms bound.
+// v and o at 3.35 TB/s. On the FMA units (the f32 kernel this file held
+// before) the same function took 0.4267 ms against a 0.0956 ms bound.
 //
 // What d 96 changes (the d 64 layout at d 96 would take 295,992 bytes of
 // shared memory, past the 232,448 a block may opt into):
@@ -153,18 +153,65 @@
 // Measured (PERF.md; H100 80GB HBM3 at 700 W): 0.293 ms at that insert,
 // against 0.533 ms on the FMA units and 0.274 ms for SDPA.
 //
-// f32 at the other pairs: `flash_attn_f32_kernel`, on the FMA units (no
-// served path runs f32 at these widths). One block of 256 threads owns one (b, hq, 64-row
-// query tile) and loops over 64-key tiles; Q (pre-scaled), K, V and P tiles
-// live in shared memory as f32 with padded rows, each thread keeps a 4x4
-// block of scores and a 4 x (dv/16) block of acc in registers, and the four
-// rows of a thread belong to one half-warp, so row max and row sum are warp
-// shuffles. At d 256 its tiles take 213,760 bytes of shared memory.
+// f32 at (128, 64) and (64, 128): `flash_attn_tf32_d128_dv64_kernel` and
+// `flash_attn_tf32_d64_dv128_kernel`, the (128, 128) block at their widths
+// (no served path runs them). K and V come split as at (128, 128), but at
+// 32-key tiles: V^T's rows of 32 keys are 128 bytes, under the 128-byte
+// swizzle in its TMA boxes and descriptors as the in-block split writes them.
+// (128, 64) has one 64-column half of O and two stages (230,440 bytes; three
+// would take 279,608), (64, 128) Q and K of two 32-column panels and three
+// stages (214,072 bytes). At 2 x 16 heads x 1024, causal, the kept pairs need
+// 6.45 GFLOP, 19.4 as three TF32 products: 0.0391 ms at 495 TFLOP/s.
+// Measured (PERF.md; H100 80GB HBM3 at 700 W): 0.16 ms at (64, 128) and 0.18
+// ms at (128, 64) against 0.22 and 0.25 ms at 16-key tiles in three stages,
+// 0.41 and 0.43 ms on the FMA units, and 0.23 and 0.27 ms for SDPA.
+//
+// f32 at (256, 256), Griffin's heads (no served path runs f32 at d 256):
+// `flash_attn_tf32_d256_kernel`, a cluster of two blocks that split the head
+// dims. One block does not fit: at 64 query rows Q and Q_lo take 128 KB and
+// two stages of 16 keys 128 KB more, past the 232,448 bytes a block may opt
+// into. The cluster's two blocks own the same 128 query rows of one (b, hq);
+// block r holds the (128, 128) block's tiles for columns [128 r, 128 r + 128)
+// of Q, K_hi and K_lo and rows [128 r, 128 r + 128) of V^T_hi and V^T_lo,
+// loaded by TMA through the same tensor maps at that offset (V^T's boxes are
+// 128 rows), and writes those columns of O. What the cluster adds:
+// - each consumer warpgroup computes its partial S (64 x 16) over its block's
+//   128 columns exactly as the (128, 128) block does (16 k8 steps a chain, so
+//   the round-toward-zero error stays as it is there) and adds the large and
+//   small parts into one partial;
+// - it stores the partial into the peer block's exchange slot for this
+//   warpgroup and the live tile's parity (mapa + st.shared::cluster, thread
+//   t's 16-byte chunk f at 2048 f + 16 t, so a warp's stores are contiguous),
+//   arrives on the peer's barrier of that slot (mbarrier.arrive.release.cluster,
+//   all 128 threads, so that each thread's stores are released by its own
+//   arrival), waits on its own (try_wait.acquire.cluster) and adds the peer's
+//   partial. f32 addition commutes, so both blocks hold the same bits of S,
+//   then the same m, l, P and rescale votes; each multiplies P by its own 128
+//   columns of V;
+// - the two blocks have the same rows, so each warpgroup has the same live
+//   tiles as its counterpart in the peer, and their trip counts agree. A slot
+//   is written again two live tiles later, and only after the writer has
+//   received its reader's partial for the tile between, which the reader sends
+//   after it has read the slot: no barrier frees a slot, and
+//   tests/test_torch_kernels.py runs this protocol (cluster_consumer_ops,
+//   run_cluster) against a model of the barriers, where one slot a
+//   warpgroup is overwritten before it is read;
+// - a cluster barrier (barrier.cluster arrive and wait, every thread of both
+//   blocks) follows the barriers' set-up, before anything arrives on the
+//   peer's, and ends the kernel, so that no block exits while its peer may
+//   still write its shared memory;
+// - shared memory: Q and Q_lo 128 KB, two stages of K_hi, K_lo, V^T_hi and
+//   V^T_lo (32 KB each), the slots (2 warpgroups x 2 x 4 KB) and the
+//   barriers: 214,088 bytes. Three stages would not fit even beside one slot a
+//   warpgroup (238,664). The launch asks the runtime how many clusters of two
+//   such blocks the card can hold (cudaOccupancyMaxActiveClusters; 66 on an
+//   H100) and returns an error if none.
+// At 2 x 10 heads on one KV head x 1024, causal, window 512, the kept pairs
+// need 8.06 GFLOP, 24.2 as three TF32 products: 0.0488 ms at 495 TFLOP/s.
 //
 // Head dims (d, dv): (64, 64), (128, 128), (64, 128), (128, 64), (256, 256),
 // and (96, 64), MLA's prefill (minicpm3-4b: q and k are 64 nope + 32 rope
-// columns, v 64); f32 at (64, 64), (96, 64) and (128, 128) runs a TF32
-// kernel, f32 at the others ((64, 128), (128, 64), (256, 256)) the FMA kernel.
+// columns, v 64); f32 runs a TF32 kernel at every pair.
 //
 // bf16 at (96, 64): `flash_attn_bf16_mla_kernel`, minicpm3-4b's prefill
 // attention (62 a prefill).
@@ -234,183 +281,12 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
-#include "common.cuh"
-
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 // Codes at and above this are a CUresult from libcuda plus this base
 // (errors.cu prints them); below it they are cudaError_t.
 constexpr int ENCODE_ERROR_BASE = 10000;
-
-// ---------------------------------------------------------------------------
-// f32: SIMT kernel
-// ---------------------------------------------------------------------------
-
-namespace simt {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
-
-template <int D, int DV>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * DV + BQ * (BK + 1));
-}
-
-template <int D, int DV>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
-                      int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][D + 1], pre-scaled
-  float* Ks = Qs + BQ * (D + 1);    // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);    // [BK][DV]
-  float* Ps = Vs + BK * DV;         // [BQ][BK + 1]
-
-  const int q_start = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int tr = tid / 16;  // rows tr*4 .. tr*4+3 of the tile
-  const int tc = tid % 16;  // score columns and output columns tc + 16*j
-
-  const float* qb = q + (static_cast<size_t>(b) * Hq + h) * Sq * D;
-  const float* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
-  const float* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Skv * DV;
-  float* ob = o + (static_cast<size_t>(b) * Hq + h) * Sq * DV;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D, row = q_start + r;
-    Qs[r * (D + 1) + c] = row < Sq ? qb[static_cast<size_t>(row) * D + c] * scale : 0.f;
-  }
-
-  constexpr int NC = DV / 16;
-  float acc[4][NC];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_k = (Skv + BK - 1) / BK;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k_start = kt * BK;
-    // Tile liveness, as in _attn_kernel: causal kills tiles right of the
-    // tile's last row (and every later tile); the window kills tiles left of
-    // its first row's reach. Both tests are uniform over the block.
-    if (causal && k_start > q_start + BQ - 1) break;
-    if (causal && window > 0 && k_start + BK - 1 <= q_start - window) continue;
-
-    __syncthreads();  // the previous tile's K and V are no longer read
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D, row = k_start + r;
-      Ks[r * (D + 1) + c] = row < Skv ? kb[static_cast<size_t>(row) * D + c] : 0.f;
-    }
-    for (int i = tid; i < BK * DV; i += THREADS) {
-      const int r = i / DV, c = i % DV, row = k_start + r;
-      Vs[r * DV + c] = row < Skv ? vb[static_cast<size_t>(row) * DV + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr * 4 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q_start + tr * 4 + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k_start + tc + 16 * j;
-        float x = s[i][j];
-        if (logit_cap > 0.f) x = logit_cap * tanhf(x / logit_cap);
-        bool keep = k_pos < Skv;
-        if (causal) keep = keep && k_pos <= q_pos;
-        if (window > 0) keep = keep && q_pos - k_pos < window;
-        s[i][j] = keep ? x : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = repro::segment_max<16>(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(tr * 4 + i) * (BK + 1) + tc + 16 * j] = p;
-        row_sum += p;
-      }
-      row_sum = repro::segment_sum<16>(row_sum);
-      l[i] = l[i] * corr + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncwarp();  // a row of P is written and read by the same half-warp
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr * 4 + i) * (BK + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = Vs[kk * DV + tc + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
-    __syncwarp();  // P reads finish before the next tile overwrites P
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + tr * 4 + i;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) ob[static_cast<size_t>(row) * DV + tc + 16 * c] = acc[i][c] / denom;
-  }
-}
-
-template <int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-           int Skv, int causal, int window, float logit_cap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, DV>();
-  auto kernel = flash_attn_f32_kernel<D, DV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
-  return cudaGetLastError();
-}
-
-}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, TMA ring, warp-specialised producer
@@ -1178,57 +1054,85 @@ int launch_mla(const void* q, const void* k, const void* v, void* o, int B, int 
 }
 
 // ---------------------------------------------------------------------------
-// f32 on the tensor cores as 3xTF32: (d, dv) = (64, 64), MLA's (96, 64) and
-// (128, 128)
+// f32 on the tensor cores as 3xTF32: every pair, (256, 256) on a cluster
 // ---------------------------------------------------------------------------
 
-constexpr int T_STAGES = 2;        // stages of the ring where the block splits K and V
-constexpr int SPLITTERS = 3;       // producer warps that split K and V
-constexpr int TF32_MLA_BK = 32;    // keys a tile at (96, 64)
-constexpr int TF32_D128_BK = 16;   // keys a tile at (128, 128)
-constexpr int PRESPLIT_STAGES = 3; // stages of the ring at (128, 128), whose K and V come split
-constexpr int SPLIT_KEYS = 32;     // keys a block of the split kernel; V^T's keys are padded to it
+constexpr int T_STAGES = 2;          // stages of the ring where the block splits K and V
+constexpr int SPLITTERS = 3;         // producer warps that split K and V
+constexpr int TF32_MLA_BK = 32;      // keys a tile at (96, 64)
+constexpr int TF32_PRESPLIT_BK = 16; // keys a tile where K and V come split
+constexpr int TF32_MIXED_BK = 32;    // but at (64, 128) and (128, 64), whose 32-key stages fit
+constexpr int PRESPLIT_STAGES = 3;   // stages of the ring where K and V come split, or two where three do not fit
+constexpr int CLUSTER_STAGES = 2;    // stages at (256, 256), beside the cluster's exchange slots
+constexpr int SPLIT_KEYS = 32;       // keys a block of the split kernel; V^T's keys are padded to it
+constexpr size_t MAX_SMEM = 232448;  // the shared memory a Hopper block may opt into
 
-// The f32 pairs of the TF32 kernels, and their keys a tile.
+// The f32 pairs of the TF32 kernels: every pair of the wrapper's HEAD_DIM_PAIRS.
 template <int D, int DV>
 __host__ __device__ constexpr bool tf32_pair() {
-  return (D == 64 && DV == 64) || (D == MLA_D && DV == MLA_DV) || (D == 128 && DV == 128);
+  return (D == 64 && DV == 64) || (D == MLA_D && DV == MLA_DV) || (D == 128 && DV == 128) ||
+         (D == 64 && DV == 128) || (D == 128 && DV == 64) || (D == 256 && DV == 256);
 }
+// The pairs with a head dim of 128 or more read K and V split once per call
+// into global memory by tf32_split_kv_kernel, at 16-key tiles (32 at the
+// mixed pairs); (64, 64) and (96, 64) split each tile in the block.
 template <int D, int DV>
-__host__ __device__ constexpr int tf32_bk() { return D == MLA_D ? TF32_MLA_BK : D == 128 ? TF32_D128_BK : BK; }
-// (128, 128) reads K and V split once per call into global memory by
-// tf32_split_kv_kernel; the other pairs split each tile in the block.
+__host__ __device__ constexpr bool tf32_presplit() { return D >= 128 || DV >= 128; }
 template <int D, int DV>
-__host__ __device__ constexpr bool tf32_presplit() { return D == 128 && DV == 128; }
+__host__ __device__ constexpr int tf32_bk() {
+  if (D == MLA_D) return TF32_MLA_BK;
+  if (D != DV) return TF32_MIXED_BK;
+  return tf32_presplit<D, DV>() ? TF32_PRESPLIT_BK : BK;
+}
+// Blocks of a cluster that split the head dims between them: two at
+// (256, 256), each with the columns of a (128, 128) block.
+template <int D, int DV>
+__host__ __device__ constexpr int tf32_cluster() { return D == 256 ? 2 : 1; }
 
-// The tiles of the TF32 kernel at (D, DV) with TBK keys a tile. A 128-byte
-// swizzled row holds 32 f32 columns, so Q (128 rows), K and V (TBK rows each)
-// are panels of 32 columns, d 96 exactly three; V^T has DV rows, one for each
-// output column, and TBK / 32 panels of keys, or at 16 keys rows of 64 bytes
-// with the 64-byte swizzle (vt_desc).
+// The tiles of the TF32 kernel at (D, DV) with TBK keys a tile. A block holds
+// DL = D / CLUSTER columns of Q and K and DVL = DV / CLUSTER of V and O. A
+// 128-byte swizzled row holds 32 f32 columns, so Q (128 rows), K and V (TBK
+// rows each) are panels of 32 columns, d 96 exactly three; V^T has DVL rows,
+// one for each output column, and TBK / 32 panels of keys, or at 16 keys rows
+// of 64 bytes with the 64-byte swizzle (vt_desc).
 template <int D, int DV, int TBK>
 struct Tf32Tiles {
+  static constexpr int CLUSTER = tf32_cluster<D, DV>();
+  static constexpr int DL = D / CLUSTER, DVL = DV / CLUSTER;
   static constexpr bool PRESPLIT = tf32_presplit<D, DV>();
-  static constexpr int STAGES = PRESPLIT ? PRESPLIT_STAGES : T_STAGES;
   static constexpr uint32_t Q_PANEL = BQ * ROW_BYTES;
   static constexpr uint32_t KV_PANEL = TBK * ROW_BYTES;
-  static constexpr uint32_t Q_BYTES = (D / 32) * Q_PANEL;
-  static constexpr uint32_t K_BYTES = (D / 32) * KV_PANEL;
-  static constexpr uint32_t V_BYTES = (DV / 32) * KV_PANEL;  // V as loaded; V^T_hi and V^T_lo as much
+  static constexpr uint32_t Q_BYTES = (DL / 32) * Q_PANEL;
+  static constexpr uint32_t K_BYTES = (DL / 32) * KV_PANEL;
+  static constexpr uint32_t V_BYTES = (DVL / 32) * KV_PANEL;  // V as loaded; V^T_hi and V^T_lo as much
   // A stage: K_hi (K as loaded, split in place, or loaded split), K_lo, V as
   // loaded (not when it comes split), V^T_hi and V^T_lo; V^T_hi at VT.
   static constexpr uint32_t VT = 2 * K_BYTES + (PRESPLIT ? 0 : V_BYTES);
   static constexpr uint32_t STAGE = VT + 2 * V_BYTES;
   // the bytes TMA brings into a stage
   static constexpr uint32_t LOADED = PRESPLIT ? STAGE : K_BYTES + V_BYTES;
-  // Q as loaded (split in place into Q_hi) and Q_lo, the ring, a barrier for
-  // Q and per stage full, ready (not when K and V come split) and empty, and
-  // slack to align the tiles to the 1024 bytes of a swizzle pattern;
-  // flash_attention.py's dynamic_smem_bytes repeats this sum.
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE + 8 * ((PRESPLIT ? 2 : 3) * STAGES + 1);
-  static_assert(D % 32 == 0 && DV % 64 == 0 && (TBK == 16 || TBK == 32 || TBK == 64),
+  // In a cluster, each consumer warpgroup sends its partial S (64 rows x TBK
+  // keys over the block's DL columns) into one of two slots of the peer
+  // block, by the tile's parity, and receives the peer's in its own.
+  static constexpr uint32_t SLOT = 64 * TBK * 4;
+  static constexpr uint32_t EXCHANGE = CLUSTER > 1 ? CONSUMERS * 2 * SLOT : 0;
+  // Q as loaded (split in place into Q_hi) and Q_lo, the exchange slots, a
+  // barrier for Q and in a cluster one per exchange slot (landed), and slack
+  // to align the tiles to the 1024 bytes of a swizzle pattern; then per stage
+  // its tiles and its barriers full, ready (not when K and V come split) and
+  // empty. The ring has three stages where K and V come split, or two where
+  // three do not fit; flash_attention.py's dynamic_smem_bytes repeats this.
+  static constexpr size_t FIXED = 1024 + 2 * Q_BYTES + EXCHANGE + 8 * (1 + (CLUSTER > 1 ? CONSUMERS * 2 : 0));
+  static constexpr size_t PER_STAGE = STAGE + 8 * (PRESPLIT ? 2 : 3);
+  static constexpr int STAGES = CLUSTER > 1 ? CLUSTER_STAGES
+                                : !PRESPLIT ? T_STAGES
+                                : FIXED + PRESPLIT_STAGES * PER_STAGE <= MAX_SMEM ? PRESPLIT_STAGES
+                                : PRESPLIT_STAGES - 1;
+  static constexpr size_t SMEM = FIXED + STAGES * PER_STAGE;
+  static_assert(DL % 32 == 0 && DVL % 64 == 0 && (TBK == 16 || TBK == 32 || TBK == 64),
                 "S is m64n{16,32,64}, P V m64n64 a 64-column half of O");
-  static_assert(SMEM <= 232448, "a Hopper block opts into at most 232,448 bytes");
+  static_assert(CLUSTER == 1 || (PRESPLIT && TBK == 16), "a cluster's blocks read K and V split, 16 keys a tile");
+  static_assert(SMEM <= MAX_SMEM, "a Hopper block opts into at most 232,448 bytes");
 };
 
 // Byte offset of f32 element (row, col) in a tile kept as panels of 32
@@ -1236,6 +1140,47 @@ struct Tf32Tiles {
 // (TMA's and wgmma's): the row's 16-byte chunk c sits at chunk c ^ (row % 8).
 __device__ __forceinline__ uint32_t swz(int row, int col, uint32_t panel_bytes) {
   return (col / 32) * panel_bytes + row * ROW_BYTES + ((((col % 32) / 4) ^ (row % 8)) << 4) + (col % 4) * 4;
+}
+
+// The blocks of a cluster (tf32_cluster): this block's rank, the address in
+// the shared memory of block `rank` that matches a local one, a 16-byte store
+// there, an arrival on a barrier there that releases this thread's earlier
+// accesses to the cluster, a wait on a local barrier that acquires them, and
+// a barrier of every thread of the cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
 }
 
 // Round to TF32 (to nearest, ties away from zero), the 13 low bits cleared
@@ -1387,10 +1332,20 @@ __device__ __forceinline__ void split_stage(uint32_t stage_base, int i, int n) {
 //   landed stage is ready, and warps 1 to 3 have nothing to do;
 // - two consumer warpgroups: each pre-scales its 64 rows of Q in f32 and
 //   splits them in shared memory once; per live tile S = Q_hi K_hi +
-//   (Q_hi K_lo + Q_lo K_hi), each a run of D / 8 wgmma m64nTBKk8, and O +=
+//   (Q_hi K_lo + Q_lo K_hi), each a run of DL / 8 wgmma m64nTBKk8, and O +=
 //   P_hi V_hi + (P_hi V_lo + P_lo V_hi), each a run of TBK / 8 wgmma m64n64k8
 //   for each 64-column half of O in turn, the online softmax as in the bf16
 //   kernel, then the stage is released (stage empty).
+// In a cluster (tf32_cluster: (256, 256)) the two blocks own the same 128
+// rows, block r columns [DL r, DL r + DL) of Q and K and [DVL r, DVL r + DVL)
+// of V and O. Each consumer warpgroup sums its partial S (large and small
+// products) over the block's DL columns, stores it into the peer block's slot
+// of the tile's parity and arrives on the peer's barrier of that slot, then
+// waits on its own and adds the peer's partial: both blocks then hold the same
+// S (f32 addition commutes), so the same m, l, P and rescale votes, and each
+// multiplies P by its own columns of V. A slot is written again two live tiles
+// later, after its reader's partial for the tile between has arrived, which
+// that reader sends only after reading the slot: no barrier frees it.
 template <int D, int DV, int TBK>
 __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                            const CUtensorMap& tm_v, const CUtensorMap& tm_k_lo,
@@ -1402,13 +1357,16 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
   const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;  // Q, then Q_hi
   const uint32_t sq_lo = sq + T::Q_BYTES;
   const uint32_t ring = sq_lo + T::Q_BYTES;         // T::STAGES stages of T::STAGE bytes
-  const uint32_t q_full = ring + T::STAGES * T::STAGE;
+  const uint32_t exch = ring + T::STAGES * T::STAGE;  // the cluster's exchange slots
+  const uint32_t q_full = exch + T::EXCHANGE;
   const uint32_t full = q_full + 8;                 // K and V have landed
   // the stage is split (a landed stage, when K and V come split)
   const uint32_t ready = T::PRESPLIT ? full : full + 8 * T::STAGES;
   const uint32_t empty = ready + 8 * T::STAGES;     // both consumers are done with it
+  const uint32_t landed = empty + 8 * T::STAGES;    // the peer's partial S is in the slot
+  const int rank = T::CLUSTER > 1 ? static_cast<int>(cluster_rank()) : 0;
 
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int q_start = (gridDim.x / T::CLUSTER - 1 - blockIdx.x / T::CLUSTER) * BQ;  // heaviest causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -1426,9 +1384,13 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
       if (!T::PRESPLIT) mbar_init(ready + 8 * s, SPLITTERS);
       mbar_init(empty + 8 * s, CONSUMERS * 4);
     }
+    for (int s = 0; s < (T::CLUSTER > 1 ? CONSUMERS * 2 : 0); ++s) mbar_init(landed + 8 * s, 128);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (T::CLUSTER > 1)
+    cluster_sync();  // the peer's barriers are set up before anything arrives on them
+  else
+    __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
@@ -1437,23 +1399,26 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
     if (warp == 0) {
       if (threadIdx.x == CONSUMERS * 128) {
         const int bh_kv = b * Hkv + hk;
+        const int c0 = T::DL * rank;  // the block's first column of Q and K
         mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / 32; ++c) tma_load(sq + c * T::Q_PANEL, &tm_q, q_full, 32 * c, q_start, b * Hq + h);
+        for (int c = 0; c < T::DL / 32; ++c)
+          tma_load(sq + c * T::Q_PANEL, &tm_q, q_full, c0 + 32 * c, q_start, b * Hq + h);
         int stage = 0, round = 0;
         for (int kt = kt_begin; kt < kt_end; ++kt) {
           if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
           const uint32_t bar = full + 8 * stage, st = ring + stage * T::STAGE;
           mbar_expect_tx(bar, T::LOADED);
 #pragma unroll
-          for (int c = 0; c < D / 32; ++c) tma_load(st + c * T::KV_PANEL, &tm_k, bar, 32 * c, kt * TBK, bh_kv);
+          for (int c = 0; c < T::DL / 32; ++c)
+            tma_load(st + c * T::KV_PANEL, &tm_k, bar, c0 + 32 * c, kt * TBK, bh_kv);
           if constexpr (T::PRESPLIT) {
 #pragma unroll
-            for (int c = 0; c < D / 32; ++c)
-              tma_load(st + T::K_BYTES + c * T::KV_PANEL, &tm_k_lo, bar, 32 * c, kt * TBK, bh_kv);
-            // V^T's boxes: TBK keys of all DV rows (64-byte swizzle)
-            tma_load(st + T::VT, &tm_v, bar, kt * TBK, 0, bh_kv);
-            tma_load(st + T::VT + T::V_BYTES, &tm_v_lo, bar, kt * TBK, 0, bh_kv);
+            for (int c = 0; c < T::DL / 32; ++c)
+              tma_load(st + T::K_BYTES + c * T::KV_PANEL, &tm_k_lo, bar, c0 + 32 * c, kt * TBK, bh_kv);
+            // V^T's boxes: TBK keys of the block's DVL rows (64-byte swizzle)
+            tma_load(st + T::VT, &tm_v, bar, kt * TBK, T::DVL * rank, bh_kv);
+            tma_load(st + T::VT + T::V_BYTES, &tm_v_lo, bar, kt * TBK, T::DVL * rank, bh_kv);
           } else {
 #pragma unroll
             for (int c = 0; c < DV / 32; ++c)
@@ -1502,7 +1467,7 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
     {
       uint8_t* qs = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(sq));
       uint8_t* qs_lo = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(sq_lo));
-      for (int j = t; j < 64 * D / 4; j += 128) {  // 512 chunks of 16 bytes a panel of 64 rows
+      for (int j = t; j < 64 * T::DL / 4; j += 128) {  // 512 chunks of 16 bytes a panel of 64 rows
         const uint32_t off = (j / 512) * T::Q_PANEL + (64 * wg + (j / 8) % 64) * ROW_BYTES + 16 * (j % 8);
         float4 x = *reinterpret_cast<float4*>(qs + off);
         x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
@@ -1522,17 +1487,18 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
     // (P_hi V_hi) take the large terms, small the hi-lo ones of either
     // product; acc carries O across tiles. S's small products go to an array
     // of S's shape: small itself at 64-key tiles (m64n64, as P V's), one of
-    // their own at 32-key tiles (one array serving m64n32 and m64n64 products
-    // made ptxas serialise the wgmmas, warning C7511: 8% slower). At dv 128
-    // acc holds both halves of O, and pv and small serve one half at a time.
-    float acc[DV / 2], pv[32], small[32];
+    // their own at 32- and 16-key tiles (one array serving m64n32 and m64n64
+    // products made ptxas serialise the wgmmas, warning C7511: 8% slower). At
+    // DVL 128 acc holds both halves of O, and pv and small serve one half at a
+    // time.
+    float acc[T::DVL / 2], pv[32], small[32];
     float s[NS];  // S, then p, then P_lo
     float s_small_own[NS < 32 ? NS : 1];
     float* const s_small = NS < 32 ? s_small_own : small;
 #pragma unroll
     for (int i = 0; i < 32; ++i) pv[i] = small[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::DVL / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = s_small[i] = 0.f;
     uint32_t p_hi[NS];
@@ -1561,7 +1527,7 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
       const uint32_t st = ring + stage * T::STAGE;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < T::DL / 8; ++kk) {
         const uint64_t k_hi = tile_desc(st, kk, T::KV_PANEL), k_lo = tile_desc(st + T::K_BYTES, kk, T::KV_PANEL);
         const uint32_t off = (kk / 4) * T::Q_PANEL + 32 * (kk % 4);
         const uint64_t a_hi = desc(q_rows + off), a_lo = desc(q_rows_lo + off);
@@ -1576,13 +1542,33 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
       for (int i = 0; i < NS; ++i) pin(s_small[i]);
 #pragma unroll
       for (int i = 0; i < NS; ++i) s[i] += s_small[i];
+      if constexpr (T::CLUSTER > 1) {
+        // thread t's float4 f of a slot at 2048 f + 16 t: a warp's stores and
+        // loads are 512 contiguous bytes
+        const int i = kt - live_begin, slot = 2 * wg + (i & 1);
+        const uint32_t mine = exch + slot * T::SLOT + 16 * t, theirs = peer_addr(mine, rank ^ 1);
+#pragma unroll
+        for (int f = 0; f < NS / 4; ++f)
+          st_peer(theirs + 2048 * f, s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+        mbar_arrive_peer(peer_addr(landed + 8 * slot, rank ^ 1));
+        mbar_wait_cluster(landed + 8 * slot, (i >> 1) & 1);
+        const uint8_t* got = reinterpret_cast<const uint8_t*>(__cvta_shared_to_generic(mine));
+#pragma unroll
+        for (int f = 0; f < NS / 4; ++f) {
+          const float4 x = *reinterpret_cast<const float4*>(got + 2048 * f);
+          s[4 * f] += x.x;
+          s[4 * f + 1] += x.y;
+          s[4 * f + 2] += x.z;
+          s[4 * f + 3] += x.w;
+        }
+      }
       const int k_start = kt * TBK;
       const bool edge = k_start + TBK > Skv || (causal && k_start + TBK - 1 > first) ||
                         (window > 0 && first + 63 - k_start >= window);
       softmax_step(s, m, l, corr, row0, k_start + col0, edge, Skv, causal, window, 1.f, logit_cap);
       if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+        for (int i = 0; i < T::DVL / 2; ++i) acc[i] *= corr[(i / 2) % 2];
       }
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
@@ -1592,13 +1578,13 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
       }
       const uint32_t vt = st + T::VT;  // V^T_hi, then V^T_lo
 #pragma unroll
-      for (int c = 0; c < DV / 64; ++c) {
+      for (int c = 0; c < T::DVL / 64; ++c) {
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < TBK / 8; ++kk) {
           // A columns t, t + 4 are keys 2t, 2t + 1: entries 4kk, 4kk + 2 (rows
           // r, r + 8 of key 2t) and 4kk + 1, 4kk + 3 (key 2t + 1)
-          const uint64_t v_hi = vt_desc<DV, TBK>(vt, c, kk), v_lo = vt_desc<DV, TBK>(vt + T::V_BYTES, c, kk);
+          const uint64_t v_hi = vt_desc<T::DVL, TBK>(vt, c, kk), v_lo = vt_desc<T::DVL, TBK>(vt + T::V_BYTES, c, kk);
           const uint32_t* a = p_hi + 4 * kk;
           const uint32_t b0 = __float_as_uint(s[4 * kk]), b1 = __float_as_uint(s[4 * kk + 1]),
                          b2 = __float_as_uint(s[4 * kk + 2]), b3 = __float_as_uint(s[4 * kk + 3]);
@@ -1632,13 +1618,15 @@ __device__ __forceinline__ void tf32_block(const CUtensorMap& tm_q, const CUtens
       const int q = row0 + 8 * r;
       if (q >= Sq) continue;
       const float denom = fmaxf(l[r], 1e-30f);
-      float* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * DV + col0;
+      float* orow = o + ((static_cast<size_t>(b) * Hq + h) * Sq + q) * DV + T::DVL * rank + col0;
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j)
+      for (int j = 0; j < T::DVL / 8; ++j)
         *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[4 * j + 2 * r] / denom,
                                                                acc[4 * j + 2 * r + 1] / denom);
     }
   }
+  // no block of a cluster exits while its peer may still write its slots
+  if constexpr (T::CLUSTER > 1) cluster_sync();
 }
 
 // nbi-100m's f32 heads, (64, 64), 64-key tiles.
@@ -1658,16 +1646,50 @@ flash_attn_tf32_mla_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
                                          logit_cap);
 }
 
-// f32 heads of 128, (128, 128), 16-key tiles: Q and Q_lo take 128 KB, so a
-// stage of 32 keys would not fit twice. K and V come split: tm_k K_hi, tm_k_lo
-// K_lo, tm_v V^T_hi, tm_v_lo V^T_lo (tf32_split_kv_kernel).
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attn_tf32_d128_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_k_lo,
-                            const __grid_constant__ CUtensorMap tm_v_lo, float* __restrict__ o, int Hq, int Hkv,
-                            int Sq, int Skv, float scale, int causal, int window, float logit_cap) {
-  tf32_block<128, 128, TF32_D128_BK>(tm_q, tm_k, tm_v, tm_k_lo, tm_v_lo, o, Hq, Hkv, Sq, Skv, scale, causal, window,
-                                     logit_cap);
+// The pairs whose K and V come split (tf32_presplit), at 16-key tiles: tm_k
+// K_hi, tm_k_lo K_lo, tm_v V^T_hi, tm_v_lo V^T_lo (tf32_split_kv_kernel).
+#define TF32_PRESPLIT_PARAMS                                                                                  \
+  const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,                        \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_k_lo,                 \
+      const __grid_constant__ CUtensorMap tm_v_lo, float *__restrict__ o, int Hq, int Hkv, int Sq, int Skv, \
+      float scale, int causal, int window, float logit_cap
+#define TF32_PRESPLIT_ARGS tm_q, tm_k, tm_v, tm_k_lo, tm_v_lo, o, Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap
+
+// f32 heads of 128, (128, 128): Q and Q_lo take 128 KB, so a stage of 32
+// keys would not fit twice.
+__global__ void __launch_bounds__(THREADS, 1) flash_attn_tf32_d128_kernel(TF32_PRESPLIT_PARAMS) {
+  tf32_block<128, 128, tf32_bk<128, 128>()>(TF32_PRESPLIT_ARGS);
+}
+
+// (128, 64): the (128, 128) block with one 64-column half of O, at 32-key
+// tiles in two stages.
+__global__ void __launch_bounds__(THREADS, 1) flash_attn_tf32_d128_dv64_kernel(TF32_PRESPLIT_PARAMS) {
+  tf32_block<128, 64, tf32_bk<128, 64>()>(TF32_PRESPLIT_ARGS);
+}
+
+// (64, 128): the (128, 128) block with Q and K two 32-column panels, at
+// 32-key tiles in three stages.
+__global__ void __launch_bounds__(THREADS, 1) flash_attn_tf32_d64_dv128_kernel(TF32_PRESPLIT_PARAMS) {
+  tf32_block<64, 128, tf32_bk<64, 128>()>(TF32_PRESPLIT_ARGS);
+}
+
+// (256, 256): a cluster of two (128, 128) blocks over one 128-row query tile,
+// each with half of the head dims, their partial S summed across the cluster.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+    flash_attn_tf32_d256_kernel(TF32_PRESPLIT_PARAMS) {
+  tf32_block<256, 256, tf32_bk<256, 256>()>(TF32_PRESPLIT_ARGS);
+}
+
+template <int D, int DV>
+constexpr auto presplit_kernel() {
+  if constexpr (D == 256)
+    return flash_attn_tf32_d256_kernel;
+  else if constexpr (D == 128 && DV == 128)
+    return flash_attn_tf32_d128_kernel;
+  else if constexpr (D == 128)
+    return flash_attn_tf32_d128_dv64_kernel;
+  else
+    return flash_attn_tf32_d64_dv128_kernel;
 }
 
 // K and V of one (b, hkv) split into TF32 hi and lo parts in global memory,
@@ -1720,22 +1742,52 @@ long long tf32_workspace_floats(int B, int Hkv, int Skv) {
   return 2LL * B * Hkv * (static_cast<long long>(Skv) * D + static_cast<long long>(DV) * keys_pad);
 }
 
+// Clusters of the kernel at (D, DV) that the card can hold at once, its
+// shared memory set; 0 when the kernel has no cluster.
+template <int D, int DV>
+int tf32_clusters_resident(int* out) {
+  *out = 0;
+  if constexpr (tf32_cluster<D, DV>() > 1) {
+    auto kernel = presplit_kernel<D, DV>();
+    constexpr size_t smem = Tf32Tiles<D, DV, tf32_bk<D, DV>()>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(tf32_cluster<D, DV>(), 1, 1);
+    config.blockDim = dim3(THREADS, 1, 1);
+    config.dynamicSmemBytes = smem;
+    return cudaOccupancyMaxActiveClusters(out, kernel, &config);
+  }
+  return cudaSuccess;
+}
+
 template <int D, int DV>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                 int causal, int window, float logit_cap, float* ws, long long ws_floats, cudaStream_t stream) {
-  static_assert(tf32_pair<D, DV>(), "the TF32 kernels take (64, 64), (96, 64) and (128, 128)");
+  static_assert(tf32_pair<D, DV>(), "a pair of HEAD_DIM_PAIRS");
   constexpr int TBK = tf32_bk<D, DV>();
+  using T = Tf32Tiles<D, DV, TBK>;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorMisalignedAddress;
-  constexpr size_t smem = Tf32Tiles<D, DV, TBK>::SMEM;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  constexpr size_t smem = T::SMEM;
+  const dim3 grid(T::CLUSTER * ((Sq + BQ - 1) / BQ), Hq, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   CUtensorMap tq, tk, tv;
   if (int err = encode(&tq, q, B * Hq, Sq, D, BQ, true)) return err;
-  if constexpr (tf32_presplit<D, DV>()) {
+  if constexpr (T::PRESPLIT) {
     if (ws == nullptr || ws_floats < tf32_workspace_floats<D, DV>(B, Hkv, Skv) ||
         reinterpret_cast<uintptr_t>(ws) % 16)
       return cudaErrorInvalidValue;
+    auto kernel = presplit_kernel<D, DV>();
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if constexpr (T::CLUSTER > 1) {  // two blocks of this size must fit side by side, or nothing runs
+      int clusters = 0;
+      if (int e = tf32_clusters_resident<D, DV>(&clusters)) return e;
+      if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    }
     const int keys_pad = (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS * SPLIT_KEYS;
     const size_t k_floats = static_cast<size_t>(B) * Hkv * Skv * D;
     const size_t vt_floats = static_cast<size_t>(B) * Hkv * DV * keys_pad;
@@ -1743,17 +1795,15 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int
     tf32_split_kv_kernel<D, DV><<<dim3(keys_pad / SPLIT_KEYS, B * Hkv), 256, 0, stream>>>(
         static_cast<const float*>(k), static_cast<const float*>(v), k_hi, k_lo, vt_hi, vt_lo, Skv, keys_pad);
     CUtensorMap tk_lo, tv_lo;
-    if (int err = encode(&tk, k_hi, B * Hkv, Skv, D, TBK, true)) return err;
-    if (int err = encode(&tk_lo, k_lo, B * Hkv, Skv, D, TBK, true)) return err;
-    // V^T: boxes of TBK keys by all DV rows
-    if (int err = encode(&tv, vt_hi, B * Hkv, DV, keys_pad, DV, true, TBK, CU_TENSOR_MAP_SWIZZLE_64B)) return err;
-    if (int err = encode(&tv_lo, vt_lo, B * Hkv, DV, keys_pad, DV, true, TBK, CU_TENSOR_MAP_SWIZZLE_64B))
-      return err;
-    cudaError_t err = cudaFuncSetAttribute(flash_attn_tf32_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    flash_attn_tf32_d128_kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, tk_lo, tv_lo, static_cast<float*>(o),
-                                                                  Hq, Hkv, Sq, Skv, scale, causal, window, logit_cap);
+    if (int e = encode(&tk, k_hi, B * Hkv, Skv, D, TBK, true)) return e;
+    if (int e = encode(&tk_lo, k_lo, B * Hkv, Skv, D, TBK, true)) return e;
+    // V^T: boxes of TBK keys by the block's DVL rows, rows of 64 bytes at 16
+    // keys (vt_desc)
+    constexpr CUtensorMapSwizzle VT_SWIZZLE = TBK == 16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+    if (int e = encode(&tv, vt_hi, B * Hkv, DV, keys_pad, T::DVL, true, TBK, VT_SWIZZLE)) return e;
+    if (int e = encode(&tv_lo, vt_lo, B * Hkv, DV, keys_pad, T::DVL, true, TBK, VT_SWIZZLE)) return e;
+    kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, tk_lo, tv_lo, static_cast<float*>(o), Hq, Hkv, Sq, Skv, scale,
+                                            causal, window, logit_cap);
   } else {
     if (int err = encode(&tk, k, B * Hkv, Skv, D, TBK, true)) return err;
     if (int err = encode(&tv, v, B * Hkv, Skv, DV, TBK, true)) return err;
@@ -1769,79 +1819,58 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int
 
 }  // namespace hopper
 
-template <bool BF16, int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-           int causal, int window, float logit_cap, cudaStream_t stream) {
-  if constexpr (BF16)
-    return hopper::launch<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-  else
-    return simt::launch<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-}
-
-template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-             int d, int dv, int causal, int window, float logit_cap, cudaStream_t stream) {
-  if (d == 64 && dv == 64) {
-    if constexpr (BF16)
-      return launch<BF16, 64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-    return cudaErrorInvalidValue;  // f32 at (64, 64) is the TF32 kernel's
-  }
-  if (d == 128 && dv == 128) {
-    if constexpr (BF16)
-      return launch<BF16, 128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-    return cudaErrorInvalidValue;  // f32 at (128, 128) is the TF32 d 128 kernel's
-  }
-  if (d == 64 && dv == 128)
-    return launch<BF16, 64, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-  if (d == 128 && dv == 64)
-    return launch<BF16, 128, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-  if (d == 256 && dv == 256)
-    return launch<BF16, 256, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-  if (d == hopper::MLA_D && dv == hopper::MLA_DV) {
-    if constexpr (BF16)
-      return hopper::launch_mla(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, stream);
-    return cudaErrorInvalidValue;  // f32 at (96, 64) is the TF32 MLA kernel's
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // The kernel the wrapper chose (flash_attention.py's kernel_kind; its
 // constants repeat these).
-enum Kind { F32_SIMT = 0, BF16 = 1, F32_TF32 = 2 };
+enum Kind { BF16 = 1, F32_TF32 = 2 };
 
 namespace {
 
 // The block of the kernel that takes (kind, D, DV), as its launch sets it
-// up: query rows, keys a tile, ring stages (1: no ring), dynamic shared
-// memory in bytes, threads.
+// up: query rows, keys a tile, ring stages, dynamic shared memory in bytes,
+// threads, blocks a cluster, and clusters the card holds at once (0 without
+// a cluster).
 template <int D, int DV>
 int block_shape(int kind, int* out) {
-  auto put = [out](int bq, int bk, int stages, size_t smem, int threads) {
-    const int vals[5] = {bq, bk, stages, static_cast<int>(smem), threads};
-    for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  auto put = [out](int bq, int bk, int stages, size_t smem, int threads, int cluster) {
+    const int vals[6] = {bq, bk, stages, static_cast<int>(smem), threads, cluster};
+    for (int i = 0; i < 6; ++i) out[i] = vals[i];
+    out[6] = 0;
     return static_cast<int>(cudaSuccess);
   };
   namespace hp = hopper;
   if (kind == BF16 && D == hp::MLA_D && DV == hp::MLA_DV)
-    return put(hp::BQ, hp::MLA_BK, hp::MLA_STAGES, hp::mla_smem_bytes(), hp::THREADS);
-  if (kind == BF16) return put(hp::BQ, hp::BK, hp::stages<D, DV>(), hp::smem_bytes<D, DV>(), hp::THREADS);
-  if constexpr (hp::tf32_pair<D, DV>()) {
-    constexpr int TBK = hp::tf32_bk<D, DV>();
-    using T = hp::Tf32Tiles<D, DV, TBK>;
-    if (kind == F32_TF32) return put(hp::BQ, TBK, T::STAGES, T::SMEM, hp::THREADS);
-  } else {
-    if (kind == F32_SIMT) return put(simt::BQ, simt::BK, 1, simt::smem_bytes<D, DV>(), simt::THREADS);
+    return put(hp::BQ, hp::MLA_BK, hp::MLA_STAGES, hp::mla_smem_bytes(), hp::THREADS, 1);
+  if (kind == BF16) return put(hp::BQ, hp::BK, hp::stages<D, DV>(), hp::smem_bytes<D, DV>(), hp::THREADS, 1);
+  if (kind == F32_TF32) {
+    using T = hp::Tf32Tiles<D, DV, hp::tf32_bk<D, DV>()>;
+    put(hp::BQ, hp::tf32_bk<D, DV>(), T::STAGES, T::SMEM, hp::THREADS, T::CLUSTER);
+    return hp::tf32_clusters_resident<D, DV>(out + 6);
   }
   return cudaErrorInvalidValue;
+}
+
+// The launch of the kernel that `kind` names at (D, DV).
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Skv, int kind,
+           int causal, int window, float logit_cap, float* ws, long long ws_floats, cudaStream_t s) {
+  if (kind == F32_TF32)
+    return hopper::launch_tf32<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, ws, ws_floats, s);
+  if (kind != BF16) return cudaErrorInvalidValue;
+  if constexpr (D == hopper::MLA_D)
+    return hopper::launch_mla(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, s);
+  else
+    return hopper::launch<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, s);
 }
 
 }  // namespace
 
 // The block of the kernel that `kind` names at (d, dv): out[0] query rows,
-// out[1] keys a tile, out[2] stages of the K and V ring (1: none), out[3]
-// dynamic shared memory in bytes, out[4] threads. Returns the CUDA error.
+// out[1] keys a tile, out[2] stages of the K and V ring, out[3] dynamic
+// shared memory in bytes, out[4] threads, out[5] blocks a cluster, out[6]
+// clusters the card holds at once (0 for a kernel without a cluster).
+// Returns the CUDA error.
 extern "C" int repro_flash_attention_config(int kind, int d, int dv, int* out) {
   if (d == 64 && dv == 64) return block_shape<64, 64>(kind, out);
   if (d == 128 && dv == 128) return block_shape<128, 128>(kind, out);
@@ -1853,11 +1882,11 @@ extern "C" int repro_flash_attention_config(int kind, int d, int dv, int* out) {
 }
 
 // q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv), o (B, Hq, Sq, dv),
-// all contiguous and of one type: bf16 for BF16, else f32 (F32_TF32 takes
-// (d, dv) = (64, 64), (96, 64) and (128, 128), F32_SIMT the other pairs); q, k and v 16-byte aligned
-// for the TMA kernels (BF16, F32_TF32). ws: ws_floats f32 of scratch, 16-byte
-// aligned: none but for F32_TF32 at (128, 128), which splits K and V into at
-// least tf32_workspace_floats.
+// all contiguous, 16-byte aligned and of one type: bf16 for BF16, f32 for
+// F32_TF32. ws: ws_floats f32 of scratch, 16-byte aligned: none but for
+// F32_TF32 at the pairs whose K and V come split ((128, 128), (64, 128),
+// (128, 64), (256, 256)), which split them into at least
+// tf32_workspace_floats.
 // Returns 0 when the launch was accepted, else a CUDA error or, from the
 // tensor maps' encoding, ENCODE_ERROR_BASE plus a CUresult.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1867,22 +1896,15 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case BF16:
-      return dispatch<true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
-    case F32_SIMT:
-      return dispatch<false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, d, dv, causal, window, logit_cap, s);
-    case F32_TF32:
-      if (d == 64 && dv == 64)
-        return hopper::launch_tf32<64, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap, nullptr, 0, s);
-      if (d == hopper::MLA_D && dv == hopper::MLA_DV)
-        return hopper::launch_tf32<hopper::MLA_D, hopper::MLA_DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
-                                                                   logit_cap, nullptr, 0, s);
-      if (d == 128 && dv == 128)
-        return hopper::launch_tf32<128, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, logit_cap,
-                                             static_cast<float*>(ws), ws_floats, s);
-      return cudaErrorInvalidValue;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  auto* w = static_cast<float*>(ws);
+#define REPRO_FA_LAUNCH(D, DV) \
+  launch<D, DV>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kind, causal, window, logit_cap, w, ws_floats, s)
+  if (d == 64 && dv == 64) return REPRO_FA_LAUNCH(64, 64);
+  if (d == 128 && dv == 128) return REPRO_FA_LAUNCH(128, 128);
+  if (d == 64 && dv == 128) return REPRO_FA_LAUNCH(64, 128);
+  if (d == 128 && dv == 64) return REPRO_FA_LAUNCH(128, 64);
+  if (d == 256 && dv == 256) return REPRO_FA_LAUNCH(256, 256);
+  if (d == hopper::MLA_D && dv == hopper::MLA_DV) return REPRO_FA_LAUNCH(hopper::MLA_D, hopper::MLA_DV);
+#undef REPRO_FA_LAUNCH
+  return cudaErrorInvalidValue;
 }

@@ -49,9 +49,27 @@ against 268 MB), so the design follows the unit that does them:
   keys are 64 bytes, kept with the 64-byte swizzle, and P·V runs each
   64-column half of O in turn. Bound by operations: 0.0497 ms at one
   1000-token insert of 32 heads.
-- f32 at the other pairs of ``HEAD_DIM_PAIRS`` ((64, 128), (128, 64),
-  (256, 256)) stays on the FMA units: 64-row blocks, f32 tiles in shared
-  memory.
+- f32 at (128, 64) and (64, 128) are instances of that block at their
+  widths, K and V split the same way, at 32-key tiles (Vᵀ's rows of 32 keys
+  under the 128-byte swizzle), which were 1.4× faster than 16 there on an
+  H100 (PERF.md): ``flash_attn_tf32_d128_dv64_kernel`` has one 64-column
+  half of O and two stages (230,440 bytes; three do not fit),
+  ``flash_attn_tf32_d64_dv128_kernel`` Q and K of two 32-column panels and
+  three stages (214,072 bytes).
+- f32 at (256, 256), Griffin's heads, does not fit one block: Q and Q_lo
+  alone would take 256 KB at 128 rows. A cluster of two blocks splits the
+  head dims (``flash_attn_tf32_d256_kernel``): each block is the (128, 128)
+  block over its 128 columns of Q, K, V and O, with two stages; each
+  consumer warpgroup sums its partial S over its columns, stores it into the
+  peer block's shared memory (two slots a warpgroup, by the tile's parity)
+  and arrives on the peer's barrier, then adds the peer's partial, so that
+  both blocks hold the same S, softmax and P and each multiplies P by its
+  own half of V (214,088 bytes). The launch checks that the card can hold a
+  cluster of two such blocks (:func:`launch_config`'s
+  ``clusters_resident``) and raises if not.
+
+Every f32 pair runs on the tensor cores: no f32 kernel is left on the FMA
+units.
 
 The wrapper checks what the kernels take and raises on anything else,
 allocates the output, and launches on PyTorch's current stream without
@@ -72,60 +90,71 @@ HEAD_DIM_PAIRS = ((64, 64), (128, 128), (64, 128), (128, 64), (256, 256), (96, 6
 # MLA's prefill pair (minicpm3-4b: q, k 64 + 32 wide, v 64); its bf16 launches
 # have their own count
 MLA_HEAD_DIMS = (96, 64)
-# f32 (128, 128), codeqwen1.5-7b's heads: its tensor-core launches have their
-# own count
+# f32 (128, 128), codeqwen1.5-7b's heads
 D128_HEAD_DIMS = (128, 128)
-# the f32 pairs of the tensor-core (3×TF32) kernels; other f32 pairs run on
-# the FMA units
-TF32_HEAD_DIM_PAIRS = ((64, 64), MLA_HEAD_DIMS, D128_HEAD_DIMS)
-# query rows per block and keys per tile, as in the kernels: the f32 FMA
-# kernel, the bf16 kernel, the f32 tensor-core kernels (TF32_MLA_BK keys a
-# tile at MLA's pair, TF32_D128_BK at (128, 128)) in a ring of TF32_STAGES;
-# (TF32_D128_STAGES at (128, 128), whose K and V come split, and whose
-# scratch pads Vᵀ's keys to SPLIT_KEYS); the bf16 MLA kernel takes MLA_BK
-# keys a tile into a ring of MLA_STAGES
-BQ = {torch.float32: 64, torch.bfloat16: 128}
-BQ_TF32 = 128
+# f32 (256, 256): a cluster of two blocks splits the head dims
+D256_HEAD_DIMS = (256, 256)
+# the f32 pairs of the tensor-core (3×TF32) kernels: every pair
+TF32_HEAD_DIM_PAIRS = HEAD_DIM_PAIRS
+# the f32 pairs whose K and V are split once a call into scratch
+# (``tf32_split_kv_kernel``) and read at TF32_PRESPLIT_BK keys a tile
+PRESPLIT_HEAD_DIM_PAIRS = (D128_HEAD_DIMS, (64, 128), (128, 64), D256_HEAD_DIMS)
+# query rows per block and keys per tile, as in the kernels: the bf16 kernel,
+# the f32 tensor-core kernels (TF32_MLA_BK keys a tile at MLA's pair,
+# TF32_PRESPLIT_BK where K and V come split, but TF32_MIXED_BK at (64, 128)
+# and (128, 64)) in a ring of TF32_STAGES (PRESPLIT_STAGES where K and V come
+# split, one fewer where those do not fit in MAX_SMEM, CLUSTER_STAGES at
+# (256, 256) beside the cluster's exchange slots; the scratch pads Vᵀ's keys
+# to SPLIT_KEYS); the bf16 MLA kernel takes MLA_BK keys a tile into a ring of
+# MLA_STAGES
+BQ = 128
 BK = 64
 TF32_MLA_BK = 32
-TF32_D128_BK = 16
+TF32_PRESPLIT_BK = 16
+TF32_MIXED_BK = 32
 TF32_STAGES = 2
-TF32_D128_STAGES = 3
+PRESPLIT_STAGES = 3
+CLUSTER_STAGES = 2
 SPLIT_KEYS = 32
+MAX_SMEM = 232448
 MLA_BK = 128
 MLA_STAGES = 3
+# consumer warpgroups of a block (64 query rows each)
+CONSUMERS = 2
 # the C entry's kernel codes (``Kind`` in the source)
-F32_SIMT, BF16, F32_TF32 = 0, 1, 2
+BF16, F32_TF32 = 1, 2
 
-# Launches since import, one count per kernel: the f32 kernel on the FMA
-# units, the bf16 kernel (at every pair but MLA's), the bf16 MLA kernel at
-# (96, 64), the f32 tensor-core kernels at (64, 64), (96, 64) and (128, 128).
+# Launches since import, one count per kernel: the bf16 kernel (at every pair
+# but MLA's), the bf16 MLA kernel at (96, 64), the f32 tensor-core kernels at
+# (64, 64), (96, 64), (128, 128), (128, 64), (64, 128) and (256, 256).
 # chip_smoke.py sets them to 0 around the main path and reads them to show
 # that every prefill attention came here.
-launches = 0
 bf16_launches = 0
 bf16_mla_launches = 0
 tf32_launches = 0
 tf32_mla_launches = 0
 tf32_d128_launches = 0
+tf32_d128_dv64_launches = 0
+tf32_d64_dv128_launches = 0
+tf32_d256_launches = 0
+# the f32 launch counts by pair
+TF32_COUNTS = {(64, 64): "tf32_launches", MLA_HEAD_DIMS: "tf32_mla_launches", D128_HEAD_DIMS: "tf32_d128_launches",
+               (128, 64): "tf32_d128_dv64_launches", (64, 128): "tf32_d64_dv128_launches",
+               D256_HEAD_DIMS: "tf32_d256_launches"}
 
 
 def kernel_kind(dtype: torch.dtype, d: int, dv: int) -> int:
-    """Which kernel takes these inputs: ``F32_SIMT``, ``BF16`` or ``F32_TF32``."""
-    if dtype == torch.bfloat16:
-        return BF16
-    return F32_TF32 if (d, dv) in TF32_HEAD_DIM_PAIRS else F32_SIMT
+    """Which kernel takes these inputs: ``BF16`` or ``F32_TF32``."""
+    return BF16 if dtype == torch.bfloat16 else F32_TF32
 
 
 def launch_count(dtype: torch.dtype, d: int, dv: int) -> str:
-    """The name of the launch count that a call at (dtype, d, dv) adds one to."""
-    kind, mla = kernel_kind(dtype, d, dv), (d, dv) == MLA_HEAD_DIMS
-    if kind == BF16:
-        return "bf16_mla_launches" if mla else "bf16_launches"
-    if kind == F32_TF32:
-        names = {MLA_HEAD_DIMS: "tf32_mla_launches", D128_HEAD_DIMS: "tf32_d128_launches"}
-        return names.get((d, dv), "tf32_launches")
-    return "launches"
+    """The name of the launch count that a call at (dtype, d, dv) adds one to
+    (a pair outside ``HEAD_DIM_PAIRS``, as the CPU's smoke widths, names the
+    count of its dtype's first kernel: no kernel takes it)."""
+    if kernel_kind(dtype, d, dv) == BF16:
+        return "bf16_mla_launches" if (d, dv) == MLA_HEAD_DIMS else "bf16_launches"
+    return TF32_COUNTS.get((d, dv), "tf32_launches")
 
 
 def _validate(q, k, v) -> None:
@@ -155,20 +184,18 @@ def _validate(q, k, v) -> None:
         raise ValueError(f"flash_attention: head dims (d, dv)=({d}, {v.shape[3]}) not in {HEAD_DIM_PAIRS}")
     if min(B, Hq, Sq, Skv) <= 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if kernel_kind(q.dtype, d, v.shape[3]) != F32_SIMT:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")
 
 
 def tiles(dtype: torch.dtype, d: int, dv: int) -> tuple[int, int]:
     """(query rows a block, keys a tile) of the kernel that takes these inputs."""
-    kind = kernel_kind(dtype, d, dv)
-    if kind == BF16:
-        return BQ[dtype], MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
-    if kind == F32_TF32:
-        return BQ_TF32, {MLA_HEAD_DIMS: TF32_MLA_BK, D128_HEAD_DIMS: TF32_D128_BK}.get((d, dv), BK)
-    return BQ[dtype], BK
+    if kernel_kind(dtype, d, dv) == BF16:
+        return BQ, MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
+    if (d, dv) in PRESPLIT_HEAD_DIM_PAIRS:
+        return BQ, TF32_MIXED_BK if d != dv else TF32_PRESPLIT_BK
+    return BQ, TF32_MLA_BK if (d, dv) == MLA_HEAD_DIMS else BK
 
 
 def stages(d: int, dv: int) -> int:
@@ -180,16 +207,27 @@ def stages(d: int, dv: int) -> int:
 
 def tf32_stages(d: int, dv: int) -> int:
     """Stages of the ring of the f32 tensor-core kernel that takes (d, dv)."""
-    return TF32_D128_STAGES if (d, dv) == D128_HEAD_DIMS else TF32_STAGES
+    if (d, dv) == D256_HEAD_DIMS:
+        return CLUSTER_STAGES
+    if (d, dv) not in PRESPLIT_HEAD_DIM_PAIRS:
+        return TF32_STAGES
+    return PRESPLIT_STAGES if _tf32_smem(d, dv, PRESPLIT_STAGES) <= MAX_SMEM else PRESPLIT_STAGES - 1
+
+
+def cluster_blocks(dtype: torch.dtype, d: int, dv: int) -> int:
+    """Blocks of a cluster of the kernel that takes these inputs: two at f32
+    (256, 256), each with half of the head dims, else one."""
+    return 2 if kernel_kind(dtype, d, dv) == F32_TF32 and (d, dv) == D256_HEAD_DIMS else 1
 
 
 def workspace_floats(dtype: torch.dtype, B: int, Hkv: int, Skv: int, d: int, dv: int) -> int:
     """f32 of scratch the kernel that takes these inputs needs besides its
     output (``tf32_workspace_floats`` in the source, which checks what it is
-    given against this sum): at f32 (128, 128), K_hi
-    and K_lo (K's shape) and Vᵀ_hi and Vᵀ_lo (dv rows of Skv keys rounded up
-    to SPLIT_KEYS) a KV head; else none."""
-    if kernel_kind(dtype, d, dv) != F32_TF32 or (d, dv) != D128_HEAD_DIMS:
+    given against this sum): where f32 K and V come split
+    (``PRESPLIT_HEAD_DIM_PAIRS``), K_hi and K_lo (K's shape) and Vᵀ_hi and
+    Vᵀ_lo (dv rows of Skv keys rounded up to SPLIT_KEYS) a KV head; else
+    none."""
+    if kernel_kind(dtype, d, dv) != F32_TF32 or (d, dv) not in PRESPLIT_HEAD_DIM_PAIRS:
         return 0
     keys_pad = -(-Skv // SPLIT_KEYS) * SPLIT_KEYS
     return 2 * B * Hkv * (Skv * d + dv * keys_pad)
@@ -198,38 +236,46 @@ def workspace_floats(dtype: torch.dtype, B: int, Hkv: int, Skv: int, d: int, dv:
 def dynamic_smem_bytes(d: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory one block of the kernel that takes (d, dv, dtype) asks
     for at launch (``smem_bytes``, ``mla_smem_bytes`` and ``Tf32Tiles::SMEM``
-    in the source). bf16:
-    the Q tile, the ring of K and V tiles of :func:`tiles`' keys (Q and K in
-    whole 64-column panels: d 96 takes 128), one barrier per stage for full
-    and for empty and one for Q, and 1024 bytes of slack to align the tiles to
-    their swizzle pattern. f32 on the tensor cores: the Q tile (split in place
-    into Q_hi) and Q_lo, two stages of five tiles of :func:`tiles`' keys (K
-    split in place, K_lo, V, Vᵀ_hi, Vᵀ_lo), three barriers per stage and one
-    for Q, and the slack; at (128, 128), whose K and V come split, three
-    stages of four tiles (K_hi, K_lo, Vᵀ_hi, Vᵀ_lo) and two barriers a stage.
-    f32 on the FMA units: Q and K tiles padded by one float, the V tile and
-    the P tile."""
-    kind = kernel_kind(dtype, d, dv)
-    if kind == BF16:
-        (bq, bk), n, dp = tiles(dtype, d, dv), stages(d, dv), -(-d // 64) * 64
+    in the source). bf16: the Q tile, the ring of K and V tiles of
+    :func:`tiles`' keys (Q and K in whole 64-column panels: d 96 takes 128),
+    one barrier per stage for full and for empty and one for Q, and 1024 bytes
+    of slack to align the tiles to their swizzle pattern. f32 on the tensor
+    cores, with a block's columns (all of them, or at (256, 256) half of d
+    and of dv): the Q tile (split in place into Q_hi) and Q_lo, two stages of
+    five tiles of :func:`tiles`' keys (K split in place, K_lo, V, Vᵀ_hi, Vᵀ_lo)
+    and three barriers per stage and one for Q, and the slack; where K and V
+    come split, the stages hold four tiles (K_hi, K_lo, Vᵀ_hi, Vᵀ_lo) and two
+    barriers a stage (three stages, or two where three do not fit); at (256,
+    256) besides, the cluster's exchange slots (two a consumer warpgroup of
+    64 rows by the tile's keys) and a barrier each."""
+    (bq, bk) = tiles(dtype, d, dv)
+    if kernel_kind(dtype, d, dv) == BF16:
+        n, dp = stages(d, dv), -(-d // 64) * 64
         return 1024 + 2 * (bq * dp + n * bk * (dp + dv)) + 8 * (2 * n + 1)
-    if kind == F32_TF32:
-        (bq, bk), n = tiles(dtype, d, dv), tf32_stages(d, dv)
-        if (d, dv) == D128_HEAD_DIMS:
-            return 1024 + 4 * (2 * bq * d + n * bk * (2 * d + 2 * dv)) + 8 * (2 * n + 1)
-        return 1024 + 4 * (2 * bq * d + n * bk * (2 * d + 3 * dv)) + 8 * (3 * n + 1)
-    return 4 * (BQ[dtype] * (d + 1) + BK * (d + 1) + BK * dv + BQ[dtype] * (BK + 1))
+    return _tf32_smem(d, dv, tf32_stages(d, dv))
+
+
+def _tf32_smem(d: int, dv: int, n: int) -> int:
+    """``Tf32Tiles::SMEM`` of the f32 kernel at (d, dv) with a ring of n stages."""
+    (bq, bk), c = tiles(torch.float32, d, dv), cluster_blocks(torch.float32, d, dv)
+    dl, dvl = d // c, dv // c
+    if (d, dv) not in PRESPLIT_HEAD_DIM_PAIRS:
+        return 1024 + 4 * (2 * bq * dl + n * bk * (2 * dl + 3 * dvl)) + 8 * (3 * n + 1)
+    slots = CONSUMERS * 2 if c > 1 else 0
+    return 1024 + 4 * (2 * bq * dl + n * bk * (2 * dl + 2 * dvl) + slots * 64 * bk) + 8 * (2 * n + 1 + slots)
 
 
 def launch_config(dtype: torch.dtype, d: int, dv: int) -> dict:
     """The block of the kernel that takes (d, dv, dtype), as the library
-    reports it: query rows ``bq``, keys a tile ``bk``, ring ``stages`` (1:
-    none), ``smem_bytes`` of dynamic shared memory, ``threads``. Builds the
-    library, so it needs the CUDA toolkit."""
-    out = (ctypes.c_int * 5)()
+    reports it: query rows ``bq``, keys a tile ``bk``, ring ``stages``,
+    ``smem_bytes`` of dynamic shared memory, ``threads``, blocks a
+    ``cluster`` and ``clusters_resident``, the clusters the card holds at
+    once (0 without a cluster). Builds the library, so it needs the CUDA
+    toolkit and a card."""
+    out = (ctypes.c_int * 7)()
     _build.check(_build.library().repro_flash_attention_config(kernel_kind(dtype, d, dv), d, dv, out),
                  "flash_attention config")
-    return dict(zip(("bq", "bk", "stages", "smem_bytes", "threads"), out))
+    return dict(zip(("bq", "bk", "stages", "smem_bytes", "threads", "cluster", "clusters_resident"), out))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float = 0.0):

@@ -151,7 +151,7 @@ def test_chip_smoke_counts_continuous_launches(arch, counter):
     activations at full width and the path's depth (full, or
     ``REDUCED_DEPTH``'s: minicpm3-4b 16 of 62 layers): each one-row insert's
     L attentions on the 3xTF32 kernel of the arch's heads ((128, 128) for
-    codeqwen1.5-7b: 32 an insert), none on the FMA kernel, and a pass's
+    codeqwen1.5-7b: 32 an insert), none on another f32 kernel, and a pass's
     norms an insert and a decode step."""
     import sys
     from pathlib import Path

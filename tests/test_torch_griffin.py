@@ -246,9 +246,13 @@ def test_recurrence_functions_match_reference(name):
 
 def test_cpu_path_launches_no_kernel(pair):
     _, _, model, params = pair()
-    before = (tfa.launches, tlru.launches, trn.launches)
+    def counts():
+        return (*(getattr(tfa, name) for name in ("bf16_launches", *tfa.TF32_COUNTS.values())),
+                tlru.launches, trn.launches)
+
+    before = counts()
     model.prefill_fn(params, {"tokens": torch.from_numpy(tokens(6, 10))})
-    assert (tfa.launches, tlru.launches, trn.launches) == before
+    assert counts() == before
 
 
 # Griffin stages per layer (the deeper of its two blocks, the recurrent one):

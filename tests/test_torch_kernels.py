@@ -204,19 +204,27 @@ def split_tf32(x):
 KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
 
 
-def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True):
+def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=True, halves=None):
     """The arithmetic of the f32 tensor-core kernels (csrc/flash_attention.cu,
     ``flash_attn_tf32_kernel`` at (64, 64), ``flash_attn_tf32_mla_kernel`` at
-    (96, 64), ``flash_attn_tf32_d128_kernel`` at (128, 128)) on the CPU, with
-    the wrapper's tiles for the input's (d, dv) (``flash_attention.tiles``: 32
-    keys a tile at (96, 64), 16 at (128, 128), else 64): q pre-scaled by
-    d**-0.5 in f32, as the Pallas kernel does; S = Q_hi K_hi + Q_hi K_lo +
-    Q_lo K_hi summed in f32, each part rounded by :func:`tf32`, the two small
-    products summed apart and added to the large one; P·V the same three
-    products of the split p and V, over the keys of each group of 8 in
-    ``KEY_ORDER``, added to the rescaled acc. With ``split`` False, one TF32 product each: Q K and P V
-    from singly rounded operands."""
-    scale = float(np.float32(1) / np.sqrt(np.float32(q.shape[-1])))
+    (96, 64), ``flash_attn_tf32_d128_kernel`` at (128, 128),
+    ``flash_attn_tf32_d128_dv64_kernel`` at (128, 64),
+    ``flash_attn_tf32_d64_dv128_kernel`` at (64, 128) and
+    ``flash_attn_tf32_d256_kernel`` at (256, 256)) on the CPU, with the
+    wrapper's tiles for the input's (d, dv) (``flash_attention.tiles``: 32
+    keys a tile at (96, 64), 16 where K and V come split, else 64): q
+    pre-scaled by d**-0.5 in f32, as the Pallas kernel does; S = Q_hi K_hi +
+    Q_hi K_lo + Q_lo K_hi summed in f32, each part rounded by :func:`tf32`,
+    the two small products summed apart and added to the large one; at
+    (256, 256) each of the cluster's two blocks sums that over its half of d
+    and S is half 0 + half 1; P·V the same three products of the split p and
+    V, over the keys of each group of 8 in ``KEY_ORDER``, added to the
+    rescaled acc. With ``split`` False, one TF32 product each: Q K and P V
+    from singly rounded operands; ``halves`` overrides the blocks that split
+    d."""
+    d, dv = q.shape[-1], v.shape[-1]
+    scale = float(np.float32(1) / np.sqrt(np.float32(d)))
+    width = d // (halves or tfa.cluster_blocks(torch.float32, d, dv))  # a block's columns of Q and K
 
     def product(a, b):
         if not split:
@@ -224,14 +232,17 @@ def emulate_f32_kernel(q, k, v, *, causal=True, window=0, logit_cap=0.0, split=T
         (a_hi, a_lo), (b_hi, b_lo) = split_tf32(a), split_tf32(b)
         return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
 
+    def scores(qt, kt):
+        halves = [product(qt[..., c:c + width], kt[..., c:c + width].transpose(-1, -2)) for c in range(0, d, width)]
+        return sum(halves[1:], halves[0])
+
     def weigh(p, vt):
         n = p.shape[-1]
         order = torch.tensor([g + c for g in range(0, n, 8) for c in KEY_ORDER if g + c < n])
         return product(p[..., order], vt[..., order, :])
 
-    return emulate_tiled(q * scale, k, v, lambda qt, kt: product(qt, kt.transpose(-1, -2)), weigh, torch.float32,
-                         tiles=tfa.tiles(torch.float32, q.shape[-1], v.shape[-1]), causal=causal, window=window,
-                         logit_cap=logit_cap)
+    return emulate_tiled(q * scale, k, v, scores, weigh, torch.float32,
+                         tiles=tfa.tiles(torch.float32, d, dv), causal=causal, window=window, logit_cap=logit_cap)
 
 
 # bf16 attention on the card: one output rounding of either side
@@ -323,28 +334,35 @@ def test_mla_head_dims_take_whole_panels():
 
 def test_each_kernel_has_its_own_launch_count():
     """A call adds one to the count of the kernel that takes it: the MLA pair
-    (96, 64) has a count of its own in bf16 and in f32, and f32 (128, 128)
-    one of its own, apart from the other pairs' tensor-core kernels, and the
-    FMA kernel's count takes the f32 pairs that are none of (64, 64),
-    (96, 64) and (128, 128)."""
+    (96, 64) has a count of its own in bf16, and every f32 pair one of its own
+    (each its own tensor-core kernel; no f32 pair is left on the FMA units)."""
     names = {(dtype, pair): tfa.launch_count(dtype, *pair) for dtype in tfa.DTYPES for pair in tfa.HEAD_DIM_PAIRS}
     assert names[torch.float32, (96, 64)] == "tf32_mla_launches"
     assert names[torch.float32, (64, 64)] == "tf32_launches"
     assert names[torch.float32, (128, 128)] == "tf32_d128_launches"
+    assert names[torch.float32, (128, 64)] == "tf32_d128_dv64_launches"
+    assert names[torch.float32, (64, 128)] == "tf32_d64_dv128_launches"
+    assert names[torch.float32, (256, 256)] == "tf32_d256_launches"
     assert names[torch.bfloat16, (96, 64)] == "bf16_mla_launches"
     assert {names[torch.bfloat16, pair] for pair in tfa.HEAD_DIM_PAIRS if pair != (96, 64)} == {"bf16_launches"}
-    assert {pair for pair in tfa.HEAD_DIM_PAIRS if names[torch.float32, pair] == "launches"} == {
-        (64, 128), (128, 64), (256, 256)}
+    assert len({names[torch.float32, pair] for pair in tfa.HEAD_DIM_PAIRS}) == len(tfa.HEAD_DIM_PAIRS)
+    assert {tfa.kernel_kind(torch.float32, *pair) for pair in tfa.HEAD_DIM_PAIRS} == {tfa.F32_TF32}
+    assert set(tfa.TF32_HEAD_DIM_PAIRS) == set(tfa.HEAD_DIM_PAIRS)
+    assert not hasattr(tfa, "launches") and not hasattr(tfa, "F32_SIMT")
     assert all(isinstance(getattr(tfa, name), int) for name in names.values())
 
 
 def test_only_f32_d128_needs_a_workspace():
-    """Only f32 (128, 128) asks for scratch: K_hi and K_lo in K's shape, and
-    V^T_hi and V^T_lo over keys padded to the split kernel's 32."""
+    """Only the f32 pairs whose K and V come split ask for scratch: (128,
+    128), (128, 64), (64, 128) and (256, 256); K_hi and K_lo in K's shape,
+    and V^T_hi and V^T_lo over keys padded to the split kernel's 32."""
     sizes = {(dtype, pair): tfa.workspace_floats(dtype, 2, 4, 33, *pair)
              for dtype in tfa.DTYPES for pair in tfa.HEAD_DIM_PAIRS}
-    assert {key for key, n in sizes.items() if n} == {(torch.float32, (128, 128))}
+    assert {key for key, n in sizes.items() if n} == {
+        (torch.float32, pair) for pair in ((128, 128), (128, 64), (64, 128), (256, 256))}
     assert sizes[torch.float32, (128, 128)] == 2 * (2 * 4 * 33 * 128) + 2 * (2 * 4 * 128 * 64)
+    for d, dv in ((128, 64), (64, 128), (256, 256)):
+        assert sizes[torch.float32, (d, dv)] == 2 * (2 * 4 * 33 * d) + 2 * (2 * 4 * dv * 64)
 
 
 def mla_turns(wg, kt_begin, kt_end, live):
@@ -649,6 +667,218 @@ def test_f32_d128_cases_reach_the_tile_edges():
             single |= len(rows1) == 1
     assert differ and idle and single
     assert {15, 16, 17} <= {case[4] for case in F32_D128_CASES.values()}
+
+
+# f32 (d, dv) = (256, 256), (128, 64) and (64, 128), whose K and V come split
+# too (16-key tiles, 32 at the mixed pairs; (256, 256) on a cluster of two
+# blocks that split the head dims): the (128, 128) cases, GQA with two query heads a
+# KV head, and Skv one short of a 32-key tile, a tile, one past it: name: (B,
+# Hq, Hkv, Sq, Skv, causal, window, logit_cap, input scale)
+F32_SPLIT_CASES = {
+    **F32_D128_CASES, "gqa_groups_of_2": (1, 4, 2, 100, 100, True, 0, 0.0, 1.0),
+    "skv_31": (1, 2, 2, 40, 31, False, 0, 0.0, 1.0), "skv_32": (1, 2, 2, 40, 32, False, 0, 0.0, 1.0),
+    "skv_33": (1, 2, 2, 40, 33, False, 0, 0.0, 1.0),
+}
+MIXED_HEAD_DIMS = ((128, 64), (64, 128))
+
+
+def check_f32_emulation(jx, case, d, dv, seed):
+    """The f32 tensor-core emulation at (d, dv) and case ``case`` of
+    F32_SPLIT_CASES against the JAX Pallas kernel in interpret mode, the JAX
+    oracle and the plain version, at the f32 limit."""
+    B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = F32_SPLIT_CASES[case]
+    qn, kn, vn = draw(seed, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, dv), scale=scale)
+    vn = vn / scale
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    q, k, v = map(torch.from_numpy, (qn, kn, vn))
+    got = emulate_f32_kernel(q, k, v, **kw).numpy()
+    assert got.shape == (B, Hq, Sq, dv)
+    jq, jk, jv = map(jx.jnp.asarray, (qn, kn, vn))
+    pallas = jx.flash_attention(jq, jk, jv, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jx.attention_ref(jq, jk, jv, **kw), ref.attention_ref(q, k, v, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), **F32_ATTN_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(F32_SPLIT_CASES))
+def test_f32_kernel_arithmetic_at_d256_matches_jax(jx, case):
+    """At (256, 256) the cluster kernel's arithmetic (3xTF32, 16-key tiles, S
+    summed per 128-column half and the halves added, scale 256**-0.5) meets
+    the f32 limit against the JAX Pallas kernel in interpret mode, the JAX
+    oracle and the plain version."""
+    check_f32_emulation(jx, case, 256, 256, seed=24)
+
+
+@pytest.mark.parametrize("case", sorted(F32_SPLIT_CASES))
+@pytest.mark.parametrize("d,dv", MIXED_HEAD_DIMS)
+def test_f32_kernel_arithmetic_at_mixed_matches_jax(jx, case, d, dv):
+    """At (128, 64) and (64, 128) the arithmetic of their instances of the
+    (128, 128) block (3xTF32, 16-key tiles) meets the f32 limit against the
+    JAX Pallas kernel in interpret mode, the JAX oracle and the plain
+    version."""
+    check_f32_emulation(jx, case, d, dv, seed=25)
+
+
+def test_f32_split_cases_reach_the_tile_edges():
+    """The cases above reach what the tiles (16 keys, 32 at the mixed pairs)
+    and the cluster make an edge at every new pair: a block whose two warpgroups
+    have different first live tiles, a second warpgroup with no rows and one
+    with a single row, a last tile one key short, full and one key past, a
+    window under a tile, MQA and GQA; and the emulation at (256, 256) sums S
+    per half of d, which a sum over all 256 columns at once does not repeat
+    bit for bit."""
+    assert [tfa.tiles(torch.float32, d, dv) for d, dv in ((256, 256), *MIXED_HEAD_DIMS)] == [
+        (128, 16), (128, 32), (128, 32)]
+    for d, dv in ((256, 256), *MIXED_HEAD_DIMS):
+        bq, bk = tfa.tiles(torch.float32, d, dv)
+        differ = idle = single = False
+        for _, _, _, Sq, Skv, causal, window, _, _ in F32_SPLIT_CASES.values():
+            for _, _, ((rows0, live0), (rows1, live1)) in kernel_blocks(Sq, Skv, causal, window, bq, bk):
+                differ |= bool(live0 and live1 and live0[0] != live1[0])
+                idle |= not len(rows1)
+                single |= len(rows1) == 1
+        assert differ and idle and single
+        assert {bk - 1, bk, bk + 1} <= {case[4] for case in F32_SPLIT_CASES.values()}
+        assert any(0 < case[6] < bk for case in F32_SPLIT_CASES.values())
+    assert {(Hq, Hkv) for _, Hq, Hkv, *_ in F32_SPLIT_CASES.values()} >= {(4, 1), (4, 2), (2, 2)}
+    assert [tfa.cluster_blocks(torch.float32, d, dv) for d, dv in ((256, 256), *MIXED_HEAD_DIMS)] == [2, 1, 1]
+    qn, kn, vn = draw(26, (1, 2, 64, 256), (1, 2, 64, 256), (1, 2, 64, 256))
+    q, k, v = map(torch.from_numpy, (qn, kn, vn))
+    at_once, per_half = emulate_f32_kernel(q, k, v, halves=1), emulate_f32_kernel(q, k, v)
+    assert not torch.equal(per_half, at_once)
+    torch.testing.assert_close(per_half, at_once, **F32_ATTN_TOL)
+
+
+def cluster_consumer_ops(kt_begin, kt_end, live):
+    """The operations of one consumer warpgroup of a block of the (256, 256)
+    cluster kernel, in its order (``tf32_block``), given the block's tiles and
+    the run ``live`` of its own: ("full", kt) waits for tile kt's stage,
+    ("send", i) stores its partial S of its i-th live tile into the peer
+    block's slot of i's parity and arrives on the peer's barrier of that
+    slot, ("landed", i) waits on its own barrier of that slot for phase i //
+    2, ("read", i) reads the peer's partial there, ("empty", kt) releases the
+    stage."""
+    live = set(live)
+    i = 0
+    for kt in range(kt_begin, kt_end):
+        yield "full", kt
+        if kt in live:
+            yield "send", i
+            yield "landed", i
+            yield "read", i
+            i += 1
+        yield "empty", kt
+
+
+def run_cluster(kt_begin, kt_end, groups, stages, order, slots=2):
+    """Run the two blocks of a cluster, each a producer and two consumer
+    warpgroups over the same tiles (the blocks own the same rows), against a
+    model of the mbarriers (full: one TMA landing a phase; empty: one arrival
+    a consumer a phase; landed: one arrival of the peer's warpgroup a phase;
+    waits by parity), picking among the agents that can move in ``order``'s
+    sequence of choices. Fails on a deadlock, on a slot written again before
+    its reader read it, on a read that finds another tile's partial, on a
+    parity wait two phases behind, and on a barrier left part-way or an
+    arrival that no wait meets."""
+    full = {blk: [0] * stages for blk in (0, 1)}  # completed phases
+    empty = {blk: [0] * stages for blk in (0, 1)}
+    empty_in = {blk: [set() for _ in range(stages)] for blk in (0, 1)}
+    landed = {(blk, wg): [0] * slots for blk in (0, 1) for wg in (0, 1)}
+    slot = {(blk, wg): [None] * slots for blk in (0, 1) for wg in (0, 1)}  # (tile, read yet)
+
+    def producer():
+        for i, kt in enumerate(range(kt_begin, kt_end)):
+            if i >= stages:
+                yield "wait_empty", kt
+            yield "load", kt
+
+    agents = {}
+    for blk in (0, 1):
+        agents[blk, "producer"] = producer()
+        for wg in (0, 1):
+            agents[blk, wg] = cluster_consumer_ops(kt_begin, kt_end, groups[wg][1])
+    pending = {name: next(gen, None) for name, gen in agents.items()}
+
+    def ready(name, op):
+        (blk, who), (kind, x) = name, op
+        if kind in ("full", "wait_empty"):
+            i = x - kt_begin
+            phase, bars = (i // stages, full[blk]) if kind == "full" else (i // stages - 1, empty[blk])
+            done = bars[i % stages]
+        elif kind == "landed":
+            phase, done = x // slots, landed[name][x % slots]
+        else:
+            return True
+        assert done <= phase + 1, f"{name} waits on parity {phase} two phases behind"
+        return done > phase
+
+    waits = 0
+    for step in itertools.count():
+        movable = [name for name, op in pending.items() if op is not None and ready(name, op)]
+        if not movable:
+            break
+        name = movable[order[step % len(order)] % len(movable)]
+        (blk, wg), (kind, x) = name, pending[name]
+        if kind == "load":
+            full[blk][(x - kt_begin) % stages] += 1
+        elif kind == "empty":
+            st = (x - kt_begin) % stages
+            assert wg not in empty_in[blk][st], f"{name} releases stage {st} twice in one phase"
+            empty_in[blk][st].add(wg)
+            if len(empty_in[blk][st]) == 2:
+                empty[blk][st] += 1
+                empty_in[blk][st].clear()
+        elif kind == "send":
+            peer = (1 - blk, wg)
+            held = slot[peer][x % slots]
+            assert held is None or held[1], f"{name} overwrites the peer's slot {x % slots} before it was read"
+            slot[peer][x % slots] = (x, False)
+            landed[peer][x % slots] += 1
+        elif kind == "read":
+            held = slot[name][x % slots]
+            assert held == (x, False), f"{name} reads {held} for its live tile {x}"
+            slot[name][x % slots] = (x, True)
+        elif kind == "landed":
+            waits += 1
+        pending[name] = next(agents[name], None)
+    stuck = {name: op for name, op in pending.items() if op is not None}
+    assert not stuck, f"deadlock: {stuck}"
+    for blk in (0, 1):
+        assert not any(empty_in[blk]), "an empty barrier is left part-way"
+        assert sum(full[blk]) == sum(empty[blk]) == kt_end - kt_begin
+    assert sum(sum(n) for n in landed.values()) == waits == 2 * sum(len(live) for _, live in groups)
+
+
+# (Sq, Skv, causal, window): the (256, 256) cases above, chip_smoke.py's
+# d256_f32 (1024, window 512) and an insert of 1000 tokens
+CLUSTER_SCHEDULE_CASES = sorted({(c[3], c[4], c[5], c[6]) for c in F32_SPLIT_CASES.values()}
+                                | {(1024, 1024, True, 512), (1000, 1000, True, 0)})
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", CLUSTER_SCHEDULE_CASES)
+def test_cluster_exchange_never_overwrites_a_slot(Sq, Skv, causal, window):
+    """Every cluster of the (256, 256) kernel at these shapes runs its stage
+    rings and its exchange of partial S to the end, under in-order and
+    shuffled interleavings of its six agents: no slot is written again before
+    it is read, every read finds its own tile's partial, every wait meets its
+    arrival and no barrier is left part-way. Two slots a warpgroup, no
+    barrier that frees them."""
+    bq, bk = tfa.tiles(torch.float32, 256, 256)
+    rng = np.random.default_rng(Sq * 7919 + Skv + window)
+    orders = [[0], [1], [5], *(rng.integers(0, 6, 64).tolist() for _ in range(3))]
+    for kt_begin, kt_end, groups in kernel_blocks(Sq, Skv, causal, window, bq, bk):
+        for order in orders:
+            run_cluster(kt_begin, kt_end, groups, tfa.tf32_stages(256, 256), order)
+
+
+def test_cluster_exchange_needs_two_slots():
+    """With one exchange slot a warpgroup and no barrier to free it, a block
+    can overwrite its peer's slot before the peer read it: the model catches
+    what two slots by the tile's parity rule out."""
+    bq, bk = tfa.tiles(torch.float32, 256, 256)
+    (kt_begin, kt_end, groups), = kernel_blocks(64, 64, True, 0, bq, bk)
+    with pytest.raises(AssertionError, match="overwrites"):
+        for order in itertools.product(range(6), repeat=3):
+            run_cluster(kt_begin, kt_end, groups, tfa.tf32_stages(256, 256), list(order), slots=1)
 
 
 def test_tf32_rounds_to_nearest_away():
@@ -1275,17 +1505,45 @@ def test_flash_attention_smem_fits_a_block():
     """The dynamic shared memory of every compiled instance (head-dim pair
     and dtype) fits the 232,448 bytes a Hopper block may opt into. The
     largest are bf16 at d 256 (Q 64 KB and two stages of K and V) and f32 at
-    (64, 64) on the tensor cores (Q_hi and Q_lo, 32 KB each, and two stages of
-    five 16 KB tiles); f32 at (96, 64) on the tensor cores takes 32-key tiles
-    (the d 64 layout at d 96 would take 295,992 bytes, three stages of 32 keys
-    246,864) and f32 at (128, 128) 16-key tiles (32 keys would take 295,992
-    bytes too; splitting K and V in the block, two stages of 16 keys
-    214,072); the f32 FMA kernel's largest is d 256."""
+    (64, 64) and (128, 128) on the tensor cores (230,456 bytes each: Q_hi and
+    Q_lo and two stages of five 16 KB tiles; Q_hi and Q_lo of 64 KB and three
+    16-key stages of K and V split beforehand); f32 at (96, 64) takes 32-key
+    tiles (the d 64 layout at d 96 would take 295,992 bytes, three stages of
+    32 keys 246,864) and f32 at (128, 128) 16-key tiles (32 keys would take
+    295,992 bytes too; splitting K and V in the block, two stages of 16 keys
+    214,072); f32 at (256, 256) fits only as a cluster of two (128, 128)
+    blocks with two stages and the exchange slots (one block would need 262,144
+    bytes for Q, Q_lo and two 16-key stages at 64 rows; three stages beside one
+    slot a warpgroup 238,664); (128, 64) and (64, 128) are the (128, 128)
+    block at their widths at 32-key tiles, (128, 64) in two stages (at 16
+    keys and three stages they took 205,880 and 140,344 bytes)."""
     largest = {torch.bfloat16: (256, 256), torch.float32: (64, 64)}
     for dtype in tfa.DTYPES:
         sizes = {pair: tfa.dynamic_smem_bytes(*pair, dtype) for pair in tfa.HEAD_DIM_PAIRS}
         assert max(sizes.values()) == sizes[largest[dtype]] <= 232448
-    assert tfa.dynamic_smem_bytes(256, 256, torch.float32) == 213760
+    # Q and Q_lo (128 rows x 128 columns), two stages of K_hi, K_lo (16 keys
+    # x 128 columns), V^T_hi, V^T_lo (128 rows of 16 keys), two exchange
+    # slots of 64 x 16 f32 for each of the two consumer warpgroups, a barrier
+    # for Q, two a stage and one a slot, the slack
+    assert tfa.dynamic_smem_bytes(256, 256, torch.float32) == 1024 + 2 * 65536 + 2 * 32768 + 4 * 4096 + 8 * 9
+    assert tfa.dynamic_smem_bytes(256, 256, torch.float32) == 214088
+    one_block_64_rows = 2 * 64 * 256 * 4 + 2 * 4 * 16 * 256 * 4
+    three_stages_one_slot = 1024 + 2 * 65536 + 3 * 32768 + 2 * 4096 + 8 * 9
+    assert one_block_64_rows == 262144 > 232448 and three_stages_one_slot == 238664 > 232448
+    # (128, 64) at 32-key tiles: Q and Q_lo 64 KB each, two stages of K_hi,
+    # K_lo (32 keys x 128 columns) and V^T_hi, V^T_lo (64 rows of 32 keys);
+    # three stages would not fit
+    assert tfa.dynamic_smem_bytes(128, 64, torch.float32) == 1024 + 2 * 65536 + 2 * (2 * 16384 + 2 * 8192) + 8 * 5
+    assert tfa.dynamic_smem_bytes(128, 64, torch.float32) == 230440 and tfa.tf32_stages(128, 64) == 2
+    three_32_key_stages = 1024 + 2 * 65536 + 3 * (2 * 16384 + 2 * 8192) + 8 * 7
+    keys_16_at_d128_dv64 = 1024 + 2 * 65536 + 3 * (2 * 8192 + 2 * 4096) + 8 * 7
+    assert three_32_key_stages == 279608 > 232448 and keys_16_at_d128_dv64 == 205880
+    # (64, 128) at 32-key tiles: Q and Q_lo 32 KB each, three stages of K_hi,
+    # K_lo (32 keys x 64 columns) and V^T_hi, V^T_lo (128 rows of 32 keys)
+    assert tfa.dynamic_smem_bytes(64, 128, torch.float32) == 1024 + 2 * 32768 + 3 * (2 * 8192 + 2 * 16384) + 8 * 7
+    assert tfa.dynamic_smem_bytes(64, 128, torch.float32) == 214072
+    keys_16_at_d64_dv128 = 1024 + 2 * 32768 + 3 * (2 * 4096 + 2 * 8192) + 8 * 7
+    assert keys_16_at_d64_dv128 == 140344
     assert tfa.dynamic_smem_bytes(256, 256, torch.bfloat16) == 1024 + 2 * (128 * 256 + 2 * 64 * 512) + 8 * 5
     assert tfa.dynamic_smem_bytes(64, 64, torch.float32) == 1024 + 2 * 32768 + 2 * 5 * 16384 + 8 * 7
     assert tfa.dynamic_smem_bytes(96, 64, torch.float32) == 197688
@@ -1302,8 +1560,7 @@ def test_ops_send_cpu_tensors_to_plain_versions():
     qn, kn, vn, xn, wn = draw(4, (1, 4, 20, 64), (1, 2, 20, 64), (1, 2, 20, 64), (5, 64), (64,))
     q, k, v, x, w = map(torch.from_numpy, (qn, kn, vn, xn, wn))
     def counts():
-        return (tfa.launches, tfa.bf16_launches, tfa.tf32_launches, tfa.tf32_mla_launches, tfa.tf32_d128_launches,
-                trn.launches)
+        return (*(getattr(tfa, name) for name in COUNTS), trn.launches)
 
     before = counts()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1368,8 +1625,7 @@ GPU_ATTN_CASES = {
 
 
 # the wrapper's launch counts, one a kernel
-COUNTS = ("launches", "bf16_launches", "bf16_mla_launches", "tf32_launches", "tf32_mla_launches",
-          "tf32_d128_launches")
+COUNTS = ("bf16_launches", "bf16_mla_launches", *tfa.TF32_COUNTS.values())
 
 
 @pytest.mark.gpu
@@ -1451,8 +1707,7 @@ GPU_F32_MLA_CASES = {
 @pytest.mark.parametrize("case", sorted(GPU_F32_MLA_CASES))
 def test_flash_attention_f32_mla_instance_matches_plain(case):
     """f32 at (96, 64) launches the 3xTF32 MLA kernel (its own count: one a
-    call, and none on the FMA kernel's or the d 64 kernel's) and meets the f32
-    limit."""
+    call, and none on another kernel's) and meets the f32 limit."""
     _need_card()
     B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = GPU_F32_MLA_CASES[case]
     qn, kn, vn = draw(42, (B, Hq, Sq, 96), (B, Hkv, Skv, 96), (B, Hkv, Skv, 64), scale=scale)
@@ -1487,8 +1742,7 @@ GPU_F32_D128_CASES = {
 @pytest.mark.parametrize("case", sorted(GPU_F32_D128_CASES))
 def test_flash_attention_f32_d128_instance_matches_plain(case):
     """f32 at (128, 128) launches the 3xTF32 d 128 kernel (its own count: one
-    a call, and none on the FMA kernel's or the other TF32 kernels') and
-    meets the f32 limit."""
+    a call, and none on another kernel's) and meets the f32 limit."""
     _need_card()
     B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = GPU_F32_D128_CASES[case]
     qn, kn, vn = draw(45, (B, Hq, Sq, 128), (B, Hkv, Skv, 128), (B, Hkv, Skv, 128), scale=scale)
@@ -1503,20 +1757,73 @@ def test_flash_attention_f32_d128_instance_matches_plain(case):
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw), **F32_ATTN_TOL)
 
 
+# the f32 kernels whose K and V come split, on the card: the CPU cases' edges
+# (F32_SPLIT_CASES) at more heads, and the shapes chip_smoke.py's phase 3
+# gives them (Griffin's 10 heads on one KV head under a window of 512 at
+# (256, 256), 16 heads at the mixed pairs): name: (B, Hq, Hkv, Sq, Skv,
+# causal, window, logit_cap, input scale)
+GPU_F32_SPLIT_CASES = {
+    **{name: (B, 4 * Hq, 4 * Hkv, *rest) for name, (B, Hq, Hkv, *rest) in F32_SPLIT_CASES.items()},
+    "griffin_window_512": (2, 10, 1, 1024, 1024, True, 512, 0.0, 1.0),
+    "heads_16_s1024": (2, 16, 16, 1024, 1024, True, 0, 0.0, 1.0),
+    "ragged_sq_past_skv": (1, 4, 4, 150, 70, False, 0, 0.0, 1.0),
+    "second_warpgroup_idle": (2, 8, 8, 1088, 1088, True, 0, 0.0, 1.0),
+}
+
+
+def check_f32_instance(case, d, dv, seed):
+    """f32 at (d, dv) launches its own 3xTF32 kernel (one launch on its own
+    count, none on the others) and meets the f32 limit at case ``case`` of
+    GPU_F32_SPLIT_CASES."""
+    B, Hq, Hkv, Sq, Skv, causal, window, cap, scale = GPU_F32_SPLIT_CASES[case]
+    qn, kn, vn = draw(seed, (B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, dv), scale=scale)
+    q, k, v = (torch.from_numpy(a).cuda() for a in (qn, kn, vn / scale))
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    counts = {name: getattr(tfa, name) for name in COUNTS}
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    counts[tfa.launch_count(torch.float32, d, dv)] += 1
+    assert counts == {name: getattr(tfa, name) for name in COUNTS}
+    assert got.shape == (B, Hq, Sq, dv) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, **kw), **F32_ATTN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_F32_SPLIT_CASES))
+def test_flash_attention_f32_d256_instance_matches_plain(case):
+    """f32 at (256, 256) launches the 3xTF32 cluster kernel (its own count)
+    and meets the f32 limit."""
+    _need_card()
+    check_f32_instance(case, 256, 256, seed=47)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_F32_SPLIT_CASES))
+@pytest.mark.parametrize("d,dv", MIXED_HEAD_DIMS)
+def test_flash_attention_f32_mixed_instance_matches_plain(case, d, dv):
+    """f32 at (128, 64) and (64, 128) launches its 3xTF32 instance of the
+    (128, 128) block (its own count) and meets the f32 limit."""
+    _need_card()
+    check_f32_instance(case, d, dv, seed=48)
+
+
 @pytest.mark.gpu
 def test_flash_attention_launch_config_matches_the_wrapper():
     """The library's blocks (query rows, keys a tile, stages, dynamic shared
-    memory, threads) are the ones the wrapper and the CPU emulation assume,
-    for every pair and dtype."""
+    memory, threads, blocks a cluster) are the ones the wrapper and the CPU
+    emulation assume, for every pair and dtype; the card holds clusters of
+    the (256, 256) kernel, and only that kernel has a cluster."""
     _need_card()
     for dtype in tfa.DTYPES:
         for d, dv in tfa.HEAD_DIM_PAIRS:
             kind = tfa.kernel_kind(dtype, d, dv)
             bq, bk = tfa.tiles(dtype, d, dv)
-            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: tfa.tf32_stages(d, dv), tfa.F32_SIMT: 1}[kind]
-            threads = 256 if kind == tfa.F32_SIMT else 384
-            assert tfa.launch_config(dtype, d, dv) == dict(
-                bq=bq, bk=bk, stages=stages, smem_bytes=tfa.dynamic_smem_bytes(d, dv, dtype), threads=threads)
+            stages = {tfa.BF16: tfa.stages(d, dv), tfa.F32_TF32: tfa.tf32_stages(d, dv)}[kind]
+            config = tfa.launch_config(dtype, d, dv)
+            resident = config.pop("clusters_resident")
+            assert config == dict(bq=bq, bk=bk, stages=stages, smem_bytes=tfa.dynamic_smem_bytes(d, dv, dtype),
+                                  threads=384, cluster=tfa.cluster_blocks(dtype, d, dv))
+            assert (resident > 0) == (config["cluster"] > 1)
 
 
 @pytest.mark.gpu
@@ -1590,14 +1897,44 @@ def test_f32_d128_attention_grads_on_the_card_match_the_cpu():
 
 
 @pytest.mark.gpu
+def test_f32_d256_attention_grads_on_the_card_match_the_cpu():
+    """f32 ``ops.attention`` at (256, 256) under autograd: the forward is one
+    launch of the 3xTF32 cluster kernel, the backward the plain path
+    recomputed (no launch); out, dq, dk, dv agree with the CPU's at the f32
+    attention limit, as at the other pairs."""
+    _need_card()
+    arrays = draw(49, (1, 4, 150, 256), (1, 1, 150, 256), (1, 1, 150, 256), (1, 4, 150, 256))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in arrays[:3])
+        before = {name: getattr(tfa, name) for name in COUNTS}
+        out = ops.attention(q, k, v, causal=True, window=100, kv_chunk=64)
+        assert out.grad_fn is not None
+        grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(arrays[3]).to(dev))
+        torch.cuda.synchronize()
+        before["tf32_d256_launches"] += dev == "cuda"
+        assert before == {name: getattr(tfa, name) for name in COUNTS}
+        results[dev] = [t.cpu() for t in (out, *grads)]
+    for got, want in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(64, 128), (128, 64)])
 def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
+    """The mixed pairs launch their own kernel: bf16 the bf16 kernel, f32
+    their 3xTF32 instance (one launch on its own count, none on the others)."""
     _need_card()
     arrays = draw(7, (2, 4, 130, d), (2, 2, 130, d), (2, 2, 130, dv))
     q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
+    counts = {name: getattr(tfa, name) for name in COUNTS}
     got = ops.attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    counts[tfa.launch_count(dtype, d, dv)] += 1
+    assert counts == {name: getattr(tfa, name) for name in COUNTS}
+    assert tfa.launch_count(dtype, d, dv) == {
+        torch.bfloat16: "bf16_launches", torch.float32: f"tf32_d{d}_dv{dv}_launches"}[dtype]
     assert got.shape == (2, 4, 130, dv) and got.dtype == dtype
     tol = BF16_ATTN_TOL if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=1e-4)
     torch.testing.assert_close(got.float(), ref.attention_ref(q, k, v, causal=True).float(), **tol)
@@ -1606,9 +1943,8 @@ def test_flash_attention_kernel_mixed_head_dims(d, dv, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,dv", tfa.HEAD_DIM_PAIRS)
 def test_f32_head_dims_run_their_kernel(d, dv):
-    """Each f32 head-dim pair launches the kernel that takes it, the tensor
-    cores' at (64, 64), (96, 64) and (128, 128) (each its own count) and the
-    FMA units' at the others, and meets the f32 limit."""
+    """Each f32 head-dim pair launches its own tensor-core kernel (each its
+    own count: no pair is left on the FMA units) and meets the f32 limit."""
     _need_card()
     arrays = draw(21, (1, 4, 200, d), (1, 2, 200, d), (1, 2, 200, dv))
     q, k, v = (torch.from_numpy(a).cuda() for a in arrays)
@@ -1619,6 +1955,7 @@ def test_f32_head_dims_run_their_kernel(d, dv):
     torch.cuda.synchronize()
     counts[tfa.launch_count(torch.float32, d, dv)] += 1
     assert counts == {name: getattr(tfa, name) for name in COUNTS}
+    assert tfa.launch_count(torch.float32, d, dv) == tfa.TF32_COUNTS[d, dv]
     torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True, window=150), **F32_ATTN_TOL)
 
 
