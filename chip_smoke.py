@@ -89,7 +89,16 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    launches (counted as a path); both steps timed in turns; the compressed
    step runs, the mean of 20 error-fed syncs of a constant tracks it (rtol
    0.02), and the int8 payload, scales and error-feedback carry on the card
-   equal the CPU's (a gloo group) bit for bit. Then eco-preemption through
+   equal the CPU's (a gloo group) bit for bit. Then the mesh leg: the step
+   on a 1 x 1 ("data", "model") device mesh in a process group of one rank
+   (NCCL; gloo in the rehearsal), the state and batches DTensors laid out by
+   ``rules_for`` with FSDP forced on (so ``embed`` and ``batch`` map to
+   ``data``): nbi-100m at full width and depth at the resume check's shapes,
+   and TRAIN_SMALL_MODELS' deepseek-moe-16b in bf16, each N steps against
+   ``make_train_step`` from the same state, bit for bit under
+   ``torch.use_deterministic_algorithms``, the kernels (K1, K2, K5) reached
+   through the ops' local-shard route with exactly the plain step's launches
+   (counted as paths); both steps timed in turns. Then eco-preemption through
    the launcher plugin ``launchers/torch_h100.py`` in a subprocess (this
    script imports nothing of ``repro``), with ``NBISLURM_CONFIG`` an empty
    file: started at the first instant of the default peak hours, the run
@@ -147,6 +156,7 @@ from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import make_train_loader  # noqa: E402
 from repro_torch.launch.distributed import dp_groups, initialize  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, device_name, pad_cache_to  # noqa: E402
 from repro_torch.launch.train import build_argparser as train_argparser  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -155,7 +165,9 @@ from repro_torch.models.common import map_defs, tree_leaves  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import cosine_warmup, make_optimizer  # noqa: E402
 from repro_torch.parallel import ef_compressed_psum, init_ef_state, quant_int8  # noqa: E402
+from repro_torch.parallel.sharding import distribute_tree, full_tree, resolve_tree, rules_for  # noqa: E402
 from repro_torch.training import init_dp_state, init_train_state, make_dp_train_step, make_train_step  # noqa: E402
+from repro_torch.training import train_state_logical  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # dense rates without sparsity, f32 outside the tensor cores, TF32 on them.
@@ -822,8 +834,8 @@ def run_gating_cases(device, timer, full: bool) -> dict:
                    bound_by=bound_by, library_ms=None)
         say(f"[kernels] moe_gating {name}: G={G} N={N} E={E} k={k} capacity={cap} logit scale={scale} "
             f"skew={skew} | idx and pos exact, {dropped} of {pos.numel()} picks dropped, gate max_abs_err="
-            f"{err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=none bound={bound_ms:.4f}ms "
-            f"({bound_by}) MB={nbytes / 1e6:.2f}")
+            f"{err:.3e} kernel={ms:.4f}ms plain={plain_ms:.4f}ms library=none bound={bound_ms:.4g}ms "
+            f"({bound_by}) bytes={nbytes}")
         first = first or row
     return first
 
@@ -1926,6 +1938,99 @@ def dp_path(device, full: bool) -> dict:
     return launches["dp"]
 
 
+# the mesh leg: timed steps of each step in turns (after the N checked ones)
+MESH_TIMED_STEPS = {True: 6, False: 2}
+MESH_SMALL_ARCH = "deepseek-moe-16b"
+
+
+def mesh_configs(full: bool) -> list:
+    """(name, config, (batch, seq)) of the mesh leg, FSDP forced on: nbi-100m
+    at full width and depth (its smoke config in the rehearsal) at the resume
+    check's shapes, and TRAIN_SMALL_MODELS' deepseek-moe-16b in the full
+    config's bf16, so that K1's bf16 kernel, K2 and K5 all run."""
+    _, (batch, seq, _) = TRAIN_RUN[full]
+    nbi = (get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)).replace(fsdp=True)
+    overrides, shape = TRAIN_SMALL_MODELS[MESH_SMALL_ARCH]
+    moe = get_smoke_config(MESH_SMALL_ARCH).replace(**overrides, dtype=get_config(MESH_SMALL_ARCH).dtype, fsdp=True)
+    return [(TRAIN_ARCH, nbi, (batch, seq)), (f"{MESH_SMALL_ARCH} small", moe, shape)]
+
+
+def mesh_path(device, full: bool) -> dict:
+    """The train step on a 1 x 1 device mesh in a process group of one rank
+    against ``make_train_step``, for each of :func:`mesh_configs`: the same
+    seeded state and batches, N steps each under
+    ``torch.use_deterministic_algorithms``, then every leaf equal bit for bit
+    and the mesh step's launches equal to the plain step's and to the exact
+    count; both steps timed in turns. Returns the launches of each mesh run
+    (name: counts), the counters set to 0 just before its steps."""
+    _, (_, _, n) = TRAIN_RUN[full]
+    timed = MESH_TIMED_STEPS[full]
+    t0 = time.perf_counter()
+    initialize(device, 0, 1, f"localhost:{free_port()}")
+    out = {}
+    try:
+        mesh = make_host_mesh(device)
+        backend = torch.distributed.get_backend()
+        for name, cfg, (batch, seq) in mesh_configs(full):
+            model = build_model(cfg)
+            opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
+            rules = rules_for(cfg, mesh, param_defs=model.param_defs, batch_size=batch,
+                              extra_dims={"heads": cfg.n_heads})
+            if rules["embed"] != "data" or rules["batch"] != "data":
+                raise AssertionError(f"mesh leg {name}: rules {rules} do not shard embed and batch over data")
+            placements = resolve_tree(mesh, train_state_logical(model, opt), rules)
+            inputs = resolve_tree(mesh, model.train_input_logical(), rules)
+            loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
+            batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()}
+                       for _ in range(n + 2 * timed)]
+            loader.close()
+            steps = {"plain": make_train_step(model, opt), "mesh": make_train_step(model, opt, rules, mesh)}
+            feeds = {"plain": batches, "mesh": [distribute_tree(b, mesh, inputs) for b in batches]}
+            states, launches = {}, {}
+            with deterministic(device):
+                for which in ("plain", "mesh"):
+                    state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
+                    if which == "mesh":
+                        state = distribute_tree(state, mesh, placements)
+                    zero_counters()
+                    for b in feeds[which][:n]:
+                        state, metrics = steps[which](state, b)
+                    float(metrics["loss"])
+                    launches[which] = read_counters()
+                    states[which] = state
+            differ = [p for (p, a), (_, b) in zip(tree_leaves(states["plain"]), tree_leaves(full_tree(states["mesh"])))
+                      if not torch.equal(a, b)]
+            if differ:
+                raise AssertionError(f"mesh leg {name}: the mesh step differs from the plain step at {differ}")
+            check_launches(f"mesh leg {name}", launches["mesh"], expected_train_launches(cfg, batch, seq, n), device)
+            if launches["mesh"] != launches["plain"]:
+                raise AssertionError(f"mesh leg {name}: launches {launches['mesh']} != the plain step's "
+                                     f"{launches['plain']}")
+            ms = {"plain": [], "mesh": []}
+            rest = {k: iter(v[n:]) for k, v in feeds.items()}
+            for which in ("plain", "mesh", "mesh", "plain"):  # in turns
+                for _ in range(timed // 2):
+                    sync(device)
+                    t = time.perf_counter()
+                    states[which], metrics = steps[which](states[which], next(rest[which]))
+                    float(metrics["loss"])
+                    ms[which].append((time.perf_counter() - t) * 1e3)
+            say(f"[mesh] {name} ({cfg.n_layers} layers, D={cfg.d_model}, {cfg.dtype}, remat {cfg.remat}) on a 1 x 1 "
+                f"mesh in a {backend} group of one rank, rules embed->{rules['embed']} batch->{rules['batch']}, "
+                f"{n} steps of {batch} x {seq}: equals make_train_step bit for bit "
+                f"({len(tree_leaves(states['plain']))} leaves, under torch.use_deterministic_algorithms) | "
+                f"launches {launches['mesh']} | step ms (host clock to the loss, {timed} steps each in turns "
+                f"plain, mesh, mesh, plain): mesh median {np.median(ms['mesh']):.3f} (min {min(ms['mesh']):.3f}) "
+                f"against the plain step's median {np.median(ms['plain']):.3f} (min {min(ms['plain']):.3f})")
+            out[name] = launches["mesh"]
+            del states, feeds, batches, steps
+            free(device)
+    finally:
+        torch.distributed.destroy_process_group()
+    say(f"[mesh] leg took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def eco_path(device, full: bool) -> None:
     """Eco-preemption through the launcher plugin, in subprocesses with an
     empty NBI-Slurm config (the default peak and eco windows): a run started
@@ -2065,6 +2170,8 @@ def main(argv=None) -> int:
         by_path[f"train {arch}"] = family_train_path(arch, device, full)
         say(f"[train] {arch} phase took {time.perf_counter() - t1:.1f}s")
     by_path[f"train dp {TRAIN_ARCH}"] = dp_path(device, full)
+    for name, launches in mesh_path(device, full).items():
+        by_path[f"train mesh {name}"] = launches
     eco_path(device, full)
     say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")
     say(f"[time] chip_smoke.py took {time.perf_counter() - t_script:.1f}s")

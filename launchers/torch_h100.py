@@ -2,6 +2,7 @@
 ``torch-train`` and ``torch-serve``.
 
     nbilaunch --launcher-dir launchers torch-train arch=nbi-100m steps=300 gpus=8
+    nbilaunch --launcher-dir launchers torch-train arch=mistral-large-123b gpus=64 mesh=data=8,model=8
     nbilaunch --launcher-dir launchers torch-serve arch=codeqwen1.5-7b batch=8
     cp launchers/torch_h100.py ~/.nbi/launchers/   # then: nbilaunch torch-train ...
     python launchers/torch_h100.py train --arch nbi-100m ... --eco-preempt
@@ -9,7 +10,12 @@
 The paper's wrapper pattern: each launcher sizes its job from the model
 config at submission time (:mod:`repro_torch.launch.submit`: bytes a GPU,
 ``gres gpu:h100:N``, hosts of 8 GPUs, one task a GPU under ``srun``, host
-memory, wall time) and refuses a config whose step does not fit one GPU.
+memory, wall time) and refuses a job whose step does not fit its GPUs,
+naming the smallest GPU count and mesh that fit. Without ``mesh`` the job is
+data parallel (every GPU holds the model); with ``mesh=data=D,model=M``
+(D·M = gpus) it trains on that device mesh (``--mesh``: ZeRO-3 over
+``data`` with the config's ``fsdp``, tensor and expert parallelism over
+``model`` within a host).
 Their names differ from the JAX package's ``train`` and ``serve``, which stay
 as they are.
 
@@ -53,6 +59,8 @@ class TorchTrainLauncher(Launcher):
         InputSpec("ckpt_dir", required=False, kind="str", default="ckpt"),
         InputSpec("smoke", required=False, kind="int", default=0, help="1 = reduced smoke config"),
         InputSpec("gpus", required=False, kind="int", default=1, help="one task a GPU, 8 a host"),
+        InputSpec("mesh", required=False, kind="str", default="",
+                  help="data=D,model=M over the gpus (empty: data parallel)"),
         InputSpec("device", required=False, kind="str", default="cuda", help="cuda or cpu"),
         InputSpec("eco_preempt", required=False, kind="int", default=0,
                   help="1 = checkpoint + exit at the next peak-hours boundary"),
@@ -68,7 +76,8 @@ class TorchTrainLauncher(Launcher):
         try:
             self.sizing = submit.size_train(
                 self.inputs["arch"], global_batch=int(p["global_batch"]), seq=int(p["seq"]),
-                steps=int(p["steps"]), gpus=int(p["gpus"]), smoke=bool(p["smoke"]), device=p["device"])
+                steps=int(p["steps"]), gpus=int(p["gpus"]), smoke=bool(p["smoke"]), device=p["device"],
+                mesh=p["mesh"])
         except ValueError as e:  # DoesNotFit included
             raise LauncherError(f"{self.tool_name}: {e}") from None
         _apply(self.opts, self.sizing)
@@ -84,7 +93,7 @@ class TorchTrainLauncher(Launcher):
         return submit.train_command(
             self.inputs["arch"], steps=p["steps"], global_batch=p["global_batch"], seq=p["seq"],
             ckpt_dir=f"{self.outdir}/{p['ckpt_dir']}", smoke=bool(p["smoke"]), device=p["device"],
-            tasks=self.sizing["tasks"], eco_preempt=bool(p["eco_preempt"]), plugin=PLUGIN)
+            tasks=self.sizing["tasks"], eco_preempt=bool(p["eco_preempt"]), plugin=PLUGIN, mesh=p["mesh"])
 
     def sbatch_script(self) -> str:
         """Standalone multi-node sbatch (the deploy artifact for big runs)."""

@@ -26,17 +26,30 @@ Layout (one directory per step)::
   after a successful save.
 * ``extra``: an opaque JSON dict (data cursor, stop reason, ...) saved beside
   the tree.
+* Sharded states (a tree of DTensors, the train step on a device mesh):
+  ``save_sharded`` stores them unsharded in the same format, as the reference
+  stores a sharded state. Every rank takes part in gathering each leaf, one
+  slice along its first dim at a time where that dim is not sharded (a layer
+  of a stacked leaf), else whole; rank 0 appends each slice to the leaf's
+  file from host memory, so no host holds more than one slice. The write is
+  synchronous. ``restore_sharded`` restores onto any mesh ("elastic
+  restore"): each rank reads only its own shard of each leaf (a memory map
+  of the leaf's file) and wraps it with that mesh's placements.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import shutil
 import threading
 import zlib
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import map_defs, tree_leaves, tree_unflatten
 
@@ -120,6 +133,91 @@ def restore_tree(path, target_tree, *, device="cpu", verify: bool = True):
     return tree_unflatten(target_tree, out), manifest.get("extra", {})
 
 
+def _host_parts(t):
+    """Host copies of a DTensor's whole value, in memory order: a slice along
+    dim 0 at a time where dim 0 is not sharded, else the whole leaf. Every
+    rank of the mesh calls this together (each part is an all-gather)."""
+    if t.ndim >= 2 and not any(p.is_shard(0) for p in t.placements):
+        for i in range(t.shape[0]):
+            yield t[i].full_tensor().cpu()
+    else:
+        yield t.full_tensor().cpu()
+
+
+def save_sharded_tree(path, tree, *, extra: dict | None = None) -> None:
+    """:func:`save_tree` of a tree of DTensors, unsharded; every rank calls
+    it, rank 0 writes. Returns when the checkpoint is published."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    writer = dist.get_rank() == 0
+    if writer:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+    records = []
+    for i, (keypath, leaf) in enumerate(tree_leaves(tree)):
+        if leaf.dtype not in _NAMES:
+            raise ValueError(f"{keypath}: dtype {leaf.dtype} has no checkpoint name")
+        fname, crc = f"leaf_{i:05d}.bin", 0
+        with open(tmp / fname, "wb") if writer else contextlib.nullcontext() as f:
+            for part in _host_parts(leaf.detach()):
+                if writer:
+                    raw = _raw(part)
+                    crc = zlib.crc32(raw, crc)
+                    f.write(raw)
+        records.append({"index": i, "keypath": keypath, "file": fname, "shape": list(leaf.shape),
+                        "dtype": _NAMES[leaf.dtype], "crc32": crc})
+    if writer:
+        manifest = {"format_version": _FORMAT_VERSION, "n_leaves": len(records),
+                    "leaves": records, "extra": extra or {}}
+        (tmp / MANIFEST).write_text(json.dumps(manifest, indent=1))
+        if path.exists():
+            shutil.rmtree(path)
+        tmp.rename(path)  # atomic publish
+    dist.barrier()
+
+
+def _crc_of_file(file: Path) -> int:
+    crc = 0
+    with open(file, "rb") as f:
+        while chunk := f.read(1 << 24):
+            crc = zlib.crc32(chunk, crc)
+    return crc
+
+
+def restore_sharded_tree(path, target_tree, placements_tree, mesh, *, device, verify: bool = True):
+    """Load a checkpoint onto ``mesh``: each leaf a DTensor with the
+    placements of ``placements_tree``, of which this rank reads only its own
+    shard from the leaf's file. ``target_tree``'s leaves give the shapes
+    (meta tensors will do). Returns ``(tree, extra)``."""
+    from repro_torch.parallel.sharding import from_local, local_slices
+
+    path = Path(path)
+    manifest = json.loads((path / MANIFEST).read_text())
+    targets, placements = tree_leaves(target_tree), [p for _, p in tree_leaves(placements_tree)]
+    if manifest["n_leaves"] != len(targets):
+        raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves; target structure has {len(targets)}")
+    out = [None] * len(targets)
+    for rec in manifest["leaves"]:
+        file, shape, name = path / rec["file"], tuple(rec["shape"]), rec["dtype"]
+        if shape != tuple(targets[rec["index"]][1].shape):
+            raise ValueError(f"{rec['keypath']}: checkpoint shape {shape} != target {tuple(targets[rec['index']][1].shape)}")
+        if name not in _DTYPES:
+            raise ValueError(f"unsupported dtype {name!r} in checkpoint")
+        if verify and _crc_of_file(file) != rec["crc32"]:
+            raise IOError(f"checksum mismatch for {rec['keypath']} in {path}")
+        pl = placements[rec["index"]]
+        if not shape or not math.prod(shape):
+            local = _from_raw(file.read_bytes(), name, shape)
+        else:
+            held = np.memmap(file, dtype=np.int16 if name == "bfloat16" else np.dtype(name), mode="r", shape=shape)
+            local = torch.from_numpy(np.array(held[local_slices(shape, pl, mesh)], copy=True))
+            if name == "bfloat16":
+                local = local.view(torch.bfloat16)
+        out[rec["index"]] = from_local(local.to(device), mesh, pl, shape)
+    return tree_unflatten(target_tree, out), manifest.get("extra", {})
+
+
 class CheckpointManager:
     """Step-indexed checkpoints with retention and async writes."""
 
@@ -174,6 +272,26 @@ class CheckpointManager:
             self._writer = threading.Thread(target=write, daemon=True, name="ckpt-writer")
             self._writer.start()
         return target
+
+    def save_sharded(self, step: int, tree, *, extra: dict | None = None) -> Path:
+        """Checkpoint a tree of DTensors unsharded (:func:`save_sharded_tree`);
+        every rank calls it, synchronously."""
+        self.wait()
+        target = self.step_dir(step)
+        save_sharded_tree(target, tree, extra=extra)
+        if dist.get_rank() == 0:
+            self._gc()
+        return target
+
+    def restore_sharded(self, target_tree, placements_tree, mesh, *, step: int | None = None, device="cpu"):
+        """Restore ``step`` (default: latest) onto ``mesh``
+        (:func:`restore_sharded_tree`). Returns (tree, extra, step)."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        tree, extra = restore_sharded_tree(self.step_dir(step), target_tree, placements_tree, mesh, device=device)
+        return tree, extra, step
 
     def wait(self) -> None:
         """Join any in-flight async save (re-raises its error, if any)."""

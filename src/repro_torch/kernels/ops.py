@@ -26,9 +26,22 @@ No backward launches a kernel. ``moe_gating`` has no backward, as the
 reference's gating kernel has none: on a tensor off the CPU that requires grad
 it raises, and never returns a result cut from the graph (the MoE layer routes
 on detached logits and recomputes its gates differentiably).
+
+DTensors (a step on a device mesh, :mod:`repro_torch.parallel.sharding`): the
+kernels are bound through ctypes with raw pointers, so a DTensor never reaches
+them. ``attention``, ``rmsnorm`` and ``moe_gating`` take the local-shard route:
+each DTensor input is replaced by its local shard, the op runs on the shards
+as above, and its outputs are wrapped back with the inputs' placements. That
+is exact only over dims the kernel treats independently (attention: batch and
+heads; RMSNorm: its rows; K5: the groups), so a placement on a dim the kernel
+reduces over, or a partial sum, raises; nothing is gathered quietly.
+Autograd runs through the route (``to_local`` / ``from_local``). ``lru_scan``
+and ``wkv6`` refuse DTensors (Griffin and RWKV-6 on a mesh are not ported).
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -38,6 +51,41 @@ from . import ref
 from . import rglru_scan as _lru
 from . import rmsnorm as _rn
 from . import rwkv6_scan as _wkv
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (without
+    importing that module: no DTensor exists before it is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _on_local_shards(what: str, fn, inputs, free: dict, out_from: str):
+    """``fn`` on the local shards of the DTensor ``inputs`` (name → tensor),
+    its outputs wrapped back as DTensors with the placements of
+    ``inputs[out_from]``. ``free`` names each input's dims that the op
+    treats independently (None: the input must be replicated); a shard on
+    any other dim, or a partial sum, raises."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = inputs[out_from].device_mesh
+    for name, t in inputs.items():
+        if not is_dtensor(t) or t.device_mesh != mesh:
+            raise TypeError(f"ops.{what}: {name} is not a DTensor on the mesh of {out_from}")
+        for p in t.placements:
+            if p.is_partial():
+                raise ValueError(f"ops.{what}: {name} holds partial sums ({t.placements}); redistribute it first")
+            if p.is_shard() and p.dim % t.ndim not in (free[name] or ()):
+                raise ValueError(f"ops.{what}: {name} {tuple(t.shape)} is sharded on dim {p.dim} "
+                                 f"({t.placements}), which the kernel does not treat independently")
+    placements = inputs[out_from].placements
+    # an input replicated over a mesh dim that splits the output has a partial
+    # local gradient there (a norm's weight sees only this rank's rows)
+    out = fn(*(t.to_local(grad_placements=[Partial() if o.is_shard() and p.is_replicate() else p
+                                           for o, p in zip(placements, t.placements)])
+               for t in inputs.values()))
+    wrap = lambda o: DTensor.from_local(o, mesh, placements, run_check=False)  # noqa: E731
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -80,7 +128,18 @@ class _Attention(torch.autograd.Function):
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float = 0.0, kv_chunk: int = 1024):
     """(B,Hq,Sq,d) × (B,Hkv,Skv,d), (B,Hkv,Skv,dv) → (B,Hq,Sq,dv); GQA by head
-    ratio. ``kv_chunk`` is the KV chunk of the backward's recompute."""
+    ratio. ``kv_chunk`` is the KV chunk of the backward's recompute.
+    DTensors take the local-shard route over batch and heads; q, k and v
+    must be sharded alike (a query-head shard maps to the KV heads of the
+    same shard only when both are split the same way)."""
+    if is_dtensor(q):
+        if not (tuple(q.placements) == tuple(k.placements) == tuple(v.placements)):
+            raise ValueError(f"ops.attention: q {q.placements}, k {k.placements} and v {v.placements} are not "
+                             "sharded alike; repeat K and V to the query heads before sharding them")
+        return _on_local_shards(
+            "attention", lambda q, k, v: attention(q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+                                                   kv_chunk=kv_chunk),
+            {"q": q, "k": k, "v": v}, {"q": (0, 1), "k": (0, 1), "v": (0, 1)}, "q")
     if _wants_grad(q, k, v):
         return _Attention.apply(q, k, v, causal, window, logit_cap, kv_chunk)
     return _attention_fwd(q, k, v, causal, window, logit_cap)
@@ -111,10 +170,20 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
-    """Row-wise RMSNorm over the last axis; f32 moments, x's dtype out."""
+    """Row-wise RMSNorm over the last axis; f32 moments, x's dtype out.
+    DTensors take the local-shard route over the rows; the weight must be
+    replicated."""
+    if is_dtensor(x):
+        return _on_local_shards("rmsnorm", lambda x, w: rmsnorm(x, w, eps), {"x": x, "w": w},
+                                {"x": tuple(range(x.ndim - 1)), "w": None}, "x")
     if _wants_grad(x, w):
         return _RMSNorm.apply(x, w, eps)
     return _rmsnorm_fwd(x, w, eps)
+
+
+def _no_dtensor(what: str, x) -> None:
+    if is_dtensor(x):
+        raise NotImplementedError(f"ops.{what}: no local-shard route (Griffin and RWKV-6 on a mesh, ROADMAP M17b)")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +227,7 @@ class _LRUScan(torch.autograd.Function):
 def lru_scan(a, b, h0):
     """h_t = a_t ⊙ h_{t-1} + b_t over (B, T, W) from h0 (B, W) f32; returns
     (h_seq in a's dtype, h_final f32). Any T."""
+    _no_dtensor("lru_scan", a)
     if _wants_grad(a, b, h0):
         return _LRUScan.apply(a, b, h0)
     return _lru_fwd(a, b, h0)
@@ -194,6 +264,7 @@ def wkv6(r, k, v, w, u, s0):
     (H, dk); s0: (B, H, dk, dv) f32. Returns (y in r's dtype, S_final f32).
     Any T without a gradient; with one, T % min(64, T) == 0, the chunked
     form's rule (ROADMAP H4)."""
+    _no_dtensor("wkv6", r)
     if _wants_grad(r, k, v, w, u, s0):
         T = r.shape[2]
         if T % min(WKV_CHUNK, T):
@@ -210,7 +281,13 @@ def wkv6(r, k, v, w, u, s0):
 
 def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
     """MoE routing decision per group. logits: (G, N, E) f32 → (idx (G, N, k)
-    int32, gate (G, N, k) f32, pos (G, N, k) int32, -1 where dropped)."""
+    int32, gate (G, N, k) f32, pos (G, N, k) int32, -1 where dropped).
+    A DTensor takes the local-shard route over the groups (a group's
+    capacity slots depend on all its tokens, its softmax on all experts)."""
+    if is_dtensor(logits):
+        return _on_local_shards(
+            "moe_gating", lambda x: moe_gating(x, top_k=top_k, capacity=capacity, renormalise=renormalise),
+            {"logits": logits}, {"logits": (0,)}, "logits")
     if logits.device.type == "cpu":
         return ref.moe_gating_ref(logits, top_k=top_k, capacity=capacity, renormalise=renormalise)
     if _wants_grad(logits):

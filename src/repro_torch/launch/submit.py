@@ -6,9 +6,12 @@ inflates the memory request. The same is done here from the model config and
 the port's own numerics on an NVIDIA H100 80GB HBM3: bytes a GPU (weights,
 gradients, the optimizer's state and its update's transients, activations
 and logits), the GPUs and hosts of the job, host memory and a wall time, and
-the command each task runs. The data-parallel step replicates the model, so
-one GPU must hold it: a config that does not fit is refused (sharding it over
-GPUs is ROADMAP M17), never submitted to run out of memory.
+the command each task runs. Without a mesh the data-parallel step replicates
+the model, so one GPU must hold it. With a mesh (``data=D,model=M``) each GPU
+holds its own shard of every leaf, as ``resolve_tree`` lays the state out,
+and its share of the activations. A job that does not fit is refused with the
+smallest GPU count (and mesh) that fits, never submitted to run out of
+memory.
 
 Plain functions of the config, importing nothing of ``repro``: the launcher
 plugin ``launchers/torch_h100.py`` wraps them for ``nbilaunch``.
@@ -24,6 +27,7 @@ from repro_torch.models.common import tree_leaves, torch_dtype
 from repro_torch.models.registry import build_model
 
 from .distributed import multinode_sbatch
+from .mesh import MeshShape, parse_mesh
 
 # Bytes a job's peak may reach on one GPU: the NVIDIA H100 80GB HBM3's
 # nominal 80 GB. recurrentgemma-2b's 26-layer train step ran out of memory
@@ -63,38 +67,72 @@ _LOGIT_COPIES = 5
 _LAYER_ACTS = (10, 4)
 
 
+# the largest job the refusal's search for a GPU count that fits considers
+MAX_GPUS = 8192
+
+
 class DoesNotFit(ValueError):
     """The job's peak does not fit one GPU."""
-
-
-def _model(cfg):
-    """(model, parameters, weight bytes, largest leaf's parameters)."""
-    model = build_model(cfg)
-    defs = [d for _, d in tree_leaves(model.param_defs)]
-    sizes = [math.prod(d.shape) for d in defs]
-    return model, sum(sizes), sum(n * d.dtype.itemsize for n, d in zip(sizes, defs)), max(sizes)
 
 
 def _act_bytes(cfg) -> int:
     return torch_dtype(cfg.dtype).itemsize
 
 
-def train_memory_model(cfg, batch: int, seq: int) -> int:
-    """Peak bytes on one GPU of a train step of ``batch`` x ``seq`` tokens on
-    one GPU: the larger of the optimizer update's peak and the backward's
-    (weights, moments, gradients, activations and logits)."""
-    model, params, weights, largest = _model(cfg)
+def train_memory_model(cfg, batch: int, seq: int, mesh: "MeshShape | None" = None) -> int:
+    """Peak bytes on one GPU of a train step of ``batch`` x ``seq`` tokens:
+    the largest of the optimizer update's peak, the backward's (weights,
+    moments, gradients, activations and logits) and, on a mesh, the sharded
+    init's. Without ``mesh`` the step runs on one GPU; with it ``batch`` is
+    the global batch, laid out with the state by the rules (each sum counts
+    every leaf's local shard, the activations and logits this GPU's rows and
+    its share of the ``ff`` and ``vocab`` dims). A 1 x 1 mesh gives the
+    one-GPU numbers."""
+    from repro_torch.parallel.sharding import dp_axes, local_shape, mesh_axis_sizes, resolve_tree, rules_for
+
+    model = build_model(cfg)
+    mesh = mesh or MeshShape(("data", "model"), (1, 1))
+    sizes = mesh_axis_sizes(mesh)
+    rules = rules_for(cfg, mesh, param_defs=model.param_defs, batch_size=batch, extra_dims={"heads": cfg.n_heads})
+    defs = [d for _, d in tree_leaves(model.param_defs)]
+    placements = [p for _, p in tree_leaves(resolve_tree(mesh, model.param_logical(), rules))]
+    local = [math.prod(local_shape(d.shape, p, mesh)) for d, p in zip(defs, placements)]
+    params, largest = sum(local), max(local)
+    weights = sum(n * d.dtype.itemsize for n, d in zip(local, defs))
     state = _STATE_BYTES.get(cfg.optimizer, 8)
     update = 2 * weights + 8 * params + 2 * state * params + 4 * _UPDATE_TEMPS * largest
-    tokens = batch * seq // max(1, cfg.microbatch)
-    layer = tokens * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * cfg.d_ff) * 4
+    dp = math.prod(sizes[a] for a in dp_axes(mesh)) if rules["batch"] else 1
+    shards = {name: sizes["model"] if rules.get(name) else 1 for name in ("ff", "vocab")}
+    tokens = batch // dp * seq // max(1, cfg.microbatch)
+    layer = tokens * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * cfg.d_ff // shards["ff"]) * 4
     if cfg.remat == "none":
         acts = cfg.n_layers * layer
     else:
         acts = cfg.n_layers * tokens * cfg.d_model * _act_bytes(cfg) + layer
-    logits = tokens * model.cfg.vocab_size * 4 * _LOGIT_COPIES
+    logits = tokens * model.cfg.vocab_size // shards["vocab"] * 4 * _LOGIT_COPIES
     backward = 2 * weights + state * params + acts + logits
-    return int(max(update, backward))
+    if mesh.size() == 1:
+        return int(max(update, backward))
+    # ZeRO-3 gathers a layer's weights over the data axes at use: under remat
+    # "none" autograd keeps every layer's gathered weights, else one layer's
+    # (and its recompute's)
+    stacked = [(n, d) for n, d in zip(local, defs) if d.logical and d.logical[0] == "layers"]
+    gathered = 0
+    if rules["embed"]:
+        layer_bytes = sum(n * d.dtype.itemsize for n, d in stacked) // cfg.n_layers * dp
+        gathered = layer_bytes * (cfg.n_layers if cfg.remat == "none" else 2)
+    # the sharded init draws one layer of a stacked leaf, or an unstacked
+    # leaf whole, in f32 (and its cast) beside the shards drawn so far
+    slice_f32 = max(math.prod(d.shape[1:] if d.logical[:1] == ("layers",) else d.shape) for d in defs) * 8
+    init = weights + slice_f32
+    return int(max(update, backward + gathered, init))
+
+
+def default_mesh(gpus: int) -> MeshShape:
+    """The mesh the sizing assumes for ``gpus`` GPUs: ``model`` over the GPUs
+    of one host (at most 8, the NVLink domain), ``data`` over the hosts."""
+    model = math.gcd(gpus, GPUS_PER_HOST)
+    return MeshShape(("data", "model"), (gpus // model, model))
 
 
 def serve_memory_model(cfg, batch: int, max_seq: int) -> int:
@@ -103,7 +141,8 @@ def serve_memory_model(cfg, batch: int, max_seq: int) -> int:
     prefill's working set and last logits. Against kimi-k2-1t-a32b's measured
     serving peak (2 of 61 layers, 8 x 1056 tokens, 42852.0 MiB on an NVIDIA
     H100 80GB HBM3 at 700.00 W, PERF.md section 5) it gives 40499 MiB."""
-    model, _, weights, _ = _model(cfg)
+    model = build_model(cfg)
+    weights = sum(math.prod(d.shape) * d.dtype.itemsize for _, d in tree_leaves(model.param_defs))
     cache = sum(t.numel() * t.element_size() for _, t in tree_leaves(model.cache_defs_fn(batch, max_seq)))
     ff = max(cfg.d_ff, cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts))
     work = batch * max_seq * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * ff) * _act_bytes(cfg)
@@ -124,11 +163,35 @@ def _config(arch: str, smoke: bool):
     return get_smoke_config(arch) if smoke else get_config(arch)
 
 
-def _fits(what: str, need: int, device: str) -> None:
+def _fits(what: str, need: int, device: str, remedy) -> None:
+    """Raise :class:`DoesNotFit` when ``need`` bytes exceed a GPU's, saying
+    ``remedy()``."""
     if device == "cuda" and need > GPU_MEMORY_BYTES:
         raise DoesNotFit(
             f"{what} needs {need / 1e9:.1f} GB on one GPU, more than an H100's {GPU_MEMORY_BYTES / 1e9:.0f} GB: "
-            "the data-parallel step replicates the model on every GPU; sharding it over GPUs is ROADMAP M17")
+            + remedy())
+
+
+def smallest_fit(cfg, global_batch: int, seq: int) -> "tuple[int, MeshShape, int] | None":
+    """(GPUs, mesh, bytes a GPU) of the smallest power-of-two GPU count up to
+    :data:`MAX_GPUS` whose :func:`default_mesh` fits the train step, or None."""
+    gpus = 1
+    while gpus <= MAX_GPUS:
+        mesh = default_mesh(gpus)
+        need = train_memory_model(cfg, global_batch, seq, mesh)
+        if need <= GPU_MEMORY_BYTES:
+            return gpus, mesh, need
+        gpus *= 2
+    return None
+
+
+def _train_remedy(cfg, global_batch: int, seq: int) -> str:
+    found = smallest_fit(cfg, global_batch, seq)
+    if found is None:
+        return f"no mesh of up to {MAX_GPUS} GPUs fits it"
+    gpus, mesh, need = found
+    return (f"the smallest GPU count that fits is gpus={gpus} with mesh={mesh.spec()} "
+            f"({need / 1e9:.1f} GB a GPU)")
 
 
 def _placement(gpus: int, device: str) -> dict:
@@ -146,18 +209,26 @@ def _placement(gpus: int, device: str) -> dict:
 
 
 def size_train(arch: str, *, global_batch: int, seq: int, steps: int, gpus: int = 1, smoke: bool = False,
-               device: str = "cuda") -> dict:
+               device: str = "cuda", mesh: str = "") -> dict:
     """GPUs, hosts, gres, host memory, bytes a GPU and wall time of a train
-    job: one task a GPU, each on ``global_batch / gpus`` rows. Raises
-    :class:`DoesNotFit` when one GPU cannot hold its step."""
+    job: one task a GPU, each on ``global_batch / gpus`` rows, or with
+    ``mesh`` (``data=D,model=M``, D·M = gpus) the state sharded over the
+    mesh. Raises :class:`DoesNotFit`, naming the smallest GPU count and mesh
+    that fit, when a GPU cannot hold its part of the step."""
     cfg = _config(arch, smoke)
     if cfg.family == "encdec":
         raise ValueError(f"{arch}: the train launcher's data pipeline makes no audio frames (as the reference's)")
     sizing = _placement(gpus, device)
-    if global_batch % sizing["tasks"]:
-        raise ValueError(f"global batch {global_batch} does not split over {sizing['tasks']} tasks")
-    need = train_memory_model(cfg, global_batch // sizing["tasks"], seq)
-    _fits(f"training {arch} on {global_batch // sizing['tasks']} x {seq} tokens a GPU", need, device)
+    if mesh:
+        shape = parse_mesh(mesh, sizing["tasks"])
+        need = train_memory_model(cfg, global_batch, seq, shape)
+        what = f"training {arch} on {global_batch} x {seq} tokens over mesh {shape.spec()}"
+    else:
+        if global_batch % sizing["tasks"]:
+            raise ValueError(f"global batch {global_batch} does not split over {sizing['tasks']} tasks")
+        need = train_memory_model(cfg, global_batch // sizing["tasks"], seq)
+        what = f"training {arch} on {global_batch // sizing['tasks']} x {seq} tokens a GPU (data parallel)"
+    _fits(what, need, device, lambda: _train_remedy(cfg, global_batch, seq))
     # wall time: 6 N D at the lowest MFU the card has shown, twice, plus ten minutes
     flops = 6 * cfg.active_param_count() * steps * global_batch * seq
     secs = flops / (max(1, sizing["gpus"]) * PEAK_FLOPS[cfg.dtype] * train_mfu_floor())
@@ -168,7 +239,8 @@ def size_serve(arch: str, *, batch: int, max_seq: int, smoke: bool = False, devi
     """One GPU (one task) of a serve job; raises :class:`DoesNotFit`."""
     cfg = _config(arch, smoke)
     need = serve_memory_model(cfg, batch, max_seq)
-    _fits(f"serving {arch} at batch {batch} x {max_seq} tokens", need, device)
+    _fits(f"serving {arch} at batch {batch} x {max_seq} tokens", need, device,
+          lambda: "serving on a mesh of GPUs is ROADMAP M17b")
     return {**_placement(1, device), "bytes_per_gpu": need}
 
 
@@ -177,7 +249,8 @@ def _python(*words) -> str:
 
 
 def train_command(arch: str, *, steps: int, global_batch: int, seq: int, ckpt_dir: str, smoke: bool = False,
-                  device: str = "cuda", tasks: int = 1, eco_preempt: bool = False, plugin: str = "") -> str:
+                  device: str = "cuda", tasks: int = 1, eco_preempt: bool = False, plugin: str = "",
+                  mesh: str = "") -> str:
     """The job's command: ``python -m repro_torch.launch.train ...``, or the
     plugin's ``python <plugin> train ... --eco-preempt`` (the port does not
     import the eco scheduler); under ``srun`` with more than one task."""
@@ -186,6 +259,8 @@ def train_command(arch: str, *, steps: int, global_batch: int, seq: int, ckpt_di
         args.append("--smoke")
     if device != "cuda":
         args += ["--device", device]
+    if mesh:
+        args += ["--mesh", mesh]
     if eco_preempt:
         if not plugin:
             raise ValueError("--eco-preempt runs through the launcher plugin: name its file")

@@ -5,6 +5,7 @@
     python -m repro_torch.launch.train --arch nbi-100m --smoke --device cpu
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu
     srun python -m repro_torch.launch.train --arch nbi-100m ...   # one task a GPU
+    srun python -m repro_torch.launch.train --arch mistral-large-123b --mesh data=8,model=8 ...
     python launchers/torch_h100.py train --arch nbi-100m ... --eco-preempt
 
 ``--arch`` takes the dense family, MoE (deepseek-moe-16b, kimi-k2-1t-a32b;
@@ -25,6 +26,19 @@ on one GPU a task, with:
   (:func:`repro_torch.training.make_dp_train_step` with ``compress=False``,
   the average the reference's GSPMD step computes); rank 0 writes the
   checkpoints and every rank restores them;
+* **a device mesh** — ``--mesh data=D,model=M`` (optionally ``pod=P,``)
+  over the job's D·M tasks (:func:`repro_torch.launch.mesh.make_job_mesh`,
+  ``model`` within a node), for the dense GQA and MoE families: the rules
+  come from ``rules_for(cfg, mesh, param_defs=..., batch_size=global batch,
+  extra_dims={"heads": n_heads})`` as in the reference's launcher, the state
+  is drawn straight into its placements (``init_sharded_train_state``) and
+  :func:`repro_torch.training.make_train_step` runs with them: data
+  parallelism over the batch, tensor and expert parallelism over ``model``,
+  ZeRO-3 over the data axes with ``cfg.fsdp``. Each rank reads the rows of
+  its data coordinate (ranks that differ only in ``model`` read the same
+  rows). Every rank takes part in each (unsharded, synchronous) checkpoint
+  and restores onto whatever mesh it runs on. A mesh with model 1 and no
+  FSDP runs the data-parallel step above;
 
 * **restart safety** — on start, the latest checkpoint (weights, optimizer
   state, step, data cursor) is restored if present; SIGTERM/SIGINT triggers a
@@ -57,9 +71,17 @@ from repro_torch.data import make_train_loader
 from repro_torch.models.common import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.optim import cosine_warmup, make_optimizer
-from repro_torch.training import init_train_state, make_dp_train_step, make_train_step
+from repro_torch.training import (
+    abstract_train_state,
+    init_sharded_train_state,
+    init_train_state,
+    make_dp_train_step,
+    make_train_step,
+    train_state_logical,
+)
 
 from .distributed import dp_groups, maybe_initialize
+from .mesh import data_coordinate, make_job_mesh, parse_mesh
 
 NO_SCHEDULER = ("--eco-preempt needs the eco scheduler, which the port does not import: run through the "
                 "launcher plugin (python launchers/torch_h100.py train ... --eco-preempt, or nbilaunch "
@@ -82,6 +104,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--host-index", type=int, default=0)
     ap.add_argument("--host-count", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="", help="data=D,model=M[,pod=P]: train on a device mesh of the job's tasks")
     ap.add_argument("--eco-preempt", action="store_true",
                     help="checkpoint + exit at the next peak-hours boundary (needs the launcher plugin)")
     ap.add_argument("--now", default=None, help=argparse.SUPPRESS)  # tests
@@ -103,25 +126,44 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     optimizer = make_optimizer(cfg.optimizer, lr=cosine_warmup(args.lr, args.warmup, max(args.steps, 1)))
-    if world > 1:
-        step_fn = make_dp_train_step(model, optimizer, dp_groups(), compress=False)
-    else:
-        step_fn = make_train_step(model, optimizer)
-
-    # ---- state: fresh init or checkpoint restore --------------------------
+    mesh = None
+    if args.mesh:
+        shape = parse_mesh(args.mesh, world)
+        if shape.shape[-1] > 1 or cfg.fsdp:
+            mesh = make_job_mesh(args.mesh, device)
     manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     data_cursor = 0
-    state = init_train_state(model, optimizer, torch.Generator(device=device).manual_seed(args.seed), device)
-    if manager and manager.latest_step() is not None:
-        state, extra, start_step = manager.restore(state, device=device)
-        data_cursor = int(extra.get("data_cursor", start_step))
-        print(f"[train] resumed from step {start_step}")
+    if mesh is not None:
+        rules, placements, step_fn = _mesh_step(model, optimizer, mesh, args.global_batch)
+        args.host_index, args.host_count = data_coordinate(mesh) if rules["batch"] else (0, 1)
+        state = init_sharded_train_state(model, optimizer, args.seed, mesh, placements, device)
+        if manager and manager.latest_step() is not None:
+            state, extra, start_step = manager.restore_sharded(abstract_train_state(model, optimizer), placements,
+                                                               mesh, device=device)
+            data_cursor = int(extra.get("data_cursor", start_step))
+            print(f"[train] resumed from step {start_step}")
+    else:
+        if world > 1:
+            step_fn = make_dp_train_step(model, optimizer, dp_groups(), compress=False)
+        else:
+            step_fn = make_train_step(model, optimizer)
+        state = init_train_state(model, optimizer, torch.Generator(device=device).manual_seed(args.seed), device)
+        if manager and manager.latest_step() is not None:
+            state, extra, start_step = manager.restore(state, device=device)
+            data_cursor = int(extra.get("data_cursor", start_step))
+            print(f"[train] resumed from step {start_step}")
 
     loader = make_train_loader(
         model.cfg.vocab_size, args.global_batch, args.seq, seed=args.seed,
         host_index=args.host_index, host_count=args.host_count, start=data_cursor,
     )
+
+    def save(step, extra, blocking):
+        if mesh is not None:  # every rank gathers; rank 0 writes
+            manager.save_sharded(step, state, extra=extra)
+        elif rank == 0:
+            manager.save(step, state, extra=extra, blocking=blocking)
 
     # ---- eco-preemption & signal handling ----------------------------------
     # ``--now`` (tests/examples) sets a *virtual clock start*: simulated time
@@ -158,6 +200,8 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
     try:
         for step in range(start_step, args.steps):
             batch = {k: torch.from_numpy(v).to(device) for k, v in next(loader).items()}
+            if mesh is not None:
+                batch = _global_batch(batch, mesh, rules, args.global_batch)
             state, metrics = step_fn(state, batch)
             steps_done = step + 1
             if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
@@ -173,12 +217,8 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
                     f"acc={m.get('accuracy', 0):.3f}{aux} tok/s={m['tokens_per_s']:.0f}",
                     flush=True,
                 )
-            if manager and rank == 0 and (step + 1) % args.ckpt_every == 0:
-                manager.save(
-                    step + 1, state,
-                    extra={"data_cursor": loader.state_dict()["cursor"], "arch": args.arch},
-                    blocking=False,
-                )
+            if manager and (step + 1) % args.ckpt_every == 0:
+                save(step + 1, {"data_cursor": loader.state_dict()["cursor"], "arch": args.arch}, False)
             if not stop["reason"] and eco_deadline and clock() >= eco_deadline:
                 stop["reason"] = "eco-preempt"
             if world > 1:  # every rank stops after the same step
@@ -196,18 +236,34 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
         "metrics": metrics_hist,
         "final_loss": metrics_hist[-1]["loss"] if metrics_hist else None,
     }
-    if manager and rank == 0 and (stop["reason"] or args.steps > start_step):
-        manager.save(
-            steps_done, state,
-            extra={"data_cursor": loader.state_dict()["cursor"], "arch": args.arch,
-                   "stopped": stop["reason"]},
-            blocking=True,
-        )
+    if manager and (stop["reason"] or args.steps > start_step):
+        save(steps_done, {"data_cursor": loader.state_dict()["cursor"], "arch": args.arch,
+                          "stopped": stop["reason"]}, True)
     if stop["reason"] == "eco-preempt":
         remaining_s = 3600  # conservative: at least an hour of work left
         result["resubmit_begin"] = eco.begin_directive(remaining_s, clock())
         print(f"[eco] resubmit with --begin={result['resubmit_begin']}")
     return result
+
+
+def _mesh_step(model, optimizer, mesh, global_batch: int):
+    """(rules, the train state's placements, the step) on ``mesh``, the
+    rules derived as the reference's launcher derives them."""
+    from repro_torch.parallel.sharding import resolve_tree, rules_for
+
+    cfg = model.cfg
+    rules = rules_for(cfg, mesh, param_defs=model.param_defs, batch_size=global_batch,
+                      extra_dims={"heads": cfg.n_heads})
+    placements = resolve_tree(mesh, train_state_logical(model, optimizer), rules)
+    return rules, placements, make_train_step(model, optimizer, rules, mesh)
+
+
+def _global_batch(local: dict, mesh, rules: dict, global_batch: int) -> dict:
+    """This rank's rows as the DTensors of the global batch."""
+    from repro_torch.parallel.sharding import from_local, placements_for
+
+    placements = placements_for(("batch", None), rules, mesh)
+    return {k: from_local(v, mesh, placements, (global_batch, *v.shape[1:])) for k, v in local.items()}
 
 
 def _agree_stop(reason, device):

@@ -10,8 +10,14 @@ leaves; :func:`init_params` turns it into tensors. The reference draws its
 weights from ``jax.random``, so the numbers differ; parity tests copy the
 reference's weights across with :mod:`repro_torch.convert`.
 
-Left out: the logical sharding constraints (one card has no mesh) and
-``sinusoidal_positions``, which no model of the reference calls.
+Logical sharding constraints, as in the reference: :func:`shard` pins an
+activation to the placements its logical axes resolve to under the rules
+that :func:`repro_torch.parallel.sharding.use_rules` installs (a
+``DTensor.redistribute``), and is a no-op without rules, so the one-device
+path runs unchanged. Under rules every tensor of the step is a DTensor; the
+kernels see only local shards (:mod:`repro_torch.kernels.ops`).
+
+Left out: ``sinusoidal_positions``, which no model of the reference calls.
 """
 
 from __future__ import annotations
@@ -123,6 +129,73 @@ def init_params(defs, generator: torch.Generator, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Logical sharding constraints
+# ---------------------------------------------------------------------------
+
+# Active logical→mesh rules, installed by repro_torch.parallel.sharding.use_rules()
+_ACTIVE_RULES: dict | None = None
+_ACTIVE_MESH = None
+
+
+def set_logical_rules(rules: dict | None, mesh=None) -> None:
+    global _ACTIVE_RULES, _ACTIVE_MESH
+    _ACTIVE_RULES = rules
+    _ACTIVE_MESH = mesh
+
+
+def logical_rules() -> "tuple[dict | None, object]":
+    """(the active rules, their mesh), or (None, None) outside ``use_rules``."""
+    return _ACTIVE_RULES, _ACTIVE_MESH
+
+
+def shard(x, *logical):
+    """Redistribute the DTensor ``x`` to the placements of its logical axes
+    (the reference's ``with_sharding_constraint``); a no-op without rules."""
+    if _ACTIVE_RULES is None or _ACTIVE_MESH is None:
+        return x
+    from repro_torch.parallel.sharding import placements_for
+
+    if not ops.is_dtensor(x):
+        raise TypeError(f"shard{logical}: under sharding rules every activation is a DTensor, got {type(x).__name__}")
+    want = placements_for(logical, _ACTIVE_RULES, _ACTIVE_MESH)
+    return x if tuple(x.placements) == want else x.redistribute(_ACTIVE_MESH, want)
+
+
+def gather_fsdp(tree):
+    """ZeRO-3's gather at use: each DTensor leaf of ``tree`` with its data-axis
+    shards (the ``embed`` rule under ``cfg.fsdp``) made whole, its model-axis
+    shards kept. Its gradient flows back as a reduce-scatter. The tree
+    itself without rules, or when no weight is sharded over the data axes."""
+    if _ACTIVE_RULES is None or _ACTIVE_RULES.get("embed") is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.parallel.sharding import dp_axes
+
+    mesh = _ACTIVE_MESH
+    names = mesh.mesh_dim_names
+    data = {names.index(a) for a in dp_axes(mesh)}
+
+    def gather(t):
+        want = tuple(Replicate() if i in data else p for i, p in enumerate(t.placements))
+        return t if want == tuple(t.placements) else t.redistribute(mesh, want)
+
+    return map_defs(gather, tree)
+
+
+def replicated_like(t, ref):
+    """``t`` (a tensor every rank computes alike) as a replicated DTensor on
+    ``ref``'s mesh when ``ref`` is a DTensor, else ``t``: DTensor ops take no
+    plain tensor beside a DTensor."""
+    if not ops.is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
@@ -158,7 +231,7 @@ def apply_rope(x, positions, theta: float = 1e4):
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
-    sin, cos = torch.sin(angles), torch.cos(angles)
+    sin, cos = replicated_like(torch.sin(angles), x), replicated_like(torch.cos(angles), x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -292,7 +365,8 @@ def causal_mask(sq: int, skv: int, q_offset=0, device=None):
 def swiglu(x, wg, wi, wo, dtype):
     g = torch.einsum("bsd,df->bsf", x, wg.to(dtype))
     h = torch.einsum("bsd,df->bsf", x, wi.to(dtype))
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * h, wo.to(dtype))
+    h = shard(F.silu(g) * h, "batch", None, "ff")
+    return torch.einsum("bsf,fd->bsd", h, wo.to(dtype))
 
 
 def geglu(x, wg, wi, wo, dtype):
@@ -300,7 +374,8 @@ def geglu(x, wg, wi, wo, dtype):
     does this."""
     g = torch.einsum("bsd,df->bsf", x, wg.to(dtype))
     h = torch.einsum("bsd,df->bsf", x, wi.to(dtype))
-    return torch.einsum("bsf,fd->bsd", F.gelu(g, approximate="tanh") * h, wo.to(dtype))
+    h = shard(F.gelu(g, approximate="tanh") * h, "batch", None, "ff")
+    return torch.einsum("bsf,fd->bsd", h, wo.to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +386,11 @@ def geglu(x, wg, wi, wo, dtype):
 def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
     """Token-level cross-entropy with z-loss over every logit given (the
     padded vocab included). labels == -100 (any negative label) are masked
-    out. Returns (mean loss, {"ce", "accuracy"}), each a 0-dim f32 tensor."""
+    out. Returns (mean loss, {"ce", "accuracy"}), each a 0-dim f32 tensor
+    (replicated DTensors when ``logits`` is a DTensor: see
+    :func:`_cross_entropy_sharded`)."""
+    if ops.is_dtensor(logits):
+        return _cross_entropy_sharded(logits, labels, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels >= 0
@@ -324,3 +403,86 @@ def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
     loss = (ce + zl).sum() / denom
     acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / denom
     return loss, {"ce": ce.sum() / denom, "accuracy": acc}
+
+
+class _VocabParallelLSE(torch.autograd.Function):
+    """Per-row logsumexp, gold logit and argmax of f32 logits whose vocab dim
+    is sharded over ``group`` (Megatron's vocab-parallel cross-entropy): x
+    (..., V_loc) is this rank's columns, from vocab id ``v0``. The forward
+    all-reduces three row vectors (max, sum of exponentials, gold logit) and
+    one for the argmax; the backward is local: softmax · g_lse + onehot ·
+    g_gold on this rank's columns. No rank holds another's logits."""
+
+    @staticmethod
+    def forward(ctx, x, labels, group, v0):
+        import torch.distributed as dist
+
+        v_loc = x.shape[-1]
+        local_max, local_arg = x.max(dim=-1)
+        m = local_max.clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[..., None])
+        total = e.sum(dim=-1)
+        dist.all_reduce(total, group=group)
+        lse = torch.log(total) + m
+        local = labels.long() - v0
+        inside = (local >= 0) & (local < v_loc)
+        local = local.clamp(0, v_loc - 1)
+        gold = torch.where(inside, x.gather(-1, local[..., None])[..., 0], 0.0)
+        dist.all_reduce(gold, group=group)
+        # the first index of the row's largest logit, as argmax gives it
+        pred = torch.where(local_max == m, local_arg + v0, torch.iinfo(torch.int64).max)
+        dist.all_reduce(pred, op=dist.ReduceOp.MIN, group=group)
+        ctx.save_for_backward(e / total[..., None], local, inside)
+        ctx.mark_non_differentiable(pred)
+        return lse, gold, pred
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold, _):
+        p, local, inside = ctx.saved_tensors
+        dx = p * g_lse[..., None]
+        dx.scatter_add_(-1, local[..., None], torch.where(inside, g_gold, 0.0)[..., None])
+        return dx, None, None, None
+
+
+def _cross_entropy_sharded(logits, labels, z_loss: float):
+    """:func:`cross_entropy` of DTensor logits (B, S, V): each rank computes
+    its rows' terms from its local shard, with the vocab dim through
+    :class:`_VocabParallelLSE` where it is sharded, and the sums over rows
+    are all-reduced over the batch's mesh dims before the division. On a mesh
+    of one rank it is the plain function's arithmetic, op for op."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    if any(p.is_partial() for p in logits.placements):
+        raise ValueError(f"cross_entropy: logits placements {logits.placements} hold partial sums")
+    vocab = [i for i, p in enumerate(logits.placements) if p.is_shard(last)]
+    rows = [Replicate() if p.is_shard(last) else p for p in logits.placements]
+    if tuple(labels.placements) != tuple(rows):
+        labels = labels.redistribute(mesh, rows)
+    x, y = logits.to_local().float(), labels.to_local()
+    if vocab:
+        if len(vocab) > 1:
+            raise ValueError(f"cross_entropy: the vocab dim is sharded over {len(vocab)} mesh dims")
+        lse, gold, pred = _VocabParallelLSE.apply(x, y, mesh.get_group(vocab[0]),
+                                                  mesh.get_local_rank(vocab[0]) * x.shape[-1])
+    else:
+        lse = torch.logsumexp(x, dim=-1)
+        gold = x.gather(-1, y.long().clamp_min(0)[..., None])[..., 0]
+        pred = x.argmax(dim=-1)
+    valid = y >= 0
+    gold = torch.where(valid, gold, 0.0)
+    mask = valid.float()
+    ce = (lse - gold) * mask
+    zl = z_loss * lse.square() * mask
+    summed = [Partial() if p.is_shard() else Replicate() for p in rows]
+    everywhere = [Replicate()] * mesh.ndim
+
+    def total(t):
+        return DTensor.from_local(t, mesh, summed, run_check=False).redistribute(mesh, everywhere)
+
+    denom = total(mask.sum()).clamp_min(1.0)
+    loss = total((ce + zl).sum()) / denom
+    acc = total(((pred == y) * mask).sum()) / denom
+    return loss, {"ce": total(ce.sum()) / denom, "accuracy": acc}

@@ -26,6 +26,16 @@ the port moves rows by index instead: the same function (a one-hot with one 1
 selects exactly, an empty slot is 0 in both), without the einsums' O(N·E·C·D)
 work. :func:`top_k_routing` builds the dense dispatch and combine tensors for
 the tests.
+
+On a device mesh (:func:`repro_torch.parallel.sharding.use_rules`) the routed
+experts run on each rank's local shards (:func:`_moe_ffn_sharded`): the
+rank's rows form whole groups (a group never straddles data shards, or it
+raises, as H7), K5 routes them locally, and with ``experts`` sharded over
+``model`` each rank runs only its own experts' slots, the reference's (E, G,
+C, D) dispatch with E over ``model``. The tokens are replicated over
+``model`` (tensor parallelism keeps the residual stream whole), so no
+all-to-all is needed: each rank's combine is a partial sum over its experts,
+all-reduced in f32 before the cast, as the one-device step sums in f32.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .common import ParamDef, cross_entropy, map_defs, rms_norm, swiglu, torch_dtype
+from .common import ParamDef, cross_entropy, gather_fsdp, map_defs, rms_norm, shard, swiglu, torch_dtype
 from .config import ArchConfig
 from .transformer import (
     _stack,
@@ -48,6 +58,7 @@ from .transformer import (
     gqa_decode_attn,
     layer_params,
     remat_wrap,
+    residual,
     unembed,
 )
 
@@ -152,39 +163,45 @@ def top_k_routing(logits, cfg: ArchConfig, cap: int):
     return dispatch, combine, _aux_loss(logits, idx, pos >= 0)
 
 
-def _route(p, xg, cfg: ArchConfig, cap: int, aux: bool = False):
-    """The routed experts over groups xg: (G, N, D) → ((G, N, D), the aux
+def _route(p, xg, cfg: ArchConfig, cap: int, aux: bool = False, experts: "tuple[int, int] | None" = None):
+    """The routed experts over groups xg: (G, N, D) → ((G, N, D) f32, the aux
     loss, or None unless ``aux`` asks for it: serving does not).
 
     Each kept pick (g, n, j) copies x[g, n] into slot pos of expert idx's
     buffer; the expert MLPs run as batched products over E; each token then
-    sums gate_j · out[idx_j, g, pos_j] over its kept picks in f32 and rounds
-    once to the activation dtype. Dropped picks write to one spare slot past
-    the capacity, whose output the combine masks out, so that no step needs
-    to know on the host how many picks were kept.
+    sums gate_j · out[idx_j, g, pos_j] over its kept picks in f32 (the
+    caller rounds once to the activation dtype). Dropped picks write to one
+    spare slot past the capacity, whose output the combine masks out, so
+    that no step needs to know on the host how many picks were kept.
+
+    ``experts`` = (e0, n): ``p``'s expert weights are experts e0 .. e0+n-1
+    only (a shard of the experts), and the sum covers the picks of those;
+    picks of other experts go to the spare slot like dropped ones.
     """
-    dt = torch_dtype(cfg.dtype)
     G, N, D = xg.shape
-    E, k = cfg.n_experts, cfg.top_k
+    e0, n_exp = experts or (0, cfg.n_experts)
+    dt = torch_dtype(cfg.dtype)
     logits = xg.float() @ p["router"].float()
     idx, gate, pos = _routing(logits, cfg, cap)
     idx, kept = idx.long(), pos >= 0
-    slot = torch.where(kept, pos.long(), cap)
+    expert = (idx - e0).clamp(0, n_exp - 1)
+    here = kept & (idx >= e0) & (idx < e0 + n_exp)
+    slot = torch.where(here, pos.long(), cap)
     groups = torch.arange(G, device=xg.device)[:, None, None]
 
-    expert_in = xg.new_zeros((E, G, cap + 1, D))
-    expert_in[idx, groups, slot] = xg[:, :, None, :]  # slots are unique per (g, e)
-    rows = expert_in.reshape(E, G * (cap + 1), D)
+    expert_in = xg.new_zeros((n_exp, G, cap + 1, D))
+    expert_in[expert, groups, slot] = xg[:, :, None, :]  # slots are unique per (g, e)
+    rows = expert_in.reshape(n_exp, G * (cap + 1), D)
     g = torch.bmm(rows, p["wg"].to(dt))
     h = torch.bmm(rows, p["wi"].to(dt))
-    expert_out = torch.bmm(F.silu(g) * h, p["wo"].to(dt)).reshape(E, G, cap + 1, D)
+    expert_out = torch.bmm(F.silu(g) * h, p["wo"].to(dt)).reshape(n_exp, G, cap + 1, D)
 
     weight = gate.to(dt).float()  # the reference combines with gates in the activation dtype
     y = torch.zeros((G, N, D), dtype=torch.float32, device=xg.device)
-    for j in range(k):
-        picked = expert_out[idx[..., j], groups[..., 0], slot[..., j]].float()
-        y += torch.where(kept[..., j, None], weight[..., j, None] * picked, 0.0)
-    return y.to(dt), (_aux_loss(logits, idx, kept) if aux else None)
+    for j in range(cfg.top_k):
+        picked = expert_out[expert[..., j], groups[..., 0], slot[..., j]].float()
+        y += torch.where(here[..., j, None], weight[..., j, None] * picked, 0.0)
+    return y, (_aux_loss(logits, idx, kept) if aux else None)
 
 
 def _shared(p, x, cfg: ArchConfig):
@@ -201,18 +218,77 @@ def moe_ffn(p, x, cfg: ArchConfig, aux: bool = False):
     N = min(cfg.moe_group_tokens, B * S)
     if (B * S) % N:
         raise ValueError(f"moe_ffn: {B}x{S} tokens do not split into groups of {N}")
-    y, layer_aux = _route(p, x.reshape((B * S) // N, N, D), cfg, capacity(cfg, N), aux)
-    y = y.reshape(B, S, D)
+    if ops.is_dtensor(x):
+        y, layer_aux = _moe_ffn_sharded(p, x, cfg, N, aux)
+    else:
+        y, layer_aux = _route(p, x.reshape((B * S) // N, N, D), cfg, capacity(cfg, N), aux)
+        y = y.reshape(B, S, D).to(torch_dtype(cfg.dtype))
     if cfg.n_shared_experts:
-        y = y + _shared(p, x, cfg)
-    return y, layer_aux
+        y = y + shard(_shared(p, x, cfg), "batch", None, None)
+    return shard(y, "batch", None, None), layer_aux
+
+
+def _moe_ffn_sharded(p, x, cfg: ArchConfig, N: int, aux: bool):
+    """The routed experts of a DTensor x (B, S, D) on each rank's local rows
+    (whole groups of N tokens) and local experts: ((B, S, D) in the
+    activation dtype, the aux loss or None), both replicated over the
+    experts' mesh dim. Autograd runs through ``to_local`` / ``from_local``
+    with the local gradients marked partial where a rank saw only part of
+    the work: over the rows' mesh dims for the weights, over the experts'
+    for the tokens and the router (whose aux-loss term only the experts'
+    rank 0 carries)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    if any(pl.is_partial() or (pl.is_shard() and pl.dim != 0) for pl in x.placements):
+        raise ValueError(f"moe_ffn: x placements {x.placements}: only its rows may be sharded")
+    rows = [pl.is_shard() for pl in x.placements]
+    ep = [pl.is_shard(0) for pl in p["wg"].placements]
+    for name in ("router", "wg", "wi", "wo"):
+        bad = [pl for pl in p[name].placements if pl.is_partial() or (pl.is_shard() and (name == "router" or pl.dim))]
+        if bad:
+            raise ValueError(f"moe_ffn: {name} placements {p[name].placements}: gather its embed dim first")
+        if name != "router" and [pl.is_shard(0) for pl in p[name].placements] != ep:
+            raise ValueError(f"moe_ffn: the expert weights are not sharded alike ({name} {p[name].placements})")
+
+    def grads(parts):  # the local gradient's placements: partial where ``parts`` says so
+        return [Partial() if part else pl for part, pl in parts]
+
+    xl = x.to_local(grad_placements=grads(zip(ep, x.placements)))
+    local = {"router": p["router"].to_local(grad_placements=grads(zip(
+        [r or e for r, e in zip(rows, ep)], p["router"].placements)))}
+    for name in ("wg", "wi", "wo"):
+        local[name] = p[name].to_local(grad_placements=grads(zip(rows, p[name].placements)))
+    b = xl.shape[0]
+    if (b * S) % N:
+        raise ValueError(f"moe_ffn: this rank's {b} x {S} tokens do not form whole groups of {N}: a routing "
+                         "group would straddle data shards")
+    n_exp, e0 = local["wg"].shape[0], 0
+    for i, e in enumerate(ep):
+        if e:
+            e0 = mesh.get_local_rank(i) * n_exp
+    y, layer_aux = _route(local, xl.reshape((b * S) // N, N, D), cfg, capacity(cfg, N), aux, (e0, n_exp))
+    summed = [pl if r else Partial() if e else Replicate() for r, e, pl in zip(rows, ep, x.placements)]
+    everywhere = [pl if r else Replicate() for r, pl in zip(rows, x.placements)]
+    y = DTensor.from_local(y.reshape(b, S, D), mesh, summed, run_check=False).redistribute(mesh, everywhere)
+    if layer_aux is not None:
+        # the mean over the local groups, weighted by their share of all groups
+        lead = all(mesh.get_local_rank(i) == 0 for i, e in enumerate(ep) if e)
+        layer_aux = layer_aux * (b / B if lead else 0.0)
+        from repro_torch.parallel.sharding import redistribute
+
+        parts = [Partial() if r or e else Replicate() for r, e in zip(rows, ep)]
+        layer_aux = redistribute(DTensor.from_local(layer_aux, mesh, parts, run_check=False), mesh,
+                                 [Replicate()] * mesh.ndim)
+    return y.to(torch_dtype(cfg.dtype)), layer_aux
 
 
 def moe_decode_ffn(p, x, cfg: ArchConfig):
     """Decode-time MoE: one group over the step's B·S tokens, capacity
     ``max(4, ceil(k·B·S/E·cf))``."""
     B, S, D = x.shape
-    y = _route(p, x.reshape(1, B * S, D), cfg, capacity(cfg, B * S))[0].reshape(B, S, D)
+    y = _route(p, x.reshape(1, B * S, D), cfg, capacity(cfg, B * S))[0].reshape(B, S, D).to(torch_dtype(cfg.dtype))
     if cfg.n_shared_experts:
         y = y + _shared(p, x, cfg)
     return y
@@ -234,9 +310,9 @@ def _ffn(p, h, cfg: ArchConfig, decode: bool = False, aux: bool = False):
 
 def moe_block(p, x, cfg: ArchConfig, positions):
     """One layer (a leading dense layer or an MoE layer): (x out, aux loss)."""
-    x = x + gqa_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, positions)
+    x = residual(x, gqa_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, positions))
     y, aux = _ffn(p, x, cfg, aux=True)
-    return x + y, aux
+    return residual(x, y), aux
 
 
 def _layers(params):
@@ -261,7 +337,7 @@ def moe_forward(params, cfg: ArchConfig, tokens):
     stack and its scan over MoE layers)."""
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    body = remat_wrap(lambda p, x: moe_block(p, x, cfg, positions), cfg)
+    body = remat_wrap(lambda p, x: moe_block(gather_fsdp(p), x, cfg, positions), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, _, p in _layers(params):
         h, layer_aux = body(p, h)

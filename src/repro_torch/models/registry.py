@@ -16,6 +16,10 @@ functions on tensors:
                                         [dense takes patches= too; encdec
                                         needs frames=]
 
+plus the logical axes of the parameters and inputs (``param_logical``,
+``train_input_logical``, ``prefill_input_logical``), which
+:mod:`repro_torch.parallel.sharding` resolves to placements on a mesh.
+
 The reference's ``make_prefill_step`` / ``make_serve_step``
 (``repro/training/steps.py``) only wrap the prefill and decode functions with
 sharding rules; on one card there are none, so they are these functions
@@ -36,7 +40,7 @@ from . import rglru as rg
 from . import rwkv6 as rw
 from . import transformer as tx
 from . import whisper as wh
-from .common import init_params, resolve_device
+from .common import init_params, map_defs, resolve_device
 from .config import ArchConfig
 
 VOCAB_PAD = 512  # embeddings padded as in the reference (the padded logits are served too)
@@ -60,6 +64,28 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Seeded weights on ``device`` (``cuda`` unless the caller asks for the CPU)."""
         return init_params(self.param_defs, generator, resolve_device(device))
+
+    def abstract_params(self) -> dict:
+        """The parameters as tensors on the ``meta`` device (shape and dtype, no storage)."""
+        return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), self.param_defs)
+
+    def param_logical(self) -> dict:
+        """The logical axes of every parameter (tuples as leaves)."""
+        return map_defs(lambda d: d.logical, self.param_defs)
+
+    def train_input_logical(self) -> dict:
+        cfg = self.cfg
+        out = {"tokens": ("batch", None), "labels": ("batch", None)}
+        if cfg.family == "encdec":
+            out["frames"] = ("batch", None, None)
+        if cfg.n_patches:
+            out["patches"] = ("batch", None, None)
+        return out
+
+    def prefill_input_logical(self) -> dict:
+        out = self.train_input_logical()
+        out.pop("labels")
+        return out
 
 
 # family: (param_defs, prefill, decode_step, forward, cache_defs), each taking

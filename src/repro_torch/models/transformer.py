@@ -22,6 +22,14 @@ MLA's ``q_ln`` and ``kv_ln`` included, through
 recomputing the plain path. Decode attention is plain PyTorch
 (:func:`.common.attention_single_shot`, MLA's absorbed matmuls), as it is XLA
 and not Pallas in the reference.
+
+On a device mesh (the GQA training path under
+:func:`repro_torch.parallel.sharding.use_rules`) the reference's ``shard()``
+sites pin q, k, v, the residual stream and the logits; K and V are repeated
+to the query heads where ``heads`` shard and ``kv_heads`` do not (the
+reference's expansion), so that each rank's query heads meet their own KV
+heads; the embedding lookup is vocab-parallel; each layer's ZeRO-3 shards
+are gathered inside its remat scope (:func:`.common.gather_fsdp`).
 """
 
 from __future__ import annotations
@@ -36,8 +44,11 @@ from .common import (
     apply_rope,
     attention_single_shot,
     cross_entropy,
+    gather_fsdp,
+    logical_rules,
     map_defs,
     rms_norm,
+    shard,
     swiglu,
     torch_dtype,
     tree_leaves,
@@ -131,7 +142,12 @@ def gqa_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
     v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(dt)).contiguous()
     q = apply_rope(q, positions, cfg.rope_theta).contiguous()
     k = apply_rope(k, positions, cfg.rope_theta).contiguous()
+    q = shard(q, "batch", "heads", None, None)
+    k = shard(k, "batch", "kv_heads", None, None)
+    v = shard(v, "batch", "kv_heads", None, None)
+    k_cache, v_cache = k, v  # the cache keeps the Hkv layout
     # compact (B, Hkv, S, hd) K/V: the kernel maps query head h to h // G
+    k, v = _kv_for_query_shards(k, cfg), _kv_for_query_shards(v, cfg)
     window = cfg.window if cfg.attention == "local" else 0
     # the backward's recompute chunks KV as the reference: Griffin's
     # local_attention at min(attn_chunk, window), the dense path at attn_chunk
@@ -139,8 +155,22 @@ def gqa_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
     out = ops.attention(q, k, v, causal=True, window=window, logit_cap=cfg.logit_cap, kv_chunk=kv_chunk)
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
     if collect:
-        return y, {"k": k, "v": v}
+        return y, {"k": k_cache, "v": v_cache}
     return y
+
+
+def _kv_for_query_shards(t, cfg: ArchConfig):
+    """K or V (B, Hkv, S, d) for the kernel. Under rules that shard ``heads``
+    but not ``kv_heads`` (few KV heads on a wide model axis), each KV head
+    repeated G times and sharded as the query heads, as the reference
+    expands them: a rank's query heads then meet their own KV heads (G = 1
+    in its local kernel call). Otherwise ``t`` itself."""
+    rules, _ = logical_rules()
+    if rules is None or rules.get("heads") == rules.get("kv_heads"):
+        return t
+    B, Hkv, S, d = t.shape
+    G = cfg.n_heads // cfg.n_kv_heads
+    return shard(t[:, :, None].expand(B, Hkv, G, S, d).reshape(B, Hkv * G, S, d), "batch", "heads", None, None)
 
 
 def mla_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
@@ -171,10 +201,17 @@ def attention_fn(cfg: ArchConfig):
     return mla_attention if cfg.attention == "mla" else gqa_attention
 
 
+def residual(x, y):
+    """x + y on the residual stream, pinned to ("batch", "seq", None) (the
+    reference's constraint after each residual add): a tensor-parallel
+    output's partial sums are all-reduced before the add."""
+    return shard(x + shard(y, "batch", "seq", None), "batch", "seq", None)
+
+
 def dense_block(p, x, cfg: ArchConfig, positions):
-    x = x + attention_fn(cfg)(p["attn"], rms_norm(x, p["ln1"]), cfg, positions)
+    x = residual(x, attention_fn(cfg)(p["attn"], rms_norm(x, p["ln1"]), cfg, positions))
     m = p["mlp"]
-    return x + swiglu(rms_norm(x, p["ln2"]), m["wg"], m["wi"], m["wo"], torch_dtype(cfg.dtype))
+    return residual(x, swiglu(rms_norm(x, p["ln2"]), m["wg"], m["wi"], m["wo"], torch_dtype(cfg.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +241,9 @@ def remat_wrap(fn, cfg: ArchConfig):
 def run_stack(blocks, x, cfg: ArchConfig, apply_block):
     """Apply ``apply_block(layer params, x)`` over the layers stacked on the
     leading axis of ``blocks`` in order (the reference's ``lax.scan``), each
-    call under ``cfg.remat``."""
-    body = remat_wrap(apply_block, cfg)
+    call under ``cfg.remat``, with the layer's ZeRO-3 shards gathered inside
+    it."""
+    body = remat_wrap(lambda p, y: apply_block(gather_fsdp(p), y), cfg)
     for i in range(tree_leaves(blocks)[0][1].shape[0]):
         x = body(layer_params(blocks, i), x)
     return x
@@ -217,13 +255,47 @@ def run_stack(blocks, x, cfg: ArchConfig, apply_block):
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
-    return params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]
+    table = params["embed"]
+    if ops.is_dtensor(table):
+        return shard(_embed_sharded(gather_fsdp(table), tokens, torch_dtype(cfg.dtype)), "batch", "seq", None)
+    return table.to(torch_dtype(cfg.dtype))[tokens.long()]
+
+
+def _embed_sharded(table, tokens, dt):
+    """The lookup of DTensor ``tokens`` (B, S) in a DTensor ``table`` (V, D)
+    on each rank's local shards: with the vocab sharded, a rank looks up the
+    ids in its rows and zeroes the rest (a partial sum over the vocab's mesh
+    dim, all-reduced by the caller's ``shard``). The table's local gradient
+    is partial over the mesh dims that shard the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = table.device_mesh
+    if any(p.is_shard(1) or p.is_partial() for p in table.placements):
+        raise ValueError(f"embedding: table placements {table.placements}: gather its embed dim first")
+    rows = [p.is_shard() for p in tokens.placements]
+    vocab = [p.is_shard(0) for p in table.placements]
+    if any(r and v for r, v in zip(rows, vocab)):
+        raise ValueError(f"embedding: tokens {tokens.placements} and table {table.placements} share a mesh dim")
+    t = table.to_local(grad_placements=[Partial() if r else p for r, p in zip(rows, table.placements)])
+    ids = tokens.to_local().long()
+    if any(vocab):
+        i = vocab.index(True)
+        local = ids - mesh.get_local_rank(i) * t.shape[0]
+        inside = (local >= 0) & (local < t.shape[0])
+        h = torch.where(inside[..., None], t.to(dt)[local.clamp(0, t.shape[0] - 1)], 0.0)
+    else:
+        h = t.to(dt)[ids]
+    placements = [p if r else Partial() if v else Replicate() for r, v, p in zip(rows, vocab, tokens.placements)]
+    return DTensor.from_local(h, mesh, placements, run_check=False)
 
 
 def unembed(params, cfg: ArchConfig, h):
     dt = torch_dtype(cfg.dtype)
-    table = params["embed"].to(dt).T if cfg.tie_embeddings else params["unembed"].to(dt)
-    return torch.einsum("bsd,dv->bsv", h, table)
+    if cfg.tie_embeddings:
+        table = gather_fsdp(params["embed"]).to(dt).T
+    else:
+        table = gather_fsdp(params["unembed"]).to(dt)
+    return shard(torch.einsum("bsd,dv->bsv", h, table), "batch", None, "vocab")
 
 
 def embed_inputs(params, cfg: ArchConfig, tokens, patches=None):

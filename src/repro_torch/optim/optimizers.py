@@ -14,6 +14,12 @@ crosses between the packages leaf by leaf. The numerics follow the reference
 included; the schedule is read at the 1-based ``count``; 8-bit moments round
 half to even, as ``jnp.round``. ``update`` returns new tensors and leaves its
 arguments untouched.
+
+``state_logical(param_logical)`` gives the state's logical axes, as the
+reference's: on a mesh the state is laid out by the same rules as the
+parameters. Every reduction in ``update`` then runs on DTensors and spans
+the shards: the global norm sums every shard's squares once, and the 8-bit
+moments' per-row absmax is the row's across the shards of its last axis.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ class Optimizer:
     name: str
     init: Callable
     update: Callable  # (grads, state, params) -> (new_params, new_state)
+    state_logical: Callable  # param logical tree -> the state's logical tree
 
 
 def _schedule(lr) -> Callable:
@@ -76,7 +83,10 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0):
 
         return map_defs(step, params, m, v), {"m": m, "v": v, "count": count}
 
-    return Optimizer("adamw", init, update)
+    def state_logical(param_logical):
+        return {"m": param_logical, "v": param_logical, "count": ()}
+
+    return Optimizer("adamw", init, update, state_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +137,13 @@ def adamw8bit(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.
         part = lambda i: map_defs(lambda o: o[i], out)  # noqa: E731
         return part(0), {"m": part(1), "v": part(2), "count": count}
 
-    return Optimizer("adamw8bit", init, update)
+    def state_logical(param_logical):
+        # q mirrors the param; its per-row scale drops the last axis, so the
+        # absmax of a row sharded over its last axis is taken across shards
+        wrap = lambda tree: map_defs(lambda lg: {"q": lg, "scale": lg[:-1]}, tree)  # noqa: E731
+        return {"m": wrap(param_logical), "v": wrap(param_logical), "count": ()}
+
+    return Optimizer("adamw8bit", init, update, state_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +169,10 @@ def lion(lr=1e-4, b1=0.9, b2=0.99, weight_decay=0.1, clip_norm=1.0):
         m = map_defs(lambda m, g: b2 * m + (1 - b2) * g, state["m"], grads)
         return new_params, {"m": m, "count": count}
 
-    return Optimizer("lion", init, update)
+    def state_logical(param_logical):
+        return {"m": param_logical, "count": ()}
+
+    return Optimizer("lion", init, update, state_logical)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

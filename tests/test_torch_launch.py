@@ -66,10 +66,11 @@ def test_train_memory_model_within_30_percent_of_the_measured_peaks(arch, layers
                                                    ("kimi-k2-1t-a32b", None, 1, 1024)])
 def test_configs_that_do_not_fit_one_gpu_are_refused(launchers, arch, layers, batch, seq):
     """recurrentgemma-2b's 26 layers ran out of memory at 74.2 GiB (PERF.md);
-    mistral-large-123b and kimi-k2-1t-a32b are 0.12 T and 1.03 T parameters."""
-    with pytest.raises(submit.DoesNotFit, match="M17"):
+    mistral-large-123b and kimi-k2-1t-a32b are 0.12 T and 1.03 T parameters.
+    The refusal names the smallest GPU count and mesh that fit."""
+    with pytest.raises(submit.DoesNotFit, match="smallest GPU count that fits is gpus="):
         submit.size_train(arch, global_batch=batch, seq=seq, steps=10)
-    with pytest.raises(LauncherError, match="M17"):
+    with pytest.raises(LauncherError, match="smallest GPU count that fits is gpus="):
         launchers["torch-train"](arch=arch, global_batch=batch, seq=seq, eco=False, backend=SimCluster())
     assert submit.train_memory_model(get_config(arch), batch, seq) > submit.GPU_MEMORY_BYTES
 
@@ -161,7 +162,7 @@ def test_nbilaunch_dry_run_prints_the_gpu_script(launchers, capsys):
 def test_nbilaunch_refuses_what_does_not_fit(launchers, capsys):
     rc = nbilaunch.main(["--launcher-dir", str(ROOT / "launchers"), "torch-train", "arch=mistral-large-123b",
                          "--dry-run"])
-    assert rc == 1 and "M17" in capsys.readouterr().out
+    assert rc == 1 and "smallest GPU count that fits is gpus=64 with mesh=data=8,model=8" in capsys.readouterr().out
 
 
 def test_train_sbatch_is_the_multinode_script(launchers):

@@ -1,0 +1,286 @@
+"""The port's logical-axis sharding (``repro_torch.parallel.sharding``, the
+models' logical trees, ``repro_torch.launch.mesh``) against the
+reference's, and the kernels' local-shard route, on the CPU.
+
+The rule tables, specs and logical trees must equal the reference's exactly,
+for every config of both packages (full and smoke) on duck-typed meshes (the
+reference's ``rules_for`` reads only ``axis_names`` and ``devices.shape``, so
+no JAX mesh is built and ROADMAP H1 does not apply). The local-shard route
+runs on a 1 x 1 mesh over a gloo group of one rank (an in-memory store, made
+for this module and destroyed after it).
+"""
+
+import functools
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.models.registry import build_model as jax_build_model
+from repro.optim import make_optimizer as jax_make_optimizer
+from repro.parallel import sharding as ref
+from repro.training.steps import train_state_logical as jax_train_state_logical
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.kernels import ops, ref as plain
+from repro_torch.launch.mesh import MeshShape, parse_mesh
+from repro_torch.models.common import tree_leaves
+from repro_torch.models.registry import build_model
+from repro_torch.optim import make_optimizer
+from repro_torch.parallel import sharding as port
+from repro_torch.training import train_state_logical
+
+
+class FakeMesh:
+    """Duck-typed mesh, as ``tests/test_sharding.py``'s: axis names and
+    ``devices.shape`` only."""
+
+    class _Dev:
+        def __init__(self, shape):
+            self.shape = shape
+
+    def __init__(self, shape, axes):
+        self.axis_names = axes
+        self.devices = self._Dev(shape)
+
+
+MESHES = {"16x16": ((16, 16), ("data", "model")), "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+          "8x1": ((8, 1), ("data", "model")), "1x8": ((1, 8), ("data", "model")),
+          "2x4": ((2, 4), ("data", "model")), "1x1": ((1, 1), ("data", "model"))}
+BATCHES = (256, 8, 1)
+OPTIMIZERS = ("adamw", "adamw8bit", "lion")
+
+
+@functools.lru_cache(maxsize=None)
+def models(arch: str, smoke: bool):
+    """(reference model, port model) of a config."""
+    jcfg = (jax_get_smoke_config if smoke else jax_get_config)(arch)
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    return jax_build_model(jcfg), build_model(cfg)
+
+
+def test_both_packages_have_the_same_configs():
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
+
+
+@pytest.mark.parametrize("fsdp", [None, True], ids=["cfg_fsdp", "fsdp"])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_rules_and_specs_equal_the_reference(arch, smoke, mesh, batch, fsdp):
+    jmodel, model = models(arch, smoke)
+    fake = FakeMesh(*MESHES[mesh])
+    kw = dict(batch_size=batch, extra_dims={"heads": model.cfg.n_heads}, fsdp=fsdp)
+    want = ref.rules_for(jmodel.cfg, fake, param_defs=jmodel.param_defs, **kw)
+    got = port.rules_for(model.cfg, fake, param_defs=model.param_defs, **kw)
+    assert got == want
+    assert port.mesh_axis_sizes(fake) == ref.mesh_axis_sizes(fake)
+    assert port.dp_axes(fake) == ref.dp_axes(fake)
+    logical = [lg for _, lg in tree_leaves(model.param_logical())]
+    logical += [lg for _, lg in tree_leaves(model.train_input_logical())]
+    for lg in logical:
+        assert port.spec_for(lg, got) == tuple(ref.spec_for(lg, want)), lg
+    # the same table read through a MeshShape (the sizing's mesh) and a real
+    # mesh's attribute names
+    shape = MeshShape(*reversed(MESHES[mesh]))
+    assert port.rules_for(model.cfg, shape, param_defs=model.param_defs, **kw) == want
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_logical_trees_equal_the_reference(arch, smoke):
+    jmodel, model = models(arch, smoke)
+    assert model.param_logical() == jmodel.param_logical()
+    assert model.train_input_logical() == jmodel.train_input_logical()
+    assert model.prefill_input_logical() == jmodel.prefill_input_logical()
+    for name in OPTIMIZERS:
+        want = jax_train_state_logical(jmodel, jax_make_optimizer(name, lr=1e-3))
+        assert train_state_logical(model, make_optimizer(name, lr=1e-3)) == want
+
+
+@pytest.mark.parametrize("mesh", ["2x16x16", "2x4", "1x8"])
+def test_placements_follow_the_specs(mesh):
+    fake = FakeMesh(*MESHES[mesh])
+    names = MESHES[mesh][1]
+    _, model = models("kimi-k2-1t-a32b", False)
+    rules = port.rules_for(model.cfg, fake, param_defs=model.param_defs, batch_size=256, fsdp=True)
+    for lg in [lg for _, lg in tree_leaves(model.param_logical())] + [("batch", None)]:
+        placements = port.placements_for(lg, rules, fake)
+        for axis, p in zip(names, placements):
+            dims = [d for d, a in enumerate(port.spec_for(lg, rules))
+                    if a == axis or (isinstance(a, tuple) and axis in a)]
+            assert (p.is_shard() and [p.dim] == dims) or (p.is_replicate() and not dims), (lg, axis, p)
+
+
+def test_two_dims_on_one_axis_are_refused():
+    fake = FakeMesh((2, 4), ("data", "model"))
+    with pytest.raises(ValueError, match="two dims"):
+        port.placements_for(("heads", "ff"), {"heads": "model", "ff": "model"}, fake)
+
+
+@pytest.mark.parametrize("spec,world,want", [
+    ("data=8,model=8", 64, (("data", "model"), (8, 8))),
+    ("model=8", 64, (("data", "model"), (8, 8))),
+    ("pod=2,model=4,data=4", 32, (("pod", "data", "model"), (2, 4, 4))),
+    ("data=4", None, (("data", "model"), (4, 1))),
+])
+def test_parse_mesh(spec, world, want):
+    shape = parse_mesh(spec, world)
+    assert (shape.mesh_dim_names, shape.shape) == want
+    assert parse_mesh(shape.spec(), world) == shape
+
+
+@pytest.mark.parametrize("spec,world", [("data=2,model=2", 8), ("model=3", 8), ("rows=2", 2), ("data=0", 1)])
+def test_parse_mesh_refuses(spec, world):
+    with pytest.raises(ValueError):
+        parse_mesh(spec, world)
+
+
+def test_local_shapes_split_evenly():
+    shape = MeshShape(("pod", "data", "model"), (2, 4, 8))
+    placements = port.placements_for(("batch", None, "heads"), {"batch": ("pod", "data"), "heads": "model"}, shape)
+    assert port.local_shape((64, 3, 16), placements, shape) == (8, 3, 2)
+    with pytest.raises(ValueError, match="split"):
+        port.local_shape((12, 3, 16), placements, shape)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' local-shard route, on a 1 x 1 mesh of one gloo rank
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def placed(t, mesh, *placements):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+def draw(*shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+
+
+def test_route_hands_the_kernels_local_tensors(mesh, monkeypatch):
+    """The ops see plain local tensors (never a DTensor), and return the
+    plain op's values with the input's placements; gradients flow."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    seen = []
+    for name in ("attention_ref", "rmsnorm_ref", "moe_gating_ref"):
+        fn = getattr(plain, name)
+        monkeypatch.setattr(plain, name, lambda *a, _fn=fn, **k: (seen.extend(a), _fn(*a, **k))[1])
+    q, k, v = draw((2, 4, 8, 16), (2, 2, 8, 16), (2, 2, 8, 16))
+    rows = (Shard(0), Shard(1))
+    out = ops.attention(*(placed(t, mesh, *rows) for t in (q, k, v)), causal=True)
+    assert tuple(out.placements) == rows and torch.equal(out.to_local(), plain.attention_ref(q, k, v, causal=True))
+    x, w = draw((2, 8, 16), (16,))
+    xd = placed(x, mesh, Shard(0), Shard(1)).requires_grad_()
+    wd = placed(w, mesh, Replicate(), Replicate()).requires_grad_()
+    y = ops.rmsnorm(xd, wd)
+    assert torch.equal(y.to_local(), plain.rmsnorm_ref(x, w, 1e-6))
+    y.sum().backward()
+    assert xd.grad is not None and wd.grad is not None
+    logits, = draw((4, 8, 16))
+    idx, gate, pos = ops.moe_gating(placed(logits, mesh, Shard(0), Replicate()), top_k=2, capacity=4)
+    assert torch.equal(idx.to_local(), plain.moe_gating_ref(logits, top_k=2, capacity=4)[0])
+    assert seen and not any(ops.is_dtensor(t) for t in seen if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("case", ["attention_head_dim", "attention_seq", "attention_unlike", "rmsnorm_row",
+                                  "rmsnorm_weight", "gating_experts", "gating_tokens", "partial"])
+def test_route_refuses_a_reduced_dim(mesh, case):
+    """A placement on a dim the kernel reduces over (or partial sums) raises:
+    nothing is gathered quietly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    q, k, v = draw((2, 4, 8, 16), (2, 4, 8, 16), (2, 4, 8, 16))
+    x, w = draw((2, 8, 16), (16,))
+    logits, = draw((4, 8, 16))
+    rep = (Replicate(), Replicate())
+    calls = {
+        "attention_head_dim": lambda: ops.attention(*(placed(t, mesh, Shard(3), Replicate()) for t in (q, k, v))),
+        "attention_seq": lambda: ops.attention(*(placed(t, mesh, Replicate(), Shard(2)) for t in (q, k, v))),
+        "attention_unlike": lambda: ops.attention(placed(q, mesh, Replicate(), Shard(1)), placed(k, mesh, *rep),
+                                                  placed(v, mesh, *rep)),
+        "rmsnorm_row": lambda: ops.rmsnorm(placed(x, mesh, Shard(2), Replicate()), placed(w, mesh, *rep)),
+        "rmsnorm_weight": lambda: ops.rmsnorm(placed(x, mesh, *rep), placed(w, mesh, Shard(0), Replicate())),
+        "gating_experts": lambda: ops.moe_gating(placed(logits, mesh, Replicate(), Shard(2)), top_k=2, capacity=4),
+        "gating_tokens": lambda: ops.moe_gating(placed(logits, mesh, Shard(1), Replicate()), top_k=2, capacity=4),
+        "partial": lambda: ops.rmsnorm(placed(x, mesh, Partial(), Replicate()), placed(w, mesh, *rep)),
+    }
+    with pytest.raises(ValueError, match="ops\\.(attention|rmsnorm|moe_gating)"):
+        calls[case]()
+
+
+def test_recurrences_refuse_dtensors(mesh):
+    from torch.distributed.tensor import Replicate
+
+    a, b = draw((1, 4, 8), (1, 4, 8))
+    rep = (Replicate(), Replicate())
+    with pytest.raises(NotImplementedError, match="M17b"):
+        ops.lru_scan(placed(a, mesh, *rep), placed(b, mesh, *rep), torch.zeros(1, 8))
+
+
+# ---------------------------------------------------------------------------
+# Sizing a job on a mesh (launch/submit.py, the launcher plugin)
+# ---------------------------------------------------------------------------
+
+CALIBRATION = [("nbi-100m", None, 8, 512), ("deepseek-moe-16b", 4, 4, 2048), ("rwkv6-7b", 8, 4, 2048),
+               ("recurrentgemma-2b", 14, 2, 2048), ("mistral-large-123b", None, 1, 1024)]
+
+
+@pytest.mark.parametrize("arch,layers,batch,seq", CALIBRATION)
+def test_a_one_by_one_mesh_sizes_as_one_gpu(arch, layers, batch, seq):
+    from repro_torch.launch import submit
+
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=layers) if layers else cfg
+    one = MeshShape(("data", "model"), (1, 1))
+    assert submit.train_memory_model(cfg, batch, seq, one) == submit.train_memory_model(cfg, batch, seq)
+
+
+def test_mistral_large_is_refused_at_8_gpus_and_fits_where_the_refusal_says():
+    from repro_torch.launch import submit
+
+    with pytest.raises(submit.DoesNotFit, match=r"gpus=64 with mesh=data=8,model=8") as refused:
+        submit.size_train("mistral-large-123b", global_batch=32, seq=1024, steps=10, gpus=8, mesh="data=1,model=8")
+    assert "over mesh data=1,model=8" in str(refused.value)
+    fit = submit.size_train("mistral-large-123b", global_batch=32, seq=1024, steps=10, gpus=64,
+                            mesh="data=8,model=8")
+    assert (fit["hosts"], fit["gpus_per_host"], fit["tasks"]) == (8, 8, 64)
+    assert fit["bytes_per_gpu"] <= submit.GPU_MEMORY_BYTES
+    # each GPU holds 1/64 of the weights, moments and gradients (ZeRO-3 and
+    # tensor parallelism): at least an eighth of the 8-GPU figure less
+    cfg = get_config("mistral-large-123b")
+    eight = submit.train_memory_model(cfg, 32, 1024, MeshShape(("data", "model"), (1, 8)))
+    assert fit["bytes_per_gpu"] < eight / 7
+    with pytest.raises(ValueError, match="holds 16 ranks"):
+        submit.size_train("mistral-large-123b", global_batch=32, seq=1024, steps=10, gpus=64, mesh="data=2,model=8")
+
+
+def test_plugin_passes_the_mesh_to_the_job():
+    from repro.core import SimCluster, discover_launchers
+
+    launchers = discover_launchers(str(Path(__file__).resolve().parent.parent / "launchers"))
+    job = launchers["torch-train"](arch="mistral-large-123b", gpus=64, mesh="data=8,model=8", global_batch=32,
+                                   eco=False, backend=SimCluster())
+    command = job.make_command()
+    assert command.startswith("srun --kill-on-bad-exit=1 python -m repro_torch.launch.train")
+    assert command.endswith("--mesh data=8,model=8")
+    assert job.sizing["gres"] == "gpu:h100:8" and job.sizing["hosts"] == 8

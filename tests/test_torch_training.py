@@ -568,11 +568,13 @@ def test_train_cli_runs_on_the_cpu_and_refuses_cuda_without_a_card(nano, capsys)
 def test_train_driver_flags_are_the_references():
     """The port's driver takes the reference's flags, ``--eco-preempt``
     included (its scheduler comes from the launcher plugin), plus
-    ``--device``."""
+    ``--device`` and ``--mesh`` (the reference's ``train`` takes its mesh as
+    an argument from code; a Slurm job of the port names it on the command
+    line)."""
     from repro.launch.train import build_argparser as jax_argparser
     from repro_torch.launch.train import build_argparser
 
     ref_flags = {a.dest for a in jax_argparser()._actions}
     port_flags = {a.dest for a in build_argparser()._actions}
     assert ref_flags - port_flags == set()
-    assert port_flags - ref_flags == {"device"}
+    assert port_flags - ref_flags == {"device", "mesh"}
