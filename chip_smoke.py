@@ -94,11 +94,18 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    (NCCL; gloo in the rehearsal), the state and batches DTensors laid out by
    ``rules_for`` with FSDP forced on (so ``embed`` and ``batch`` map to
    ``data``): nbi-100m at full width and depth at the resume check's shapes,
-   and TRAIN_SMALL_MODELS' deepseek-moe-16b in bf16, each N steps against
-   ``make_train_step`` from the same state, bit for bit under
-   ``torch.use_deterministic_algorithms``, the kernels (K1, K2, K5) reached
-   through the ops' local-shard route with exactly the plain step's launches
-   (counted as paths); both steps timed in turns. Then eco-preemption through
+   and TRAIN_SMALL_MODELS' deepseek-moe-16b, recurrentgemma-2b and rwkv6-7b
+   in bf16, each N steps against ``make_train_step`` from the same state,
+   bit for bit under ``torch.use_deterministic_algorithms``, the kernels
+   (K1, K2, K3, K4, K5) reached through the ops' local-shard routes with
+   exactly the plain step's launches (counted as paths); both steps timed in
+   turns. Then serving on the same mesh: ``ServeEngine(mesh=)`` against
+   ``ServeEngine()`` holding the same weights for nbi-100m at full width and
+   depth and the small deepseek-moe-16b (a capacity no pick can overflow),
+   recurrentgemma-2b and rwkv6-7b, and ``ContinuousBatchingEngine(mesh=)``
+   for nbi-100m: greedy tokens and the last logits bit for bit, the exact
+   launches of prefill and decode (counted as paths), each engine's decode
+   step timed in turns. Then eco-preemption through
    the launcher plugin ``launchers/torch_h100.py`` in a subprocess (this
    script imports nothing of ``repro``), with ``NBISLURM_CONFIG`` an empty
    file: started at the first instant of the default peak hours, the run
@@ -1940,19 +1947,49 @@ def dp_path(device, full: bool) -> dict:
 
 # the mesh leg: timed steps of each step in turns (after the N checked ones)
 MESH_TIMED_STEPS = {True: 6, False: 2}
-MESH_SMALL_ARCH = "deepseek-moe-16b"
+MESH_SMALL_ARCHS = ("deepseek-moe-16b", "recurrentgemma-2b", "rwkv6-7b")
+# the serving half: nbi-100m's engine batch, prompt length and generated
+# tokens at full size and in the CPU rehearsal; the small models' (4 rows of
+# 32 tokens: deepseek-moe-16b's whole routing groups, two turns of
+# recurrentgemma-2b's 16-slot ring); continuous batching's slots, prompt
+# lengths of its 8 requests and generated tokens
+MESH_SERVE_RUN = {True: ((8, 128, 16), (4, 32, 8), (4, (17, 32, 64, 100), 8)),
+                  False: ((2, 12, 3), (4, 32, 2), (2, (5, 8, 12), 2))}
+# the small deepseek-moe-16b served on the mesh with capacity 33 for its
+# groups of 32 tokens (and 4 at decode, where a group is the step's 4 rows):
+# no pick can be dropped (ROADMAP H6)
+MESH_SERVE_CAPACITY_FACTOR = 11.0
+
+
+def small_config(arch: str):
+    """TRAIN_SMALL_MODELS' config of ``arch`` in the full config's dtype."""
+    overrides, _ = TRAIN_SMALL_MODELS[arch]
+    return get_smoke_config(arch).replace(**overrides, dtype=get_config(arch).dtype)
 
 
 def mesh_configs(full: bool) -> list:
-    """(name, config, (batch, seq)) of the mesh leg, FSDP forced on: nbi-100m
-    at full width and depth (its smoke config in the rehearsal) at the resume
-    check's shapes, and TRAIN_SMALL_MODELS' deepseek-moe-16b in the full
-    config's bf16, so that K1's bf16 kernel, K2 and K5 all run."""
+    """(name, config, (batch, seq)) of the mesh leg's training, FSDP forced
+    on: nbi-100m at full width and depth (its smoke config in the rehearsal)
+    at the resume check's shapes, and TRAIN_SMALL_MODELS' deepseek-moe-16b,
+    recurrentgemma-2b and rwkv6-7b at their shapes in the full configs' bf16,
+    so that K1's bf16 kernels (d 128 and 256), K2, K3, K4 and K5 all run."""
     _, (batch, seq, _) = TRAIN_RUN[full]
     nbi = (get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)).replace(fsdp=True)
-    overrides, shape = TRAIN_SMALL_MODELS[MESH_SMALL_ARCH]
-    moe = get_smoke_config(MESH_SMALL_ARCH).replace(**overrides, dtype=get_config(MESH_SMALL_ARCH).dtype, fsdp=True)
-    return [(TRAIN_ARCH, nbi, (batch, seq)), (f"{MESH_SMALL_ARCH} small", moe, shape)]
+    return [(TRAIN_ARCH, nbi, (batch, seq))] + [
+        (f"{arch} small", small_config(arch).replace(fsdp=True), TRAIN_SMALL_MODELS[arch][1])
+        for arch in MESH_SMALL_ARCHS]
+
+
+def mesh_serve_configs(full: bool) -> list:
+    """(name, config, (engine batch, prompt length, generated tokens)) of the
+    mesh leg's serving: nbi-100m at full width and depth (f32), and the
+    small deepseek-moe-16b (no dropped pick), recurrentgemma-2b and rwkv6-7b
+    of :func:`mesh_configs` without FSDP."""
+    nbi_run, small_run, _ = MESH_SERVE_RUN[full]
+    nbi = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
+    small = [(f"{arch} small", small_config(arch), small_run) for arch in MESH_SMALL_ARCHS]
+    small[0] = (small[0][0], small[0][1].replace(capacity_factor=MESH_SERVE_CAPACITY_FACTOR), small_run)
+    return [(TRAIN_ARCH, nbi, nbi_run)] + small
 
 
 def mesh_path(device, full: bool) -> dict:
@@ -1961,8 +1998,10 @@ def mesh_path(device, full: bool) -> dict:
     seeded state and batches, N steps each under
     ``torch.use_deterministic_algorithms``, then every leaf equal bit for bit
     and the mesh step's launches equal to the plain step's and to the exact
-    count; both steps timed in turns. Returns the launches of each mesh run
-    (name: counts), the counters set to 0 just before its steps."""
+    count; both steps timed in turns. Then serving on the same mesh
+    (:func:`mesh_serve_path`). Returns the launches of each mesh run
+    ("train mesh <name>" or "serve mesh <name>": counts), the counters set
+    to 0 just before its steps."""
     _, (_, _, n) = TRAIN_RUN[full]
     timed = MESH_TIMED_STEPS[full]
     t0 = time.perf_counter()
@@ -1972,6 +2011,7 @@ def mesh_path(device, full: bool) -> dict:
         mesh = make_host_mesh(device)
         backend = torch.distributed.get_backend()
         for name, cfg, (batch, seq) in mesh_configs(full):
+            t1 = time.perf_counter()
             model = build_model(cfg)
             opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
             rules = rules_for(cfg, mesh, param_defs=model.param_defs, batch_size=batch,
@@ -2021,14 +2061,144 @@ def mesh_path(device, full: bool) -> dict:
                 f"({len(tree_leaves(states['plain']))} leaves, under torch.use_deterministic_algorithms) | "
                 f"launches {launches['mesh']} | step ms (host clock to the loss, {timed} steps each in turns "
                 f"plain, mesh, mesh, plain): mesh median {np.median(ms['mesh']):.3f} (min {min(ms['mesh']):.3f}) "
-                f"against the plain step's median {np.median(ms['plain']):.3f} (min {min(ms['plain']):.3f})")
-            out[name] = launches["mesh"]
+                f"against the plain step's median {np.median(ms['plain']):.3f} (min {min(ms['plain']):.3f}) | "
+                f"{time.perf_counter() - t1:.1f}s")
+            out[f"train mesh {name}"] = launches["mesh"]
             del states, feeds, batches, steps
             free(device)
+        out.update(mesh_serve_path(device, full, mesh))
+        out.update(mesh_continuous_path(device, full, mesh))
     finally:
         torch.distributed.destroy_process_group()
     say(f"[mesh] leg took {time.perf_counter() - t0:.1f}s")
     return out
+
+
+def last_logits(engine) -> list:
+    """The whole logits of the engine's latest decode step (recorded around
+    its decode function: gathered where they are DTensors)."""
+    seen = [None]
+    decode = engine._decode
+
+    def run(*args):
+        logits, cache = decode(*args)
+        seen[0] = logits.full_tensor() if ops.is_dtensor(logits) else logits
+        return logits, cache
+
+    engine._decode = run
+    return seen
+
+
+def mesh_serve_path(device, full: bool, mesh) -> dict:
+    """``ServeEngine(mesh=)`` against ``ServeEngine()`` holding the same
+    weights (the mesh engine's, drawn into their placements) for each of
+    :func:`mesh_serve_configs` on the 1 x 1 mesh: greedy tokens and the last
+    decode step's logits equal bit for bit, the launches of each engine's
+    checked run (the counters set to 0 just before it) equal to the other's
+    and to the exact count; then each engine's decode step timed in turns
+    plain, mesh, mesh, plain. Returns the mesh engines' launches ("serve
+    mesh <name>": counts)."""
+    out = {}
+    for name, cfg, (batch, P, gen) in mesh_serve_configs(full):
+        t1 = time.perf_counter()
+        engines = {"mesh": ServeEngine(cfg, batch=batch, max_seq=P + gen, mesh=mesh, device=device)}
+        engines["plain"] = ServeEngine(cfg, batch=batch, max_seq=P + gen, device=device)
+        engines["plain"].params = full_tree(engines["mesh"].params)
+        rules = engines["mesh"].rules
+        prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(batch, P)).astype(np.int32)
+        logits = {which: last_logits(e) for which, e in engines.items()}
+        for e in engines.values():
+            e.generate_batch(prompts[:, :4], 2)  # warm-up: library handles, allocator
+        tokens, launches, dropped = {}, {}, []
+        for which, e in engines.items():
+            zero_counters()
+            with count_drops(dropped if which == "plain" else []):
+                tokens[which] = e.generate_batch(prompts, gen)
+            sync(device)
+            launches[which] = read_counters()
+        if not np.array_equal(tokens["mesh"], tokens["plain"]) or not torch.equal(logits["mesh"][0],
+                                                                                   logits["plain"][0]):
+            raise AssertionError(f"serve mesh {name}: the mesh engine's tokens or last logits differ from the "
+                                 f"plain engine's: {tokens}")
+        if cfg.family == "moe" and sum(dropped):
+            raise AssertionError(f"serve mesh {name}: {sum(dropped)} picks dropped (expected none)")
+        check_launches(f"serve mesh {name}", launches["mesh"], expected_launches(cfg, {P: batch}, batch, gen), device)
+        if launches["mesh"] != launches["plain"]:
+            raise AssertionError(f"serve mesh {name}: launches {launches['mesh']} != the plain engine's "
+                                 f"{launches['plain']}")
+        ms = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):  # in turns
+            e = engines[which]
+            e.stats.update(decode_s=0.0, decode_tokens=0)
+            e.generate_batch(prompts, gen)
+            ms[which].append(e.stats["decode_s"] / gen * 1e3)
+        drops = f", {len(dropped)} routings, none dropping a pick" if cfg.family == "moe" else ""
+        say(f"[mesh] serve {name} ({cfg.n_layers} layers, D={cfg.d_model}, {cfg.dtype}) on a 1 x 1 mesh, rules "
+            f"batch->{rules['batch']} kv_seq->{rules['kv_seq']}: {batch} x {P} prompts, {gen} greedy tokens, "
+            f"tokens and last logits equal the meshless engine's bit for bit{drops} | launches {launches['mesh']} | "
+            f"decode step ms (host clock, a generate_batch's decode time / {gen}, in turns plain, mesh, mesh, "
+            f"plain): mesh {', '.join(f'{x:.3f}' for x in ms['mesh'])} against plain "
+            f"{', '.join(f'{x:.3f}' for x in ms['plain'])}, ratio {np.mean(ms['mesh']) / np.mean(ms['plain']):.2f} | "
+            f"{time.perf_counter() - t1:.1f}s")
+        out[f"serve mesh {name}"] = launches["mesh"]
+        del engines, logits
+        free(device)
+    return out
+
+
+def mesh_continuous_path(device, full: bool, mesh) -> dict:
+    """``ContinuousBatchingEngine(mesh=)`` against the meshless one holding the
+    same weights, for nbi-100m on the 1 x 1 mesh, checked and timed as
+    :func:`mesh_serve_path` checks and times its engines (a serve call's
+    time over its decode steps, inserts included). Returns the mesh engine's
+    launches ("serve mesh continuous nbi-100m": counts)."""
+    t1 = time.perf_counter()
+    _, _, (slots, lengths, gen) = MESH_SERVE_RUN[full]
+    cfg = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
+    max_seq = max(lengths) + gen
+    engines = {"mesh": ContinuousBatchingEngine(cfg, batch=slots, max_seq=max_seq, mesh=mesh, device=device)}
+    engines["plain"] = ContinuousBatchingEngine(cfg, batch=slots, max_seq=max_seq, device=device)
+    engines["plain"].params = full_tree(engines["mesh"].params)
+    rng = np.random.default_rng(3)
+    requests = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in rng.choice(lengths, size=8)]
+    logits = {which: last_logits(e) for which, e in engines.items()}
+    for e in engines.values():
+        e.serve(requests[:1], 2)  # warm-up
+    outs, launches, ms = {}, {}, {"plain": [], "mesh": []}
+    for which, e in engines.items():
+        for key in e.stats:
+            e.stats[key] = type(e.stats[key])()
+        zero_counters()
+        outs[which] = e.serve(requests, gen)
+        sync(device)
+        launches[which] = read_counters()
+    st = engines["mesh"].stats
+    if any(not np.array_equal(a, b) for a, b in zip(outs["mesh"], outs["plain"])) or not torch.equal(
+            logits["mesh"][0], logits["plain"][0]):
+        raise AssertionError(f"serve mesh continuous {TRAIN_ARCH}: the mesh engine's tokens or last logits differ")
+    check_launches(f"serve mesh continuous {TRAIN_ARCH}", launches["mesh"],
+                   dense_launches(cfg, st["requests"], st["decode_steps"]), device)
+    if launches["mesh"] != launches["plain"]:
+        raise AssertionError(f"serve mesh continuous {TRAIN_ARCH}: launches {launches['mesh']} != the plain "
+                             f"engine's {launches['plain']}")
+    for which in ("plain", "mesh", "mesh", "plain"):  # in turns
+        e = engines[which]
+        for key in e.stats:
+            e.stats[key] = type(e.stats[key])()
+        sync(device)
+        t = time.perf_counter()
+        e.serve(requests, gen)
+        sync(device)
+        ms[which].append((time.perf_counter() - t) * 1e3 / e.stats["decode_steps"])
+    say(f"[mesh] serve continuous {TRAIN_ARCH} ({cfg.n_layers} layers, {cfg.dtype}) on a 1 x 1 mesh: {slots} slots, "
+        f"{len(requests)} requests of lengths {sorted(len(r) for r in requests)}, {st['decode_steps']} decode steps: "
+        f"tokens and last logits equal the meshless engine's bit for bit | launches {launches['mesh']} | serve ms a "
+        f"decode step (host clock, inserts included, in turns plain, mesh, mesh, plain): mesh "
+        f"{', '.join(f'{x:.3f}' for x in ms['mesh'])} against plain {', '.join(f'{x:.3f}' for x in ms['plain'])} | "
+        f"{time.perf_counter() - t1:.1f}s")
+    del engines, logits
+    free(device)
+    return {f"serve mesh continuous {TRAIN_ARCH}": launches["mesh"]}
 
 
 def eco_path(device, full: bool) -> None:
@@ -2170,8 +2340,7 @@ def main(argv=None) -> int:
         by_path[f"train {arch}"] = family_train_path(arch, device, full)
         say(f"[train] {arch} phase took {time.perf_counter() - t1:.1f}s")
     by_path[f"train dp {TRAIN_ARCH}"] = dp_path(device, full)
-    for name, launches in mesh_path(device, full).items():
-        by_path[f"train mesh {name}"] = launches
+    by_path.update(mesh_path(device, full))
     eco_path(device, full)
     say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")
     say(f"[time] chip_smoke.py took {time.perf_counter() - t_script:.1f}s")

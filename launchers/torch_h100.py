@@ -4,6 +4,7 @@
     nbilaunch --launcher-dir launchers torch-train arch=nbi-100m steps=300 gpus=8
     nbilaunch --launcher-dir launchers torch-train arch=mistral-large-123b gpus=64 mesh=data=8,model=8
     nbilaunch --launcher-dir launchers torch-serve arch=codeqwen1.5-7b batch=8
+    nbilaunch --launcher-dir launchers torch-serve arch=mistral-large-123b gpus=4 mesh=data=1,model=4
     cp launchers/torch_h100.py ~/.nbi/launchers/   # then: nbilaunch torch-train ...
     python launchers/torch_h100.py train --arch nbi-100m ... --eco-preempt
 
@@ -15,7 +16,11 @@ naming the smallest GPU count and mesh that fit. Without ``mesh`` the job is
 data parallel (every GPU holds the model); with ``mesh=data=D,model=M``
 (D·M = gpus) it trains on that device mesh (``--mesh``: ZeRO-3 over
 ``data`` with the config's ``fsdp``, tensor and expert parallelism over
-``model`` within a host).
+``model`` within a host). ``torch-serve`` serves on one GPU, or with ``gpus``
+over a mesh (``mesh``, or the default ``model`` over a host's GPUs and
+``data`` over the hosts): the weights and the KV cache split over the GPUs
+(the cache's sequence over ``model``), one task a GPU under ``srun``. On the
+CPU (``device=cpu``) ``gpus`` counts processes (gloo ranks) of one host.
 Their names differ from the JAX package's ``train`` and ``serve``, which stay
 as they are.
 
@@ -105,7 +110,7 @@ class TorchTrainLauncher(Launcher):
 
 
 class TorchServeLauncher(Launcher):
-    """Serve a model of the PyTorch port on one H100 (repro_torch.launch.serve)."""
+    """Serve a model of the PyTorch port on H100 GPUs (repro_torch.launch.serve)."""
 
     tool_name = "torch-serve"
     tool_version = "0.1.0"
@@ -117,6 +122,9 @@ class TorchServeLauncher(Launcher):
         InputSpec("prompt_len", required=False, kind="int", default=128),
         InputSpec("gen_len", required=False, kind="int", default=64),
         InputSpec("smoke", required=False, kind="int", default=0),
+        InputSpec("gpus", required=False, kind="int", default=1, help="one task a GPU, 8 a host"),
+        InputSpec("mesh", required=False, kind="str", default="",
+                  help="data=D,model=M over the gpus (empty: model over a host's GPUs, data over the hosts)"),
         InputSpec("device", required=False, kind="str", default="cuda", help="cuda or cpu"),
     ]
 
@@ -130,7 +138,8 @@ class TorchServeLauncher(Launcher):
         try:
             self.sizing = submit.size_serve(self.inputs["arch"], batch=int(p["batch"]),
                                             max_seq=int(p["prompt_len"]) + int(p["gen_len"]),
-                                            smoke=bool(p["smoke"]), device=p["device"])
+                                            smoke=bool(p["smoke"]), device=p["device"], gpus=int(p["gpus"]),
+                                            mesh=p["mesh"])
         except ValueError as e:
             raise LauncherError(f"{self.tool_name}: {e}") from None
         _apply(self.opts, self.sizing)
@@ -140,7 +149,8 @@ class TorchServeLauncher(Launcher):
 
         p = self.params
         return submit.serve_command(self.inputs["arch"], batch=p["batch"], prompt_len=p["prompt_len"],
-                                    gen_len=p["gen_len"], smoke=bool(p["smoke"]), device=p["device"])
+                                    gen_len=p["gen_len"], smoke=bool(p["smoke"]), device=p["device"],
+                                    tasks=self.sizing["tasks"], mesh=self.sizing["mesh"])
 
 
 def _apply(opts: Opts, sizing: dict) -> None:

@@ -35,8 +35,12 @@ as above, and its outputs are wrapped back with the inputs' placements. That
 is exact only over dims the kernel treats independently (attention: batch and
 heads; RMSNorm: its rows; K5: the groups), so a placement on a dim the kernel
 reduces over, or a partial sum, raises; nothing is gathered quietly.
-Autograd runs through the route (``to_local`` / ``from_local``). ``lru_scan``
-and ``wkv6`` refuse DTensors (Griffin and RWKV-6 on a mesh are not ported).
+``lru_scan`` (batch and the ``lru`` channels) and ``wkv6`` (batch and heads;
+``u`` split with its heads) take the same route; their T dim is never split
+(the ``seq`` rule is off unless ``seq_shard``), and a split T raises. Every
+input of a route must be split as its first is, dim for dim. Autograd runs
+through the route (``to_local`` / ``from_local``): the backward recomputes
+the plain path on the shards, as on one device.
 """
 
 from __future__ import annotations
@@ -60,12 +64,13 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
-def _on_local_shards(what: str, fn, inputs, free: dict, out_from: str):
+def on_local_shards(what: str, fn, inputs, free: dict, out_from: str, out_placements=None):
     """``fn`` on the local shards of the DTensor ``inputs`` (name → tensor),
     its outputs wrapped back as DTensors with the placements of
-    ``inputs[out_from]``. ``free`` names each input's dims that the op
-    treats independently (None: the input must be replicated); a shard on
-    any other dim, or a partial sum, raises."""
+    ``inputs[out_from]`` (or ``out_placements``, one tuple an output).
+    ``free`` names each input's dims that the op treats independently (None:
+    the input must be replicated); a shard on any other dim, or a partial
+    sum, raises."""
     from torch.distributed.tensor import DTensor, Partial
 
     mesh = inputs[out_from].device_mesh
@@ -84,8 +89,29 @@ def _on_local_shards(what: str, fn, inputs, free: dict, out_from: str):
     out = fn(*(t.to_local(grad_placements=[Partial() if o.is_shard() and p.is_replicate() else p
                                            for o, p in zip(placements, t.placements)])
                for t in inputs.values()))
+    if out_placements is not None:
+        return tuple(DTensor.from_local(o, mesh, pl, run_check=False) for o, pl in zip(out, out_placements))
     wrap = lambda o: DTensor.from_local(o, mesh, placements, run_check=False)  # noqa: E731
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def split_like(placements, dims: dict) -> tuple:
+    """The placements of a tensor whose dim ``dims[d]`` is the first input's
+    dim d (a dim missing from ``dims``: not in this tensor, so replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims else
+                 Replicate() if p.is_shard() else p for p in placements)
+
+
+def _check_split(what: str, first: str, inputs: dict, dims: dict) -> None:
+    """Every input split as ``inputs[first]`` is, dim for dim (``dims``: name →
+    {first's dim: this input's dim}), or a ValueError naming the op."""
+    want = inputs[first].placements
+    for name, t in inputs.items():
+        if is_dtensor(t) and tuple(t.placements) != split_like(want, dims[name]):
+            raise ValueError(f"ops.{what}: {name} {tuple(t.placements)} is not split as {first} "
+                             f"{tuple(want)}")
 
 
 def _wants_grad(*tensors) -> bool:
@@ -136,7 +162,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float
         if not (tuple(q.placements) == tuple(k.placements) == tuple(v.placements)):
             raise ValueError(f"ops.attention: q {q.placements}, k {k.placements} and v {v.placements} are not "
                              "sharded alike; repeat K and V to the query heads before sharding them")
-        return _on_local_shards(
+        return on_local_shards(
             "attention", lambda q, k, v: attention(q, k, v, causal=causal, window=window, logit_cap=logit_cap,
                                                    kv_chunk=kv_chunk),
             {"q": q, "k": k, "v": v}, {"q": (0, 1), "k": (0, 1), "v": (0, 1)}, "q")
@@ -174,16 +200,11 @@ def rmsnorm(x, w, eps: float = 1e-6):
     DTensors take the local-shard route over the rows; the weight must be
     replicated."""
     if is_dtensor(x):
-        return _on_local_shards("rmsnorm", lambda x, w: rmsnorm(x, w, eps), {"x": x, "w": w},
+        return on_local_shards("rmsnorm", lambda x, w: rmsnorm(x, w, eps), {"x": x, "w": w},
                                 {"x": tuple(range(x.ndim - 1)), "w": None}, "x")
     if _wants_grad(x, w):
         return _RMSNorm.apply(x, w, eps)
     return _rmsnorm_fwd(x, w, eps)
-
-
-def _no_dtensor(what: str, x) -> None:
-    if is_dtensor(x):
-        raise NotImplementedError(f"ops.{what}: no local-shard route (Griffin and RWKV-6 on a mesh, ROADMAP M17b)")
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +247,13 @@ class _LRUScan(torch.autograd.Function):
 
 def lru_scan(a, b, h0):
     """h_t = a_t ⊙ h_{t-1} + b_t over (B, T, W) from h0 (B, W) f32; returns
-    (h_seq in a's dtype, h_final f32). Any T."""
-    _no_dtensor("lru_scan", a)
+    (h_seq in a's dtype, h_final f32). Any T. DTensors take the local-shard
+    route over batch and the channels (``h0`` split as a's dims 0 and 2)."""
+    if is_dtensor(a):
+        inputs = {"a": a, "b": b, "h0": h0}
+        _check_split("lru_scan", "a", inputs, {"a": {0: 0, 1: 1, 2: 2}, "b": {0: 0, 1: 1, 2: 2}, "h0": {0: 0, 2: 1}})
+        return on_local_shards("lru_scan", lru_scan, inputs, {"a": (0, 2), "b": (0, 2), "h0": (0, 1)}, "a",
+                                (a.placements, split_like(a.placements, {0: 0, 2: 1})))
     if _wants_grad(a, b, h0):
         return _LRUScan.apply(a, b, h0)
     return _lru_fwd(a, b, h0)
@@ -263,8 +289,15 @@ def wkv6(r, k, v, w, u, s0):
     """RWKV-6 WKV recurrence. r, k, w: (B, H, T, dk); v: (B, H, T, dv); u:
     (H, dk); s0: (B, H, dk, dv) f32. Returns (y in r's dtype, S_final f32).
     Any T without a gradient; with one, T % min(64, T) == 0, the chunked
-    form's rule (ROADMAP H4)."""
-    _no_dtensor("wkv6", r)
+    form's rule (ROADMAP H4). DTensors take the local-shard route over batch
+    and heads (``u`` split with its heads, a replicated ``u`` beside split
+    rows getting a partial gradient)."""
+    if is_dtensor(r):
+        same = {0: 0, 1: 1, 2: 2, 3: 3}
+        inputs = {"r": r, "k": k, "v": v, "w": w, "u": u, "s0": s0}
+        _check_split("wkv6", "r", inputs, {"r": same, "k": same, "v": same, "w": same, "u": {1: 0},
+                                           "s0": {0: 0, 1: 1}})
+        return on_local_shards("wkv6", wkv6, inputs, {n: (0,) if n == "u" else (0, 1) for n in inputs}, "r")
     if _wants_grad(r, k, v, w, u, s0):
         T = r.shape[2]
         if T % min(WKV_CHUNK, T):
@@ -285,7 +318,7 @@ def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
     A DTensor takes the local-shard route over the groups (a group's
     capacity slots depend on all its tokens, its softmax on all experts)."""
     if is_dtensor(logits):
-        return _on_local_shards(
+        return on_local_shards(
             "moe_gating", lambda x: moe_gating(x, top_k=top_k, capacity=capacity, renormalise=renormalise),
             {"logits": logits}, {"logits": (0,)}, "logits")
     if logits.device.type == "cpu":

@@ -1,9 +1,10 @@
-"""serve — batched generation on one card.
+"""serve — batched generation on one card or on a device mesh of GPUs.
 
     python -m repro_torch.launch.serve --arch nbi-100m [--smoke] [--device cpu]
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch rwkv6-7b
     python -m repro_torch.launch.serve --arch whisper-small
+    srun python -m repro_torch.launch.serve --arch mistral-large-123b --mesh data=1,model=4
 
 The port of ``repro.launch.serve``'s :class:`ServeEngine`, for every family
 (dense with GQA and MLA, MoE, Griffin, RWKV-6, and Whisper's encoder-decoder,
@@ -24,6 +25,21 @@ step at per-slot positions (the vector-``pos`` path of
 request's slot is refilled by a single-row, exact-length prefill.
 
 Both engines run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+On a device mesh (``mesh=``, the reference's signature; ``--mesh
+data=D,model=M`` over a job's D·M tasks, as ``launch/train.py`` takes it) the
+rules are the reference's engines' (``sharding.serve_rules``): the weights
+are DTensors drawn straight into their placements
+(``init_sharded_params``: no rank holds the whole model, and they differ
+from the one-device engine's for one seed), the prompts are split over the
+data axes, and prefill and decode run under the rules
+(``make_prefill_step`` / ``make_serve_step``). The cache is made in local
+shapes, its ``kv_seq`` dim split over ``model`` (flash-decoding's split-KV:
+:func:`repro_torch.models.common.attention_single_shot`), so no rank ever
+holds the whole cache. Every rank samples from the whole last logits, so
+every rank feeds the same token. MLA, the visual prefix and ``encdec`` do
+not yet run on a mesh (ROADMAP M17b): their engines raise
+``NotImplementedError``. ``mesh=None`` is the one-device engine, unchanged.
 """
 
 from __future__ import annotations
@@ -35,23 +51,30 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.ops import is_dtensor
 from repro_torch.models.common import resolve_device, torch_dtype
 from repro_torch.models.registry import build_model
+from repro_torch.training import init_sharded_params, make_prefill_step, make_serve_step
 
 
-def pad_cache_to(cache, cache_defs):
+def pad_cache_to(cache, cache_defs, placements=None):
     """Zero-pad a prompt-sized prefill cache into the fixed decode layout.
 
     Maps over nested dicts, as the reference's ``tree_map``. Leaves match
     rank; any axis where the prefill extent is smaller (the kv-seq axis) is
     right-padded. Leaves whose shape already matches (recurrent states, ring
     buffers) are only cast to the layout's dtype. Zero padding is safe:
-    decode masks by position.
+    decode masks by position. A DTensor leaf is laid out by ``placements``
+    (a tree of them; the leaf's own where not given) in local shapes
+    (:func:`_pad_shards`).
     """
     if isinstance(cache, dict):
         if set(cache) != set(cache_defs):
             raise ValueError(f"cache keys {sorted(cache)} differ from the layout's {sorted(cache_defs)}")
-        return {name: pad_cache_to(leaf, cache_defs[name]) for name, leaf in cache.items()}
+        return {name: pad_cache_to(leaf, cache_defs[name], None if placements is None else placements[name])
+                for name, leaf in cache.items()}
+    if is_dtensor(cache):
+        return _pad_shards(cache, cache_defs, tuple(placements or cache.placements))
     target = tuple(cache_defs.shape)
     if tuple(cache.shape) == target:
         return cache.to(cache_defs.dtype)
@@ -62,18 +85,113 @@ def pad_cache_to(cache, cache_defs):
     return out
 
 
-class ServeEngine:
-    """Fixed-shape batched generation over one model, on one device."""
+def _pad_shards(leaf, want, placements: tuple):
+    """A DTensor cache leaf padded to ``want``'s shape and dtype, laid out by
+    ``placements``. A dim that grows is first gathered over the mesh dims
+    that will split it (the prompt's positions of this rank's rows), then
+    each rank copies its own slice into a zeroed buffer of its local shape."""
+    from torch.distributed.tensor import Replicate
 
-    def __init__(self, cfg, *, batch: int, max_seq: int, seed: int = 0, device="cuda"):
+    from repro_torch.parallel.sharding import from_local, local_shape, local_slices, redistribute
+
+    mesh, target = leaf.device_mesh, tuple(want.shape)
+    if leaf.dim() != len(target) or any(h > n for h, n in zip(leaf.shape, target)):
+        raise ValueError(f"cache leaf {tuple(leaf.shape)} exceeds {target}")
+    grown = {d for d, (h, n) in enumerate(zip(leaf.shape, target)) if h < n}
+    if not grown:
+        return redistribute(leaf, mesh, placements).to(want.dtype)
+    src = redistribute(leaf, mesh, tuple(Replicate() if p.is_shard() and p.dim in grown else p
+                                         for p in placements)).to_local()
+    out = torch.zeros(local_shape(target, placements, mesh), dtype=want.dtype, device=src.device)
+    into, take = [], []
+    for d, part in enumerate(local_slices(target, placements, mesh)):
+        if d in grown:
+            n = max(0, min(part.stop, leaf.shape[d]) - part.start)
+            into.append(slice(0, n))
+            take.append(slice(part.start, part.start + n))
+        else:
+            into.append(slice(None))
+            take.append(slice(None))
+    out[tuple(into)] = src[tuple(take)]
+    return from_local(out, mesh, placements, target)
+
+
+def _without_grad(method):
+    """Run an engine's method under ``torch.inference_mode`` on one device,
+    and under ``torch.no_grad`` on a mesh (DTensor's views cannot be made of
+    tensors from outside inference mode inside it)."""
+    import functools
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with torch.inference_mode() if self.mesh is None else torch.no_grad():
+            return method(self, *args, **kwargs)
+
+    return run
+
+
+def _whole(t):
+    """A DTensor gathered whole onto every rank (the sampled logits), else ``t``."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+class _OnMesh:
+    """An engine's layout on its mesh for ``batch`` rows: the rules
+    (``sharding.serve_rules``), the prefill and decode steps under them, and
+    the placements of the weights, the prompts, the decode tokens and the
+    cache."""
+
+    def __init__(self, model, mesh, batch: int, max_seq: int, device):
+        from repro_torch.parallel.sharding import placements_for, resolve_tree, serve_rules
+
+        self.mesh, self.device = mesh, device
+        self.rules = serve_rules(model, mesh, batch, max_seq)
+        self.prefill = make_prefill_step(model, self.rules, mesh)  # refuses what cannot run on a mesh
+        self.decode = make_serve_step(model, self.rules, mesh)
+        self.weights = resolve_tree(mesh, model.param_logical(), self.rules)
+        self.inputs = resolve_tree(mesh, model.prefill_input_logical(), self.rules)
+        self.tokens = placements_for(("batch", None), self.rules, mesh)
+        self.cache = resolve_tree(mesh, model.cache_logical_fn(), self.rules)
+
+    def place(self, tree: dict, placements) -> dict:
+        """Tensors every rank holds alike, as DTensors of ``placements``."""
+        from repro_torch.parallel.sharding import distribute_tree
+
+        return distribute_tree(tree, self.mesh, placements)
+
+    def empty_cache(self, cache_defs) -> dict:
+        """A zeroed cache in local shapes."""
+        from repro_torch.models.common import map_defs
+        from repro_torch.parallel.sharding import from_local, local_shape
+
+        return map_defs(lambda d, pl: from_local(
+            torch.zeros(local_shape(d.shape, pl, self.mesh), dtype=d.dtype, device=self.device), self.mesh, pl,
+            d.shape), cache_defs, self.cache)
+
+
+class ServeEngine:
+    """Fixed-shape batched generation over one model, on one device or on a
+    device mesh (``mesh``: a ``DeviceMesh`` with ``data`` and ``model`` axes;
+    module docstring)."""
+
+    def __init__(self, cfg, *, batch: int, max_seq: int, mesh=None, seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch = batch
         self.max_seq = max_seq
+        self.mesh = mesh
         self.model = build_model(cfg)
-        # Seeded weights are drawn on the engine's device: one seed gives one
-        # model per device type (the card's generator differs from the CPU's).
-        self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
+        if mesh is None:
+            # Seeded weights are drawn on the engine's device: one seed gives one
+            # model per device type (the card's generator differs from the CPU's).
+            self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
+            self._on = None
+            self._prefill, self._decode = self.model.prefill_fn, self.model.decode_fn
+        else:
+            self._on = _OnMesh(self.model, mesh, batch, max_seq, self.device)
+            self.params = init_sharded_params(self.model, seed, mesh, self._on.weights, self.device)
+            self._prefill, self._decode = self._on.prefill, self._on.decode
+        self.rules = None if mesh is None else self._on.rules
         self.stats = {"requests": 0, "prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_s": 0.0, "decode_s": 0.0}
 
@@ -83,7 +201,7 @@ class ServeEngine:
 
     # -- one fixed-shape batch ------------------------------------------------
 
-    @torch.inference_mode()
+    @_without_grad
     def generate_batch(
         self, prompts: np.ndarray, gen_len: int, *,
         temperature: float = 0.0, eos_id: int | None = None,
@@ -103,8 +221,11 @@ class ServeEngine:
         if self.cfg.family == "encdec":  # the stub audio front end: zero frames, as the reference's engine
             batch_in["frames"] = torch.zeros((B, self.cfg.enc_len, self.cfg.d_model),
                                              dtype=torch_dtype(self.cfg.dtype), device=self.device)
-        logits, cache = self.model.prefill_fn(self.params, batch_in)
-        cache = pad_cache_to(cache, self.model.cache_defs_fn(B, self.max_seq))
+        on = self._on
+        if on is not None:
+            batch_in = on.place(batch_in, on.inputs)
+        logits, cache = self._prefill(self.params, batch_in)
+        cache = pad_cache_to(cache, self.model.cache_defs_fn(B, self.max_seq), None if on is None else on.cache)
         self._sync()
         t1 = time.perf_counter()
 
@@ -112,7 +233,7 @@ class ServeEngine:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = np.zeros((B, gen_len), np.int32)
         finished = np.zeros((B,), bool)
-        tok = self._sample(logits[:, -1], temperature, generator)
+        tok = self._sample(_whole(logits)[:, -1], temperature, generator)
         for i in range(gen_len):
             out[:, i] = np.where(finished, eos_id or 0, tok.cpu().numpy())
             if eos_id is not None:
@@ -121,8 +242,10 @@ class ServeEngine:
                     out = out[:, : i + 1]
                     break
             step = torch.as_tensor(out[:, i : i + 1], dtype=torch.long, device=self.device)
-            logits, cache = self.model.decode_fn(self.params, cache, step, P + i)
-            tok = self._sample(logits[:, -1], temperature, generator)
+            if on is not None:
+                step = on.place({"tokens": step}, {"tokens": on.tokens})["tokens"]
+            logits, cache = self._decode(self.params, cache, step, P + i)
+            tok = self._sample(_whole(logits)[:, -1], temperature, generator)
         self._sync()
         t2 = time.perf_counter()
         self.stats["requests"] += B
@@ -178,10 +301,14 @@ class ContinuousBatchingEngine:
     the other slots keep decoding, so no generation waits on its batch-mates.
 
     Dense families only (GQA and MLA), as in the reference: their decode is
-    row-independent, while MoE routing couples rows through capacity.
+    row-independent, while MoE routing couples rows through capacity. On a
+    mesh (GQA; module docstring) the slots are split over the data axes and
+    each insert's one-row prefill runs under rules of a batch of one (its
+    row whole on every rank); the rank that holds the slot copies the row's
+    slice of the sequence into its cache.
     """
 
-    def __init__(self, cfg, *, batch: int, max_seq: int, seed: int = 0, device="cuda"):
+    def __init__(self, cfg, *, batch: int, max_seq: int, mesh=None, seed: int = 0, device="cuda"):
         if cfg.family != "dense":
             raise ValueError(f"continuous batching takes the dense families, not {cfg.family!r} "
                              "(its decode rows must be independent)")
@@ -189,29 +316,53 @@ class ContinuousBatchingEngine:
         self.cfg = cfg
         self.batch = batch
         self.max_seq = max_seq
+        self.mesh = mesh
         self.model = build_model(cfg)
-        self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
+        if mesh is None:
+            self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
+            self._on = self._row = None
+            self._prefill, self._decode = self.model.prefill_fn, self.model.decode_fn
+        else:
+            self._on = _OnMesh(self.model, mesh, batch, max_seq, self.device)
+            # the insert's prefill: a batch of one, its row whole on every rank
+            self._row = _OnMesh(self.model, mesh, 1, max_seq, self.device)
+            self.params = init_sharded_params(self.model, seed, mesh, self._on.weights, self.device)
+            self._prefill, self._decode = self._row.prefill, self._on.decode
+        self.rules = None if mesh is None else self._on.rules
         self.stats = {"requests": 0, "decode_steps": 0, "slot_tokens": 0, "occupancy_sum": 0.0}
 
     def _insert(self, cache: dict, slot: int, prompt: np.ndarray) -> int:
         """Prefill one request and write its rows into ``slot`` of ``cache``
         (in place); returns its first generated token."""
-        toks = torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.long, device=self.device)
-        logits, row_cache = self.model.prefill_fn(self.params, {"tokens": toks})
-        row_cache = pad_cache_to(row_cache, self.model.cache_defs_fn(1, self.max_seq))
-        for name, full in cache.items():
-            full[:, slot] = row_cache[name][:, 0]
-        return int(logits[0, -1].argmax())
+        from repro_torch.parallel.sharding import local_slices
 
-    @torch.inference_mode()
+        row = self._row
+        toks = {"tokens": torch.as_tensor(np.asarray(prompt)[None, :], dtype=torch.long, device=self.device)}
+        if row is not None:
+            toks = row.place(toks, row.inputs)
+        logits, row_cache = self._prefill(self.params, toks)
+        row_cache = pad_cache_to(row_cache, self.model.cache_defs_fn(1, self.max_seq), None if row is None else row.cache)
+        for name, full in cache.items():
+            if row is None:
+                full[:, slot] = row_cache[name][:, 0]
+                continue
+            rows = local_slices(full.shape, full.placements, self.mesh)[1]
+            if rows.start <= slot < rows.stop:  # this rank holds the slot
+                full.to_local()[:, slot - rows.start] = row_cache[name].to_local()[:, 0]
+        return int(_whole(logits)[0, -1].argmax())
+
+    @_without_grad
     def serve(self, requests: list, gen_len: int) -> list:
         """Greedy-decode every request; returns (gen_len,) int32 outputs in input order."""
         B = self.batch
         for r in requests:
             if len(r) + gen_len > self.max_seq:
                 raise ValueError(f"prompt {len(r)} + gen {gen_len} exceeds engine capacity {self.max_seq}")
-        cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
-                 for name, d in self.model.cache_defs_fn(B, self.max_seq).items()}
+        if self._on is None:
+            cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
+                     for name, d in self.model.cache_defs_fn(B, self.max_seq).items()}
+        else:
+            cache = self._on.empty_cache(self.model.cache_defs_fn(B, self.max_seq))
         queue = list(range(len(requests)))
         outputs: list = [[] for _ in requests]
         slot_req = [-1] * B  # which request occupies each slot
@@ -233,10 +384,11 @@ class ContinuousBatchingEngine:
         while any(s != -1 for s in slot_req):
             self.stats["occupancy_sum"] += float(np.mean([s != -1 for s in slot_req]))
             self.stats["decode_steps"] += 1
-            logits, _ = self.model.decode_fn(
-                self.params, cache, torch.as_tensor(cur_tok[:, None], device=self.device),
-                torch.as_tensor(pos, device=self.device))
-            nxt = logits[:, -1].argmax(-1).cpu().numpy()
+            step = torch.as_tensor(cur_tok[:, None], device=self.device)
+            if self._on is not None:
+                step = self._on.place({"tokens": step}, {"tokens": self._on.tokens})["tokens"]
+            logits, _ = self._decode(self.params, cache, step, torch.as_tensor(pos, device=self.device))
+            nxt = _whole(logits)[:, -1].argmax(-1).cpu().numpy()
             for b in range(B):
                 if slot_req[b] == -1:
                     continue
@@ -269,12 +421,20 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="", help="data=D,model=M[,pod=P]: serve on a device mesh of the job's tasks")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    mesh = None
+    if args.mesh:  # every task of the job joins the group and serves the same requests
+        from .distributed import maybe_initialize
+        from .mesh import make_job_mesh
+
+        maybe_initialize(resolve_device(args.device))
+        mesh = make_job_mesh(args.mesh, args.device)
     engine = ServeEngine(
         cfg, batch=args.batch, max_seq=args.prompt_len + args.gen_len,
-        seed=args.seed, device=args.device,
+        mesh=mesh, seed=args.seed, device=args.device,
     )
     rng = np.random.default_rng(args.seed)
     requests = [
@@ -287,8 +447,9 @@ def main(argv=None) -> int:
     for i, o in enumerate(outs[:4]):
         print(f"[serve] req{i}: prompt_len={len(requests[i])} -> {o[:8].tolist()}...")
     s = engine.stats
+    where = device_name(engine.device) + (f" over mesh {args.mesh}" if mesh is not None else "")
     print(
-        f"[serve] {len(requests)} requests in {dt:.2f}s on {device_name(engine.device)} | "
+        f"[serve] {len(requests)} requests in {dt:.2f}s on {where} | "
         f"prefill {s['prefill_tokens'] / max(s['prefill_s'], 1e-9):.0f} tok/s | "
         f"decode {s['decode_tokens'] / max(s['decode_s'], 1e-9):.0f} tok/s"
     )

@@ -11,7 +11,9 @@ the model, so one GPU must hold it. With a mesh (``data=D,model=M``) each GPU
 holds its own shard of every leaf, as ``resolve_tree`` lays the state out,
 and its share of the activations. A job that does not fit is refused with the
 smallest GPU count (and mesh) that fits, never submitted to run out of
-memory.
+memory. A serve job is sized the same way: on one GPU its weights, cache and
+working set, on a mesh each GPU's shards of them (the cache's ``kv_seq`` dim
+over ``model``).
 
 Plain functions of the config, importing nothing of ``repro``: the launcher
 plugin ``launchers/torch_h100.py`` wraps them for ``nbilaunch``.
@@ -135,18 +137,38 @@ def default_mesh(gpus: int) -> MeshShape:
     return MeshShape(("data", "model"), (gpus // model, model))
 
 
-def serve_memory_model(cfg, batch: int, max_seq: int) -> int:
+def serve_memory_model(cfg, batch: int, max_seq: int, mesh: "MeshShape | None" = None) -> int:
     """Peak bytes on one GPU of serving ``batch`` requests of up to
     ``max_seq`` tokens: the weights, the cache (its exact layout) and a
     prefill's working set and last logits. Against kimi-k2-1t-a32b's measured
     serving peak (2 of 61 layers, 8 x 1056 tokens, 42852.0 MiB on an NVIDIA
-    H100 80GB HBM3 at 700.00 W, PERF.md section 5) it gives 40499 MiB."""
+    H100 80GB HBM3 at 700.00 W, PERF.md section 5) it gives 40499 MiB. With
+    ``mesh`` each sum is this GPU's part, laid out by the serving rules
+    (``sharding.serve_rules``): every weight's and cache leaf's local shard,
+    the working set of its rows with its share of the ``ff`` (or experts')
+    dim, its share of the logits. Not counted, as on one GPU: the
+    prompt-sized cache the prefill returns beside the padded one (on a mesh
+    gathered over ``model`` one leaf at a time). A 1 x 1 mesh gives the
+    one-GPU number."""
+    from repro_torch.parallel.sharding import dp_axes, local_shape, mesh_axis_sizes, resolve_tree, serve_rules
+
     model = build_model(cfg)
-    weights = sum(math.prod(d.shape) * d.dtype.itemsize for _, d in tree_leaves(model.param_defs))
-    cache = sum(t.numel() * t.element_size() for _, t in tree_leaves(model.cache_defs_fn(batch, max_seq)))
-    ff = max(cfg.d_ff, cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts))
-    work = batch * max_seq * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * ff) * _act_bytes(cfg)
-    return int(weights + cache + work + batch * model.cfg.vocab_size * 4)
+    mesh = mesh or MeshShape(("data", "model"), (1, 1))
+    sizes = mesh_axis_sizes(mesh)
+    rules = serve_rules(model, mesh, batch, max_seq)
+
+    def local_bytes(shapes, logical):
+        placements = [p for _, p in tree_leaves(resolve_tree(mesh, logical, rules))]
+        return sum(math.prod(local_shape(t.shape, p, mesh)) * t.dtype.itemsize
+                   for (_, t), p in zip(tree_leaves(shapes), placements))
+
+    weights = local_bytes(model.param_defs, model.param_logical())
+    cache = local_bytes(model.cache_defs_fn(batch, max_seq), model.cache_logical_fn())
+    rows = batch // (math.prod(sizes[a] for a in dp_axes(mesh)) if rules["batch"] else 1)
+    shards = {name: sizes["model"] if rules.get(name) else 1 for name in ("ff", "experts", "vocab")}
+    ff = max(cfg.d_ff // shards["ff"], cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts) // shards["experts"])
+    work = rows * max_seq * (_LAYER_ACTS[0] * cfg.d_model + _LAYER_ACTS[1] * ff) * _act_bytes(cfg)
+    return int(weights + cache + work + rows * model.cfg.vocab_size // shards["vocab"] * 4)
 
 
 def train_mfu_floor() -> float:
@@ -172,21 +194,23 @@ def _fits(what: str, need: int, device: str, remedy) -> None:
             + remedy())
 
 
-def smallest_fit(cfg, global_batch: int, seq: int) -> "tuple[int, MeshShape, int] | None":
+def smallest_fit(cfg, global_batch: int, seq: int, memory=train_memory_model) -> "tuple[int, MeshShape, int] | None":
     """(GPUs, mesh, bytes a GPU) of the smallest power-of-two GPU count up to
-    :data:`MAX_GPUS` whose :func:`default_mesh` fits the train step, or None."""
+    :data:`MAX_GPUS` whose :func:`default_mesh` fits the job, or None:
+    ``memory(cfg, batch, seq, mesh)`` is the train step's
+    (:func:`train_memory_model`) or serving's (:func:`serve_memory_model`)."""
     gpus = 1
     while gpus <= MAX_GPUS:
         mesh = default_mesh(gpus)
-        need = train_memory_model(cfg, global_batch, seq, mesh)
+        need = memory(cfg, global_batch, seq, mesh)
         if need <= GPU_MEMORY_BYTES:
             return gpus, mesh, need
         gpus *= 2
     return None
 
 
-def _train_remedy(cfg, global_batch: int, seq: int) -> str:
-    found = smallest_fit(cfg, global_batch, seq)
+def _remedy(cfg, global_batch: int, seq: int, memory=train_memory_model) -> str:
+    found = smallest_fit(cfg, global_batch, seq, memory)
     if found is None:
         return f"no mesh of up to {MAX_GPUS} GPUs fits it"
     gpus, mesh, need = found
@@ -197,8 +221,8 @@ def _train_remedy(cfg, global_batch: int, seq: int) -> str:
 def _placement(gpus: int, device: str) -> dict:
     if gpus < 1:
         raise ValueError(f"gpus must be at least 1, got {gpus}")
-    if device != "cuda":  # one process on the CPU
-        return {"gpus": 0, "hosts": 1, "gpus_per_host": 0, "tasks": 1, "gres": "",
+    if device != "cuda":  # processes on the CPU of one host (gloo ranks), one a "gpu"
+        return {"gpus": 0, "hosts": 1, "gpus_per_host": gpus, "tasks": gpus, "gres": "",
                 "host_mem_gb": FIXED_OVERHEAD_GB}
     hosts = math.ceil(gpus / GPUS_PER_HOST)
     if gpus % hosts:
@@ -228,20 +252,31 @@ def size_train(arch: str, *, global_batch: int, seq: int, steps: int, gpus: int 
             raise ValueError(f"global batch {global_batch} does not split over {sizing['tasks']} tasks")
         need = train_memory_model(cfg, global_batch // sizing["tasks"], seq)
         what = f"training {arch} on {global_batch // sizing['tasks']} x {seq} tokens a GPU (data parallel)"
-    _fits(what, need, device, lambda: _train_remedy(cfg, global_batch, seq))
+    _fits(what, need, device, lambda: _remedy(cfg, global_batch, seq))
     # wall time: 6 N D at the lowest MFU the card has shown, twice, plus ten minutes
     flops = 6 * cfg.active_param_count() * steps * global_batch * seq
     secs = flops / (max(1, sizing["gpus"]) * PEAK_FLOPS[cfg.dtype] * train_mfu_floor())
     return {**sizing, "bytes_per_gpu": need, "time_s": int(secs * 2) + 600}
 
 
-def size_serve(arch: str, *, batch: int, max_seq: int, smoke: bool = False, device: str = "cuda") -> dict:
-    """One GPU (one task) of a serve job; raises :class:`DoesNotFit`."""
+def size_serve(arch: str, *, batch: int, max_seq: int, smoke: bool = False, device: str = "cuda", gpus: int = 1,
+               mesh: str = "") -> dict:
+    """GPUs, hosts, gres, host memory, bytes a GPU and mesh of a serve job:
+    one GPU (one task), or with ``mesh`` (``data=D,model=M``, D·M = gpus; on
+    more than one GPU :func:`default_mesh`'s when not given) the model and
+    cache sharded over the mesh, one task a GPU. Raises
+    :class:`DoesNotFit`, naming the smallest GPU count and mesh that fit,
+    when a GPU cannot hold its part."""
     cfg = _config(arch, smoke)
-    need = serve_memory_model(cfg, batch, max_seq)
-    _fits(f"serving {arch} at batch {batch} x {max_seq} tokens", need, device,
-          lambda: "serving on a mesh of GPUs is ROADMAP M17b")
-    return {**_placement(1, device), "bytes_per_gpu": need}
+    sizing = _placement(gpus, device)
+    if not mesh and sizing["tasks"] > 1:
+        mesh = default_mesh(sizing["tasks"]).spec()
+    shape = parse_mesh(mesh, sizing["tasks"]) if mesh else None
+    need = serve_memory_model(cfg, batch, max_seq, shape)
+    where = f" over mesh {shape.spec()}" if shape else ""
+    _fits(f"serving {arch} at batch {batch} x {max_seq} tokens{where}", need, device,
+          lambda: _remedy(cfg, batch, max_seq, serve_memory_model))
+    return {**sizing, "bytes_per_gpu": need, "mesh": mesh}
 
 
 def _python(*words) -> str:
@@ -271,13 +306,18 @@ def train_command(arch: str, *, steps: int, global_batch: int, seq: int, ckpt_di
 
 
 def serve_command(arch: str, *, batch: int, prompt_len: int, gen_len: int, smoke: bool = False,
-                  device: str = "cuda") -> str:
+                  device: str = "cuda", tasks: int = 1, mesh: str = "") -> str:
+    """The job's command: ``python -m repro_torch.launch.serve ...``, under
+    ``srun`` with ``--mesh`` over more than one task."""
     args = ["--arch", arch, "--batch", batch, "--prompt-len", prompt_len, "--gen-len", gen_len]
     if smoke:
         args.append("--smoke")
     if device != "cuda":
         args += ["--device", device]
-    return _python("-m", "repro_torch.launch.serve", *args)
+    if mesh:
+        args += ["--mesh", mesh]
+    cmd = _python("-m", "repro_torch.launch.serve", *args)
+    return f"srun --kill-on-bad-exit=1 {cmd}" if tasks > 1 else cmd
 
 
 def train_sbatch(arch: str, sizing: dict, command: str, *, time: str, mem_mb: int, partition: str = "") -> str:

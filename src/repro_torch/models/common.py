@@ -183,6 +183,33 @@ def gather_fsdp(tree):
     return map_defs(gather, tree)
 
 
+def channelwise(fn, x, *vectors):
+    """``fn(x, *vectors)`` for an elementwise ``fn`` whose vectors (gains,
+    biases, mixes: ``(..., C)``) run along x's trailing dims. On a DTensor x
+    it runs on each rank's local shards (``ops.on_local_shards``): each
+    vector split as the dims of x it meets (a replicated one is cut to them
+    first), its local gradient partial over the mesh dims that split x's
+    other dims. PyTorch 2.11's DTensor, the card's, reduces a broadcast
+    operand's gradient into a malformed spec (and pads into one), so the
+    models' vector broadcasts and their padding of the sequence dim never
+    run as DTensor ops."""
+    if not ops.is_dtensor(x):
+        return fn(x, *vectors)
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.parallel.sharding import redistribute
+
+    def split_as_x(v):
+        lead = x.ndim - v.ndim
+        want = [Shard(p.dim - lead) if p.is_shard() and p.dim >= lead else q for p, q in zip(x.placements, v.placements)]
+        return redistribute(v, x.device_mesh, want)
+
+    vectors = [split_as_x(v) for v in vectors]
+    inputs = {"x": x, **{f"v{i}": v for i, v in enumerate(vectors)}}
+    free = {name: tuple(range(t.ndim)) for name, t in inputs.items()}
+    return ops.on_local_shards("channelwise", fn, inputs, free, "x")
+
+
 def replicated_like(t, ref):
     """``t`` (a tensor every rank computes alike) as a replicated DTensor on
     ``ref``'s mesh when ``ref`` is a DTensor, else ``t``: DTensor ops take no
@@ -208,12 +235,17 @@ def rms_norm(x, weight, eps: float = 1e-6):
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """LayerNorm over the last axis with f32 moments, cast back to x's dtype.
-    Plain PyTorch: in the reference this is XLA, not Pallas."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    Plain PyTorch: in the reference this is XLA, not Pallas. On a mesh its
+    rows run on each rank's shards (:func:`channelwise`)."""
+
+    def norm(x, weight, bias):
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * weight.float() + bias.float()).to(x.dtype)
+
+    return channelwise(norm, x, weight, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +365,30 @@ def attention_single_shot(q, k, v, *, mask=None, logit_cap: float = 0.0):
     0.0883789 and the product rounds to bf16). Scores and the PV sum in f32;
     p is cast to v's dtype first, as in the reference. Plain PyTorch: in the
     reference this is XLA, not Pallas.
-    """
+
+    DTensors take the split-KV route (flash-decoding, what GSPMD makes of the
+    reference's function when the cache's ``kv_seq`` dim is sharded): K and V
+    may be split over their rows and their sequence, q is brought to K's rows
+    (every head), and ``mask`` (a plain tensor over the global keys, or a
+    DTensor) is cut to this rank's keys. Each rank scores its own keys; the
+    max, then the sum of exponentials against that global max, then the f32
+    PV partial sums are all-reduced over the mesh dims that split the keys.
+    Forward only (decode runs without a gradient)."""
+    if ops.is_dtensor(k):
+        return _split_kv_attention(q, k, v, mask, logit_cap)
+    return _single_shot(q, k, v, mask, logit_cap, None)
+
+
+def _single_shot(q, k, v, mask, logit_cap: float, groups):
+    """:func:`attention_single_shot`'s arithmetic on plain tensors; with
+    ``groups`` (process groups of the mesh dims that split the keys) its
+    three reductions over the keys are completed across them: the max, the
+    sum against the global max, the PV sum. ``p / l`` is cast to v's dtype
+    before the PV product, as the reference does, so a key's weight is the
+    same on every mesh, and a shard whose keys are all masked adds exactly 0
+    (its exponentials are exp(-1e30 - max))."""
+    import torch.distributed as dist
+
     B, Hq, Sq, Dh = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
@@ -344,11 +399,44 @@ def attention_single_shot(q, k, v, *, mask=None, logit_cap: float = 0.0):
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
+    for g in groups or ():
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    for g in groups or ():
+        dist.all_reduce(l, group=g)
     w = (p / l.clamp_min(1e-30)).to(v.dtype)
     out = torch.einsum("bhgqs,bhsd->bhgqd", w.float(), v.float())
-    return out.reshape(B, Hq, Sq, Dh).to(q.dtype)
+    for g in groups or ():
+        dist.all_reduce(out, group=g)
+    return out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+
+
+def _split_kv_attention(q, k, v, mask, logit_cap: float):
+    """The split-KV route of :func:`attention_single_shot` (DTensor q, k, v)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel.sharding import distribute, redistribute
+
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("attention_single_shot: the split-KV route is forward only")
+    mesh = k.device_mesh
+    if tuple(v.placements) != tuple(k.placements) or any(
+            p.is_partial() or (p.is_shard() and p.dim not in (0, 2)) for p in k.placements):
+        raise ValueError(f"attention_single_shot: k {k.placements} and v {v.placements} must be split alike, "
+                         "over their rows and keys only")
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in k.placements)
+    keys = [i for i, p in enumerate(k.placements) if p.is_shard(2)]
+    q = redistribute(q, mesh, rows)  # every head, K's rows
+    if mask is not None:  # this rank's rows (unless broadcast over them) and keys
+        want = tuple(Shard(mask.ndim - 1) if p.is_shard(2) else Shard(0) if p.is_shard(0) and mask.shape[0] > 1
+                     else Replicate() for p in k.placements)
+        mask = (redistribute(mask, mesh, want) if ops.is_dtensor(mask) else distribute(mask, mesh, want)).to_local()
+    out = _single_shot(q.to_local(), k.to_local(), v.to_local(), mask, logit_cap,
+                       [mesh.get_group(i) for i in keys if mesh.size(i) > 1])
+    shape = (*q.shape[:3], v.shape[-1])
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(math.prod(shape[i + 1:]) for i in range(4)))
 
 
 def causal_mask(sq: int, skv: int, q_offset=0, device=None):

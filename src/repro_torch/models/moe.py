@@ -286,11 +286,26 @@ def _moe_ffn_sharded(p, x, cfg: ArchConfig, N: int, aux: bool):
 
 def moe_decode_ffn(p, x, cfg: ArchConfig):
     """Decode-time MoE: one group over the step's B·S tokens, capacity
-    ``max(4, ceil(k·B·S/E·cf))``."""
+    ``max(4, ceil(k·B·S/E·cf))``. On a mesh the group stays whole: the step's
+    rows are gathered over the data axes (the reference's one group with
+    its tokens over ``batch``, whose capacity slots depend on every token),
+    each rank routes the group with K5 and runs its own experts' slots
+    (:func:`_moe_ffn_sharded`), and each keeps its own rows of the
+    all-reduced f32 sum."""
     B, S, D = x.shape
-    y = _route(p, x.reshape(1, B * S, D), cfg, capacity(cfg, B * S))[0].reshape(B, S, D).to(torch_dtype(cfg.dtype))
+    if ops.is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.parallel.sharding import redistribute
+
+        rows = x.placements
+        whole = redistribute(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+        y = redistribute(_moe_ffn_sharded(p, whole, cfg, B * S, False)[0], x.device_mesh, rows)
+    else:
+        y = _route(p, x.reshape(1, B * S, D), cfg, capacity(cfg, B * S))[0].reshape(B, S, D)
+        y = y.to(torch_dtype(cfg.dtype))
     if cfg.n_shared_experts:
-        y = y + _shared(p, x, cfg)
+        y = y + shard(_shared(p, x, cfg), "batch", None, None)
     return y
 
 
@@ -366,8 +381,8 @@ def moe_prefill(params, cfg: ArchConfig, tokens):
     kvs: dict = {}
     for name, _, p in _layers(params):
         y, kv = gqa_attention(p["attn"], rms_norm(h, p["ln1"]), cfg, positions, collect=True)
-        h = h + y
-        h = h + _ffn(p, h, cfg)[0]
+        h = residual(h, y)
+        h = residual(h, _ffn(p, h, cfg)[0])
         kvs.setdefault(name, []).append(kv)
     cache = {name: {t: torch.stack([kv[t] for kv in layers]) for t in ("k", "v")}
              for name, layers in kvs.items()}
@@ -389,6 +404,15 @@ def moe_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     return out
 
 
+def moe_cache_logical(cfg: ArchConfig) -> dict:
+    leaf = {"k": ("layers", "batch", None, "kv_seq", None),
+            "v": ("layers", "batch", None, "kv_seq", None)}
+    out = {"moe": dict(leaf)}
+    if cfg.n_dense_layers:
+        out["dense"] = dict(leaf)
+    return out
+
+
 def moe_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
     """One decode step. tokens: (B, 1) int; pos: scalar or (B,). Writes the
     step's K/V into ``cache`` in place and returns (logits (B, 1, V), cache)."""
@@ -397,7 +421,7 @@ def moe_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
     for name, i, p in _layers(params):
         layer_cache = {"k": cache[name]["k"][i], "v": cache[name]["v"][i]}
         y, _ = gqa_decode_attn(p["attn"], layer_cache, rms_norm(h, p["ln1"]), cfg, pos)
-        h = h + y
-        h = h + _ffn(p, h, cfg, decode=True)[0]
+        h = residual(h, y)
+        h = residual(h, _ffn(p, h, cfg, decode=True)[0])
     h = rms_norm(h, params["final_ln"])
     return unembed(params, cfg, h), cache

@@ -12,6 +12,7 @@ functions on tensors:
                                         encdec batch["frames"]]
   decode_fn(params, cache, tok, pos)  → (logits, cache)          [decode]
   cache_defs_fn(batch, max_seq)       → cache layout on ``meta``
+  cache_logical_fn()                  → the cache's logical axes
   forward_fn(params, tokens)          → logits of every position
                                         [dense takes patches= too; encdec
                                         needs frames=]
@@ -20,10 +21,9 @@ plus the logical axes of the parameters and inputs (``param_logical``,
 ``train_input_logical``, ``prefill_input_logical``), which
 :mod:`repro_torch.parallel.sharding` resolves to placements on a mesh.
 
-The reference's ``make_prefill_step`` / ``make_serve_step``
-(``repro/training/steps.py``) only wrap the prefill and decode functions with
-sharding rules; on one card there are none, so they are these functions
-themselves. Every family trains through ``loss_fn`` (MoE's metrics add the
+``repro_torch.training.make_prefill_step`` / ``make_serve_step`` run the
+prefill and decode functions under sharding rules on a mesh, as the
+reference's do; without rules they are these functions themselves. Every family trains through ``loss_fn`` (MoE's metrics add the
 ``aux_loss``); ``build_model`` raises ``NotImplementedError`` for MLA or a
 visual prefix in an MoE model, which the reference does not build either.
 """
@@ -59,6 +59,7 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     cache_defs_fn: Callable  # (batch, max_seq) -> dict of meta tensors
+    cache_logical_fn: Callable  # () -> the cache's logical tree
     forward_fn: Callable  # (params, tokens[, patches | frames]) -> logits of every position
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
@@ -88,18 +89,19 @@ class Model:
         return out
 
 
-# family: (param_defs, prefill, decode_step, forward, cache_defs), each taking
-# the (padded) config as an argument
+# family: (param_defs, prefill, decode_step, forward, cache_defs, cache_logical),
+# each taking the (padded) config as an argument
 _FAMILIES = {
     "dense": (tx.dense_param_defs, tx.dense_prefill, tx.dense_decode_step, tx.dense_forward,
-              tx.dense_cache_defs),
-    "moe": (moe.moe_param_defs, moe.moe_prefill, moe.moe_decode_step, moe.moe_forward, moe.moe_cache_defs),
+              tx.dense_cache_defs, tx.cache_logical),
+    "moe": (moe.moe_param_defs, moe.moe_prefill, moe.moe_decode_step, moe.moe_forward, moe.moe_cache_defs,
+            moe.moe_cache_logical),
     "rglru": (rg.griffin_param_defs, rg.griffin_prefill, rg.griffin_decode_step, rg.griffin_forward,
-              rg.griffin_cache_defs),
+              rg.griffin_cache_defs, rg.griffin_cache_logical),
     "rwkv6": (rw.rwkv_param_defs, rw.rwkv_prefill, rw.rwkv_decode_step, rw.rwkv_forward,
-              rw.rwkv_cache_defs),
+              rw.rwkv_cache_defs, rw.rwkv_cache_logical),
     "encdec": (wh.whisper_param_defs, wh.whisper_prefill, wh.whisper_decode_step, wh.whisper_forward,
-               wh.whisper_cache_defs),
+               wh.whisper_cache_defs, wh.whisper_cache_logical),
 }
 
 
@@ -115,7 +117,7 @@ def build_model(cfg: ArchConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} / visual prefix in an MoE model is not ported yet"
         )
-    param_defs, prefill, decode_step, forward, cache_defs = _FAMILIES[cfg.family]
+    param_defs, prefill, decode_step, forward, cache_defs, cache_logical = _FAMILIES[cfg.family]
     pcfg = cfg.replace(vocab_size=padded_vocab(cfg))
 
     def prefill_fn(params, batch):
@@ -145,5 +147,6 @@ def build_model(cfg: ArchConfig) -> Model:
         prefill_fn=prefill_fn,
         decode_fn=lambda p, c, t, pos: decode_step(p, pcfg, c, t, pos),
         cache_defs_fn=lambda batch, seq: cache_defs(pcfg, batch, seq),
+        cache_logical_fn=lambda: cache_logical(pcfg),
         forward_fn=forward_fn,
     )

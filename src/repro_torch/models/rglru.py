@@ -23,6 +23,13 @@ recurrence's gradient recomputes the reference's associative scan
 (:func:`repro_torch.kernels.ops.lru_assoc`) and the local attention's
 recomputes ``attention_chunked`` at KV chunks of min(attn_chunk, window), as
 the reference's ``local_attention``.
+
+On a device mesh (:func:`repro_torch.parallel.sharding.use_rules`) the
+reference's ``shard()`` sites pin the conv input's ``lru`` channels and the
+attention's heads; the conv and the recurrence's gates run on each rank's
+shards (:func:`.common.channelwise`), the scan through ``ops.lru_scan``'s
+local-shard route, and the ring buffers' slots split over ``kv_seq`` at
+decode (:func:`griffin_cache_logical`).
 """
 
 from __future__ import annotations
@@ -37,10 +44,12 @@ from .common import (
     ParamDef,
     apply_rope,
     attention_single_shot,
+    channelwise,
     cross_entropy,
     geglu,
     map_defs,
     rms_norm,
+    shard,
     torch_dtype,
 )
 from .config import ArchConfig
@@ -52,6 +61,8 @@ from .transformer import (
     layer_params,
     mlp_defs,
     remat_wrap,
+    residual,
+    scatter_seq,
     unembed,
 )
 
@@ -125,16 +136,21 @@ def griffin_param_defs(cfg: ArchConfig) -> dict:
 _LRU_C = 8.0
 
 
-def rglru_coeffs(p, xb):
-    """(a, b) of the recurrence h_t = a_t ⊙ h_{t-1} + b_t, in f32."""
+def _coeffs(xb, a_gate_w, a_gate_b, in_gate_w, in_gate_b, lam):
     x = xb.float()
-    r = torch.sigmoid(x * p["a_gate_w"].float() + p["a_gate_b"].float())
-    i = torch.sigmoid(x * p["in_gate_w"].float() + p["in_gate_b"].float())
-    lam = p["lam"].float()
+    r = torch.sigmoid(x * a_gate_w.float() + a_gate_b.float())
+    i = torch.sigmoid(x * in_gate_w.float() + in_gate_b.float())
+    lam = lam.float()
     log_a = -_LRU_C * torch.logaddexp(lam, torch.zeros_like(lam)) * r  # softplus, as jax's
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * x)
     return a, b
+
+
+def rglru_coeffs(p, xb):
+    """(a, b) of the recurrence h_t = a_t ⊙ h_{t-1} + b_t, in f32 (on a mesh
+    on each rank's shards of the channels: :func:`.common.channelwise`)."""
+    return channelwise(_coeffs, xb, *(p[n] for n in ("a_gate_w", "a_gate_b", "in_gate_w", "in_gate_b", "lam")))
 
 
 def rglru_scan(p, xb, h0=None):
@@ -143,6 +159,11 @@ def rglru_scan(p, xb, h0=None):
     a, b = rglru_coeffs(p, xb)
     if h0 is None:
         h0 = torch.zeros(a[:, 0].shape, dtype=torch.float32, device=a.device)
+        if ops.is_dtensor(a):  # made in local shapes, split as a's rows and channels
+            from torch.distributed.tensor import DTensor
+
+            h0 = DTensor.from_local(torch.zeros_like(a.to_local()[:, 0]), a.device_mesh,
+                                    ops.split_like(a.placements, {0: 0, 2: 1}), run_check=False)
     h, h_last = ops.lru_scan(a.contiguous(), b.contiguous(), h0.float().contiguous())
     return h.to(xb.dtype), h_last
 
@@ -157,25 +178,34 @@ def rglru_step(p, xb, h):
 def causal_conv(p, xb, state=None):
     """Depthwise causal conv of width K in the activation dtype. state:
     (B, K-1, W) trailing inputs. Returns (out, the last K-1 inputs, the zero
-    pad included)."""
-    K = p["conv_w"].shape[1]
+    pad included). On a mesh on each rank's shards of the rows and channels
+    (the time dim is never split)."""
+    if ops.is_dtensor(xb):
+        inputs = {"xb": xb, "w": p["conv_w"], "b": p["conv_b"], **({} if state is None else {"state": state})}
+        return ops.on_local_shards("causal_conv", _conv, inputs, {"xb": (0, 2), "w": (0,), "b": (0,),
+                                                                   "state": (0, 2)}, "xb")
+    return _conv(xb, p["conv_w"], p["conv_b"], state)
+
+
+def _conv(xb, conv_w, conv_b, state=None):
+    K = conv_w.shape[1]
     S = xb.shape[1]
     if state is None:
         x = F.pad(xb, (0, 0, K - 1, 0))
     else:
         x = torch.cat([state.to(xb.dtype), xb], dim=1)
-    w = p["conv_w"].to(xb.dtype)
+    w = conv_w.to(xb.dtype)
     out = 0
     for i in range(K):
         out = out + x[:, i : i + S] * w[:, i]
-    return out + p["conv_b"].to(xb.dtype), x[:, -(K - 1) :]
+    return out + conv_b.to(xb.dtype), x[:, -(K - 1) :]
 
 
 def rec_temporal(p, x, cfg: ArchConfig, cache=None):
     """Griffin recurrent temporal block. Returns (y, {"conv", "h"})."""
     dt = x.dtype
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"].to(dt)), approximate="tanh")
-    xb = torch.einsum("bsd,dw->bsw", x, p["w_in"].to(dt))
+    xb = shard(torch.einsum("bsd,dw->bsw", x, p["w_in"].to(dt)), "batch", None, "lru")
     conv_state = cache["conv"] if cache else None
     h0 = cache["h"] if cache else None
     xb, conv_tail = causal_conv(p, xb, conv_state)
@@ -204,7 +234,10 @@ def local_attention(p, x, cfg: ArchConfig, positions):
 def attn_ring_decode(p, cache, x, cfg: ArchConfig, pos):
     """One-token local attention over a ring buffer of ``window`` slots.
     Writes the new K/V and position into slot ``pos % window`` of ``cache``
-    (k, v: (B, Hkv, W, hd); pos: (W,) int32) in place."""
+    (k, v: (B, Hkv, W, hd); pos: (W,) int32) in place. On a mesh the slots
+    are split over ``kv_seq`` as a dense cache's positions are (the write
+    lands on the rank that holds the slot, :func:`.transformer.scatter_seq`;
+    the attention is split-KV) and ``pos`` is replicated."""
     dt = x.dtype
     W = cfg.window
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
@@ -214,11 +247,13 @@ def attn_ring_decode(p, cache, x, cfg: ArchConfig, pos):
     positions = pos.reshape(1)
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)  # roped at write time
-    slot = (pos % W).reshape(1).long()
-    k = cache["k"].index_copy_(2, slot, k_new.to(cache["k"].dtype))
-    v = cache["v"].index_copy_(2, slot, v_new.to(cache["v"].dtype))
-    pos_buf = cache["pos"].index_copy_(0, slot, positions.to(cache["pos"].dtype))
-    valid = (pos_buf >= 0) & (pos_buf <= pos) & (pos_buf > pos - W)
+    slot = (pos % W).long()
+    k = scatter_seq(cache["k"], k_new, slot)
+    v = scatter_seq(cache["v"], v_new, slot)
+    pos_buf = cache["pos"]
+    local = pos_buf.to_local() if ops.is_dtensor(pos_buf) else pos_buf
+    local.index_copy_(0, slot.reshape(1), positions.to(local.dtype))
+    valid = (local >= 0) & (local <= pos) & (local > pos - W)
     out = attention_single_shot(q, k, v, mask=valid[None, None, None, None, :], logit_cap=cfg.logit_cap)
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
     return y, {"k": k, "v": v, "pos": pos_buf}
@@ -231,22 +266,22 @@ def attn_ring_decode(p, cache, x, cfg: ArchConfig, pos):
 
 def _mlp(p, x):
     m = p["mlp"]
-    return x + geglu(rms_norm(x, p["ln2"]), m["wg"], m["wi"], m["wo"], x.dtype)
+    return residual(x, geglu(rms_norm(x, p["ln2"]), m["wg"], m["wi"], m["wo"], x.dtype))
 
 
 def rec_pair(p, x, cfg: ArchConfig, cache=None):
     y, new_cache = rec_temporal(p["rec"], rms_norm(x, p["ln1"]), cfg, cache)
-    return _mlp(p, x + y), new_cache
+    return _mlp(p, residual(x, y)), new_cache
 
 
 def attn_pair(p, x, cfg: ArchConfig, positions):
     y, k, v = local_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, positions)
-    return _mlp(p, x + y), (k, v)
+    return _mlp(p, residual(x, y)), (k, v)
 
 
 def attn_pair_decode(p, x, cfg: ArchConfig, cache, pos):
     y, new_cache = attn_ring_decode(p["attn"], cache, rms_norm(x, p["ln1"]), cfg, pos)
-    return _mlp(p, x + y), new_cache
+    return _mlp(p, residual(x, y)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -320,8 +355,23 @@ def griffin_prefill(params, cfg: ArchConfig, tokens):
 
 def _ring_from_full(ks, vs, cfg: ArchConfig, S: int) -> dict:
     """(n_super, B, Hkv, S, hd) full-sequence K/V → ring buffers with position
-    p at slot p % W; ``pos`` is -1 in the slots no position filled (S < W)."""
+    p at slot p % W; ``pos`` is -1 in the slots no position filled (S < W).
+    DTensors (whose sequence is never split) are reordered on each rank's
+    shard, ``pos`` replicated."""
     W = cfg.window
+    if ops.is_dtensor(ks):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        ring = _ring_from_full(ks.to_local(), vs.to_local(), cfg, S)
+        mesh, pl = ks.device_mesh, ks.placements
+        shape = (*ks.shape[:3], W, ks.shape[4])
+
+        def wrap(t, placements, shape):
+            return DTensor.from_local(t, mesh, placements, run_check=False, shape=torch.Size(shape),
+                                      stride=t.stride())
+
+        return {"k": wrap(ring["k"], pl, shape), "v": wrap(ring["v"], pl, shape),
+                "pos": wrap(ring["pos"], [Replicate()] * mesh.ndim, ring["pos"].shape)}
     n_super = ks.shape[0]
     if S >= W:
         last_pos = np.arange(S - W, S)
@@ -365,6 +415,25 @@ def griffin_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     }
     if tail:
         out["tail"] = rec(tail)
+    return out
+
+
+def griffin_cache_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of each cache leaf: the recurrent states over ``lru``, the
+    ring buffers' slots over ``kv_seq``, their positions replicated."""
+    n_super, tail = griffin_layout(cfg)
+    rec = {"conv": ("layers", "batch", None, "lru"), "h": ("layers", "batch", "lru")}
+    out = {
+        "rec1": dict(rec),
+        "rec2": dict(rec),
+        "attn": {
+            "k": ("layers", "batch", None, "kv_seq", None),
+            "v": ("layers", "batch", None, "kv_seq", None),
+            "pos": ("layers", None),
+        },
+    }
+    if tail:
+        out["tail"] = dict(rec)
     return out
 
 

@@ -17,6 +17,13 @@ Training (:func:`rwkv_loss`) runs each block under ``cfg.remat``; the WKV
 forward is still the kernel, and its gradient recomputes
 :func:`wkv6_chunked`, the reference's chunked form, which takes S % 64 == 0
 (or S < 64).
+
+On a device mesh the reference's ``shard()`` sites split r, k and v (and w
+and the state, for the kernel's local-shard route) by heads and the
+channel-mix's ``ff`` over ``model``; the token shift, the mixes, the decay's
+bias, the group norm's gain and the LayerNorms run on each rank's shards
+(:func:`.common.channelwise`); the cache's WKV state splits by heads
+(:func:`rwkv_cache_logical`).
 """
 
 from __future__ import annotations
@@ -28,9 +35,9 @@ from repro_torch.kernels import ops
 
 from torch.utils.checkpoint import checkpoint
 
-from .common import ParamDef, cross_entropy, layer_norm, map_defs, torch_dtype
+from .common import ParamDef, channelwise, cross_entropy, layer_norm, map_defs, replicated_like, shard, torch_dtype
 from .config import ArchConfig
-from .transformer import _stack, embed_tokens, layer_params, remat_wrap, unembed
+from .transformer import _stack, embed_tokens, layer_params, remat_wrap, residual, unembed
 
 # ---------------------------------------------------------------------------
 # WKV recurrence: the chunked form (the gradient's path) and one token (decode)
@@ -159,19 +166,24 @@ def _shifted(x, shift_state):
     """The previous token's x for every position: ``shift_state`` (B, D), or
     zeros, before the first."""
     if shift_state is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        return channelwise(lambda x: F.pad(x, (0, 0, 1, 0))[:, :-1], x)
     return torch.cat([shift_state[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _lerp(x, sx, mu):
+    """x + sx ⊙ mu in x's dtype, mu a vector over the channels."""
+    return channelwise(lambda x, sx, mu: x + sx * mu.to(x.dtype), x, sx, mu)
 
 
 def _ddlerp(p, x, sx):
     """Data-dependent token-shift interpolation → (xw, xk, xv, xr, xg)."""
     dt = x.dtype
     r5 = p["maa_w1"].shape[1] // 5
-    base = x + sx * p["mu_x"].to(dt)
+    base = _lerp(x, sx, p["mu_x"])
     lora = torch.tanh(torch.einsum("bsd,dr->bsr", base, p["maa_w1"].to(dt)))
     lora = lora.reshape(*lora.shape[:-1], 5, r5)
     delta = torch.einsum("bsir,ird->bsid", lora, p["maa_w2"].to(dt))  # (B,S,5,D)
-    mixes = p["mu_rkvgw"].to(dt)[None, None] + delta
+    mixes = channelwise(lambda delta, mu: mu.to(delta.dtype)[None, None] + delta, delta, p["mu_rkvgw"])
     return tuple(x + sx * mixes[:, :, i] for i in range(5))
 
 
@@ -191,15 +203,19 @@ def time_mix(p, x, cfg: ArchConfig, shift_state=None, wkv_state=None):
     dlora = torch.einsum(
         "bsr,rd->bsd", torch.tanh(torch.einsum("bsd,dr->bsr", xw, p["ww1"].to(dt))), p["ww2"].to(dt)
     )
-    w = torch.exp(-torch.exp(p["w0"].float() + dlora.float()))
+    w = channelwise(lambda dlora, w0: torch.exp(-torch.exp(w0.float() + dlora.float())), dlora, p["w0"])
 
     def heads(t):  # (B,S,D) → (B,H,S,dk)
         return t.reshape(B, S, H, dk).transpose(1, 2).contiguous()
 
-    # w is rounded to the activation dtype before the recurrence, as in the reference
-    r_h, k_h, v_h, w_h = heads(r), heads(k), heads(v), heads(w.to(dt))
+    # w is rounded to the activation dtype before the recurrence, as in the
+    # reference; on a mesh the heads split over ``model`` (the reference's
+    # sites on r, k and v; w and the state join them for the kernel's
+    # local-shard route, where GSPMD moves them implicitly)
+    r_h, k_h, v_h, w_h = (shard(heads(t), "batch", "heads", None, None) for t in (r, k, v, w.to(dt)))
     if wkv_state is None:
-        wkv_state = torch.zeros((B, H, dk, dk), dtype=torch.float32, device=x.device)
+        wkv_state = replicated_like(torch.zeros((B, H, dk, dk), dtype=torch.float32, device=x.device), x)
+    wkv_state = shard(wkv_state, "batch", "heads", None, None)
     if S == 1:
         y, s_new = wkv6_step(r_h[:, :, 0], k_h[:, :, 0], v_h[:, :, 0], w_h[:, :, 0], p["u"], wkv_state)
         y = y[:, :, None]  # f32, as in the reference's decode
@@ -211,7 +227,7 @@ def time_mix(p, x, cfg: ArchConfig, shift_state=None, wkv_state=None):
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, unbiased=False)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, S, D) * p["gn_w"].float() + p["gn_b"].float()
+    y = channelwise(lambda y, w, b: y * w.float() + b.float(), yh.reshape(B, S, D), p["gn_w"], p["gn_b"])
     y = y.to(dt) * g
     return torch.einsum("bsd,de->bse", y, p["wo"].to(dt)), x[:, -1], s_new
 
@@ -220,9 +236,9 @@ def channel_mix(p, x, shift_state=None):
     """Channel-mix with squared ReLU. Returns (y, new shift state x[:, -1])."""
     dt = x.dtype
     sx = _shifted(x, shift_state) - x
-    xk = x + sx * p["mu_k"].to(dt)
-    xr = x + sx * p["mu_r"].to(dt)
+    xk, xr = _lerp(x, sx, p["mu_k"]), _lerp(x, sx, p["mu_r"])
     k = torch.square(F.relu(torch.einsum("bsd,df->bsf", xk, p["wk"].to(dt))))
+    k = shard(k, "batch", None, "ff")
     kv = torch.einsum("bsf,fd->bsd", k, p["wv"].to(dt))
     return torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["wr"].to(dt))) * kv, x[:, -1]
 
@@ -235,9 +251,9 @@ def rwkv_block(p, x, cfg: ArchConfig, cache=None):
     y, new_cache["tm_shift"], new_cache["wkv"] = time_mix(
         p["tm"], layer_norm(x, p["ln1_w"], p["ln1_b"]), cfg, tm_shift, wkv
     )
-    x = x + y
+    x = residual(x, y)
     y, new_cache["cm_shift"] = channel_mix(p["cm"], layer_norm(x, p["ln2_w"], p["ln2_b"]), cm_shift)
-    return x + y, new_cache
+    return residual(x, y), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +308,14 @@ def rwkv_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
         "tm_shift": torch.empty((L, batch, D), dtype=dt, device="meta"),
         "cm_shift": torch.empty((L, batch, D), dtype=dt, device="meta"),
         "wkv": torch.empty((L, batch, H, dk, dk), dtype=torch.float32, device="meta"),
+    }
+
+
+def rwkv_cache_logical(cfg: ArchConfig) -> dict:
+    return {
+        "tm_shift": ("layers", "batch", None),
+        "cm_shift": ("layers", "batch", None),
+        "wkv": ("layers", "batch", "heads", None, None),
     }
 
 

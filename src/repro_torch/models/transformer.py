@@ -29,7 +29,11 @@ sites pin q, k, v, the residual stream and the logits; K and V are repeated
 to the query heads where ``heads`` shard and ``kv_heads`` do not (the
 reference's expansion), so that each rank's query heads meet their own KV
 heads; the embedding lookup is vocab-parallel; each layer's ZeRO-3 shards
-are gathered inside its remat scope (:func:`.common.gather_fsdp`).
+are gathered inside its remat scope (:func:`.common.gather_fsdp`). Prefill
+and decode run under the same rules (serving on a mesh): the cache laid out
+by :func:`cache_logical`, its sequence split over ``model``, written by
+:func:`scatter_seq` on the rank that holds each position and read by the
+split-KV route of :func:`.common.attention_single_shot`.
 """
 
 from __future__ import annotations
@@ -338,9 +342,9 @@ def dense_prefill(params, cfg: ArchConfig, tokens, patches=None):
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
         y, leaves = attn(p["attn"], rms_norm(h, p["ln1"]), cfg, positions, collect=True)
-        h = h + y
+        h = residual(h, y)
         m = p["mlp"]
-        h = h + swiglu(rms_norm(h, p["ln2"]), m["wg"], m["wi"], m["wo"], dt)
+        h = residual(h, swiglu(rms_norm(h, p["ln2"]), m["wg"], m["wi"], m["wo"], dt))
         layers.append(leaves)
     h = rms_norm(h[:, -1:].contiguous(), params["final_ln"])
     return unembed(params, cfg, h), {name: torch.stack([c[name] for c in layers]) for name in layers[0]}
@@ -368,6 +372,19 @@ def dense_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     }
 
 
+def cache_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of each cache leaf (the sequence sharded over ``model``)."""
+    if cfg.attention == "mla":
+        return {
+            "ckv": ("layers", "batch", "kv_seq", None),
+            "krope": ("layers", "batch", "kv_seq", None),
+        }
+    return {
+        "k": ("layers", "batch", None, "kv_seq", None),
+        "v": ("layers", "batch", None, "kv_seq", None),
+    }
+
+
 def scatter_seq(buf, update, pos):
     """Write ``update`` (..., 1, d) into ``buf`` (..., S, d) at sequence index
     ``pos``, in place, and return ``buf``: (B, H, S, d) K/V or MLA's (B, S, r)
@@ -377,8 +394,12 @@ def scatter_seq(buf, update, pos):
     (continuous batching: every row at its own depth; ``buf``'s leading dim
     is the batch). The reference builds a new buffer with a one-hot
     multiply-add so that GSPMD can shard S; on one card an in-place write
-    saves reading and writing the whole cache per step.
+    saves reading and writing the whole cache per step. A DTensor ``buf``
+    split over its rows and its sequence (the ``kv_seq`` rule) is written on
+    each rank's shard only where it holds ``pos`` (:func:`_scatter_local`).
     """
+    if ops.is_dtensor(buf):
+        return _scatter_local(buf, update, pos)
     pos = torch.as_tensor(pos, device=buf.device).long()
     update = update.to(buf.dtype)
     if pos.dim() == 0:
@@ -386,6 +407,39 @@ def scatter_seq(buf, update, pos):
     else:
         rows = torch.arange(buf.shape[0], device=buf.device)
         buf[rows, ..., pos, :] = update[:, ..., 0, :]
+    return buf
+
+
+def _scatter_local(buf, update, pos):
+    """:func:`scatter_seq` into the DTensor ``buf``: ``update`` is brought to
+    ``buf``'s rows (every other dim whole), and each rank writes into its
+    local shard the rows it holds whose position falls in its slice of the
+    sequence, at ``pos - offset``: a scalar position on the ranks of one
+    slice, per-row positions on whichever ranks hold them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.sharding import local_slices, redistribute
+
+    mesh = buf.device_mesh
+    seq = buf.dim() - 2
+    if any(p.is_partial() or (p.is_shard() and p.dim not in (0, seq)) for p in buf.placements):
+        raise ValueError(f"scatter_seq: buf {buf.placements} may be split over its rows and sequence only")
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in buf.placements)
+    upd = redistribute(update, mesh, rows).to_local().to(buf.dtype)
+    local = buf.to_local()
+    index = local_slices(buf.shape, buf.placements, mesh)
+    lo, hi = index[seq].start, index[seq].stop
+    pos = torch.as_tensor(pos, device=local.device).long()
+    # no host sync: a rank whose slice lacks the position writes back what it holds
+    at, here = (pos - lo).clamp(0, hi - lo - 1), (pos >= lo) & (pos < hi)
+    if pos.dim() == 0:
+        at = at.reshape(1)
+        local.index_copy_(seq, at, torch.where(here, upd, local.index_select(seq, at)))
+        return buf
+    at, here = at[index[0]], here[index[0]]
+    r = torch.arange(local.shape[0], device=local.device)
+    keep = here.reshape(-1, *(1,) * (local.dim() - 2))
+    local[r, ..., at, :] = torch.where(keep, upd[:, ..., 0, :], local[r, ..., at, :])
     return buf
 
 
@@ -417,7 +471,7 @@ def gqa_decode_attn(p, layer_cache, x, cfg: ArchConfig, pos):
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     k = scatter_seq(layer_cache["k"], k_new, pos)
     v = scatter_seq(layer_cache["v"], v_new, pos)
-    S = k.shape[-2]
+    S = k.shape[-2]  # the global length: a split cache's mask covers every key
     mask = _pos_mask(pos, B, S, x.device)
     if cfg.attention == "local" and cfg.window > 0:
         low = _pos_mask(torch.as_tensor(pos, device=x.device) - cfg.window, B, S, x.device)
@@ -469,8 +523,8 @@ def dense_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
         p = layer_params(params["blocks"], i)
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         y, _ = decode_attn(p["attn"], layer_cache, rms_norm(h, p["ln1"]), cfg, pos)
-        h = h + y
+        h = residual(h, y)
         m = p["mlp"]
-        h = h + swiglu(rms_norm(h, p["ln2"]), m["wg"], m["wi"], m["wo"], dt)
+        h = residual(h, swiglu(rms_norm(h, p["ln2"]), m["wg"], m["wi"], m["wo"], dt))
     h = rms_norm(h, params["final_ln"])
     return unembed(params, cfg, h), cache

@@ -230,6 +230,15 @@ def whisper_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     }
 
 
+def whisper_cache_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of each cache leaf: the self-attention's sequence over
+    ``model`` (split-KV), the cross-attention's heads."""
+    kv = ("layers", "batch", None, "kv_seq", None)
+    return {"self_k": kv, "self_v": kv,
+            "cross_k": ("layers", "batch", "heads", None, None),
+            "cross_v": ("layers", "batch", "heads", None, None)}
+
+
 def whisper_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
     """One decode step. tokens: (B, 1) int; pos: a scalar position.
 

@@ -114,6 +114,21 @@ def rules_for(cfg, mesh, *, param_defs=None, batch_size: int | None = None, extr
     return rules
 
 
+def serve_rules(model, mesh, batch: int, max_seq: int) -> dict:
+    """The rules of serving ``batch`` requests of up to ``max_seq`` tokens on
+    ``mesh``: the reference's engines' (``batch_size=batch``,
+    ``extra_dims={"kv_seq": max_seq, "heads": n_heads}``), with the cache's
+    own dims checked too, so that a rule also self-disables where a cache
+    leaf does not split (Griffin's ring of ``window`` slots over ``kv_seq``).
+    A batch of one is never split, also where the data axes are of size 1
+    (DTensor cannot view a dim of size 1 split over a mesh dim of size 1)."""
+    cache = map_defs(lambda t, lg: ParamDef(tuple(t.shape), lg), model.cache_defs_fn(batch, max_seq),
+                     model.cache_logical_fn())
+    rules = rules_for(model.cfg, mesh, param_defs={"params": model.param_defs, "cache": cache}, batch_size=batch,
+                      extra_dims={"kv_seq": max_seq, "heads": model.cfg.n_heads})
+    return {**rules, "batch": None} if batch == 1 else rules
+
+
 def spec_for(logical: tuple, rules: dict) -> tuple:
     """The mesh axis (a name, a tuple of names, or None) of each dim: the
     reference's ``PartitionSpec`` as a tuple."""

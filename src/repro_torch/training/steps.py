@@ -1,9 +1,10 @@
 """Train state and the train step (the port of ``repro.training.steps``).
 
 ``make_train_step`` assembles: loss → gradient by autograd (optionally over
-microbatches, summed in f32) → the optimizer's update, which clips. Prefill
-and decode steps are the model's ``prefill_fn`` / ``decode_fn`` themselves
-(:mod:`repro_torch.models.registry`).
+microbatches, summed in f32) → the optimizer's update, which clips. The
+prefill and decode steps (``make_prefill_step``, ``make_serve_step``) are the
+model's ``prefill_fn`` / ``decode_fn`` (:mod:`repro_torch.models.registry`),
+run under the rules on a mesh, as the reference's.
 
 Gradient accumulation reshapes the global batch (B, ...) into
 (MB, B/MB, ...) row-major and runs the microbatches in order: peak
@@ -60,25 +61,24 @@ def abstract_train_state(model: Model, optimizer: Optimizer) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
-def init_sharded_train_state(model: Model, optimizer: Optimizer, seed: int, mesh, placements: dict,
-                             device="cuda") -> dict:
-    """A fresh train state laid out by ``placements`` (a tree from
-    ``resolve_tree``) without any rank holding a whole model.
+def init_sharded_params(model: Model, seed: int, mesh, placements, device="cuda") -> dict:
+    """Seeded weights laid out by ``placements`` (a tree from
+    ``resolve_tree`` of ``model.param_logical()``) without any rank holding a
+    whole model.
 
     A normal-init weight is drawn on ``device`` one layer at a time where it
     is stacked over ``layers``, else whole, from a generator seeded by
     (seed, leaf, layer), with the reference's std, and each rank keeps its
     own part. So the weights are the same on every mesh, the peak is one
     layer of a leaf (or the largest unstacked leaf, the embedding) in f32
-    beside the shards, and they differ from :func:`init_train_state`'s for
-    one seed (which draws each leaf in one call). Every optimizer's fresh
-    state is zeros, made in local shapes; step is 0."""
+    beside the shards, and they differ from ``model.init``'s for one seed
+    (which draws each leaf in one call)."""
     from repro_torch.parallel.sharding import from_local, local_shape, local_slices
 
     device = torch.device(device)
     defs = [d for _, d in tree_leaves(model.param_defs)]
     leaves = []
-    for li, (d, pl) in enumerate(zip(defs, [p for _, p in tree_leaves(placements["params"])])):
+    for li, (d, pl) in enumerate(zip(defs, [p for _, p in tree_leaves(placements)])):
         if d.init != "normal":
             fill = {"zeros": 0.0, "ones": 1.0, "constant": d.scale}[d.init]
             local = torch.full(local_shape(d.shape, pl, mesh), fill, dtype=d.dtype, device=device)
@@ -97,13 +97,25 @@ def init_sharded_train_state(model: Model, optimizer: Optimizer, seed: int, mesh
             else:
                 local = draw(d.shape)[index].to(d.dtype)
         leaves.append(from_local(local.contiguous(), mesh, pl, d.shape))
+    return tree_unflatten(model.param_defs, leaves)
+
+
+def init_sharded_train_state(model: Model, optimizer: Optimizer, seed: int, mesh, placements: dict,
+                             device="cuda") -> dict:
+    """A fresh train state laid out by ``placements`` (a tree from
+    ``resolve_tree``) without any rank holding a whole model: the weights of
+    :func:`init_sharded_params`; every optimizer's fresh state is zeros, made
+    in local shapes; step is 0."""
+    from repro_torch.parallel.sharding import from_local, local_shape
+
+    device = torch.device(device)
     abstract = abstract_train_state(model, optimizer)
 
     def zeros(t, pl):
         return from_local(torch.zeros(local_shape(t.shape, pl, mesh), dtype=t.dtype, device=device), mesh, pl,
                           t.shape)
 
-    return {"params": tree_unflatten(model.param_defs, leaves),
+    return {"params": init_sharded_params(model, seed, mesh, placements["params"], device),
             "opt": map_defs(zeros, abstract["opt"], placements["opt"]),
             "step": zeros(abstract["step"], placements["step"])}
 
@@ -165,10 +177,13 @@ def make_grad_fn(model: Model, param_placements=None, mesh=None):
 
 
 def _check_mesh_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "local") or cfg.n_patches:
+    """Refuse what cannot yet run on a mesh: MLA, the visual prefix and the
+    ``encdec`` family (the rest of ROADMAP M17b)."""
+    if cfg.family == "encdec" or cfg.attention == "mla" or cfg.n_patches:
+        what = "encdec" if cfg.family == "encdec" else "a visual prefix" if cfg.n_patches else "MLA"
         raise NotImplementedError(
-            f"{cfg.name}: training on a mesh covers the dense GQA and MoE families; {cfg.family} with "
-            f"{cfg.attention} attention{' and a visual prefix' if cfg.n_patches else ''} is ROADMAP M17b")
+            f"{cfg.name}: the mesh takes the dense GQA, MoE, Griffin and RWKV-6 families; {what} on a mesh "
+            "(MLA, the visual prefix and encdec) is ROADMAP M17b")
 
 
 def make_train_step(model: Model, optimizer: Optimizer, rules: "dict | None" = None, mesh=None):
@@ -202,6 +217,31 @@ def make_train_step(model: Model, optimizer: Optimizer, rules: "dict | None" = N
                 "step": state["step"] + 1}, metrics
 
     return with_rules(train_step, rules, mesh)
+
+
+def make_prefill_step(model: Model, rules: "dict | None" = None, mesh=None):
+    """``prefill(params, batch) → (last logits, cache)``: ``model.prefill_fn``,
+    under ``rules`` on ``mesh`` when given (DTensor params and batch; the
+    cache comes back as DTensors of the forward's placements)."""
+    if rules is None:
+        return model.prefill_fn
+    from repro_torch.parallel.sharding import with_rules
+
+    _check_mesh_family(model.cfg)
+    return with_rules(model.prefill_fn, rules, mesh)
+
+
+def make_serve_step(model: Model, rules: "dict | None" = None, mesh=None):
+    """One decode step, ``(params, cache, tokens, pos) → (logits, cache)``:
+    ``model.decode_fn``, under ``rules`` on ``mesh`` when given (the cache
+    laid out by ``model.cache_logical_fn()``, its ``kv_seq`` dim split over
+    ``model``: split-KV decode)."""
+    if rules is None:
+        return model.decode_fn
+    from repro_torch.parallel.sharding import with_rules
+
+    _check_mesh_family(model.cfg)
+    return with_rules(model.decode_fn, rules, mesh)
 
 
 def _make_plain_step(model: Model, optimizer: Optimizer):

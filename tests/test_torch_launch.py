@@ -115,7 +115,7 @@ def test_serve_sizing():
     s = submit.size_serve("codeqwen1.5-7b", batch=8, max_seq=1056)
     assert s["gres"] == "gpu:h100:1" and s["tasks"] == 1
     assert 15e9 < s["bytes_per_gpu"] < submit.GPU_MEMORY_BYTES  # 16.4 GB of bf16 weights and the cache
-    with pytest.raises(submit.DoesNotFit, match="M17"):
+    with pytest.raises(submit.DoesNotFit, match="smallest GPU count that fits is gpus=4 with mesh=data=1,model=4"):
         submit.size_serve("mistral-large-123b", batch=8, max_seq=1056)  # 245 GB of bf16 weights
     assert submit.size_serve("mistral-large-123b", batch=8, max_seq=1056, device="cpu")["gres"] == ""
 
@@ -242,6 +242,40 @@ def test_sim_executes_a_serve_job(launchers, tmp_path):
     sim.run_until_idle()
     assert sim.get(jid).state == "COMPLETED"
     assert Manifest.load(sl.manifest_path())["status"] == "completed"
+
+
+def served_tokens(log: str) -> list:
+    return [line.split("-> ")[1] for line in log.splitlines() if line.startswith("[serve] req")]
+
+
+def test_launcher_serves_on_a_mesh_of_slurm_tasks(launchers, tmp_path):
+    """torch-serve with gpus=4 mesh=data=2,model=2 on the CPU: the plugin's
+    command (``srun`` over four tasks, ``--mesh``) run as four SLURM tasks
+    over gloo, against ``--mesh data=1,model=1`` in one process. The mesh
+    engine draws the same weights on every mesh, so the greedy tokens agree
+    request by request, on every rank."""
+    from test_torch_mesh_train import run_processes
+
+    from test_torch_distributed import free_job_id
+
+    sl = launchers["torch-serve"](arch="nbi-100m", smoke=1, device="cpu", gpus=4, mesh="data=2,model=2", batch=4,
+                                  prompt_len=8, gen_len=4, outdir=str(tmp_path), eco=False, backend=SimCluster())
+    assert sl.opts.ntasks == 4 and sl.opts.gres == ""
+    command = sl.make_command()
+    assert command.startswith("srun --kill-on-bad-exit=1 python -m repro_torch.launch.serve")
+    argv = [sys.executable, *command.removeprefix("srun --kill-on-bad-exit=1 python").split()]
+    assert argv[-2:] == ["--mesh", "data=2,model=2"]
+    job = str(free_job_id())
+    slurm = [{"SLURM_JOB_ID": job, "SLURM_JOB_NODELIST": "localhost", "SLURM_NTASKS": "4", "SLURM_PROCID": str(r),
+              "SLURM_NODEID": "0", "SLURM_LOCALID": str(r)} for r in range(4)]
+    (tmp_path / "four").mkdir()
+    (tmp_path / "one").mkdir()
+    four = run_processes([argv] * 4, slurm, tmp_path / "four")
+    one = run_processes([argv[:-1] + ["data=1,model=1"]], [{}], tmp_path / "one")
+    want = served_tokens(one[0])
+    assert len(want) == 4, one[0][-2000:]
+    assert all(served_tokens(log) == want for log in four), (four[0][-2000:], want)
+    assert "over mesh data=2,model=2" in four[0]
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ in its own process and writes both (gathered) to a file, which the tests
 read. Meshes: (2, 2) with each config's own FSDP flag, (4, 1) with FSDP
 forced on (every ``embed`` dim over ``data``: ZeRO-3), and (1, 4) for
 mistral-large-123b's smoke config, whose 4 query heads shard and 2 KV heads
-do not (the GQA repeat). The (2, 2) run also saves nbi-100m's state after
+do not (the GQA repeat). rwkv6-7b and recurrentgemma-2b (heads and the
+``lru`` channels over ``model``) reach the WKV-6 and RG-LRU recurrences
+through the ops' local-shard routes. The (2, 2) run also saves nbi-100m's state after
 one step, which the (4, 1) run restores (elastic restore) and steps on, and
 computes the sharded loss on weights carried over from the reference's init
 (``convert.params_from_jax``), held against the reference's ``loss_fn`` with
@@ -57,7 +59,8 @@ LR, EPS, WD, B1, B2 = 1e-3, 1e-8, 0.1, 0.9, 0.95
 ATOL, RTOL = 2e-5, 1e-4
 RUN_TIMEOUT = 240
 GLOO_TIMEOUT_S = 120
-ARCHS = ["nbi-100m", "mistral-large-123b", "starcoder2-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b"]
+ARCHS = ["nbi-100m", "mistral-large-123b", "starcoder2-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b", "rwkv6-7b",
+         "recurrentgemma-2b"]
 BATCH, SEQ = 8, 32
 ELASTIC_ARCH = "nbi-100m"
 
@@ -401,5 +404,44 @@ def test_local_route_launches_the_kernels_on_the_card():
         assert torch.equal(a, ops.attention(q, k, v, causal=True))
         assert torch.equal(n, ops.rmsnorm(x, w))
         assert torch.equal(g, ops.moe_gating(logits, top_k=6, capacity=8)[0])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_recurrence_routes_launch_their_kernels_on_the_card():
+    """On a 1 x 1 NCCL mesh, CUDA DTensors split over their rows and channels
+    (K3) or heads (K4) reach the RG-LRU and WKV-6 kernels as local tensors:
+    one launch each, the same values as a plain call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import rglru_scan, rwkv6_scan
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        g = torch.Generator(device="cuda").manual_seed(0)
+        a = torch.rand((2, 256, 512), generator=g, device="cuda")
+        b = torch.randn((2, 256, 512), generator=g, device="cuda")
+        h0 = torch.randn((2, 512), generator=g, device="cuda")
+        r, k, v = (torch.randn((2, 4, 128, 64), generator=g, device="cuda").bfloat16() for _ in range(3))
+        w = torch.rand((2, 4, 128, 64), generator=g, device="cuda").bfloat16()
+        u = torch.randn((4, 64), generator=g, device="cuda").bfloat16()
+        s0 = torch.randn((2, 4, 64, 64), generator=g, device="cuda")
+        on = lambda t, *pl: DTensor.from_local(t, mesh, pl, run_check=False)  # noqa: E731
+        before = (rglru_scan.launches, rwkv6_scan.launches)
+        lru = ops.lru_scan(on(a, Shard(0), Shard(2)), on(b, Shard(0), Shard(2)), on(h0, Shard(0), Shard(1)))
+        rows = (Shard(0), Shard(1))
+        wkv = ops.wkv6(on(r, *rows), on(k, *rows), on(v, *rows), on(w, *rows), on(u, Replicate(), Shard(0)),
+                       on(s0, *rows))
+        after = (rglru_scan.launches, rwkv6_scan.launches)
+        assert [y - x for x, y in zip(before, after)] == [1, 1]
+        for got, want in zip((*lru, *wkv), (*ops.lru_scan(a, b, h0), *ops.wkv6(r, k, v, w, u, s0))):
+            assert torch.equal(got.to_local(), want)
     finally:
         dist.destroy_process_group()

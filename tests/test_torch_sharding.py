@@ -103,6 +103,38 @@ def test_logical_trees_equal_the_reference(arch, smoke):
         assert train_state_logical(model, make_optimizer(name, lr=1e-3)) == want
 
 
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cache_logical_trees_equal_the_reference(arch, smoke):
+    jmodel, model = models(arch, smoke)
+    assert model.cache_logical_fn() == jmodel.cache_logical_fn()
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16", "1x8"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serve_rules_equal_the_reference_engines(arch, mesh):
+    """``serve_rules`` at 8 x 1056 gives the reference engines' table
+    (``extra_dims={"kv_seq": max_seq, "heads": n_heads}``): every cache dim
+    splits where the rules say, so checking them disables nothing here."""
+    jmodel, model = models(arch, False)
+    fake = FakeMesh(*MESHES[mesh])
+    want = ref.rules_for(jmodel.cfg, fake, param_defs=jmodel.param_defs, batch_size=8,
+                         extra_dims={"kv_seq": 1056, "heads": jmodel.cfg.n_heads})
+    assert port.serve_rules(model, fake, 8, 1056) == want
+
+
+def test_serve_rules_check_the_cache_dims():
+    """Griffin's ring of ``window`` slots: a model axis that does not split
+    it turns ``kv_seq`` off, though max_seq splits; a batch of one is whole."""
+    _, model = models("recurrentgemma-2b", True)  # window 8
+    fake = FakeMesh((1, 16), ("data", "model"))
+    assert port.rules_for(model.cfg, fake, param_defs=model.param_defs, batch_size=8,
+                          extra_dims={"kv_seq": 64, "heads": model.cfg.n_heads})["kv_seq"] == "model"
+    assert port.serve_rules(model, fake, 8, 64)["kv_seq"] is None
+    assert port.serve_rules(model, FakeMesh((1, 4), ("data", "model")), 8, 64)["kv_seq"] == "model"
+    assert port.serve_rules(model, FakeMesh((1, 4), ("data", "model")), 1, 64)["batch"] is None
+
+
 @pytest.mark.parametrize("mesh", ["2x16x16", "2x4", "1x8"])
 def test_placements_follow_the_specs(mesh):
     fake = FakeMesh(*MESHES[mesh])
@@ -228,13 +260,65 @@ def test_route_refuses_a_reduced_dim(mesh, case):
         calls[case]()
 
 
-def test_recurrences_refuse_dtensors(mesh):
+def recurrence_inputs(op: str):
+    """(inputs, their placements on the 1 x 1 mesh: rows and channels or
+    heads split, as a mesh step splits them) of ``ops.lru_scan`` / ``ops.wkv6``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if op == "lru_scan":
+        a, b, h0 = draw((2, 9, 8), (2, 9, 8), (2, 8), seed=4)
+        ins = {"a": torch.sigmoid(a), "b": b, "h0": h0}
+        return ins, {"a": (Shard(0), Shard(2)), "b": (Shard(0), Shard(2)), "h0": (Shard(0), Shard(1))}
+    r, k, v, w, u, s0 = draw((2, 4, 16, 8), (2, 4, 16, 8), (2, 4, 16, 8), (2, 4, 16, 8), (4, 8), (2, 4, 8, 8), seed=4)
+    ins = {"r": r, "k": k, "v": v, "w": torch.sigmoid(w), "u": u, "s0": s0}
+    pl = {n: (Shard(0), Shard(1)) for n in ins}
+    pl["u"] = (Replicate(), Shard(0))
+    return ins, pl
+
+
+@pytest.mark.parametrize("op", ["lru_scan", "wkv6"])
+def test_recurrence_routes_on_one_rank_are_bitwise(mesh, op):
+    """On a mesh of one rank the local-shard route is the plain op: outputs
+    and every input's gradient equal bit for bit."""
+    ins, pl = recurrence_inputs(op)
+    fn = getattr(ops, op)
+    leaves = {n: placed(t, mesh, *pl[n]).requires_grad_() for n, t in ins.items()}
+    plain = {n: t.clone().requires_grad_() for n, t in ins.items()}
+    got, want = fn(*leaves.values()), fn(*plain.values())
+    for g, w in zip(got, want):
+        assert ops.is_dtensor(g) and torch.equal(g.to_local(), w)
+    assert tuple(got[0].placements) == tuple(pl[next(iter(pl))])
+    seeds = [torch.ones_like(w) for w in want]
+    g_got = torch.autograd.grad(got, list(leaves.values()), [placed(t, mesh, *o.placements)
+                                                               for t, o in zip(seeds, got)])
+    g_want = torch.autograd.grad(want, list(plain.values()), seeds)
+    for name, g, w in zip(ins, g_got, g_want):
+        assert torch.equal(g.to_local(), w), name
+
+
+@pytest.mark.parametrize("op", ["lru_scan", "wkv6"])
+def test_recurrence_routes_refuse_a_split_time(mesh, op):
+    """T is never split (the ``seq`` rule is off unless ``seq_shard``)."""
+    from torch.distributed.tensor import Shard
+
+    ins, pl = recurrence_inputs(op)
+    first = next(iter(ins))
+    pl[first] = (Shard(1 if op == "lru_scan" else 2), pl[first][1])
+    with pytest.raises(ValueError, match=f"ops\\.{op}"):
+        getattr(ops, op)(*(placed(t, mesh, *pl[n]) for n, t in ins.items()))
+
+
+@pytest.mark.parametrize("op", ["lru_scan", "wkv6"])
+def test_recurrence_routes_refuse_unlike_splits(mesh, op):
+    """Every input split as the first, dim for dim: a state (or bonus) split
+    otherwise raises."""
     from torch.distributed.tensor import Replicate
 
-    a, b = draw((1, 4, 8), (1, 4, 8))
-    rep = (Replicate(), Replicate())
-    with pytest.raises(NotImplementedError, match="M17b"):
-        ops.lru_scan(placed(a, mesh, *rep), placed(b, mesh, *rep), torch.zeros(1, 8))
+    ins, pl = recurrence_inputs(op)
+    last = list(ins)[-1]
+    pl[last] = (Replicate(), Replicate())
+    with pytest.raises(ValueError, match=f"ops\\.{op}: {last}"):
+        getattr(ops, op)(*(placed(t, mesh, *pl[n]) for n, t in ins.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +356,49 @@ def test_mistral_large_is_refused_at_8_gpus_and_fits_where_the_refusal_says():
     assert fit["bytes_per_gpu"] < eight / 7
     with pytest.raises(ValueError, match="holds 16 ranks"):
         submit.size_train("mistral-large-123b", global_batch=32, seq=1024, steps=10, gpus=64, mesh="data=2,model=8")
+
+
+SERVE_CALIBRATION = ["nbi-100m", "deepseek-moe-16b", "rwkv6-7b", "recurrentgemma-2b", "kimi-k2-1t-a32b",
+                     "mistral-large-123b", "minicpm3-4b"]
+
+
+@pytest.mark.parametrize("arch", SERVE_CALIBRATION)
+def test_a_one_by_one_mesh_sizes_serving_as_one_gpu(arch):
+    from repro_torch.launch import submit
+
+    cfg = get_config(arch)
+    one = MeshShape(("data", "model"), (1, 1))
+    assert submit.serve_memory_model(cfg, 8, 1056, one) == submit.serve_memory_model(cfg, 8, 1056)
+
+
+def test_mistral_large_is_served_where_the_refusal_says():
+    """245 GB of bf16 weights: refused on one GPU, naming 4 GPUs over
+    (1, 4); sized there, each GPU holds a quarter of the weights and the
+    cache (its sequence over ``model``)."""
+    from repro_torch.launch import submit
+
+    with pytest.raises(submit.DoesNotFit, match=r"gpus=4 with mesh=data=1,model=4"):
+        submit.size_serve("mistral-large-123b", batch=8, max_seq=1056)
+    fit = submit.size_serve("mistral-large-123b", batch=8, max_seq=1056, gpus=4, mesh="data=1,model=4")
+    assert (fit["hosts"], fit["gpus_per_host"], fit["tasks"], fit["mesh"]) == (1, 4, 4, "data=1,model=4")
+    assert fit["bytes_per_gpu"] <= submit.GPU_MEMORY_BYTES
+    cfg = get_config("mistral-large-123b")
+    assert fit["bytes_per_gpu"] < submit.serve_memory_model(cfg, 8, 1056) / 3.5
+    with pytest.raises(submit.DoesNotFit, match=r"over mesh data=2,model=1"):
+        submit.size_serve("mistral-large-123b", batch=8, max_seq=1056, gpus=2, mesh="data=2,model=1")
+    assert submit.size_serve("mistral-large-123b", batch=8, max_seq=1056, gpus=8)["mesh"] == "data=1,model=8"
+
+
+def test_plugin_passes_the_mesh_to_the_serve_job():
+    from repro.core import SimCluster, discover_launchers
+
+    launchers = discover_launchers(str(Path(__file__).resolve().parent.parent / "launchers"))
+    job = launchers["torch-serve"](arch="mistral-large-123b", gpus=4, mesh="data=1,model=4", batch=8,
+                                   prompt_len=1024, gen_len=32, eco=False, backend=SimCluster())
+    command = job.make_command()
+    assert command.startswith("srun --kill-on-bad-exit=1 python -m repro_torch.launch.serve")
+    assert command.endswith("--mesh data=1,model=4")
+    assert job.sizing["gres"] == "gpu:h100:4" and job.opts.ntasks == 4
 
 
 def test_plugin_passes_the_mesh_to_the_job():
