@@ -21,8 +21,9 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    greedy requests through nbi-100m, recurrentgemma-2b, rwkv6-7b (full
    width, 8 of its 32 layers), deepseek-moe-16b (8 of 28),
    kimi-k2-1t-a32b (full width, 2 of its 61 layers: 384
-   experts, top-8, groups of 256), minicpm3-4b (MLA, 16 of 62), starcoder2-7b,
-   mistral-large-123b (full width, 8 of its 88 layers) and whisper-small
+   experts, top-8, groups of 256), minicpm3-4b (MLA, 16 of 62), starcoder2-7b
+   (full width, 8 of its 32 layers), mistral-large-123b (full width, 8 of
+   its 88 layers) and whisper-small
    (full width and depth, fed zero audio frames as the engine feeds them)
    with seeded weights, and feed
    llava-next-mistral-7b's model functions 1152 seeded patch embeddings
@@ -47,7 +48,7 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    device time, and the ops that take the most device time); then
    continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
    of mixed lengths) on minicpm3-4b at full width (16 of 62 layers), on nbi-100m and on
-   codeqwen1.5-7b at full width and depth, with f32 activations: exact
+   codeqwen1.5-7b at full width (8 of its 32 layers), with f32 activations: exact
    launches per insert and decode step (each insert's attentions through the
    f32 tensor-core (3xTF32) kernel of its heads: the MLA kernel at (96, 64),
    the d 64 kernel, the d 128 kernel; none through the other f32 kernels), every chosen
@@ -94,21 +95,28 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    (NCCL; gloo in the rehearsal), the state and batches DTensors laid out by
    ``rules_for`` with FSDP forced on (so ``embed`` and ``batch`` map to
    ``data``): nbi-100m at full width and depth at the resume check's shapes,
-   and TRAIN_SMALL_MODELS' deepseek-moe-16b, recurrentgemma-2b and rwkv6-7b
-   in bf16, each N steps against ``make_train_step`` from the same state,
-   bit for bit under ``torch.use_deterministic_algorithms``, the kernels
-   (K1, K2, K3, K4, K5) reached through the ops' local-shard routes with
-   exactly the plain step's launches (counted as paths); both steps timed in
-   turns. Then serving on the same mesh: ``ServeEngine(mesh=)`` against
+   TRAIN_SMALL_MODELS' deepseek-moe-16b, recurrentgemma-2b and rwkv6-7b in
+   bf16, and minicpm3-4b (MLA: K1's bf16 (96, 64) kernel) and
+   llava-next-mistral-7b (1152 seeded patches) at full width and 4 layers
+   and whisper-small (seeded frames) whole (MESH_WIDE), each N steps
+   against ``make_train_step`` from the same state, bit for bit under
+   ``torch.use_deterministic_algorithms``, the kernels (K1, K2, K3, K4, K5)
+   reached through the ops' local-shard routes with exactly the plain
+   step's launches (counted as paths); both steps timed in turns. Then
+   serving on the same mesh: ``ServeEngine(mesh=)`` against
    ``ServeEngine()`` holding the same weights for nbi-100m at full width and
-   depth and the small deepseek-moe-16b (a capacity no pick can overflow),
-   recurrentgemma-2b and rwkv6-7b, and ``ContinuousBatchingEngine(mesh=)``
-   for nbi-100m: greedy tokens and the last logits bit for bit, the exact
-   launches of prefill and decode (counted as paths), each engine's decode
-   step timed in turns. Then eco-preemption through
-   the launcher plugin ``launchers/torch_h100.py`` in a subprocess (this
-   script imports nothing of ``repro``), with ``NBISLURM_CONFIG`` an empty
-   file: started at the first instant of the default peak hours, the run
+   depth, the small deepseek-moe-16b (a capacity no pick can overflow),
+   recurrentgemma-2b and rwkv6-7b, and at full width minicpm3-4b (16
+   layers), llava-next-mistral-7b (its text) and whisper-small (whole);
+   llava's prefix through ``make_prefill_step``
+   and ``make_serve_step`` against the model's functions; and
+   ``ContinuousBatchingEngine(mesh=)`` for nbi-100m and minicpm3-4b (full
+   width, 16 layers) in f32 (K1's f32 (96, 64) kernel an insert): greedy tokens
+   and the last logits bit for bit, the exact launches of prefill and
+   decode (counted as paths), each run's decode steps timed in turns. Then
+   eco-preemption through the launcher plugin ``launchers/torch_h100.py``
+   in a subprocess (this script imports nothing of ``repro``), with
+   ``NBISLURM_CONFIG`` an empty file: started at the first instant of the default peak hours, the run
    stops after one step with "eco-preempt", saves step 1 and prints the next
    eco window's ``--begin``; rerun without the flag (in this process) it
    resumes to N steps, bitwise equal to N straight steps. Every leg prints
@@ -891,9 +899,11 @@ PATHS = {
 # minicpm3-4b (serving and continuous batching), deepseek-moe-16b and rwkv6-7b
 # are cut to keep the script near 480 s with phase 5's data-parallel and
 # eco-preemption legs: their decode is host-bound, so a path's time grows
-# with its depth (minicpm3-4b's two phases took 116 s at 62 layers)
+# with its depth (minicpm3-4b's two phases took 116 s at 62 layers);
+# codeqwen1.5-7b (continuous batching) and starcoder2-7b, 32 layers each,
+# are cut for the mesh leg's full-width cases
 REDUCED_DEPTH = {"mistral-large-123b": 8, "kimi-k2-1t-a32b": 2, "minicpm3-4b": 16, "deepseek-moe-16b": 8,
-                 "rwkv6-7b": 8}
+                 "rwkv6-7b": 8, "codeqwen1.5-7b": 8, "starcoder2-7b": 8}
 # the visual-prefix path, through the model's functions (the engine feeds no
 # patches, as the reference's): batch, text lengths, generated tokens, law's
 # text length, at full size and in the CPU rehearsal
@@ -904,8 +914,8 @@ LLAVA_RUN = {True: (8, (128, 512), 32, 64), False: (2, (8, 12), 4, 8)}
 CONTINUOUS = {
     "minicpm3-4b": ((8, (64, 200, 512, 1000), 32), (2, (5, 8, 12), 4)),
     "nbi-100m": ((8, (32, 100, 256, 500), 32), (2, (5, 8, 12), 4)),
-    # full width and depth: 32 layers of 32 heads of 128, about 16 GB of bf16
-    # weights and an f32 cache of 8 x 1032 tokens (8.65 GB)
+    # full width, 8 of its 32 layers (REDUCED_DEPTH): 32 heads of 128, an
+    # f32 cache of 8 x 1032 tokens (2.16 GB)
     "codeqwen1.5-7b": ((8, (64, 200, 512, 1000), 32), (2, (5, 8, 12), 4)),
 }
 
@@ -1557,19 +1567,21 @@ def train_path(device, full: bool) -> dict:
 def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
     """Each step's forward through the kernels, twice under remat "full" (the
     forward, then the backward's recompute of each wrapped layer); every
-    backward launches none. Dense and MoE: K1 and 2 norms a layer, and for
-    MoE K5 a routing (and its slots kernel where a group spans more than one
-    tile); RWKV-6: K4 a layer; Griffin: K3 a recurrent layer, K1 an attention
-    layer, 2 norms a layer; then the final norm once; Whisper: K1 an encoder
-    layer and twice a decoder layer (self- and cross-attention), no norm
-    kernel (its norms are LayerNorms)."""
+    backward launches none. Dense and MoE: K1 and 2 norms a layer (4 with
+    MLA's q_ln and kv_ln), and for MoE K5 a routing (and its slots kernel
+    where a group spans more than one tile); RWKV-6: K4 a layer; Griffin:
+    K3 a recurrent layer, K1 an attention layer, 2 norms a layer; then the
+    final norm once; Whisper: K1 an encoder layer and twice a decoder layer
+    (self- and cross-attention), no norm kernel (its norms are
+    LayerNorms)."""
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"no launch count for remat {cfg.remat!r}")
     r = 2 if cfg.remat == "full" else 1
     L = cfg.n_layers
     want = dict.fromkeys(COUNTERS, 0)
     if cfg.family in ("dense", "moe"):
-        want.update({attention_counter(cfg): r * L * steps, "rmsnorm": (2 * r * L + 1) * steps})
+        norms = 4 if cfg.attention == "mla" else 2  # MLA's q_ln and kv_ln besides ln1 and ln2
+        want.update({attention_counter(cfg): r * L * steps, "rmsnorm": (norms * r * L + 1) * steps})
     if cfg.family == "moe":
         routings = r * (L - cfg.n_dense_layers) * steps
         spans = min(cfg.moe_group_tokens, batch * seq) > gating_kernel.TILE
@@ -1652,6 +1664,21 @@ def family_train_path(arch: str, device, full: bool) -> dict:
     if full:
         train_card_matches_cpu(arch)
     return launches
+
+
+def add_patches(cfg, batches: list, device) -> None:
+    """Seeded patch embeddings (B, n_patches, D) for each batch of a
+    visual-prefix config, its labels then -100 on the patches: the data
+    pipeline makes tokens only, as the reference's."""
+    if not cfg.n_patches:
+        return
+    g = torch.Generator(device=device).manual_seed(9)
+    for b in batches:
+        B = b["tokens"].shape[0]
+        b["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model), generator=g, device=device).to(
+            getattr(torch, cfg.dtype))
+        b["labels"] = torch.cat([torch.full((B, cfg.n_patches), -100, dtype=b["labels"].dtype, device=device),
+                                 b["labels"]], dim=1)
 
 
 def add_frames(cfg, batches: list, device) -> None:
@@ -1948,8 +1975,18 @@ def dp_path(device, full: bool) -> dict:
 # the mesh leg: timed steps of each step in turns (after the N checked ones)
 MESH_TIMED_STEPS = {True: 6, False: 2}
 MESH_SMALL_ARCHS = ("deepseek-moe-16b", "recurrentgemma-2b", "rwkv6-7b")
+# MLA, the visual prefix and Whisper at full width, depth cut: arch: (layers
+# of the train case, layers of the serve cases; None: the config's own). A
+# train case holds two f32 AdamW states at once, the plain step's and the
+# mesh step's (minicpm3-4b's 4 layers are 0.63 B parameters, llava's 1.14
+# B); serving takes minicpm3-4b at its REDUCED_DEPTH, llava and whisper-small
+# (12 + 12 layers) whole. Each trains on MESH_WIDE_TRAIN rows of tokens
+# (llava's after its 1152 seeded patches, whisper-small's beside 1500
+# seeded frames)
+MESH_WIDE = {"minicpm3-4b": (4, REDUCED_DEPTH["minicpm3-4b"]), LLAVA_ARCH: (4, None), "whisper-small": (None, None)}
+MESH_WIDE_TRAIN = (4, 64)
 # the serving half: nbi-100m's engine batch, prompt length and generated
-# tokens at full size and in the CPU rehearsal; the small models' (4 rows of
+# tokens at full size and in the CPU rehearsal; the small and MESH_WIDE models' (4 rows of
 # 32 tokens: deepseek-moe-16b's whole routing groups, two turns of
 # recurrentgemma-2b's 16-slot ring); continuous batching's slots, prompt
 # lengths of its 8 requests and generated tokens
@@ -1961,35 +1998,70 @@ MESH_SERVE_RUN = {True: ((8, 128, 16), (4, 32, 8), (4, (17, 32, 64, 100), 8)),
 MESH_SERVE_CAPACITY_FACTOR = 11.0
 
 
-def small_config(arch: str):
-    """TRAIN_SMALL_MODELS' config of ``arch`` in the full config's dtype."""
-    overrides, _ = TRAIN_SMALL_MODELS[arch]
-    return get_smoke_config(arch).replace(**overrides, dtype=get_config(arch).dtype)
+def small_config(arch: str, full: bool):
+    """TRAIN_SMALL_MODELS' config of ``arch`` in the full config's dtype and
+    attention chunk (the backward's recompute chunk: the smoke configs' 8
+    makes a small train step a host loop), or in the CPU rehearsal the
+    smoke config under its remat."""
+    if not full:
+        return get_smoke_config(arch).replace(remat=TRAIN_SMALL_MODELS[arch][0].get("remat", "none"),
+                                              dtype=get_config(arch).dtype)
+    whole = get_config(arch)
+    return get_smoke_config(arch).replace(**TRAIN_SMALL_MODELS[arch][0], dtype=whole.dtype,
+                                          attn_chunk=whole.attn_chunk)
+
+
+def wide_config(arch: str, full: bool, serve: bool):
+    """:data:`MESH_WIDE`'s config of ``arch`` for its train or serve cases:
+    full width at its depth, or in the CPU rehearsal the smoke config under
+    the full config's remat and dtype."""
+    whole = get_config(arch)
+    if not full:
+        return get_smoke_config(arch).replace(remat=whole.remat, dtype=whole.dtype)
+    layers = MESH_WIDE[arch][serve]
+    return whole.replace(n_layers=layers) if layers else whole
 
 
 def mesh_configs(full: bool) -> list:
     """(name, config, (batch, seq)) of the mesh leg's training, FSDP forced
     on: nbi-100m at full width and depth (its smoke config in the rehearsal)
-    at the resume check's shapes, and TRAIN_SMALL_MODELS' deepseek-moe-16b,
-    recurrentgemma-2b and rwkv6-7b at their shapes in the full configs' bf16,
-    so that K1's bf16 kernels (d 128 and 256), K2, K3, K4 and K5 all run."""
+    at the resume check's shapes, TRAIN_SMALL_MODELS' deepseek-moe-16b,
+    recurrentgemma-2b and rwkv6-7b at their shapes in the full configs'
+    bf16, and :data:`MESH_WIDE`'s minicpm3-4b, llava-next-mistral-7b
+    (seeded patches) and whisper-small (seeded frames) at full width, so
+    that K1's bf16 kernels (d 64, 128, 256 and MLA's (96, 64)), K2, K3, K4
+    and K5 all run."""
     _, (batch, seq, _) = TRAIN_RUN[full]
     nbi = (get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)).replace(fsdp=True)
     return [(TRAIN_ARCH, nbi, (batch, seq))] + [
-        (f"{arch} small", small_config(arch).replace(fsdp=True), TRAIN_SMALL_MODELS[arch][1])
-        for arch in MESH_SMALL_ARCHS]
+        (f"{arch} small", small_config(arch, full).replace(fsdp=True), TRAIN_SMALL_MODELS[arch][1])
+        for arch in MESH_SMALL_ARCHS] + [
+        (arch, wide_config(arch, full, False).replace(fsdp=True), MESH_WIDE_TRAIN) for arch in MESH_WIDE]
 
 
 def mesh_serve_configs(full: bool) -> list:
     """(name, config, (engine batch, prompt length, generated tokens)) of the
-    mesh leg's serving: nbi-100m at full width and depth (f32), and the
-    small deepseek-moe-16b (no dropped pick), recurrentgemma-2b and rwkv6-7b
-    of :func:`mesh_configs` without FSDP."""
+    mesh leg's serving: nbi-100m at full width and depth (f32), the small
+    models of :func:`mesh_configs` without FSDP (deepseek-moe-16b with no
+    dropped pick), and :data:`MESH_WIDE`'s at full width and their serving
+    depth (llava-next-mistral-7b's text, as the engine feeds no patches: its
+    prefix is :func:`mesh_prefix_path`'s)."""
     nbi_run, small_run, _ = MESH_SERVE_RUN[full]
     nbi = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
-    small = [(f"{arch} small", small_config(arch), small_run) for arch in MESH_SMALL_ARCHS]
-    small[0] = (small[0][0], small[0][1].replace(capacity_factor=MESH_SERVE_CAPACITY_FACTOR), small_run)
+    small = [(f"{arch} small", small_config(arch, full), small_run) for arch in MESH_SMALL_ARCHS]
+    small += [(arch, wide_config(arch, full, True), small_run) for arch in MESH_WIDE]
+    small = [(name, cfg.replace(capacity_factor=MESH_SERVE_CAPACITY_FACTOR) if cfg.family == "moe" else cfg, run)
+             for name, cfg, run in small]
     return [(TRAIN_ARCH, nbi, nbi_run)] + small
+
+
+def mesh_continuous_configs(full: bool) -> list:
+    """(name, config) of the mesh leg's continuous batching: nbi-100m at full
+    width and depth, and minicpm3-4b at full width and its serving depth in
+    f32 (its inserts through K1's f32 (96, 64) kernel on the local heads,
+    its decode over the split latent cache)."""
+    nbi = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
+    return [(TRAIN_ARCH, nbi), ("minicpm3-4b", wide_config("minicpm3-4b", full, True).replace(dtype="float32"))]
 
 
 def mesh_path(device, full: bool) -> dict:
@@ -2024,6 +2096,8 @@ def mesh_path(device, full: bool) -> dict:
             batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()}
                        for _ in range(n + 2 * timed)]
             loader.close()
+            add_frames(cfg, batches, device)
+            add_patches(cfg, batches, device)
             steps = {"plain": make_train_step(model, opt), "mesh": make_train_step(model, opt, rules, mesh)}
             feeds = {"plain": batches, "mesh": [distribute_tree(b, mesh, inputs) for b in batches]}
             states, launches = {}, {}
@@ -2067,7 +2141,9 @@ def mesh_path(device, full: bool) -> dict:
             del states, feeds, batches, steps
             free(device)
         out.update(mesh_serve_path(device, full, mesh))
-        out.update(mesh_continuous_path(device, full, mesh))
+        out.update(mesh_prefix_path(device, full, mesh))
+        for name, cfg in mesh_continuous_configs(full):
+            out.update(mesh_continuous_path(device, full, mesh, name, cfg))
     finally:
         torch.distributed.destroy_process_group()
     say(f"[mesh] leg took {time.perf_counter() - t0:.1f}s")
@@ -2146,15 +2222,92 @@ def mesh_serve_path(device, full: bool, mesh) -> dict:
     return out
 
 
-def mesh_continuous_path(device, full: bool, mesh) -> dict:
+def mesh_prefix_path(device, full: bool, mesh) -> dict:
+    """llava-next-mistral-7b's visual prefix (:data:`MESH_WIDE`'s config) on the 1 x 1 mesh:
+    seeded patches and text through ``make_prefill_step(model, rules,
+    mesh)``, then greedy ``make_serve_step`` steps, against the model's
+    plain functions on the same weights: greedy tokens and the last logits
+    equal bit for bit, the launches of each run (the counters set to 0 just
+    before it) equal to the other's and to the exact count; then each run's
+    decode steps timed in turns plain, mesh, mesh, plain. Returns the mesh
+    run's launches ("serve mesh <name> prefix": counts)."""
+    from repro_torch.parallel.sharding import distribute, placements_for, serve_rules
+    from repro_torch.training import init_sharded_params, make_prefill_step, make_serve_step
+
+    t1 = time.perf_counter()
+    _, (batch, S, gen), _ = MESH_SERVE_RUN[full]
+    name, cfg = LLAVA_ARCH, wide_config(LLAVA_ARCH, full, True)
+    P, max_seq = cfg.n_patches, cfg.n_patches + S + gen
+    model = build_model(cfg)
+    rules = serve_rules(model, mesh, batch, max_seq)
+    params = {"mesh": init_sharded_params(model, 0, mesh, resolve_tree(mesh, model.param_logical(), rules), device)}
+    params["plain"] = full_tree(params["mesh"])
+    g = torch.Generator(device=device).manual_seed(4)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, S), generator=g, device=device),
+              "patches": torch.randn((batch, P, cfg.d_model), generator=g, device=device).to(getattr(torch, cfg.dtype))}
+    feeds = {"plain": inputs, "mesh": distribute_tree(inputs, mesh, resolve_tree(mesh, model.prefill_input_logical(),
+                                                                                   rules))}
+    steps = {"plain": (model.prefill_fn, model.decode_fn),
+             "mesh": (make_prefill_step(model, rules, mesh), make_serve_step(model, rules, mesh))}
+    cache_pl = {"plain": None, "mesh": resolve_tree(mesh, model.cache_logical_fn(), rules)}
+    tok_pl = placements_for(("batch", None), rules, mesh)
+
+    @torch.no_grad()
+    def generate(which: str, steps_: int):
+        """(tokens, last logits, decode ms a step) of one run."""
+        prefill, decode = steps[which]
+        logits, cache = prefill(params[which], feeds[which])
+        cache = pad_cache_to(cache, model.cache_defs_fn(batch, max_seq), cache_pl[which])
+        whole = lambda t: t.full_tensor() if ops.is_dtensor(t) else t  # noqa: E731
+        out = []
+        sync(device)
+        t = time.perf_counter()
+        for i in range(steps_):
+            tok = whole(logits)[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+            if which == "mesh":
+                tok = distribute(tok, mesh, tok_pl)
+            logits, cache = decode(params[which], cache, tok, P + S + i)
+        sync(device)
+        return torch.cat(out, 1), whole(logits), (time.perf_counter() - t) * 1e3 / steps_
+
+    for which in steps:
+        generate(which, 2)  # warm-up: library handles, allocator
+    runs, launches = {}, {}
+    for which in steps:
+        zero_counters()
+        runs[which] = generate(which, gen)
+        launches[which] = read_counters()
+    if not torch.equal(runs["mesh"][0], runs["plain"][0]) or not torch.equal(runs["mesh"][1], runs["plain"][1]):
+        raise AssertionError(f"serve mesh {name} prefix: the mesh steps' tokens or last logits differ from the plain "
+                             f"functions': {runs['mesh'][0]} against {runs['plain'][0]}")
+    check_launches(f"serve mesh {name} prefix", launches["mesh"], dense_launches(cfg, 1, gen), device)
+    if launches["mesh"] != launches["plain"]:
+        raise AssertionError(f"serve mesh {name} prefix: launches {launches['mesh']} != the plain functions' "
+                             f"{launches['plain']}")
+    ms = {"plain": [], "mesh": []}
+    for which in ("plain", "mesh", "mesh", "plain"):  # in turns
+        ms[which].append(generate(which, gen)[2])
+    say(f"[mesh] serve {name} prefix ({cfg.n_layers} layers, D={cfg.d_model}, {cfg.dtype}) on a 1 x 1 mesh, rules "
+        f"batch->{rules['batch']} kv_seq->{rules['kv_seq']}: {batch} x ({P} patches + {S} tokens) through "
+        f"make_prefill_step, {gen} greedy make_serve_step steps: tokens and last logits equal the plain functions' "
+        f"bit for bit | launches {launches['mesh']} | decode step ms (host clock, in turns plain, mesh, mesh, "
+        f"plain): mesh {', '.join(f'{x:.3f}' for x in ms['mesh'])} against plain "
+        f"{', '.join(f'{x:.3f}' for x in ms['plain'])}, ratio {np.mean(ms['mesh']) / np.mean(ms['plain']):.2f} | "
+        f"{time.perf_counter() - t1:.1f}s")
+    del params, feeds
+    free(device)
+    return {f"serve mesh {name} prefix": launches["mesh"]}
+
+
+def mesh_continuous_path(device, full: bool, mesh, name: str, cfg) -> dict:
     """``ContinuousBatchingEngine(mesh=)`` against the meshless one holding the
-    same weights, for nbi-100m on the 1 x 1 mesh, checked and timed as
+    same weights, for ``cfg`` on the 1 x 1 mesh, checked and timed as
     :func:`mesh_serve_path` checks and times its engines (a serve call's
     time over its decode steps, inserts included). Returns the mesh engine's
-    launches ("serve mesh continuous nbi-100m": counts)."""
+    launches ("serve mesh continuous <name>": counts)."""
     t1 = time.perf_counter()
     _, _, (slots, lengths, gen) = MESH_SERVE_RUN[full]
-    cfg = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
     max_seq = max(lengths) + gen
     engines = {"mesh": ContinuousBatchingEngine(cfg, batch=slots, max_seq=max_seq, mesh=mesh, device=device)}
     engines["plain"] = ContinuousBatchingEngine(cfg, batch=slots, max_seq=max_seq, device=device)
@@ -2175,11 +2328,11 @@ def mesh_continuous_path(device, full: bool, mesh) -> dict:
     st = engines["mesh"].stats
     if any(not np.array_equal(a, b) for a, b in zip(outs["mesh"], outs["plain"])) or not torch.equal(
             logits["mesh"][0], logits["plain"][0]):
-        raise AssertionError(f"serve mesh continuous {TRAIN_ARCH}: the mesh engine's tokens or last logits differ")
-    check_launches(f"serve mesh continuous {TRAIN_ARCH}", launches["mesh"],
+        raise AssertionError(f"serve mesh continuous {name}: the mesh engine's tokens or last logits differ")
+    check_launches(f"serve mesh continuous {name}", launches["mesh"],
                    dense_launches(cfg, st["requests"], st["decode_steps"]), device)
     if launches["mesh"] != launches["plain"]:
-        raise AssertionError(f"serve mesh continuous {TRAIN_ARCH}: launches {launches['mesh']} != the plain "
+        raise AssertionError(f"serve mesh continuous {name}: launches {launches['mesh']} != the plain "
                              f"engine's {launches['plain']}")
     for which in ("plain", "mesh", "mesh", "plain"):  # in turns
         e = engines[which]
@@ -2190,7 +2343,7 @@ def mesh_continuous_path(device, full: bool, mesh) -> dict:
         e.serve(requests, gen)
         sync(device)
         ms[which].append((time.perf_counter() - t) * 1e3 / e.stats["decode_steps"])
-    say(f"[mesh] serve continuous {TRAIN_ARCH} ({cfg.n_layers} layers, {cfg.dtype}) on a 1 x 1 mesh: {slots} slots, "
+    say(f"[mesh] serve continuous {name} ({cfg.n_layers} layers, {cfg.dtype}) on a 1 x 1 mesh: {slots} slots, "
         f"{len(requests)} requests of lengths {sorted(len(r) for r in requests)}, {st['decode_steps']} decode steps: "
         f"tokens and last logits equal the meshless engine's bit for bit | launches {launches['mesh']} | serve ms a "
         f"decode step (host clock, inserts included, in turns plain, mesh, mesh, plain): mesh "
@@ -2198,7 +2351,7 @@ def mesh_continuous_path(device, full: bool, mesh) -> dict:
         f"{time.perf_counter() - t1:.1f}s")
     del engines, logits
     free(device)
-    return {f"serve mesh continuous {TRAIN_ARCH}": launches["mesh"]}
+    return {f"serve mesh continuous {name}": launches["mesh"]}
 
 
 def eco_path(device, full: bool) -> None:

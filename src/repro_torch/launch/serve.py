@@ -37,9 +37,13 @@ data axes, and prefill and decode run under the rules
 shapes, its ``kv_seq`` dim split over ``model`` (flash-decoding's split-KV:
 :func:`repro_torch.models.common.attention_single_shot`), so no rank ever
 holds the whole cache. Every rank samples from the whole last logits, so
-every rank feeds the same token. MLA, the visual prefix and ``encdec`` do
-not yet run on a mesh (ROADMAP M17b): their engines raise
-``NotImplementedError``. ``mesh=None`` is the one-device engine, unchanged.
+every rank feeds the same token. Every family runs on a mesh: MLA's latent
+cache is split over ``kv_seq`` like a K/V cache (its absorbed decode
+split-KV, :func:`repro_torch.models.transformer.absorbed_attention`), and
+Whisper's cross cache over ``heads``. The engines feed no patches, as the
+reference's: a visual-prefix model's text is served here, its prefix
+through ``make_prefill_step`` with ``batch["patches"]`` and then
+``make_serve_step``. ``mesh=None`` is the one-device engine, unchanged.
 """
 
 from __future__ import annotations
@@ -146,7 +150,7 @@ class _OnMesh:
 
         self.mesh, self.device = mesh, device
         self.rules = serve_rules(model, mesh, batch, max_seq)
-        self.prefill = make_prefill_step(model, self.rules, mesh)  # refuses what cannot run on a mesh
+        self.prefill = make_prefill_step(model, self.rules, mesh)
         self.decode = make_serve_step(model, self.rules, mesh)
         self.weights = resolve_tree(mesh, model.param_logical(), self.rules)
         self.inputs = resolve_tree(mesh, model.prefill_input_logical(), self.rules)
@@ -302,10 +306,10 @@ class ContinuousBatchingEngine:
 
     Dense families only (GQA and MLA), as in the reference: their decode is
     row-independent, while MoE routing couples rows through capacity. On a
-    mesh (GQA; module docstring) the slots are split over the data axes and
-    each insert's one-row prefill runs under rules of a batch of one (its
-    row whole on every rank); the rank that holds the slot copies the row's
-    slice of the sequence into its cache.
+    mesh (GQA and MLA; module docstring) the slots are split over the data
+    axes and each insert's one-row prefill runs under rules of a batch of
+    one (its row whole on every rank); the rank that holds the slot copies
+    the row's slice of the sequence into its cache.
     """
 
     def __init__(self, cfg, *, batch: int, max_seq: int, mesh=None, seed: int = 0, device="cuda"):

@@ -382,13 +382,8 @@ def attention_single_shot(q, k, v, *, mask=None, logit_cap: float = 0.0):
 def _single_shot(q, k, v, mask, logit_cap: float, groups):
     """:func:`attention_single_shot`'s arithmetic on plain tensors; with
     ``groups`` (process groups of the mesh dims that split the keys) its
-    three reductions over the keys are completed across them: the max, the
-    sum against the global max, the PV sum. ``p / l`` is cast to v's dtype
-    before the PV product, as the reference does, so a key's weight is the
-    same on every mesh, and a shard whose keys are all masked adds exactly 0
-    (its exponentials are exp(-1e30 - max))."""
-    import torch.distributed as dist
-
+    three reductions over the keys are completed across them
+    (:func:`split_softmax_context`)."""
     B, Hq, Sq, Dh = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
@@ -398,45 +393,77 @@ def _single_shot(q, k, v, mask, logit_cap: float, groups):
         s = logit_cap * torch.tanh(s / logit_cap)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    out = split_softmax_context(s, v, "bhgqs,bhsd->bhgqd", groups)
+    return out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+
+
+def split_softmax_context(s, values, equation: str, groups, f32: bool = True):
+    """``softmax(s)`` over its last dim (the keys; f32 scores, masked keys
+    at ``NEG_INF``) applied to ``values`` by the einsum ``equation``, its
+    three reductions over the keys completed across ``groups`` (process
+    groups of the mesh dims that split the keys): the max, the sum of
+    exponentials against the global max, the context. The weights are cast
+    to ``values``' dtype before the product, as the reference does, so a
+    key's weight is the same on every mesh, and a shard whose keys are all
+    masked adds exactly 0 (its exponentials are exp(NEG_INF - max)). The
+    product runs in f32 (its partial sums all-reduced in f32) when ``f32``
+    or ``groups`` is not empty, else in ``values``' dtype; the caller casts
+    the result."""
+    import torch.distributed as dist
+
+    groups = groups or ()
     m = s.amax(dim=-1, keepdim=True)
-    for g in groups or ():
+    for g in groups:
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    for g in groups or ():
+    for g in groups:
         dist.all_reduce(l, group=g)
-    w = (p / l.clamp_min(1e-30)).to(v.dtype)
-    out = torch.einsum("bhgqs,bhsd->bhgqd", w.float(), v.float())
-    for g in groups or ():
+    w = (p / l.clamp_min(1e-30)).to(values.dtype)
+    if not (f32 or groups):
+        return torch.einsum(equation, w, values)
+    out = torch.einsum(equation, w.float(), values.float())
+    for g in groups:
         dist.all_reduce(out, group=g)
-    return out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+    return out
+
+
+def split_kv_layout(what: str, inputs: tuple, k, v, mask, seq: int):
+    """The layout of a split-KV reduction over the keys (dim ``seq``) of the
+    DTensors ``k`` and ``v``, which must be split alike, over their rows and
+    keys only: (the placements of K's rows, every other dim whole; the
+    process groups of the mesh dims that split the keys; ``mask``, a plain
+    tensor or a DTensor over the global keys in its last dim, cut to this
+    rank's rows, unless broadcast over them, and keys). Forward only: raises
+    when any of ``inputs`` requires a gradient."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel.sharding import distribute, redistribute
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(f"{what}: the split-KV route is forward only")
+    mesh = k.device_mesh
+    if tuple(v.placements) != tuple(k.placements) or any(
+            p.is_partial() or (p.is_shard() and p.dim not in (0, seq)) for p in k.placements):
+        raise ValueError(f"{what}: {k.placements} and {v.placements} must be split alike, over their rows and "
+                         "keys only")
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in k.placements)
+    groups = [mesh.get_group(i) for i, p in enumerate(k.placements) if p.is_shard(seq) and mesh.size(i) > 1]
+    if mask is not None:
+        want = tuple(Shard(mask.ndim - 1) if p.is_shard(seq) else Shard(0) if p.is_shard(0) and mask.shape[0] > 1
+                     else Replicate() for p in k.placements)
+        mask = (redistribute(mask, mesh, want) if ops.is_dtensor(mask) else distribute(mask, mesh, want)).to_local()
+    return rows, groups, mask
 
 
 def _split_kv_attention(q, k, v, mask, logit_cap: float):
     """The split-KV route of :func:`attention_single_shot` (DTensor q, k, v)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.parallel.sharding import from_local, redistribute
 
-    from repro_torch.parallel.sharding import distribute, redistribute
-
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("attention_single_shot: the split-KV route is forward only")
-    mesh = k.device_mesh
-    if tuple(v.placements) != tuple(k.placements) or any(
-            p.is_partial() or (p.is_shard() and p.dim not in (0, 2)) for p in k.placements):
-        raise ValueError(f"attention_single_shot: k {k.placements} and v {v.placements} must be split alike, "
-                         "over their rows and keys only")
-    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in k.placements)
-    keys = [i for i, p in enumerate(k.placements) if p.is_shard(2)]
-    q = redistribute(q, mesh, rows)  # every head, K's rows
-    if mask is not None:  # this rank's rows (unless broadcast over them) and keys
-        want = tuple(Shard(mask.ndim - 1) if p.is_shard(2) else Shard(0) if p.is_shard(0) and mask.shape[0] > 1
-                     else Replicate() for p in k.placements)
-        mask = (redistribute(mask, mesh, want) if ops.is_dtensor(mask) else distribute(mask, mesh, want)).to_local()
-    out = _single_shot(q.to_local(), k.to_local(), v.to_local(), mask, logit_cap,
-                       [mesh.get_group(i) for i in keys if mesh.size(i) > 1])
-    shape = (*q.shape[:3], v.shape[-1])
-    return DTensor.from_local(out, mesh, rows, run_check=False, shape=torch.Size(shape),
-                              stride=tuple(math.prod(shape[i + 1:]) for i in range(4)))
+    rows, groups, mask = split_kv_layout("attention_single_shot", (q, k, v), k, v, mask, 2)
+    q = redistribute(q, k.device_mesh, rows)  # every head, K's rows
+    out = _single_shot(q.to_local(), k.to_local(), v.to_local(), mask, logit_cap, groups)
+    return from_local(out, k.device_mesh, rows, (*q.shape[:3], v.shape[-1]))
 
 
 def causal_mask(sq: int, skv: int, q_offset=0, device=None):

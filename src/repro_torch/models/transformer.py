@@ -23,17 +23,20 @@ recomputing the plain path. Decode attention is plain PyTorch
 (:func:`.common.attention_single_shot`, MLA's absorbed matmuls), as it is XLA
 and not Pallas in the reference.
 
-On a device mesh (the GQA training path under
-:func:`repro_torch.parallel.sharding.use_rules`) the reference's ``shard()``
-sites pin q, k, v, the residual stream and the logits; K and V are repeated
-to the query heads where ``heads`` shard and ``kv_heads`` do not (the
-reference's expansion), so that each rank's query heads meet their own KV
-heads; the embedding lookup is vocab-parallel; each layer's ZeRO-3 shards
-are gathered inside its remat scope (:func:`.common.gather_fsdp`). Prefill
-and decode run under the same rules (serving on a mesh): the cache laid out
-by :func:`cache_logical`, its sequence split over ``model``, written by
-:func:`scatter_seq` on the rank that holds each position and read by the
-split-KV route of :func:`.common.attention_single_shot`.
+On a device mesh (under :func:`repro_torch.parallel.sharding.use_rules`)
+the reference's ``shard()`` sites pin q, k, v, the residual stream and the
+logits; K and V are repeated to the query heads where ``heads`` shard and
+``kv_heads`` do not (the reference's expansion), so that each rank's query
+heads meet their own KV heads; MLA's shared roped key is expanded over each
+rank's own heads (:func:`_with_shared_rope`); the visual prefix's stream is
+pinned to ``("batch", None, None)``; the embedding lookup is
+vocab-parallel; each layer's ZeRO-3 shards are gathered inside its remat
+scope (:func:`.common.gather_fsdp`). Prefill and decode run under the same
+rules (serving on a mesh): the cache laid out by :func:`cache_logical`, its
+sequence split over ``model``, written by :func:`scatter_seq` on the rank
+that holds each position and read by the split-KV route of
+:func:`.common.attention_single_shot` (MLA's latents by that of
+:func:`absorbed_attention`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from repro_torch.kernels import ops
 
 from .common import (
+    NEG_INF,
     ParamDef,
     apply_rope,
     attention_single_shot,
@@ -53,6 +57,8 @@ from .common import (
     map_defs,
     rms_norm,
     shard,
+    split_kv_layout,
+    split_softmax_context,
     swiglu,
     torch_dtype,
     tree_leaves,
@@ -164,11 +170,12 @@ def gqa_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
 
 
 def _kv_for_query_shards(t, cfg: ArchConfig):
-    """K or V (B, Hkv, S, d) for the kernel. Under rules that shard ``heads``
-    but not ``kv_heads`` (few KV heads on a wide model axis), each KV head
-    repeated G times and sharded as the query heads, as the reference
-    expands them: a rank's query heads then meet their own KV heads (G = 1
-    in its local kernel call). Otherwise ``t`` itself."""
+    """GQA's K or V (B, Hkv, S, d) for the kernel. Under rules that shard
+    ``heads`` but not ``kv_heads`` (few KV heads on a wide model axis), each
+    KV head repeated G times and sharded as the query heads, as the
+    reference expands them: a rank's query heads then meet their own KV
+    heads (G = 1 in its local kernel call). Otherwise ``t`` itself (MLA's
+    keys have a head per query head: :func:`_with_shared_rope`)."""
     rules, _ = logical_rules()
     if rules is None or rules.get("heads") == rules.get("kv_heads"):
         return t
@@ -177,22 +184,46 @@ def _kv_for_query_shards(t, cfg: ArchConfig):
     return shard(t[:, :, None].expand(B, Hkv, G, S, d).reshape(B, Hkv * G, S, d), "batch", "heads", None, None)
 
 
+def _cat_shared(k_nope, k_rope):
+    return torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], k_rope.shape[-1])], -1)
+
+
+def _with_shared_rope(k_nope, k_rope):
+    """MLA's keys (B, H, S, nope + rope): every head's ``k_nope`` followed by
+    the one shared roped head ``k_rope`` (B, 1, S, rope). On a mesh the
+    shared head (replicated over the heads' mesh dims) is expanded over each
+    rank's own heads on its shards, its local gradient partial there;
+    ``k_nope`` is never gathered."""
+    if not ops.is_dtensor(k_nope):
+        return _cat_shared(k_nope, k_rope)
+    from repro_torch.parallel.sharding import redistribute
+
+    k_rope = redistribute(k_rope, k_nope.device_mesh, ops.split_like(k_nope.placements, {0: 0, 2: 2, 3: 3}))
+    return ops.on_local_shards("MLA keys", _cat_shared, {"k_nope": k_nope, "k_rope": k_rope},
+                               {"k_nope": (0, 1, 2), "k_rope": (0, 2)}, "k_nope")
+
+
 def mla_attention(p, x, cfg: ArchConfig, positions, collect: bool = False):
     """Full-sequence MLA: the latent projections expanded to per-head q, k
-    (nope + rope) and v; every head shares the roped k part."""
+    (nope + rope) and v; every head shares the roped k part. On a mesh q, k
+    and v are split over ``heads`` (the reference pins q and k; v goes with
+    k, as the kernel's route takes them alike) and the latents' norms run on
+    their rows through K2's route."""
     dt = torch_dtype(cfg.dtype)
-    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    nope = cfg.qk_nope_dim
     cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wdq"].to(dt)), p["q_ln"])
     q = torch.einsum("bsr,rhk->bhsk", cq, p["wuq"].to(dt))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     ckv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wdkv"].to(dt)), p["kv_ln"])
-    kv = torch.einsum("bsr,rhk->bhsk", ckv, p["wukv"].to(dt))
+    kv = shard(torch.einsum("bsr,rhk->bhsk", ckv, p["wukv"].to(dt)), "batch", "heads", None, None)
     k_nope, v = kv[..., :nope], kv[..., nope:].contiguous()  # the kernel takes contiguous v
     k_rope = torch.einsum("bsd,dk->bsk", x, p["wkr"].to(dt))[:, None]  # one head, shared
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
-    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], rope)], -1)
+    k = _with_shared_rope(k_nope, k_rope)
     q = torch.cat([q_nope, q_rope], -1)
+    q = shard(q, "batch", "heads", None, None)
+    k = shard(k, "batch", "heads", None, None)
     out = ops.attention(q, k, v, causal=True, kv_chunk=cfg.attn_chunk)
     y = torch.einsum("bhsv,hvd->bsd", out, p["wo"].to(dt))
     if collect:
@@ -304,11 +335,22 @@ def unembed(params, cfg: ArchConfig, h):
 
 def embed_inputs(params, cfg: ArchConfig, tokens, patches=None):
     """Embedded tokens, after the visual prefix when ``patches`` (B, P, D) are
-    given (cast to the activations' dtype)."""
+    given (cast to the activations' dtype). On a mesh the patches arrive
+    split as ``("batch", None, None)``, are cast on each rank's shard, and
+    the stream is pinned there after the concatenation, as the reference
+    pins it; a sequence-split stream (``seq_shard``) is refused."""
     h = embed_tokens(params, cfg, tokens)
-    if patches is not None:
-        h = torch.cat([patches.to(h.dtype), h], dim=1)
-    return h
+    if patches is None:
+        return h
+    if ops.is_dtensor(patches):
+        rules, _ = logical_rules()
+        if rules is not None and rules.get("seq") is not None:
+            raise ValueError(f"{cfg.name}: the visual prefix takes no sequence-split stream (seq_shard)")
+        patches = ops.on_local_shards("patches", lambda t: t.to(h.dtype), {"patches": patches},
+                                      {"patches": (0, 1, 2)}, "patches")
+    else:
+        patches = patches.to(h.dtype)
+    return shard(torch.cat([patches, h], dim=1), "batch", None, None)
 
 
 def dense_forward(params, cfg: ArchConfig, tokens, patches=None):
@@ -484,7 +526,8 @@ def gqa_decode_attn(p, layer_cache, x, cfg: ArchConfig, pos):
 def mla_decode_attn(p, layer_cache, x, cfg: ArchConfig, pos):
     """Absorbed-matmul MLA decode over the compressed (ckv, krope) cache;
     ``pos`` scalar or (B,). Writes the new latents into ``layer_cache`` in
-    place. Plain PyTorch, as the reference's XLA."""
+    place. Plain PyTorch, as the reference's XLA; on a mesh the latent
+    cache's sequence is split over ``kv_seq`` (:func:`absorbed_attention`)."""
     dt = torch_dtype(cfg.dtype)
     B = x.shape[0]
     nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -500,14 +543,55 @@ def mla_decode_attn(p, layer_cache, x, cfg: ArchConfig, pos):
     wuk = p["wukv"][..., :nope].to(dt)  # (r, H, nope)
     wuv = p["wukv"][..., nope:].to(dt)  # (r, H, v)
     q_abs = torch.einsum("bhsk,rhk->bhsr", q_nope, wuk)
-    s = torch.einsum("bhsr,btr->bhst", q_abs, ckv) + torch.einsum("bhsk,btk->bhst", q_rope, krope)
-    s = s.float() * ((nope + rope_d) ** -0.5)
-    s = torch.where(_pos_mask(pos, B, ckv.shape[1], x.device)[:, :, 0], s, -1e30)  # (B, 1, 1, S)
-    w = torch.softmax(s, dim=-1).to(dt)
-    ctx = torch.einsum("bhst,btr->bhsr", w, ckv)
+    mask = _pos_mask(pos, B, ckv.shape[1], x.device)[:, :, 0]  # (B, 1, 1, S) over the global keys
+    ctx = absorbed_attention(q_abs, q_rope, ckv, krope, mask, (nope + rope_d) ** -0.5)
     out_h = torch.einsum("bhsr,rhv->bhsv", ctx, wuv)
     y = torch.einsum("bhsv,hvd->bsd", out_h, p["wo"].to(dt))
     return y, {"ckv": ckv, "krope": krope}
+
+
+def absorbed_attention(q_abs, q_rope, ckv, krope, mask, scale: float):
+    """MLA's absorbed attention of one query a head, q_abs (B, H, 1, r) and
+    q_rope (B, H, 1, rope), over the latent cache ckv (B, S, r) and krope
+    (B, S, rope) → the latent context (B, H, 1, r) in ckv's dtype. Scores
+    and the softmax in f32; the weights cast to ckv's dtype before the
+    context product, as the reference's; ``mask`` (B, 1, 1, S) over every
+    key.
+
+    DTensors take the split-KV route (what GSPMD makes of the reference's
+    function on the ``kv_seq``-split cache): the cache may be split over its
+    rows and its sequence; the queries, split over ``heads`` on the same
+    mesh dim as the keys, are gathered to the cache's rows with every head
+    (the one tensor a step moves besides the reductions); each rank scores
+    its own keys, and the max, the sum of exponentials against that global
+    max and the f32 partial contexts are all-reduced over the mesh dims that
+    split the keys. A shard whose keys are all masked adds exactly 0; on one
+    shard the route is the plain function, op for op. Forward only."""
+    if ops.is_dtensor(ckv):
+        return _absorbed_split(q_abs, q_rope, ckv, krope, mask, scale)
+    return _absorbed(q_abs, q_rope, ckv, krope, mask, scale, None)
+
+
+def _absorbed(q_abs, q_rope, ckv, krope, mask, scale: float, groups):
+    """:func:`absorbed_attention`'s arithmetic on plain tensors; with
+    ``groups`` (process groups of the mesh dims that split the keys) its
+    three reductions over the keys are completed across them (the context's
+    partial sums in f32), else the context product runs in ckv's dtype, as
+    the reference's (:func:`.common.split_softmax_context`)."""
+    s = torch.einsum("bhsr,btr->bhst", q_abs, ckv) + torch.einsum("bhsk,btk->bhst", q_rope, krope)
+    s = torch.where(mask, s.float() * scale, NEG_INF)
+    return split_softmax_context(s, ckv, "bhst,btr->bhsr", groups, f32=False).to(ckv.dtype)
+
+
+def _absorbed_split(q_abs, q_rope, ckv, krope, mask, scale: float):
+    """The split-KV route of :func:`absorbed_attention` (DTensor inputs)."""
+    from repro_torch.parallel.sharding import from_local, redistribute
+
+    rows, groups, mask = split_kv_layout("absorbed_attention", (q_abs, q_rope, ckv, krope), ckv, krope, mask, 1)
+    mesh = ckv.device_mesh
+    q_abs, q_rope = redistribute(q_abs, mesh, rows), redistribute(q_rope, mesh, rows)  # every head, the rows
+    ctx = _absorbed(q_abs.to_local(), q_rope.to_local(), ckv.to_local(), krope.to_local(), mask, scale, groups)
+    return from_local(ctx, mesh, rows, (*q_abs.shape[:3], ckv.shape[-1]))
 
 
 def dense_decode_step(params, cfg: ArchConfig, cache, tokens, pos):

@@ -21,6 +21,16 @@ its cross-attention, in training and at prefill) goes through
 ``attention_chunked`` at the reference's ``attn_chunk``. The reference runs
 its XLA ``attention_chunked`` there, not Pallas. Decode attention, the
 LayerNorms and the GELU are plain PyTorch, as they are XLA in the reference.
+
+On a device mesh (:func:`repro_torch.parallel.sharding.use_rules`) the
+reference's ``shard()`` sites pin q, k (and v with them) over ``heads``, the
+MLP's hidden state over ``ff``, the stream to ``("batch", None, None)`` and
+the logits over ``vocab``; the LayerNorms, the sinusoids and the MLP's
+biases run on each rank's shards (:func:`.common.channelwise`), the output
+bias after the ``ff`` product's partial sums are reduced. At decode the
+self-attention is split-KV over the ``kv_seq``-split cache
+(:func:`.common.attention_single_shot`) and the cross-attention runs on each
+rank's heads of the head-split cross cache.
 """
 
 from __future__ import annotations
@@ -32,7 +42,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .common import ParamDef, attention_single_shot, cross_entropy, layer_norm, map_defs, torch_dtype
+from .common import (
+    ParamDef,
+    attention_single_shot,
+    channelwise,
+    cross_entropy,
+    layer_norm,
+    map_defs,
+    replicated_like,
+    shard,
+    torch_dtype,
+)
 from .config import ArchConfig
 from .transformer import _pos_mask, _stack, embed_tokens, layer_params, remat_wrap, run_stack, scatter_seq, unembed
 
@@ -105,6 +125,17 @@ def sinusoid(positions, dim: int, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
+def _add(x, v):
+    return x + v.to(x.dtype)
+
+
+def add_positions(h, positions):
+    """``h`` (B, S, D) plus the sinusoids of ``positions`` (S,), pinned to
+    ``("batch", None, None)`` (on a mesh on each rank's shards)."""
+    table = sinusoid(positions, h.shape[-1], h.dtype)
+    return shard(channelwise(_add, h, replicated_like(table, h)), "batch", None, None)
+
+
 # ---------------------------------------------------------------------------
 # Attention and MLP
 # ---------------------------------------------------------------------------
@@ -115,9 +146,9 @@ def _mha(p, xq, xkv, cfg: ArchConfig, *, causal: bool, collect: bool = False):
     ``xkv`` (the same tensor for self-attention, the encoder's memory for
     cross-attention); with ``collect``, also the (B, H, Skv, hd) K and V."""
     dt = xq.dtype
-    q = torch.einsum("bsd,dhk->bhsk", xq, p["wq"].to(dt)).contiguous()
-    k = torch.einsum("bsd,dhk->bhsk", xkv, p["wk"].to(dt)).contiguous()
-    v = torch.einsum("bsd,dhk->bhsk", xkv, p["wv"].to(dt)).contiguous()
+    q = shard(torch.einsum("bsd,dhk->bhsk", xq, p["wq"].to(dt)).contiguous(), "batch", "heads", None, None)
+    k = shard(torch.einsum("bsd,dhk->bhsk", xkv, p["wk"].to(dt)).contiguous(), "batch", "heads", None, None)
+    v = shard(torch.einsum("bsd,dhk->bhsk", xkv, p["wv"].to(dt)).contiguous(), "batch", "heads", None, None)
     out = ops.attention(q, k, v, causal=causal, kv_chunk=cfg.attn_chunk)
     y = torch.einsum("bhsk,hkd->bsd", out, p["wo"].to(dt))
     if collect:
@@ -125,11 +156,26 @@ def _mha(p, xq, xkv, cfg: ArchConfig, *, causal: bool, collect: bool = False):
     return y
 
 
+def _gelu_in(h, bi):
+    return F.gelu(h + bi.to(h.dtype), approximate="tanh")
+
+
 def _mlp(p, x):
-    """GELU MLP with biases; the tanh approximation, as ``jax.nn.gelu``'s default."""
+    """GELU MLP with biases; the tanh approximation, as ``jax.nn.gelu``'s
+    default. On a mesh ``bi`` meets the hidden state's ``ff`` shards, and
+    ``bo`` is added once, to the all-reduced output (never to each rank's
+    partial sum of the ``ff``-contracted product)."""
     dt = x.dtype
-    h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"].to(dt)) + p["bi"].to(dt), approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt)) + p["bo"].to(dt)
+    h = channelwise(_gelu_in, torch.einsum("bsd,df->bsf", x, p["wi"].to(dt)), p["bi"])
+    h = shard(h, "batch", None, "ff")
+    y = shard(torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt)), "batch", None, None)
+    return channelwise(_add, y, p["bo"])
+
+
+def _residual(h, y):
+    """h + y on the stream, pinned to ("batch", None, None): the partial sums
+    of an output contracted over split heads are all-reduced before the add."""
+    return h + shard(y, "batch", None, None)
 
 
 def _ln(p, name: str, x):
@@ -143,24 +189,20 @@ def _ln(p, name: str, x):
 
 def _enc_block(p, h, cfg: ArchConfig):
     xn = _ln(p, "ln1", h)
-    h = h + _mha(p["attn"], xn, xn, cfg, causal=False)
-    return h + _mlp(p["mlp"], _ln(p, "ln2", h))
+    h = _residual(h, _mha(p["attn"], xn, xn, cfg, causal=False))
+    return _residual(h, _mlp(p["mlp"], _ln(p, "ln2", h)))
 
 
 def encode(params, cfg: ArchConfig, frames):
     """frames: (B, enc_len, D) stub front-end embeddings → the encoder's
     memory (B, enc_len, D) in the activations' dtype."""
-    dt = torch_dtype(cfg.dtype)
-    _, T, D = frames.shape
-    h = frames.to(dt) + sinusoid(torch.arange(T, device=frames.device), D, dt)[None]
+    h = add_positions(frames.to(torch_dtype(cfg.dtype)), torch.arange(frames.shape[1], device=frames.device))
     h = run_stack(params["enc_blocks"], h, cfg, lambda p, h: _enc_block(p, h, cfg))
     return _ln(params, "enc_ln", h)
 
 
 def _embed(params, cfg: ArchConfig, tokens):
-    dt = torch_dtype(cfg.dtype)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
-    return embed_tokens(params, cfg, tokens) + sinusoid(pos, cfg.d_model, dt)[None]
+    return add_positions(embed_tokens(params, cfg, tokens), torch.arange(tokens.shape[1], device=tokens.device))
 
 
 def _dec_block(p, h, memory, cfg: ArchConfig, collect: bool = False):
@@ -168,10 +210,10 @@ def _dec_block(p, h, memory, cfg: ArchConfig, collect: bool = False):
     self-attention's K/V and the cross-attention's K/V of the memory."""
     xn = _ln(p, "ln1", h)
     y, k, v = _mha(p["self_attn"], xn, xn, cfg, causal=True, collect=True)
-    h = h + y
+    h = _residual(h, y)
     y, kc, vc = _mha(p["cross_attn"], _ln(p, "ln2", h), memory, cfg, causal=False, collect=True)
-    h = h + y
-    h = h + _mlp(p["mlp"], _ln(p, "ln3", h))
+    h = _residual(h, y)
+    h = _residual(h, _mlp(p["mlp"], _ln(p, "ln3", h)))
     if collect:
         return h, {"self_k": k, "self_v": v, "cross_k": kc, "cross_v": vc}
     return h
@@ -243,12 +285,13 @@ def whisper_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
     """One decode step. tokens: (B, 1) int; pos: a scalar position.
 
     Writes the step's self-attention K/V into ``cache`` in place; the
-    cross-attention reads the cached cross-K/V with no mask. Returns (logits
-    (B, 1, V), cache)."""
+    cross-attention reads the cached cross-K/V with no mask (on a mesh on
+    each rank's heads: :func:`_cross_decode`). Returns (logits (B, 1, V),
+    cache)."""
     dt = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
     pos = torch.as_tensor(pos, device=tokens.device).long()  # one host-to-device copy per step
-    h = embed_tokens(params, cfg, tokens) + sinusoid(pos.reshape(1), cfg.d_model, dt)[None]
+    h = add_positions(embed_tokens(params, cfg, tokens), pos.reshape(1))
     mask = _pos_mask(pos, B, cache["self_k"].shape[-2], h.device)
     for i in range(cfg.n_layers):
         p = layer_params(params["dec_blocks"], i)
@@ -258,9 +301,23 @@ def whisper_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
         k = scatter_seq(cache["self_k"][i], torch.einsum("bsd,dhk->bhsk", xn, sa["wk"].to(dt)), pos)
         v = scatter_seq(cache["self_v"][i], torch.einsum("bsd,dhk->bhsk", xn, sa["wv"].to(dt)), pos)
         out = attention_single_shot(q, k, v, mask=mask)
-        h = h + torch.einsum("bhsk,hkd->bsd", out, sa["wo"].to(dt))
+        h = _residual(h, torch.einsum("bhsk,hkd->bsd", out, sa["wo"].to(dt)))
         q = torch.einsum("bsd,dhk->bhsk", _ln(p, "ln2", h), ca["wq"].to(dt))
-        out = attention_single_shot(q, cache["cross_k"][i], cache["cross_v"][i])
-        h = h + torch.einsum("bhsk,hkd->bsd", out, ca["wo"].to(dt))
-        h = h + _mlp(p["mlp"], _ln(p, "ln3", h))
+        out = _cross_decode(q, cache["cross_k"][i], cache["cross_v"][i])
+        h = _residual(h, torch.einsum("bhsk,hkd->bsd", out, ca["wo"].to(dt)))
+        h = _residual(h, _mlp(p["mlp"], _ln(p, "ln3", h)))
     return unembed(params, cfg, _ln(params, "dec_ln", h)), cache
+
+
+def _cross_decode(q, k, v):
+    """The decode step's cross-attention of q (B, H, 1, hd) over the cached
+    cross K/V (B, H, enc_len, hd), unmasked. On a mesh the cache is split
+    over its rows and heads (never over ``enc_len``): q is brought to that
+    split and each rank attends with its own heads."""
+    if not ops.is_dtensor(k):
+        return attention_single_shot(q, k, v)
+    from repro_torch.parallel.sharding import redistribute
+
+    q = redistribute(q, k.device_mesh, k.placements)
+    return ops.on_local_shards("cross-attention decode", attention_single_shot, {"q": q, "k": k, "v": v},
+                               {"q": (0, 1), "k": (0, 1), "v": (0, 1)}, "q")

@@ -10,8 +10,8 @@ Gradient accumulation reshapes the global batch (B, ...) into
 (MB, B/MB, ...) row-major and runs the microbatches in order: peak
 activation memory drops by about MB× while the arithmetic is the same.
 
-On a device mesh (``make_train_step(model, optimizer, rules, mesh)``, the
-dense GQA and MoE families) the state is a tree of DTensors laid out by
+On a device mesh (``make_train_step(model, optimizer, rules, mesh)``, every
+family) the state is a tree of DTensors laid out by
 ``resolve_tree(mesh, train_state_logical(...), rules)``: data parallelism
 over the batch's axes, tensor and expert parallelism over ``model``, ZeRO-3
 over the data axes with ``cfg.fsdp``. The step runs under ``use_rules``: the
@@ -176,16 +176,6 @@ def make_grad_fn(model: Model, param_placements=None, mesh=None):
     return grads_fn
 
 
-def _check_mesh_family(cfg) -> None:
-    """Refuse what cannot yet run on a mesh: MLA, the visual prefix and the
-    ``encdec`` family (the rest of ROADMAP M17b)."""
-    if cfg.family == "encdec" or cfg.attention == "mla" or cfg.n_patches:
-        what = "encdec" if cfg.family == "encdec" else "a visual prefix" if cfg.n_patches else "MLA"
-        raise NotImplementedError(
-            f"{cfg.name}: the mesh takes the dense GQA, MoE, Griffin and RWKV-6 families; {what} on a mesh "
-            "(MLA, the visual prefix and encdec) is ROADMAP M17b")
-
-
 def make_train_step(model: Model, optimizer: Optimizer, rules: "dict | None" = None, mesh=None):
     """``train_step(state, batch) → (new_state, metrics)``; batch is a dict of
     (B, ...) tensors on the state's device. Metrics are 0-dim tensors (no
@@ -201,7 +191,6 @@ def make_train_step(model: Model, optimizer: Optimizer, rules: "dict | None" = N
         return _make_plain_step(model, optimizer)
     from repro_torch.parallel.sharding import redistribute_tree, resolve_tree, with_rules
 
-    _check_mesh_family(model.cfg)
     placements = resolve_tree(mesh, train_state_logical(model, optimizer), rules)
     grads_fn = make_grad_fn(model, placements["params"], mesh)
 
@@ -227,7 +216,6 @@ def make_prefill_step(model: Model, rules: "dict | None" = None, mesh=None):
         return model.prefill_fn
     from repro_torch.parallel.sharding import with_rules
 
-    _check_mesh_family(model.cfg)
     return with_rules(model.prefill_fn, rules, mesh)
 
 
@@ -240,7 +228,6 @@ def make_serve_step(model: Model, rules: "dict | None" = None, mesh=None):
         return model.decode_fn
     from repro_torch.parallel.sharding import with_rules
 
-    _check_mesh_family(model.cfg)
     return with_rules(model.decode_fn, rules, mesh)
 
 

@@ -149,9 +149,10 @@ def test_capacity_guard():
 def test_chip_smoke_counts_continuous_launches(arch, counter):
     """``chip_smoke.py``'s exact counts for continuous batching with f32
     activations at full width and the path's depth (full, or
-    ``REDUCED_DEPTH``'s: minicpm3-4b 16 of 62 layers): each one-row insert's
-    L attentions on the 3xTF32 kernel of the arch's heads ((128, 128) for
-    codeqwen1.5-7b: 32 an insert), none on another f32 kernel, and a pass's
+    ``REDUCED_DEPTH``'s: minicpm3-4b 16 of 62 layers, codeqwen1.5-7b 8 of
+    32): each one-row insert's L attentions on the 3xTF32 kernel of the
+    arch's heads ((128, 128) for codeqwen1.5-7b: 8 an insert), none on
+    another f32 kernel, and a pass's
     norms an insert and a decode step."""
     import sys
     from pathlib import Path

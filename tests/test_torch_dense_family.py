@@ -259,3 +259,44 @@ def test_full_configs_build_with_the_reference_param_count(arch):
     assert {k: tuple(v.shape) for k, v in got_cache.items()} == {k: tuple(v.shape) for k, v in want_cache.items()}
     if cfg.attention == "mla":
         assert set(model.param_defs["blocks"]["attn"]) == {"wdq", "q_ln", "wuq", "wdkv", "kv_ln", "wukv", "wkr", "wo"}
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "llava-next-mistral-7b"])
+def test_chip_smoke_counts_the_mesh_legs_train_launches(arch, monkeypatch):
+    """``chip_smoke.py``'s exact train counts for the mesh leg's MLA and
+    visual-prefix models (remat ``full``: every forward kernel twice a step;
+    MLA's 4 norms a layer, q_ln and kv_ln included) equal the calls a train
+    step on the CPU makes to the kernels' forwards (at the CPU rehearsal's
+    smoke size; the counts depend on the layers, not the widths)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import ops
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training import init_train_state, make_train_step
+
+    root = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    cfg = chip_smoke.wide_config(arch, False, False).replace(dtype="float32")
+    batch, seq = 2, 16
+    calls = {"attention": 0, "rmsnorm": 0}
+    for name, fn in (("attention", ops._attention_fwd), ("rmsnorm", ops._rmsnorm_fwd)):
+        monkeypatch.setattr(ops, f"_{name}_fwd", lambda *a, _n=name, _f=fn: (calls.__setitem__(_n, calls[_n] + 1),
+                                                                              _f(*a))[1])
+    model = build_model(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    g = torch.Generator().manual_seed(0)
+    data = [{"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=g)}]
+    data[0]["labels"] = data[0]["tokens"].roll(-1, 1)
+    chip_smoke.add_patches(cfg, data, torch.device("cpu"))
+    state = init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(model, opt)
+    for _ in range(2):
+        state, _ = step(state, data[0])
+    want = chip_smoke.expected_train_launches(cfg, batch, seq, steps=2)
+    assert cfg.remat == "full" and want.pop(chip_smoke.attention_counter(cfg)) == calls["attention"] > 0
+    assert want.pop("rmsnorm") == calls["rmsnorm"] and not any(want.values())

@@ -4,14 +4,21 @@ gloo process groups of four CPU ranks.
 
 Each mesh runs once, in four processes, for every config named below: from
 the plain step's seeded state, the sharded gradients of the first batch and
-two sharded steps; rank 0 then runs the plain port step on the same batches
-in its own process and writes both (gathered) to a file, which the tests
-read. Meshes: (2, 2) with each config's own FSDP flag, (4, 1) with FSDP
+two sharded steps, which rank 0 writes (gathered) to a file that the tests
+read, with a digest of the config, the seeded state and the batches; in the
+(2, 2) and (4, 1) runs rank 0 also runs the plain port step on the same
+batches in its own process. The (1, 4) run, whose configs are the (2, 2)
+run's, is held to the (2, 2) run's plain step, the two digests equal.
+Meshes: (2, 2) with each config's own FSDP flag, (4, 1) with FSDP
 forced on (every ``embed`` dim over ``data``: ZeRO-3), and (1, 4) for
 mistral-large-123b's smoke config, whose 4 query heads shard and 2 KV heads
-do not (the GQA repeat). rwkv6-7b and recurrentgemma-2b (heads and the
-``lru`` channels over ``model``) reach the WKV-6 and RG-LRU recurrences
-through the ops' local-shard routes. The (2, 2) run also saves nbi-100m's state after
+do not (the GQA repeat), and the three forms below. rwkv6-7b and
+recurrentgemma-2b (heads and the ``lru`` channels over ``model``) reach the
+WKV-6 and RG-LRU recurrences through the ops' local-shard routes.
+minicpm3-4b (MLA: its heads over ``model``, the shared roped key expanded
+over each rank's heads), llava-next-mistral-7b (seeded patches before the
+text, labels -100 on them) and whisper-small (seeded audio frames; heads,
+``ff`` and the vocab over ``model``) run on every mesh. The (2, 2) run also saves nbi-100m's state after
 one step, which the (4, 1) run restores (elastic restore) and steps on, and
 computes the sharded loss on weights carried over from the reference's init
 (``convert.params_from_jax``), held against the reference's ``loss_fn`` with
@@ -49,6 +56,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models.common import tree_leaves
 from test_torch_distributed import SLURM_VARS, free_job_id
@@ -60,12 +68,15 @@ ATOL, RTOL = 2e-5, 1e-4
 RUN_TIMEOUT = 240
 GLOO_TIMEOUT_S = 120
 ARCHS = ["nbi-100m", "mistral-large-123b", "starcoder2-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b", "rwkv6-7b",
-         "recurrentgemma-2b"]
+         "recurrentgemma-2b", "minicpm3-4b", "llava-next-mistral-7b", "whisper-small"]
+# the (1, 4) run: 4 query heads over 2 KV heads, and the three forms whose
+# heads (MLA's, Whisper's) or prefix (llava's, 4 over 2) split four ways
+WIDE_ARCHS = ["mistral-large-123b", "minicpm3-4b", "llava-next-mistral-7b", "whisper-small"]
 BATCH, SEQ = 8, 32
 ELASTIC_ARCH = "nbi-100m"
 
 WORKER = r'''
-import datetime, json, os, sys
+import datetime, hashlib, json, os, sys
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -73,6 +84,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import make_train_loader
+from repro_torch.models.common import tree_leaves
 from repro_torch.models.registry import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.parallel.sharding import distribute_tree, full_tree, resolve_tree, rules_for, use_rules
@@ -86,6 +98,31 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{job['port']}", ra
                         timeout=datetime.timedelta(seconds=job["gloo_timeout"]))
 mesh = init_device_mesh("cpu", tuple(job["shape"]), mesh_dim_names=("data", "model"))
 out = job["out"]
+
+
+def digest(cfg, *trees) -> str:
+    """A hash of ``cfg`` and every leaf of ``trees``, bit for bit."""
+    h = hashlib.sha256(repr(cfg).encode())
+    for tree in trees:
+        for path, leaf in tree_leaves(tree):
+            h.update(path.encode())
+            h.update(leaf.detach().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def extras(cfg, batches):
+    """Seeded audio frames for Whisper, patches for a visual prefix (labels
+    then -100 on the patches): the data pipeline makes tokens only."""
+    g = torch.Generator().manual_seed(6)
+    for b in batches:
+        B = b["tokens"].shape[0]
+        if cfg.family == "encdec":
+            b["frames"] = torch.randn((B, cfg.enc_len, cfg.d_model), generator=g)
+        if cfg.n_patches:
+            b["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model), generator=g)
+            b["labels"] = torch.cat([torch.full((B, cfg.n_patches), -100, dtype=b["labels"].dtype), b["labels"]], 1)
+
+
 for arch in job["archs"]:
     cfg = get_smoke_config(arch)
     if job["fsdp"]:
@@ -95,6 +132,7 @@ for arch in job["archs"]:
     loader = make_train_loader(model.cfg.vocab_size, job["batch"], job["seq"], seed=0)
     batches = [{k: torch.from_numpy(v) for k, v in next(loader).items()} for _ in range(2)]
     loader.close()
+    extras(cfg, batches)
     rules = rules_for(cfg, mesh, param_defs=model.param_defs, batch_size=job["batch"],
                       extra_dims={"heads": cfg.n_heads})
     placements = resolve_tree(mesh, train_state_logical(model, opt), rules)
@@ -108,7 +146,8 @@ for arch in job["archs"]:
     s1, m1 = step(distribute_tree(state0, mesh, placements), fed[0])
     s2, m2 = step(s1, fed[1])
     result = {"rules": {k: v for k, v in rules.items()}, "grads": grads, "s1": full_tree(s1),
-              "s2": full_tree(s2), "m": [{k: float(v) for k, v in m.items()} for m in (m1, m2)]}
+              "s2": full_tree(s2), "m": [{k: float(v) for k, v in m.items()} for m in (m1, m2)],
+              "inputs": digest(cfg, state0, dict(enumerate(batches)))}
     if arch == job["elastic_arch"] and job["save"]:
         CheckpointManager(job["save"]).save_sharded(1, s1)
     if arch == job["elastic_arch"] and job["restore"]:
@@ -125,11 +164,12 @@ for arch in job["archs"]:
         result["ref_case"] = {"loss": float(loss.full_tensor()), **{k: float(v.full_tensor())
                                                                       for k, v in metrics.items()}}
     if rank == 0:
-        plain = make_train_step(model, opt)
-        p1, pm1 = plain(state0, batches[0])
-        p2, pm2 = plain(p1, batches[1])
-        result["plain"] = {"grads": make_grad_fn(model)(state0["params"], batches[0])[2], "s1": p1, "s2": p2,
-                           "m": [{k: float(v) for k, v in m.items()} for m in (pm1, pm2)]}
+        if job["plain"]:
+            plain = make_train_step(model, opt)
+            p1, pm1 = plain(state0, batches[0])
+            p2, pm2 = plain(p1, batches[1])
+            result["plain"] = {"grads": make_grad_fn(model)(state0["params"], batches[0])[2], "s1": p1, "s2": p2,
+                               "m": [{k: float(v) for k, v in m.items()} for m in (pm1, pm2)]}
         torch.save(result, os.path.join(out, arch + ".pt"))
 dist.destroy_process_group()
 '''
@@ -204,7 +244,7 @@ def reference_case(tmp_path_factory):
 def mesh_2x2(tmp_path_factory, reference_case):
     out = tmp_path_factory.mktemp("mesh_2x2")
     run_ranks({"shape": [2, 2], "fsdp": None, "archs": ARCHS, "out": str(out), "save": str(out / "ckpt"),
-               "restore": None, "ref_weights": str(reference_case[0])})
+               "restore": None, "ref_weights": str(reference_case[0]), "plain": True})
     return out
 
 
@@ -212,15 +252,15 @@ def mesh_2x2(tmp_path_factory, reference_case):
 def mesh_4x1(tmp_path_factory, mesh_2x2):
     out = tmp_path_factory.mktemp("mesh_4x1")
     run_ranks({"shape": [4, 1], "fsdp": True, "archs": ARCHS, "out": str(out), "save": None,
-               "restore": str(mesh_2x2 / "ckpt"), "ref_weights": None})
+               "restore": str(mesh_2x2 / "ckpt"), "ref_weights": None, "plain": True})
     return out
 
 
 @pytest.fixture(scope="module")
 def mesh_1x4(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh_1x4")
-    run_ranks({"shape": [1, 4], "fsdp": None, "archs": ["mistral-large-123b"], "out": str(out), "save": None,
-               "restore": None, "ref_weights": None})
+    run_ranks({"shape": [1, 4], "fsdp": None, "archs": WIDE_ARCHS, "out": str(out), "save": None,
+               "restore": None, "ref_weights": None, "plain": False})
     return out
 
 
@@ -230,7 +270,7 @@ def runs(request):
             "1x4": request.getfixturevalue("mesh_1x4")}
 
 
-CASES = [("2x2", a) for a in ARCHS] + [("4x1", a) for a in ARCHS] + [("1x4", "mistral-large-123b")]
+CASES = [("2x2", a) for a in ARCHS] + [("4x1", a) for a in ARCHS] + [("1x4", a) for a in WIDE_ARCHS]
 
 
 def load(runs, mesh, arch) -> dict:
@@ -272,12 +312,16 @@ def moments(state: dict, count: int, eight_bit: bool) -> dict:
 @pytest.mark.parametrize("mesh,arch", CASES)
 def test_sharded_step_matches_the_plain_step(runs, mesh, arch):
     r = load(runs, mesh, arch)
-    plain = r["plain"]
+    source = r if "plain" in r else load(runs, "2x2", arch)  # (1, 4): the (2, 2) run's plain step
+    assert r["inputs"] == source["inputs"]  # the same config, seeded state and batches
+    plain = source["plain"]
     rules = r["rules"]
     if mesh == "4x1":
         assert rules["embed"] == "data" and rules["batch"] == "data"  # ZeRO-3 over data
     if mesh == "1x4":
-        assert rules["heads"] == "model" and rules["kv_heads"] is None  # the GQA repeat
+        assert rules["heads"] == "model"
+        if get_smoke_config(arch).n_kv_heads % 4:
+            assert rules["kv_heads"] is None  # the GQA repeat
     for got, want in zip(r["m"], plain["m"]):
         assert set(got) == set(want)
         for k in want:

@@ -321,12 +321,95 @@ def test_recurrence_routes_refuse_unlike_splits(mesh, op):
         getattr(ops, op)(*(placed(t, mesh, *pl[n]) for n, t in ins.items()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 5, "rows"])
+def test_split_absorbed_decode_on_one_shard_is_the_plain_function(mesh, dtype, pos):
+    """MLA's absorbed decode on a latent cache split over its rows and keys on
+    one rank (the split-KV route with no group to reduce over) equals the
+    plain function bit for bit, with the queries split over heads."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.transformer import absorbed_attention
+
+    B, H, S, r, rope = 2, 4, 9, 16, 8
+    q_abs, q_rope, ckv, krope = (t.to(dtype) for t in draw((B, H, 1, r), (B, H, 1, rope), (B, S, r), (B, S, rope),
+                                                             seed=6))
+    at = torch.tensor([3, 8]) if pos == "rows" else torch.tensor(pos).expand(B)
+    mask = (torch.arange(S)[None, :] <= at[:, None])[:, None, None, :]
+    with torch.no_grad():
+        got = absorbed_attention(placed(q_abs, mesh, Shard(0), Shard(1)), placed(q_rope, mesh, Shard(0), Shard(1)),
+                                 placed(ckv, mesh, Shard(0), Shard(1)), placed(krope, mesh, Shard(0), Shard(1)), mask,
+                                 0.2)
+    want = absorbed_attention(q_abs, q_rope, ckv, krope, mask, 0.2)
+    assert ops.is_dtensor(got) and got.dtype == want.dtype == dtype
+    assert torch.equal(got.to_local(), want)
+
+
+def test_mla_shared_rope_key_on_the_local_heads(mesh):
+    """MLA's shared roped key joined to head-split ``k_nope`` on each rank's
+    heads: the plain concatenation's values, the heads' placements kept, and
+    the shared head's gradient the sum over every head."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.transformer import _with_shared_rope
+
+    k_nope, k_rope = draw((2, 4, 6, 8), (2, 1, 6, 4), seed=7)
+    kn = placed(k_nope, mesh, Shard(0), Shard(1)).requires_grad_()
+    kr = placed(k_rope, mesh, Shard(0), Replicate()).requires_grad_()
+    got = _with_shared_rope(kn, kr)
+    plain_kr = k_rope.clone().requires_grad_()
+    want = _with_shared_rope(k_nope, plain_kr)
+    assert tuple(got.placements) == (Shard(0), Shard(1)) and torch.equal(got.to_local(), want)
+    seed, = draw(tuple(want.shape), seed=8)
+    got.backward(placed(seed, mesh, Shard(0), Shard(1)))
+    want.backward(seed)
+    assert torch.equal(kr.grad.full_tensor(), plain_kr.grad)
+
+
+def test_whisper_cross_decode_on_the_local_heads(mesh):
+    """The decode step's cross-attention over a cross cache split over rows
+    and heads runs on each rank's heads: the plain values, bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.common import attention_single_shot
+    from repro_torch.models.whisper import _cross_decode
+
+    q, k, v = draw((2, 4, 1, 8), (2, 4, 10, 8), (2, 4, 10, 8), seed=9)
+    with torch.no_grad():
+        got = _cross_decode(placed(q, mesh, Shard(0), Replicate()), placed(k, mesh, Shard(0), Shard(1)),
+                            placed(v, mesh, Shard(0), Shard(1)))
+    assert tuple(got.placements) == (Shard(0), Shard(1))
+    assert torch.equal(got.to_local(), attention_single_shot(q, k, v))
+
+
+def test_visual_prefix_refuses_a_sequence_split_stream(mesh):
+    """The patches go before the text on a stream pinned to ("batch", None,
+    None); with ``seq_shard`` on (the stream split over its positions) the
+    prefix is refused."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import transformer
+
+    cfg = get_smoke_config("llava-next-mistral-7b").replace(seq_shard=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rules = port.rules_for(model.cfg, mesh, param_defs=model.param_defs, batch_size=2)
+    rules["seq"] = "model"  # the rule a model axis wider than one gives seq_shard
+    placements = port.resolve_tree(mesh, model.param_logical(), rules)
+    tokens = placed(torch.zeros((2, 4), dtype=torch.long), mesh, Shard(0), Replicate())
+    patches, = draw((2, cfg.n_patches, cfg.d_model))
+    with port.use_rules(rules, mesh), pytest.raises(ValueError, match="seq_shard"):
+        transformer.embed_inputs(port.distribute_tree(params, mesh, placements), model.cfg, tokens,
+                                 placed(patches, mesh, Shard(0), Replicate()))
+
+
 # ---------------------------------------------------------------------------
 # Sizing a job on a mesh (launch/submit.py, the launcher plugin)
 # ---------------------------------------------------------------------------
 
 CALIBRATION = [("nbi-100m", None, 8, 512), ("deepseek-moe-16b", 4, 4, 2048), ("rwkv6-7b", 8, 4, 2048),
-               ("recurrentgemma-2b", 14, 2, 2048), ("mistral-large-123b", None, 1, 1024)]
+               ("recurrentgemma-2b", 14, 2, 2048), ("mistral-large-123b", None, 1, 1024),
+               ("minicpm3-4b", 16, 4, 2048), ("llava-next-mistral-7b", 8, 4, 2048), ("whisper-small", None, 8, 448)]
 
 
 @pytest.mark.parametrize("arch,layers,batch,seq", CALIBRATION)
@@ -359,7 +442,7 @@ def test_mistral_large_is_refused_at_8_gpus_and_fits_where_the_refusal_says():
 
 
 SERVE_CALIBRATION = ["nbi-100m", "deepseek-moe-16b", "rwkv6-7b", "recurrentgemma-2b", "kimi-k2-1t-a32b",
-                     "mistral-large-123b", "minicpm3-4b"]
+                     "mistral-large-123b", "minicpm3-4b", "llava-next-mistral-7b", "whisper-small"]
 
 
 @pytest.mark.parametrize("arch", SERVE_CALIBRATION)
@@ -369,6 +452,58 @@ def test_a_one_by_one_mesh_sizes_serving_as_one_gpu(arch):
     cfg = get_config(arch)
     one = MeshShape(("data", "model"), (1, 1))
     assert submit.serve_memory_model(cfg, 8, 1056, one) == submit.serve_memory_model(cfg, 8, 1056)
+
+
+def serve_cache_bytes(cfg, batch: int, max_seq: int, mesh: MeshShape) -> int:
+    """Bytes of one GPU's shards of the decode cache as ``serve_memory_model``
+    lays it out: every leaf of ``cache_defs_fn`` by ``cache_logical_fn``
+    under the serving rules."""
+    import math
+
+    model = build_model(cfg)
+    rules = port.serve_rules(model, mesh, batch, max_seq)
+    placements = [p for _, p in tree_leaves(port.resolve_tree(mesh, model.cache_logical_fn(), rules))]
+    return sum(math.prod(port.local_shape(t.shape, p, mesh)) * t.dtype.itemsize
+               for (_, t), p in zip(tree_leaves(model.cache_defs_fn(batch, max_seq)), placements))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-small"])
+def test_serving_counts_each_gpus_cache_shard(arch):
+    """The cache layout the serve sizing counts gives each GPU's shards:
+    MLA's latents ``ckv`` and ``krope`` over ``kv_seq``; Whisper's
+    self-attention K/V over ``kv_seq`` and its cross K/V over ``heads``. A
+    1 x 1 mesh holds the whole cache."""
+    cfg = get_config(arch)
+    B, S, M = 8, 1024, 4
+    L, item = cfg.n_layers, torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    if cfg.attention == "mla":
+        whole = L * B * S * (cfg.kv_lora_rank + cfg.qk_rope_dim) * item
+        split = whole // M
+    else:
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
+        self_kv, cross_kv = 2 * L * B * H * S * hd * item, 2 * L * B * H * cfg.enc_len * hd * item
+        whole, split = self_kv + cross_kv, self_kv // M + cross_kv // M
+    assert serve_cache_bytes(cfg, B, S, MeshShape(("data", "model"), (1, 1))) == whole
+    assert serve_cache_bytes(cfg, B, S, MeshShape(("data", "model"), (1, M))) == split
+    # the batch over data divides every leaf
+    assert serve_cache_bytes(cfg, B, S, MeshShape(("data", "model"), (2, M))) == split // 2
+
+
+@pytest.mark.parametrize("arch,batch,max_seq", [("minicpm3-4b", 64, 32768), ("llava-next-mistral-7b", 64, 8192),
+                                                ("whisper-small", 1024, 448)])
+def test_every_family_is_served_where_the_refusal_says(arch, batch, max_seq):
+    """MLA, the visual prefix's backbone and Whisper, too large for one GPU:
+    the refusal names the smallest GPU count and mesh that fit, and the
+    sizing there fits."""
+    import re
+
+    from repro_torch.launch import submit
+
+    with pytest.raises(submit.DoesNotFit, match=r"gpus=\d+ with mesh=") as refused:
+        submit.size_serve(arch, batch=batch, max_seq=max_seq)
+    gpus, mesh = re.search(r"gpus=(\d+) with mesh=(\S+)", str(refused.value)).groups()
+    fit = submit.size_serve(arch, batch=batch, max_seq=max_seq, gpus=int(gpus), mesh=mesh.rstrip(".,;)"))
+    assert fit["bytes_per_gpu"] <= submit.GPU_MEMORY_BYTES and fit["tasks"] == int(gpus) > 1
 
 
 def test_mistral_large_is_served_where_the_refusal_says():
