@@ -81,8 +81,22 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    RWKV-6 layer, K3 per recurrent layer, K1 per attention layer (Whisper's
    encoder, self- and cross-attentions), K2 per RMSNorm, and no backward
    launches one; the loss must fall. Then each
-   family's step ms, tok/s, peak memory, one traced step and a small
-   model's train step on the card against the CPU. Then the data-parallel
+   family's step ms, tok/s, peak memory, one step held against its count,
+   one traced step and a small model's train step on the card against the
+   CPU. The dry-run leg: each train path's step (nbi-100m's before its
+   trace) and nbi-100m's prefill at 8 x 512 are counted on meta in this
+   process (``repro_torch.analysis.opstats``, no process group) and run
+   once on the card: the counted kernel calls must equal the launches and
+   the counted argument bytes the state's and batch's storages, exactly,
+   and the counted peak must lie within 0.85-1.15 of the measured one
+   (``max_memory_allocated`` above what was allocated before the step, plus
+   the arguments); each prints the roofline's terms under the H100's
+   published peaks beside the measured median step, and the count's lower
+   bound may not exceed the measured step. Later, beside the eco leg (which
+   times nothing), ``python -m repro_torch.launch.dryrun --arch
+   deepseek-moe-16b --shape train_4k --mesh single`` counts that cell in a
+   subprocess on a fake process group of 256 ranks: status ok, wire bytes
+   above zero, K5 twice a MoE layer. Then the data-parallel
    step in a process group of one rank (NCCL, ``tcp://localhost``): at the
    resume check's shapes, nbi-100m's exact DP step (``compress=False``)
    equals ``make_train_step`` bit for bit after N steps under
@@ -161,6 +175,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import roofline  # noqa: E402
+from repro_torch.analysis.opstats import count, storage_bytes  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
@@ -170,6 +186,7 @@ from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv_kernel  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import make_train_loader  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.distributed import dp_groups, initialize  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, device_name, pad_cache_to  # noqa: E402
@@ -183,11 +200,6 @@ from repro_torch.parallel import ef_compressed_psum, init_ef_state, quant_int8  
 from repro_torch.parallel.sharding import distribute_tree, full_tree, resolve_tree, rules_for  # noqa: E402
 from repro_torch.training import init_dp_state, init_train_state, make_dp_train_step, make_train_step  # noqa: E402
 from repro_torch.training import train_state_logical  # noqa: E402
-
-# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# dense rates without sparsity, f32 outside the tensor cores, TF32 on them.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
-PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel and plain version both accumulate in f32 and round once at the end,
 # so a bf16 output may differ by one rounding step (8 significant bits)
@@ -361,14 +373,6 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    """The least time for the work in ms, and which of operations and bytes
-    sets it; ``dtype`` picks the peak rate (``"tf32"``: the tensor cores' TF32
-    rate)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def within(got, want, atol: float, rtol: float) -> bool:
     err = (got.float() - want.float()).abs()
     return bool(torch.isfinite(got.float()).all()) and not bool((err > atol + rtol * want.float().abs()).any())
@@ -535,18 +539,6 @@ def norm_cases(full: bool):
             ("starcoder2_prefill_rows", 16384, 4608, bf16), ("generic_d1004", 7, 1004, bf16)]
 
 
-def valid_pairs(Sq: int, Skv: int, causal: bool, window: int, device) -> int:
-    """(q, k) pairs the mask keeps: the work a causal or windowed call needs."""
-    q_pos = torch.arange(Sq, device=device)[:, None]
-    k_pos = torch.arange(Skv, device=device)[None, :]
-    keep = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
-    if causal:
-        keep &= k_pos <= q_pos
-    if window > 0:
-        keep &= q_pos - k_pos < window
-    return int(keep.sum())
-
-
 def run_attention_cases(device, timer, full: bool, only=None) -> dict:
     """Every case's numbers (or those of the cases named in ``only``), by case
     name."""
@@ -586,15 +578,14 @@ def run_attention_cases(device, timer, full: bool, only=None) -> dict:
             check_close(lib_out, want, what=f"library attention[{name}]", **LIBRARY_ATTN_TOL[dtype])
             library_ms = timer(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), iters=20)
         sync(device)
-        pairs = B * Hq * valid_pairs(Sq, Skv, causal, window, device)
-        flops = pairs * (2 * d + 2 * dv)  # q·k and p·v per kept pair, at the real (not the tiles') widths
-        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
-        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        shape = (B, Hq, Hkv, Sq, Skv, d, dv, dtype, causal, window)
+        flops, nbytes, _ = work = roofline.attention_work(*shape, kernel=False)
+        bound_ms, bound_by = roofline.bound(work)
         bounds = ""
         if dtype == torch.float32:
             # the same function as three TF32 products on the tensor cores;
             # the tensor-core kernel is held against this bound
-            tf32_ms, tf32_by = bound(3 * flops, nbytes, "tf32")
+            tf32_ms, tf32_by = roofline.bound(roofline.attention_work(*shape))
             bounds = f" bound_f32_fma={bound_ms:.4f}ms ({bound_by}) bound_3xtf32={tf32_ms:.4f}ms ({tf32_by})"
             if fa_kernel.kernel_kind(dtype, d, dv) == fa_kernel.F32_TF32:
                 bound_ms, bound_by = tf32_ms, tf32_by
@@ -648,8 +639,8 @@ def run_norm_cases(device, timer, full: bool, only=None) -> dict:
         # the same function: no library_ms)
         copy_ms = timer(lambda: got.copy_(x), iters=50)
         sync(device)
-        nbytes = (2 * x.numel()) * x.element_size() + w.numel() * w.element_size()
-        bound_ms, bound_by = bound(4 * x.numel(), nbytes, dtype)
+        _, nbytes, _ = work = roofline.rmsnorm_work(rows, D, dtype, w.element_size())
+        bound_ms, bound_by = roofline.bound(work)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)
         say(f"[kernels] rmsnorm {name}: rows={rows} D={D} {str(dtype).removeprefix('torch.')} | "
@@ -717,8 +708,8 @@ def run_lru_cases(device, timer, full: bool) -> dict:
         # writes one array like them (not the same function: no library_ms)
         stream_ms = timer(lambda: torch.add(*next(turns)[:2]), iters=7 * LRU_INPUT_SETS)
         sync(device)
-        nbytes = 3 * a.numel() * a.element_size() + 2 * h0.numel() * 4  # a, b in; h out; h0 in, h_final out
-        bound_ms, bound_by = bound(2 * a.numel(), nbytes, torch.float32)
+        _, nbytes, _ = work = roofline.lru_work(B, T, W, dtype)
+        bound_ms, bound_by = roofline.bound(work)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None)
         say(f"[kernels] lru_scan {name}: B={B} T={T} W={W} {str(dtype).removeprefix('torch.')} h0 nonzero | "
@@ -763,16 +754,14 @@ def run_wkv_cases(device, timer, full: bool) -> dict:
         ms = timer(lambda: ops.wkv6(r, k, v, w, u, s0), iters=10)
         plain_ms = timer(lambda: ref.wkv6_ref(r, k, v, w, u, s0), iters=1, warmup=1)
         sync(device)
-        # r, k, v, w in and y out; u in; s0 in and S_final out
-        nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + 2 * s0.numel() * 4
-        # the sequential form: about 5 f32 operations per state element per token
-        bound_ms, bound_by = bound(5 * B * H * T * d * d, nbytes, torch.float32)
+        flops, nbytes, _ = work = roofline.wkv6_work(B, H, T, d, dtype)
+        bound_ms, bound_by = roofline.bound(work)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None)
         say(f"[kernels] wkv6 {name}: B={B} H={H} T={T} d={d} {str(dtype).removeprefix('torch.')} "
             f"s0 {'nonzero' if carried else 'zero'} | max_abs_err={err:.3e} kernel={ms:.4f}ms "
             f"plain={plain_ms:.4f}ms library=none bound={bound_ms:.4f}ms ({bound_by}) "
-            f"GFLOP={5 * B * H * T * d * d / 1e9:.3f} MB={nbytes / 1e6:.1f}")
+            f"GFLOP={flops / 1e9:.3f} MB={nbytes / 1e6:.1f}")
         first = first or row
     return first
 
@@ -842,9 +831,8 @@ def run_gating_cases(device, timer, full: bool) -> dict:
         ms = timer(lambda: ops.moe_gating(x, top_k=k, capacity=cap), iters=50)
         plain_ms = timer(lambda: ref.moe_gating_ref(x, top_k=k, capacity=cap), iters=5, warmup=1)
         sync(device)
-        nbytes = x.numel() * 4 + 3 * G * N * k * 4  # logits in; idx, gate, pos out
-        # softmax (max, subtract, exp, add, divide) and k rounds of compares per logit
-        bound_ms, bound_by = bound((5 + k) * x.numel(), nbytes, torch.float32)
+        _, nbytes, _ = work = roofline.moe_gating_work(G, N, E, k)
+        bound_ms, bound_by = roofline.bound(work)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None)
         say(f"[kernels] moe_gating {name}: G={G} N={N} E={E} k={k} capacity={cap} logit scale={scale} "
@@ -1516,10 +1504,12 @@ def train_args(device, full: bool, *argv):
         ["--arch", TRAIN_ARCH, "--device", device.type, *map(str, argv), *([] if full else ["--smoke"])])
 
 
-def train_path(device, full: bool) -> dict:
+def train_path(device, full: bool, counts: list) -> dict:
     """Train nbi-100m through the launcher with the launch counters set to 0
-    just before and read just after; then the step trace, the card against
-    the CPU and resume equivalence. Returns the launches of each kernel."""
+    just before and read just after; then a step against its count and the
+    step trace (rows of :func:`hold_count` appended to ``counts``), the card
+    against the CPU and resume equivalence. Returns the launches of each
+    kernel."""
     (batch, seq, steps, warmup), _ = TRAIN_RUN[full]
     cfg = get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH)
     held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
@@ -1555,7 +1545,7 @@ def train_path(device, full: bool) -> dict:
         f"{losses[0]:.4f} -> {losses[-1]:.4f} | step ms median {med:.3f} (min {step_ms.min():.3f}, max "
         f"{step_ms.max():.3f}, steps 4 to {steps}) = {batch * seq / med * 1e3:.1f} tok/s | {memory}")
     free(device)
-    trace_train_step(device, cfg, batch, seq, med)
+    trace_train_step(device, cfg if full else dryrun.kernel_widths(cfg), batch, seq, med, counts)
     free(device)
     if full:
         train_card_matches_cpu()
@@ -1597,21 +1587,22 @@ def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
     return want
 
 
-def family_train_path(arch: str, device, full: bool) -> dict:
+def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
     """Train ``arch`` at full width and TRAIN_FAMILIES' depth through the
     launcher's pieces (the config's optimizer with cosine warmup, the train
     state drawn on the card, the train step, the data pipeline) with the
     launch counters set to 0 just before the steps and read just after; the
-    loss must fall. Then step ms, tok/s and peak memory, one more step traced
-    and, on the card, a small model's step against the CPU. Returns the
-    launches of each kernel."""
+    loss must fall. Then step ms, tok/s and peak memory, one more step
+    counted on meta and run against the count (:func:`hold_count`, its row
+    appended to ``counts``), one more step traced and, on the card, a small
+    model's step against the CPU. Returns the launches of each kernel."""
     steps, warmup = TRAIN_FAMILY_RUN[full]
     if full:
         layers, batch, seq = TRAIN_FAMILIES[arch]
         cfg = get_config(arch).replace(n_layers=layers)
     else:
         batch, seq = 4, 32
-        cfg = get_smoke_config(arch).replace(remat=get_config(arch).remat)
+        cfg = dryrun.kernel_widths(get_smoke_config(arch).replace(remat=get_config(arch).remat))
     held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -1621,7 +1612,9 @@ def family_train_path(arch: str, device, full: bool) -> dict:
     state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
     step = make_train_step(model, opt)
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
-    batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()} for _ in range(steps + 1)]
+    # contiguous: the pipeline's tokens are a view of a (rows, seq + 1) block
+    batches = [{k: torch.from_numpy(v).to(device).contiguous() for k, v in next(loader).items()}
+               for _ in range(steps + 1)]
     loader.close()
     add_frames(cfg, batches, device)
     sync(device)
@@ -1652,10 +1645,16 @@ def family_train_path(arch: str, device, full: bool) -> dict:
         f"step ms median {med:.3f} (min {step_ms.min():.3f}, max {step_ms.max():.3f}, steps 3 to {steps}; "
         f"steps 1 and 2: {first}) = {batch * seq / med * 1e3:.1f} tok/s | {memory}")
 
-    def traced():
+    def one_step(b):
         nonlocal state
-        state, metrics = step(state, batches[steps])
+        state, metrics = step(state, b)
         float(metrics["loss"])
+
+    counts.append(hold_count(f"train {cfg.name} {batch}x{seq}", model, "train", batch, seq, (state, batches[0]),
+                             lambda: one_step(batches[0]), device, expected_train_launches(cfg, batch, seq, 1), med))
+
+    def traced():
+        one_step(batches[steps])
 
     if full:  # the CPU rehearsal records no kernel (nbi-100m's trace rehearses profile_step)
         profile_step(device, traced, f"{cfg.name} {batch}x{seq}", med)
@@ -1664,6 +1663,181 @@ def family_train_path(arch: str, device, full: bool) -> dict:
     if full:
         train_card_matches_cpu(arch)
     return launches
+
+
+# The count's peak against torch.cuda.max_memory_allocated around the same
+# step: the count sees neither the allocator's rounding nor library
+# workspaces (launch/submit.py's analytic memory model came within 0.98 to
+# 1.01 of the same peaks)
+COUNT_PEAK_RANGE = (0.85, 1.15)
+# the dry-run leg's cell on a fake group of 256 ranks, and nbi-100m's
+# prefill batch held against its count
+DRYRUN_CELL = ("deepseek-moe-16b", "train_4k", "single")
+COUNT_PREFILL = {True: (8, 512), False: (2, 32)}
+PREFILL_TIMED = 5  # timed prefill calls, their median held beside the count
+
+
+def hold_count(what: str, model, kind: str, batch: int, seq: int, card_args, run, device, want: dict,
+               step_ms: float) -> dict:
+    """Count one ``kind`` step of ``model`` on meta in this process (no mesh,
+    no process group; :func:`repro_torch.analysis.opstats.count`), then
+    ``run()`` the same step once on ``card_args`` with the launch counters
+    set to 0 just before and read just after and the peak memory measured
+    around it. The count's kernel calls must equal the launches (exactly;
+    in the CPU rehearsal, which launches none, ``want``), its argument bytes
+    the storages of ``card_args`` (exactly), and its peak the measured one
+    within COUNT_PEAK_RANGE (the card only): the measured peak is what the
+    step allocated above what was allocated before it, plus the arguments.
+    Prints the roofline's terms under H100 beside ``step_ms``, the median
+    step measured without the count. Returns the row."""
+    t0 = time.perf_counter()
+    step, meta_args = dryrun.step_and_inputs(model, kind, batch, seq)
+    stats, _ = count(step, *meta_args)
+    count_s = time.perf_counter() - t0
+    args_bytes = storage_bytes(card_args)
+    cuda = device.type == "cuda"
+    sync(device)
+    held = torch.cuda.memory_allocated(device) if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counters()
+    run()
+    sync(device)
+    launches = {k: n for k, n in (read_counters() if cuda else want).items() if n}
+    peak = torch.cuda.max_memory_allocated(device) - held + args_bytes if cuda else None
+    cfg = model.cfg
+    tokens = batch * (1 if kind == "decode" else seq)
+    model_flops = (6 if kind == "train" else 2) * cfg.active_param_count() * tokens
+    unit = roofline.unit_of(cfg.dtype)
+    rep = roofline.roofline_report(
+        per_device_flops=stats.flops, per_device_hbm_bytes=stats.hbm_bytes,
+        per_device_wire_bytes=stats.collective_wire_bytes, chips=1, model_flops=model_flops, tokens=tokens,
+        flops_by_unit=stats.flops_by_unit, wire_bytes_by_link=stats.wire_bytes_by_link, unit=unit)
+    mfu = model_flops / (step_ms / 1e3 * roofline.H100.peak_flops[unit])
+    # the count's own shares of the measured step: its compute at the peaks,
+    # and its lower bound (neither can pass 1 on the card unless the count
+    # or the peaks are wrong; the record's roofline_fraction_mfu, the
+    # reference's 2·N·D over the lower bound, can: PERF.md §7)
+    compute_share = rep["compute_s"] * 1e3 / step_ms
+    bound_share = rep["step_time_lb_s"] * 1e3 / step_ms
+    ratio = stats.peak_bytes / peak if peak else None
+    say(f"[count] {what}: counted in {count_s:.2f}s | kernel calls {stats.kernel_calls} (launched {launches}) | "
+        f"argument bytes {stats.argument_bytes} (on the {device.type}: {args_bytes}) | peak "
+        f"{stats.peak_bytes / 2**20:.1f} MiB (measured "
+        f"{'not measured (cpu)' if peak is None else f'{peak / 2**20:.1f} MiB'}"
+        f"{'' if ratio is None else f', ratio {ratio:.4f}'}) | FLOPs {stats.flops:.4e} {stats.flops_by_unit} | "
+        f"HBM bytes {stats.hbm_bytes:.4e}")
+    say(f"[count] {what} under H100 peaks (published, 700 W; {nvidia_smi_line() if cuda else 'cpu rehearsal'}): "
+        f"compute "
+        f"{rep['compute_s'] * 1e3:.3f}ms, memory {rep['memory_s'] * 1e3:.3f}ms, collective "
+        f"{rep['collective_s'] * 1e3:.3f}ms, lower bound {rep['step_time_lb_s'] * 1e3:.3f}ms ({rep['bottleneck']}); "
+        f"measured median step {step_ms:.3f}ms; counted compute at the peaks / step = {compute_share:.4f}, "
+        f"lower bound / step = {bound_share:.4f}; model FLOPs {model_flops:.4e} / (step x {unit} peak) = "
+        f"{mfu:.4f}")
+    if stats.kernel_calls != launches:
+        raise AssertionError(f"{what}: counted kernel calls {stats.kernel_calls} != launches {launches}")
+    if stats.argument_bytes != args_bytes:
+        raise AssertionError(f"{what}: counted argument bytes {stats.argument_bytes} != {args_bytes} on the card")
+    if cuda and bound_share > 1:
+        raise AssertionError(f"{what}: the count's lower bound {rep['step_time_lb_s'] * 1e3:.3f}ms under H100's "
+                             f"peaks exceeds the measured step {step_ms:.3f}ms")
+    if ratio is not None and not COUNT_PEAK_RANGE[0] <= ratio <= COUNT_PEAK_RANGE[1]:
+        raise AssertionError(f"{what}: counted peak {stats.peak_bytes} is {ratio:.4f} of the measured {peak}, "
+                             f"outside {COUNT_PEAK_RANGE}")
+    return {"what": what, "count_s": count_s, "s": time.perf_counter() - t0, "peak_ratio": ratio,
+            "lower_bound_ms": rep["step_time_lb_s"] * 1e3, "step_ms": step_ms, "mfu": mfu,
+            "compute_share": compute_share, "bound_share": bound_share}
+
+
+def prefill_count_path(device, full: bool) -> dict:
+    """nbi-100m's prefill at COUNT_PREFILL's batch held against its count
+    (:func:`hold_count`): seeded weights and tokens on the device, the
+    model's prefill function as the engine calls it, its median over
+    PREFILL_TIMED calls after one to warm up."""
+    batch, seq = COUNT_PREFILL[full]
+    cfg = get_config(TRAIN_ARCH) if full else dryrun.kernel_widths(get_smoke_config(TRAIN_ARCH))
+    model = build_model(cfg)
+    g = torch.Generator(device=device).manual_seed(0)
+    params = model.init(g, device)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=g, device=device,
+                                      dtype=torch.int32)}
+    model.prefill_fn(params, inputs)  # warm up the library handles
+    ms = []
+    for _ in range(PREFILL_TIMED):
+        sync(device)
+        t0 = time.perf_counter()
+        model.prefill_fn(params, inputs)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    row = hold_count(f"prefill {cfg.name} {batch}x{seq}", model, "prefill", batch, seq, (params, inputs),
+                     lambda: model.prefill_fn(params, inputs), device, dense_launches(cfg, 1, 0),
+                     float(np.median(ms)))
+    del params
+    free(device)
+    return row
+
+
+@contextlib.contextmanager
+def dryrun_cell(full: bool):
+    """DRYRUN_CELL through ``python -m repro_torch.launch.dryrun`` in a
+    subprocess (a fake process group of 256 ranks, apart from this process's
+    groups; the CPU only), started on entry and run beside the block (one
+    that times nothing: it shares the host's cores); in the
+    CPU rehearsal the same cell's count at smoke size on a 2 x 2 mesh
+    through ``count_cell``. On a clean exit of the block it waits for the
+    cell: its status must be ``ok``, its wire bytes above zero and its K5
+    routing calls one a MoE layer a forward (twice under remat "full"). The
+    subprocess is killed if the block raises."""
+    arch, shape, mesh = DRYRUN_CELL
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    with tempfile.TemporaryDirectory() as out:
+        if full:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", out, "--force"]
+        else:
+            # the smoke config's attention chunk of 16 would loop over 4096 tokens
+            # in 256 chunks: the rehearsal's cell is 4 rows of 64
+            cmd = [sys.executable, "-c", "import json, sys; from repro_torch.configs import get_config, "
+                   "get_smoke_config; from repro_torch.launch import dryrun; "
+                   f"dryrun.SHAPES[{shape!r}] = ('train', 64, 4); "
+                   f"cfg = dryrun.kernel_widths(get_smoke_config({arch!r})"
+                   f".replace(remat=get_config({arch!r}).remat)); "
+                   f"rec = dryrun.count_cell({arch!r}, {shape!r}, cfg=cfg, spec='data=2,model=2'); "
+                   "open(sys.argv[1] + '/cell.json', 'w').write(json.dumps(rec))", out]
+        t0 = time.perf_counter()
+        with open(Path(out) / "log.txt", "w") as log:
+            proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+            try:
+                yield
+                code = proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        text = (Path(out) / "log.txt").read_text()
+        say(f"[dryrun] {' '.join(cmd[1:]) if full else 'count_cell at smoke size'}: exit {code}, waited for "
+            f"{time.perf_counter() - t0:.1f}s after its start (it ran beside the eco leg); "
+            f"{text.strip().splitlines()[-2:]}")
+        if code != 0:
+            raise AssertionError(f"dry-run of {DRYRUN_CELL} failed: {text[-2000:]}")
+        rec = json.loads(next(Path(out).glob("*__*.json" if full else "cell.json")).read_text())
+    cfg = get_config(arch) if full else get_smoke_config(arch).replace(remat=get_config(arch).remat)
+    routings = (2 if cfg.remat == "full" else 1) * (cfg.n_layers - cfg.n_dense_layers) * max(1, cfg.microbatch)
+    rl = rec.get("roofline", {})
+    say(f"[dryrun] {arch} {shape} on {rec.get('mesh')} ({rec.get('chips')} ranks of a fake group): status "
+        f"{rec.get('status')}, counted in {rec.get('count_s')}s | per device: FLOPs "
+        f"{rec.get('flops_per_device', 0):.4e}, HBM bytes {rec.get('hbm_bytes_per_device', 0):.4e}, wire bytes "
+        f"{rec.get('collective_wire_bytes_per_device', 0):.4e} {rec.get('wire_bytes_by_link')}, peak "
+        f"{rec.get('memory', {}).get('peak_bytes', 0) / 1e9:.2f} GB | kernel calls {rec.get('kernel_calls')} | "
+        f"roofline: compute {rl.get('compute_s', 0):.4f}s, memory {rl.get('memory_s', 0):.4f}s, collective "
+        f"{rl.get('collective_s', 0):.4f}s, bottleneck {rl.get('bottleneck')}, MFU at the lower bound "
+        f"{rl.get('roofline_fraction_mfu', 0):.4f}")
+    if rec.get("status") != "ok" or not rec.get("collective_wire_bytes_per_device", 0) > 0:
+        raise AssertionError(f"dry-run of {DRYRUN_CELL}: status {rec.get('status')}, wire bytes "
+                             f"{rec.get('collective_wire_bytes_per_device')}: {rec.get('error')}")
+    if rec["kernel_calls"].get("moe_gating") != routings:
+        raise AssertionError(f"dry-run of {DRYRUN_CELL}: K5 calls {rec['kernel_calls'].get('moe_gating')} != "
+                             f"{routings} routings")
 
 
 def add_patches(cfg, batches: list, device) -> None:
@@ -1693,19 +1867,29 @@ def add_frames(cfg, batches: list, device) -> None:
                                   device=device).to(getattr(torch, cfg.dtype))
 
 
-def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float) -> None:
+def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float, counts: list) -> None:
     """One nbi-100m train step (after two warm-up steps) under torch.profiler,
-    from a fresh state (the launcher's is gone): :func:`profile_step`."""
+    from a fresh state (the launcher's is gone): :func:`profile_step`; before
+    it one step held against its count on meta (:func:`hold_count`, its row
+    appended to ``counts``)."""
     model = build_model(cfg)
     opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
     state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
     step = make_train_step(model, opt)
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
-    batches = [{k: torch.from_numpy(v).to(device) for k, v in next(loader).items()} for _ in range(3)]
+    batches = [{k: torch.from_numpy(v).to(device).contiguous() for k, v in next(loader).items()} for _ in range(4)]
     loader.close()
     for b in batches[:2]:
         state, metrics = step(state, b)
     float(metrics["loss"])
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batches[3])
+        float(metrics["loss"])
+
+    counts.append(hold_count(f"train {cfg.name} {batch}x{seq}", model, "train", batch, seq, (state, batches[3]),
+                             one_step, device, expected_train_launches(cfg, batch, seq, 1), step_ms))
     profile_step(device, lambda: float(step(state, batches[2])[1]["loss"]), f"{batch}x{seq}", step_ms)
 
 
@@ -2486,15 +2670,23 @@ def main(argv=None) -> int:
         by_path[f"continuous {arch}"] = continuous_path(arch, device, full)
         say(f"[continuous] {arch} phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    by_path["train"] = train_path(device, full)
+    counts = []  # hold_count's rows: the dry-run leg's train paths
+    by_path["train"] = train_path(device, full, counts)
     say(f"[train] {TRAIN_ARCH} phase took {time.perf_counter() - t0:.1f}s")
     for arch in TRAIN_FAMILIES:
         t1 = time.perf_counter()
-        by_path[f"train {arch}"] = family_train_path(arch, device, full)
+        by_path[f"train {arch}"] = family_train_path(arch, device, full, counts)
         say(f"[train] {arch} phase took {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    counts.append(prefill_count_path(device, full))
+    say(f"[count] the dry-run leg's steps took {time.perf_counter() - t1 + sum(r['s'] for r in counts[:-1]):.1f}s "
+        f"in this process ({len(counts)} steps held against their counts, peak ratios "
+        f"{[None if r['peak_ratio'] is None else round(r['peak_ratio'], 4) for r in counts]}, lower bound / step "
+        f"{[round(r['bound_share'], 4) for r in counts]}); its dry-run cell runs beside the eco leg")
     by_path[f"train dp {TRAIN_ARCH}"] = dp_path(device, full)
     by_path.update(mesh_path(device, full))
-    eco_path(device, full)
+    with dryrun_cell(full):  # the dry-run leg's cell, counted in a subprocess beside the untimed eco leg
+        eco_path(device, full)
     say(f"[train] phase 5 took {time.perf_counter() - t0:.1f}s")
     say(f"[time] chip_smoke.py took {time.perf_counter() - t_script:.1f}s")
 

@@ -13,6 +13,11 @@ import importlib
 ARCHS = ["codeqwen15_7b", "deepseek_moe_16b", "kimi_k2_1t_a32b", "llava_next_mistral_7b", "minicpm3_4b",
          "mistral_large_123b", "nbi100m", "recurrentgemma_2b", "rwkv6_7b", "starcoder2_7b", "whisper_small"]
 
+# the assigned architectures in the reference's order (every one but the
+# framework's own example model, nbi-100m), as ``repro.configs.ASSIGNED``
+ASSIGNED = ["deepseek_moe_16b", "kimi_k2_1t_a32b", "rwkv6_7b", "codeqwen15_7b", "minicpm3_4b", "mistral_large_123b",
+            "starcoder2_7b", "recurrentgemma_2b", "whisper_small", "llava_next_mistral_7b"]
+
 _ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",

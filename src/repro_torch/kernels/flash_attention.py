@@ -157,10 +157,12 @@ def launch_count(dtype: torch.dtype, d: int, dv: int) -> str:
     return TF32_COUNTS.get((d, dv), "tf32_launches")
 
 
-def _validate(q, k, v) -> None:
+def check_inputs(q, k, v) -> None:
+    """The checks of what the kernels take that do not depend on the device
+    (the ``meta`` route of :mod:`repro_torch.kernels.ops` makes them too):
+    one device, one dtype in ``DTYPES``, 4-D contiguous tensors whose shapes
+    agree, (d, dv) in ``HEAD_DIM_PAIRS``, nothing empty."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_attention: {name} is on {t.device}, the kernel needs CUDA")
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
@@ -184,6 +186,13 @@ def _validate(q, k, v) -> None:
         raise ValueError(f"flash_attention: head dims (d, dv)=({d}, {v.shape[3]}) not in {HEAD_DIM_PAIRS}")
     if min(B, Hq, Sq, Skv) <= 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def _validate(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention: {name} is on {t.device}, the kernel needs CUDA")
+    check_inputs(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must start on 16 bytes (a TMA tensor map's base)")

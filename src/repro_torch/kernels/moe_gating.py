@@ -63,13 +63,9 @@ def launch_config(N: int, E: int, top_k: int) -> dict:
     return {"tiles": out[0], "route": dict(zip(keys, out[1:5])), "slots": dict(zip(keys, out[5:9]))}
 
 
-def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
-    """logits: (G, N, E) f32, contiguous, on CUDA, with 1 <= top_k <= E,
-    top_k <= 32, E <= 384, capacity >= 0 and N·top_k within int32. Returns
-    (idx (G, N, k) int32, gate (G, N, k) f32, pos (G, N, k) int32)."""
-    global launches, slots_launches
-    if logits.device.type != "cuda":
-        raise ValueError(f"moe_gating: logits on {logits.device}, the kernel needs a CUDA device")
+def check_inputs(logits, top_k: int, capacity: int) -> None:
+    """The checks of what the kernels take that do not depend on the device
+    (the ``meta`` route of :mod:`repro_torch.kernels.ops` makes them too)."""
     if logits.dtype != torch.float32:
         raise TypeError(f"moe_gating: logits must be float32, got {logits.dtype}")
     if not logits.is_contiguous():
@@ -80,13 +76,38 @@ def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
     _check_sizes(N, E, top_k)
     if capacity < 0:
         raise ValueError(f"moe_gating: capacity {capacity} < 0")
+    if G * -(-N // TILE) > INT_MAX:
+        raise ValueError(f"moe_gating: {G} groups of {-(-N // TILE)} tiles are more blocks than a grid holds")
+
+
+def outputs(logits, top_k: int) -> tuple:
+    """What a call allocates on the logits' device: idx, gate and pos
+    (G, N, k), and the slots kernel's per-tile histogram (None where a group
+    is one tile and the slots kernel does not run)."""
+    G, N, E = logits.shape
     tiles = -(-N // TILE)
-    if G * tiles > INT_MAX:
-        raise ValueError(f"moe_gating: {G} groups of {tiles} tiles are more blocks than a grid holds")
     idx = torch.empty((G, N, top_k), dtype=torch.int32, device=logits.device)
     gate = torch.empty((G, N, top_k), dtype=torch.float32, device=logits.device)
     pos = torch.empty((G, N, top_k), dtype=torch.int32, device=logits.device)
     hist = torch.empty((G, tiles, top_k, E), dtype=torch.int32, device=logits.device) if tiles > 1 else None
+    return idx, gate, pos, hist
+
+
+def launch_counts(N: int) -> tuple:
+    """The counts a call on groups of N tokens adds one to: ``launches``, and
+    ``slots_launches`` where a group spans more than one tile."""
+    return ("launches", "slots_launches") if N > TILE else ("launches",)
+
+
+def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
+    """logits: (G, N, E) f32, contiguous, on CUDA, with 1 <= top_k <= E,
+    top_k <= 32, E <= 384, capacity >= 0 and N·top_k within int32. Returns
+    (idx (G, N, k) int32, gate (G, N, k) f32, pos (G, N, k) int32)."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"moe_gating: logits on {logits.device}, the kernel needs a CUDA device")
+    check_inputs(logits, top_k, capacity)
+    G, N, E = logits.shape
+    idx, gate, pos, hist = outputs(logits, top_k)
     lib = _build.library()
     with torch.cuda.device(logits.device):
         err = lib.repro_moe_gating_fwd(
@@ -95,6 +116,6 @@ def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
             torch.cuda.current_stream(logits.device).cuda_stream,
         )
     _build.check(err, "moe_gating")
-    launches += 1
-    slots_launches += tiles > 1
+    for name in launch_counts(N):
+        globals()[name] += 1
     return idx, gate, pos

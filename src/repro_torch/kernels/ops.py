@@ -22,6 +22,18 @@ path under autograd, recomputed from the saved inputs:
   T % min(64, T) == 0, so ``wkv6`` refuses another T up front when a
   gradient is required.
 
+A ``meta`` tensor (a step counted without running it,
+:mod:`repro_torch.analysis.opstats`) takes the meta route: the op makes the
+wrapper's device-independent checks (it refuses what the card's wrapper
+refuses, but for the 16-byte alignment a meta tensor has not), allocates
+what the wrapper allocates (empty meta outputs of the kernel's shapes and
+dtypes, and its scratch) and reports the call to the active count: the
+launch counts the wrapper adds one to (by the wrapper's own rule, under the
+names ``chip_smoke.py`` reads) and the kernel's work
+(:mod:`repro_torch.analysis.roofline`). It runs neither the kernel nor the
+plain version. Under a gradient the backward is the same plain recompute as
+on the card, so the count sees its ops as the card runs them.
+
 No backward launches a kernel. ``moe_gating`` has no backward, as the
 reference's gating kernel has none: on a tensor off the CPU that requires grad
 it raises, and never returns a result cut from the graph (the MoE layer routes
@@ -48,6 +60,10 @@ from __future__ import annotations
 import sys
 
 import torch
+
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+from repro_torch.analysis.roofline import attention_work, lru_work, moe_gating_work, rmsnorm_work, wkv6_work
 
 from . import flash_attention as _fa
 from . import moe_gating as _gating
@@ -126,12 +142,49 @@ def _grad_of(fn, inputs, grad_out):
         return torch.autograd.grad(fn(*leaves), leaves, grad_out)
 
 
+# the launch counts' names as chip_smoke.py reads them: a module's
+# ``launches`` under its kernel's name, ``<x>_launches`` as ``<kernel>_<x>``
+_KERNEL_NAMES = {_fa: "flash_attention", _rn: "rmsnorm", _lru: "lru_scan", _wkv: "wkv6", _gating: "moe_gating"}
+
+
+def _record(module, counts: tuple, work: tuple, scratch_bytes: int = 0) -> None:
+    """Report one meta call of ``module``'s kernel to the innermost active
+    dispatch mode that takes records (:func:`repro_torch.analysis.opstats.count`'s),
+    if any: the launch counts ``counts`` that the wrapper adds one to, the
+    kernel's ``work`` (FLOPs, bytes, unit) and the HBM traffic of its
+    scratch."""
+    kernel = _KERNEL_NAMES[module]
+    names = tuple(kernel if c == "launches" else f"{kernel}_{c.removesuffix('_launches')}" for c in counts)
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "record_kernel"):
+            mode.record_kernel(names, work, scratch_bytes)
+            return
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
 
+def _attention_meta(q, k, v, causal, window):
+    """The meta route of K1: the output, and the f32 split pass's scratch
+    allocated and freed as the wrapper does (its bytes written once and read
+    once)."""
+    _fa.check_inputs(q, k, v)
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv, dv = v.shape[1], v.shape[2], v.shape[3]
+    out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
+    n_ws = _fa.workspace_floats(q.dtype, B, Hkv, Skv, d, dv)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
+    _record(_fa, (_fa.launch_count(q.dtype, d, dv),),
+            attention_work(B, Hq, Hkv, Sq, Skv, d, dv, q.dtype, causal, window), 2 * 4 * n_ws)
+    del ws
+    return out
+
+
 def _attention_fwd(q, k, v, causal, window, logit_cap):
+    if q.device.type == "meta":
+        return _attention_meta(q, k, v, causal, window)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
     return _fa.flash_attention(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
@@ -176,7 +229,24 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0, logit_cap: float
 # ---------------------------------------------------------------------------
 
 
+def _rmsnorm_meta(x, w):
+    """The meta route of K2: the output, and the weight's f32 copy where the
+    wrapper makes one."""
+    _rn.check_inputs(x, w)
+    D = x.shape[-1]
+    out = torch.empty_like(x)
+    if out.numel() == 0:  # the wrapper launches nothing
+        return out
+    wf = w.float()
+    _record(_rn, _rn.launch_counts(D, x.dtype, x.data_ptr() | out.data_ptr()),
+            rmsnorm_work(x.numel() // D, D, x.dtype))
+    del wf
+    return out
+
+
 def _rmsnorm_fwd(x, w, eps):
+    if x.device.type == "meta":
+        return _rmsnorm_meta(x, w)
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     return _rn.rmsnorm(x, w, eps)
@@ -229,6 +299,11 @@ def lru_assoc(a, b, h0):
 
 
 def _lru_fwd(a, b, h0):
+    if a.device.type == "meta":
+        _lru.check_inputs(a, b, h0)
+        h_seq, h_out = torch.empty_like(a), torch.empty_like(h0)
+        _record(_lru, ("launches",), lru_work(*a.shape, a.dtype))
+        return h_seq, h_out
     if a.device.type == "cpu":
         return ref.lru_ref(a, b, h0)
     return _lru.lru_scan(a, b, h0)
@@ -267,6 +342,12 @@ WKV_CHUNK = 64  # the chunk of the backward's recompute, the reference's default
 
 
 def _wkv6_fwd(r, k, v, w, u, s0):
+    if r.device.type == "meta":
+        _wkv.check_inputs(r, k, v, w, u, s0)
+        y, s_out, uf = torch.empty_like(r), torch.empty_like(s0), u.float()
+        _record(_wkv, ("launches",), wkv6_work(*r.shape, r.dtype))
+        del uf
+        return y, s_out
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0)
     return _wkv.wkv6(r, k, v, w, u, s0)
@@ -328,4 +409,17 @@ def moe_gating(logits, *, top_k: int, capacity: int, renormalise: bool = True):
             f"ops.moe_gating: the kernel has no backward; on {logits.device} it runs only where "
             "no gradient is required (route on detached logits, or under torch.no_grad)"
         )
+    if logits.device.type == "meta":
+        return _moe_gating_meta(logits, top_k, capacity)
     return _gating.moe_gating(logits, top_k=top_k, capacity=capacity, renormalise=renormalise)
+
+
+def _moe_gating_meta(logits, top_k: int, capacity: int):
+    """The meta route of K5: idx, gate and pos (G, N, k), and the slots
+    kernel's histogram where a group spans more than one tile."""
+    _gating.check_inputs(logits, top_k, capacity)
+    G, N, E = logits.shape
+    idx, gate, pos, hist = _gating.outputs(logits, top_k)
+    _record(_gating, _gating.launch_counts(N), moe_gating_work(G, N, E, top_k))
+    del hist
+    return idx, gate, pos

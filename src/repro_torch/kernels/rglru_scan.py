@@ -61,14 +61,12 @@ def launch_config(B: int, T: int, W: int, dtype, misalign: int = 0) -> dict:
 launches = 0
 
 
-def lru_scan(a, b, h0):
-    """h_t = a_t ⊙ h_{t-1} + b_t. a, b: (B, T, W) on one CUDA device,
-    contiguous, one dtype (f32 or bf16); h0: (B, W) f32 on the same device.
-    Any T and W. Returns (h_seq (B, T, W) in a's dtype, h_final (B, W) f32)."""
-    global launches
+def check_inputs(a, b, h0) -> None:
+    """The checks of what the kernel takes that do not depend on the device
+    (the ``meta`` route of :mod:`repro_torch.kernels.ops` makes them too)."""
     for name, t in (("a", a), ("b", b), ("h0", h0)):
-        if t.device.type != "cuda" or t.device != a.device:
-            raise ValueError(f"lru_scan: {name} is on {t.device}, the kernel needs all on one CUDA device")
+        if t.device != a.device:
+            raise ValueError(f"lru_scan: {name} is on {t.device}, a on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"lru_scan: {name} must be contiguous")
     if a.dtype not in DTYPES or b.dtype != a.dtype:
@@ -77,9 +75,20 @@ def lru_scan(a, b, h0):
         raise TypeError(f"lru_scan: h0 must be float32, got {h0.dtype}")
     if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
         raise ValueError(f"lru_scan: shapes a {tuple(a.shape)}, b {tuple(b.shape)}, h0 {tuple(h0.shape)} do not agree")
-    B, T, W = a.shape
-    if B == 0 or W == 0:
+    if a.shape[0] == 0 or a.shape[2] == 0:
         raise ValueError(f"lru_scan: empty input {tuple(a.shape)}")
+
+
+def lru_scan(a, b, h0):
+    """h_t = a_t ⊙ h_{t-1} + b_t. a, b: (B, T, W) on one CUDA device,
+    contiguous, one dtype (f32 or bf16); h0: (B, W) f32 on the same device.
+    Any T and W. Returns (h_seq (B, T, W) in a's dtype, h_final (B, W) f32)."""
+    global launches
+    for name, t in (("a", a), ("b", b), ("h0", h0)):
+        if t.device.type != "cuda":
+            raise ValueError(f"lru_scan: {name} is on {t.device}, the kernel needs all on one CUDA device")
+    check_inputs(a, b, h0)
+    B, T, W = a.shape
     h_seq = torch.empty_like(a)
     h_out = torch.empty_like(h0)
     lib = _build.library()

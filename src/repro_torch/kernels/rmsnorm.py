@@ -66,12 +66,11 @@ def launch_config(rows: int, D: int, dtype, misalign: int = 0) -> dict:
     return c
 
 
-def rmsnorm(x, weight, eps: float = 1e-6):
-    """x: (..., D) contiguous on CUDA, f32 or bf16; weight: (D,) on the same
-    device (any float dtype, read as f32). Returns x's shape and dtype."""
-    global launches, generic_launches
-    if x.device.type != "cuda" or weight.device != x.device:
-        raise ValueError(f"rmsnorm: x on {x.device}, weight on {weight.device}; the kernel needs both on one CUDA device")
+def check_inputs(x, weight) -> None:
+    """The checks of what the kernel takes that do not depend on the device
+    (the ``meta`` route of :mod:`repro_torch.kernels.ops` makes them too)."""
+    if weight.device != x.device:
+        raise ValueError(f"rmsnorm: x on {x.device}, weight on {weight.device}")
     if x.dtype not in DTYPES:
         raise TypeError(f"rmsnorm: dtype {x.dtype} not in {DTYPES}")
     if not x.is_contiguous():
@@ -79,6 +78,21 @@ def rmsnorm(x, weight, eps: float = 1e-6):
     D = x.shape[-1] if x.dim() else 0
     if weight.shape != (D,) or not 0 < D <= MAX_D:
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} and weight {tuple(weight.shape)} need D in 1..{MAX_D}")
+
+
+def launch_counts(D: int, dtype, misalign: int) -> tuple:
+    """The counts a call adds one to: ``launches``, and ``generic_launches``
+    where the call takes the generic path (:func:`takes_vector_path`)."""
+    return ("launches",) if takes_vector_path(D, dtype, misalign) else ("launches", "generic_launches")
+
+
+def rmsnorm(x, weight, eps: float = 1e-6):
+    """x: (..., D) contiguous on CUDA, f32 or bf16; weight: (D,) on the same
+    device (any float dtype, read as f32). Returns x's shape and dtype."""
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: x on {x.device}, weight on {weight.device}; the kernel needs both on one CUDA device")
+    check_inputs(x, weight)
+    D = x.shape[-1]
     rows = x.numel() // D
     out = torch.empty_like(x)
     if rows == 0:
@@ -94,7 +108,6 @@ def rmsnorm(x, weight, eps: float = 1e-6):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "rmsnorm")
-    launches += 1
-    if not takes_vector_path(D, x.dtype, x.data_ptr() | out.data_ptr()):
-        generic_launches += 1
+    for name in launch_counts(D, x.dtype, x.data_ptr() | out.data_ptr()):
+        globals()[name] += 1
     return out

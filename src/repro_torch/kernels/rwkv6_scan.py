@@ -49,19 +49,14 @@ def launch_config(d: int, dtype) -> dict:
 launches = 0
 
 
-def wkv6(r, k, v, w, u, s0):
-    """r, k, w: (B, H, T, d); v: (B, H, T, d), all contiguous, one dtype (f32
-    or bf16); u: (H, d) any float dtype (read as f32); s0: (B, H, d, d) f32;
-    all on one CUDA device, with d = dk = dv in ``HEAD_SIZES``. Any T.
-    Returns (y (B, H, T, d) in r's dtype, S_final (B, H, d, d) f32)."""
-    global launches
+def check_inputs(r, k, v, w, u, s0) -> None:
+    """The checks of what the kernel takes that do not depend on the device
+    (the ``meta`` route of :mod:`repro_torch.kernels.ops` makes them too)."""
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("s0", s0)):
-        if t.device.type != "cuda" or t.device != r.device:
-            raise ValueError(f"wkv6: {name} is on {t.device}, the kernel needs all on one CUDA device")
+        if t.device != r.device:
+            raise ValueError(f"wkv6: {name} is on {t.device}, r on {r.device}")
         if not t.is_contiguous():
             raise ValueError(f"wkv6: {name} must be contiguous")
-        if name in ("r", "k", "v", "w") and t.data_ptr() % 16:
-            raise ValueError(f"wkv6: {name} must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
     if r.dtype not in DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
         raise TypeError(f"wkv6: r, k, v, w are {r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}; "
                         f"they must share one of {DTYPES}")
@@ -77,6 +72,22 @@ def wkv6(r, k, v, w, u, s0):
         raise ValueError(f"wkv6: u {tuple(u.shape)} or s0 {tuple(s0.shape)} does not fit r {tuple(r.shape)}")
     if B == 0 or H == 0:
         raise ValueError(f"wkv6: empty input {tuple(r.shape)}")
+
+
+def wkv6(r, k, v, w, u, s0):
+    """r, k, w: (B, H, T, d); v: (B, H, T, d), all contiguous, one dtype (f32
+    or bf16); u: (H, d) any float dtype (read as f32); s0: (B, H, d, d) f32;
+    all on one CUDA device, with d = dk = dv in ``HEAD_SIZES``. Any T.
+    Returns (y (B, H, T, d) in r's dtype, S_final (B, H, d, d) f32)."""
+    global launches
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("s0", s0)):
+        if t.device.type != "cuda":
+            raise ValueError(f"wkv6: {name} is on {t.device}, the kernel needs all on one CUDA device")
+    check_inputs(r, k, v, w, u, s0)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv6: {name} must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
+    B, H, T, d = r.shape
     y = torch.empty_like(r)
     s_out = torch.empty_like(s0)
     uf = u.float().contiguous()

@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 import shlex
 
+from repro_torch.analysis.roofline import H100
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.common import tree_leaves, torch_dtype
 from repro_torch.models.registry import build_model
@@ -32,17 +33,15 @@ from .distributed import multinode_sbatch
 from .mesh import MeshShape, parse_mesh
 
 # Bytes a job's peak may reach on one GPU: the NVIDIA H100 80GB HBM3's
-# nominal 80 GB. recurrentgemma-2b's 26-layer train step ran out of memory
-# there with 74.2 GiB (79.7e9 bytes) allocated (chip_smoke.py phase 5, PERF.md).
-GPU_MEMORY_BYTES = 80e9
-GPUS_PER_HOST = 8
+# nominal 80 GB (``H100.hbm_bytes``). recurrentgemma-2b's 26-layer train step
+# ran out of memory there with 74.2 GiB (79.7e9 bytes) allocated
+# (chip_smoke.py phase 5, PERF.md).
+GPU_MEMORY_BYTES = H100.hbm_bytes
+GPUS_PER_HOST = H100.node_gpus
 # host memory: the reference's rule (48 GB an accelerator plus the paper's
 # fixed 100 GB overhead)
 HOST_RAM_PER_GPU_GB = 48
 FIXED_OVERHEAD_GB = 100
-# NVIDIA's data-sheet peaks of an H100 SXM at 700 W, dense: bf16 on the
-# tensor cores, f32 outside them (the port's f32 GEMMs run without TF32)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # Train throughput measured by chip_smoke.py phase 5 on an NVIDIA H100 80GB
 # HBM3 at 700.00 W (the lowest tok/s of each path's runs in PERF.md
 # section 5): arch, layers (None: all), tok/s. MFU = 6 * active parameters *
@@ -176,7 +175,7 @@ def train_mfu_floor() -> float:
     def mfu(arch, layers, tok_s):
         cfg = get_config(arch)
         cfg = cfg.replace(n_layers=layers) if layers else cfg
-        return 6 * cfg.active_param_count() * tok_s / PEAK_FLOPS[cfg.dtype]
+        return 6 * cfg.active_param_count() * tok_s / H100.peak_flops[cfg.dtype]
 
     return min(mfu(*run) for run in MEASURED_TRAIN)
 
@@ -255,7 +254,7 @@ def size_train(arch: str, *, global_batch: int, seq: int, steps: int, gpus: int 
     _fits(what, need, device, lambda: _remedy(cfg, global_batch, seq))
     # wall time: 6 N D at the lowest MFU the card has shown, twice, plus ten minutes
     flops = 6 * cfg.active_param_count() * steps * global_batch * seq
-    secs = flops / (max(1, sizing["gpus"]) * PEAK_FLOPS[cfg.dtype] * train_mfu_floor())
+    secs = flops / (max(1, sizing["gpus"]) * H100.peak_flops[cfg.dtype] * train_mfu_floor())
     return {**sizing, "bytes_per_gpu": need, "time_s": int(secs * 2) + 600}
 
 

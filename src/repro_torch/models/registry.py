@@ -17,7 +17,10 @@ functions on tensors:
                                         [dense takes patches= too; encdec
                                         needs frames=]
 
-plus the logical axes of the parameters and inputs (``param_logical``,
+plus the inputs of each step as ``meta`` tensors of the reference's shapes
+and dtypes (``train_inputs``, ``prefill_inputs``, ``decode_inputs``: what
+``repro_torch.launch.dryrun`` counts a step on), and the logical axes of the
+parameters and inputs (``param_logical``,
 ``train_input_logical``, ``prefill_input_logical``), which
 :mod:`repro_torch.parallel.sharding` resolves to placements on a mesh.
 
@@ -40,7 +43,7 @@ from . import rglru as rg
 from . import rwkv6 as rw
 from . import transformer as tx
 from . import whisper as wh
-from .common import init_params, map_defs, resolve_device
+from .common import init_params, map_defs, resolve_device, torch_dtype
 from .config import ArchConfig
 
 VOCAB_PAD = 512  # embeddings padded as in the reference (the padded logits are served too)
@@ -73,6 +76,36 @@ class Model:
     def param_logical(self) -> dict:
         """The logical axes of every parameter (tuples as leaves)."""
         return map_defs(lambda d: d.logical, self.param_defs)
+
+    def train_inputs(self, batch: int, seq: int) -> dict:
+        """A train batch on ``meta``: int32 tokens and labels (batch, seq);
+        Whisper's frames (batch, enc_len, d_model); with a visual prefix,
+        patches (batch, n_patches, d_model), tokens for the seq - n_patches
+        text positions and labels for all seq (the reference's shapes)."""
+        cfg = self.cfg
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if cfg.family == "encdec":
+            return {"frames": meta((batch, cfg.enc_len, cfg.d_model), torch_dtype(cfg.dtype)),
+                    "tokens": meta((batch, seq)), "labels": meta((batch, seq))}
+        if cfg.n_patches:
+            return {"patches": meta((batch, cfg.n_patches, cfg.d_model), torch_dtype(cfg.dtype)),
+                    "tokens": meta((batch, seq - cfg.n_patches)), "labels": meta((batch, seq))}
+        return {"tokens": meta((batch, seq)), "labels": meta((batch, seq))}
+
+    def prefill_inputs(self, batch: int, seq: int) -> dict:
+        out = self.train_inputs(batch, seq)
+        out.pop("labels")
+        return out
+
+    def decode_inputs(self, batch: int) -> dict:
+        """One decode step's tokens (batch, 1) int32 and position, on ``meta``:
+        ``pos`` a 0-dim int32 tensor, the scalar position the decode
+        function takes (as the reference's traced scalar)."""
+        return {"tokens": torch.empty((batch, 1), dtype=torch.int32, device="meta"),
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
     def train_input_logical(self) -> dict:
         cfg = self.cfg

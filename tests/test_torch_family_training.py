@@ -302,18 +302,27 @@ def test_wkv6_refuses_a_gradient_its_chunked_form_cannot_chunk():
 @pytest.mark.parametrize("op", ["lru_scan", "wkv6"])
 def test_differentiable_scans_reach_the_kernel_off_the_cpu(op):
     """Off the CPU (``meta`` here, CUDA on the card) ``lru_scan`` and ``wkv6``
-    take a tensor that requires grad to their kernel's wrapper, with grad and
-    without: no fallback to a plain version, and the wrapper refuses a device
-    that is not CUDA."""
+    take a tensor that requires grad to their kernel's path, with grad and
+    without: no fallback to a plain version. On ``meta`` that is the
+    kernel's meta route, which records one kernel call under a count (the
+    plain version records none) and gives the kernel's outputs; the
+    kernel's wrapper refuses a device that is not CUDA."""
+    from repro_torch.analysis.opstats import count
+    from repro_torch.kernels import rglru_scan, rwkv6_scan
+
     def args(requires_grad):
         t = lambda *s: torch.empty(s, device="meta", requires_grad=requires_grad)  # noqa: E731
         if op == "lru_scan":
             return t(1, 4, 8), t(1, 4, 8), t(1, 8)
         return t(1, 2, 4, 16), t(1, 2, 4, 16), t(1, 2, 4, 16), t(1, 2, 4, 16), t(2, 16), t(1, 2, 16, 16)
 
+    wrapper = rglru_scan.lru_scan if op == "lru_scan" else rwkv6_scan.wkv6
     for requires_grad in (True, False):
+        stats, (seq, state) = count(getattr(ops, op), *args(requires_grad))
+        assert stats.kernel_calls == {op: 1} and seq.device.type == state.device.type == "meta"
+        assert seq.requires_grad == requires_grad
         with pytest.raises(ValueError, match="CUDA"):
-            getattr(ops, op)(*args(requires_grad))
+            wrapper(*(t.detach() for t in args(requires_grad)))
 
 
 # ---------------------------------------------------------------------------

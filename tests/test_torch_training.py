@@ -187,9 +187,14 @@ def test_ops_rmsnorm_grads_match_reference(dtype_name):
 def test_forward_only_ops_raise_off_the_cpu_when_grad_is_required(op):
     """Off the CPU (``meta`` here, CUDA on the card) the gating kernel, which
     has no backward, refuses a tensor that requires grad instead of returning
-    a result cut from the graph; without grad it reaches the kernel's wrapper.
-    (``lru_scan`` and ``wkv6`` have a backward: their cases are in
-    tests/test_torch_family_training.py.)"""
+    a result cut from the graph; without grad it takes the kernel's path:
+    on ``meta`` the kernel's meta route, which records one kernel call under
+    a count (the plain version records none), and the kernel's wrapper
+    refuses a device that is not CUDA. (``lru_scan`` and ``wkv6`` have a
+    backward: their cases are in tests/test_torch_family_training.py.)"""
+    from repro_torch.analysis.opstats import count
+    from repro_torch.kernels import moe_gating as gating_kernel
+
     def args(requires_grad):
         t = lambda *s: torch.empty(s, device="meta", requires_grad=requires_grad)  # noqa: E731
         return (t(1, 8, 4),), dict(top_k=2, capacity=4)
@@ -198,12 +203,12 @@ def test_forward_only_ops_raise_off_the_cpu_when_grad_is_required(op):
     with pytest.raises(NotImplementedError, match="no backward"):
         getattr(ops, op)(*a, **kw)
     a, kw = args(False)
-    with pytest.raises(ValueError):  # the kernel's wrapper: meta is not a CUDA device
-        getattr(ops, op)(*a, **kw)
+    assert count(lambda x: getattr(ops, op)(x, **kw), *a)[0].kernel_calls == {op: 1}
+    with pytest.raises(ValueError, match="CUDA"):  # the kernel's wrapper: meta is not a CUDA device
+        gating_kernel.moe_gating(*a, **kw)
     with torch.no_grad():
         a, kw = args(True)
-        with pytest.raises(ValueError):
-            getattr(ops, op)(*a, **kw)
+        assert count(lambda x: getattr(ops, op)(x, **kw), *a)[0].kernel_calls == {op: 1}
 
 
 # ---------------------------------------------------------------------------
