@@ -70,21 +70,27 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    equivalence: 2N straight steps against N steps, a checkpoint, a fresh
    restore and N more, bitwise under ``torch.use_deterministic_algorithms``.
    Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (8 of 32),
-   recurrentgemma-2b (14 of 26) and whisper-small (all 12 + 12 layers, 8
+   recurrentgemma-2b (14 of 26), whisper-small (all 12 + 12 layers, 8
    rows of 448 tokens against 8 x 1500 seeded audio frames, which the data
-   pipeline does not make) at full width for 10 steps each through the
+   pipeline does not make), minicpm3-4b (MLA, 28 of 62 layers, 4 x 2048
+   tokens) and llava-next-mistral-7b (8 of 32 layers, 4 rows of 896 text
+   tokens behind 1152 seeded patch embeddings, which the data pipeline does
+   not make either) at full width for 10 steps each through the
    launcher's pieces (the config's optimizer with cosine warmup, the train
    state drawn on the card, the train step, the data pipeline), with the
    counts set to 0 just before and read just after: under remat "full"
    every forward kernel runs twice a step (the forward, then the backward's
    recompute of each layer), K5 (route and slots) per MoE routing, K4 per
    RWKV-6 layer, K3 per recurrent layer, K1 per attention layer (Whisper's
-   encoder, self- and cross-attentions), K2 per RMSNorm, and no backward
+   encoder, self- and cross-attentions; MLA's through the bf16 (96, 64)
+   kernel), K2 per RMSNorm (MLA's q_ln and kv_ln included), and no backward
    launches one; the loss must fall. Then each
    family's step ms, tok/s, peak memory, one step held against its count,
    one traced step and a small model's train step on the card against the
-   CPU. The dry-run leg: each train path's step (nbi-100m's before its
-   trace) and nbi-100m's prefill at 8 x 512 are counted on meta in this
+   CPU, its launches counted around the card's step and held exact (the
+   small MLA model's in f32: K1's f32 (96, 64) kernel in the forward and in
+   the recompute). The dry-run leg: each train path's step (nbi-100m's
+   before its trace) and nbi-100m's prefill at 8 x 512 are counted on meta in this
    process (``repro_torch.analysis.opstats``, no process group) and run
    once on the card: the counted kernel calls must equal the launches and
    the counted argument bytes the state's and batch's storages, exactly,
@@ -410,11 +416,12 @@ def attention_cases(full: bool):
     and (128, 64) (2 x 16 heads x 1024, causal; on no main path), and edges of
     the bf16 kernel's TMA boxes and 64-key tiles
     at full size; last, the shapes the train paths and kimi-k2's serving give
-    the bf16 kernel (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
-    d 256 under its window at 2 x 2048, kimi-k2's 64 over 8 heads at 8 x
-    1024); then whisper-small's bf16 d 64 kernel as its prefill batch of 8
-    gives it: the encoder over 1500 frames (ragged against the 128-row blocks
-    and the 64-key tiles), cross-attention from 384 prompt tokens over them,
+    the bf16 kernels (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
+    d 256 under its window at 2 x 2048, minicpm3-4b's MLA at (96, 64), 4 x
+    40 heads x 2048, kimi-k2's 64 over 8 heads at 8 x 1024); then
+    whisper-small's bf16 d 64 kernel as its prefill batch of 8 gives it:
+    the encoder over 1500 frames (ragged against the 128-row blocks and the
+    64-key tiles), cross-attention from 384 prompt tokens over them,
     and the decoder's causal self-attention over the 384."""
     f32, bf16 = torch.float32, torch.bfloat16
     if not full:
@@ -456,6 +463,7 @@ def attention_cases(full: bool):
             ("mqa_d256_window_bf16", 1, 4, 1, 23, 23, 16, 16, bf16, True, 8, 0.0),
             ("deepseek_train", 2, 4, 4, 32, 32, 16, 16, bf16, True, 0, 0.0),
             ("griffin_train", 2, 4, 1, 16, 16, 16, 16, bf16, True, 8, 0.0),
+            ("mla_train", 2, 4, 4, 32, 32, 24, 16, bf16, True, 0, 0.0),
             ("kimi_prefill", 2, 8, 2, 32, 32, 16, 16, bf16, True, 0, 0.0),
             ("whisper_encoder", 2, 4, 4, 24, 24, 16, 16, bf16, False, 0, 0.0),
             ("whisper_cross", 2, 4, 4, 12, 24, 16, 16, bf16, False, 0, 0.0),
@@ -499,6 +507,7 @@ def attention_cases(full: bool):
         ("mqa_d256_window_bf16", 2, 10, 1, 2300, 2300, 256, 256, bf16, True, 2048, 0.0),
         ("deepseek_train", 4, 16, 16, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("griffin_train", 2, 10, 1, 2048, 2048, 256, 256, bf16, True, 2048, 0.0),
+        ("mla_train", 4, 40, 40, 2048, 2048, 96, 64, bf16, True, 0, 0.0),
         ("kimi_prefill", 8, 64, 8, 1024, 1024, 128, 128, bf16, True, 0, 0.0),
         ("whisper_encoder", 8, 12, 12, 1500, 1500, 64, 64, bf16, False, 0, 0.0),
         ("whisper_cross", 8, 12, 12, 384, 1500, 64, 64, bf16, False, 0, 0.0),
@@ -1481,9 +1490,13 @@ TRAIN_SMALL_LR = 1e-3
 # multiple of 64 (the gradient's chunked form); MoE's 4 x 2048 tokens are 8
 # groups of 1024. whisper-small trains at its full depth (12 + 12 layers) on
 # 8 rows of 448 tokens, its published decoder context, each against 1500
-# seeded audio frames
+# seeded audio frames. minicpm3-4b (MLA) and llava-next-mistral-7b take the
+# most layers that launch/submit.py's train_memory_model puts at 61 GiB or
+# less (28 of 62: 60.7 GiB; 8 of 32: 57.6 GiB), so that what the earlier
+# paths leave in the allocator still fits; llava's rows are 896 text tokens
+# behind its 1152 seeded patch embeddings, 2048 positions a row
 TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (8, 4, 2048), "recurrentgemma-2b": (14, 2, 2048),
-                  "whisper-small": (12, 8, 448)}
+                  "whisper-small": (12, 8, 448), "minicpm3-4b": (28, 4, 2048), LLAVA_ARCH: (8, 4, 896)}
 # steps and warmup of each family's run (one more step is traced), at full
 # size and in the CPU rehearsal (smoke configs at 4 x 32 under their full
 # configs' remat)
@@ -1496,6 +1509,10 @@ TRAIN_SMALL_MODELS = {
     "rwkv6-7b": ({**SMALL_MODELS["rwkv6-7b"][0], "remat": "full"}, (2, 128)),
     "recurrentgemma-2b": ({**SMALL_MODELS["recurrentgemma-2b"][0], "remat": "full"}, (2, 64)),
     "whisper-small": ({**SMALL_MODELS["whisper-small"][0], "remat": "full"}, (4, 64)),
+    # f32 MLA at (96, 64): K1's f32 (96, 64) kernel in the forward and the recompute
+    "minicpm3-4b": ({**SMALL_MODELS["minicpm3-4b"][0], "remat": "full"}, (4, 64)),
+    # 64 text tokens a row behind the smoke config's 8 seeded patches
+    LLAVA_ARCH: ({**SMALL_MODELS[LLAVA_ARCH][0], "remat": "full"}, (4, 64)),
 }
 
 
@@ -1595,7 +1612,10 @@ def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
     loss must fall. Then step ms, tok/s and peak memory, one more step
     counted on meta and run against the count (:func:`hold_count`, its row
     appended to ``counts``), one more step traced and, on the card, a small
-    model's step against the CPU. Returns the launches of each kernel."""
+    model's step against the CPU. A visual-prefix model's rows are ``seq``
+    text tokens behind its seeded patches: the count's step takes
+    ``seq + n_patches`` positions (``Model.train_inputs``). Returns the
+    launches of each kernel."""
     steps, warmup = TRAIN_FAMILY_RUN[full]
     if full:
         layers, batch, seq = TRAIN_FAMILIES[arch]
@@ -1617,9 +1637,12 @@ def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
                for _ in range(steps + 1)]
     loader.close()
     add_frames(cfg, batches, device)
+    add_patches(cfg, batches, device)
+    positions = seq + cfg.n_patches
     sync(device)
+    rows = f"{batch} x ({cfg.n_patches} patches + {seq} text tokens)" if cfg.n_patches else f"{batch} x {seq} tokens"
     say(f"[train] {shape_line(cfg, model.cfg.vocab_size)} | remat={cfg.remat} {cfg.optimizer}, cosine warmup "
-        f"{warmup} | {steps} steps of {batch} x {seq} tokens | state built in {time.perf_counter() - t0:.2f}s")
+        f"{warmup} | {steps} steps of {rows} | state built in {time.perf_counter() - t0:.2f}s")
     zero_counters()
     losses, aux, stamps = [], [], [time.perf_counter()]
     for b in batches[:steps]:
@@ -1641,23 +1664,26 @@ def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
         memory = "max_memory_allocated not measured (cpu)"
     aux_line = f" | aux_loss {aux[0]:.4f} -> {aux[-1]:.4f}" if cfg.family == "moe" else ""
     first = ", ".join(f"{x:.1f}" for x in np.diff(stamps[:3]) * 1e3)
+    rate = (f"{batch * seq / med * 1e3:.1f} text tok/s, {batch * positions / med * 1e3:.1f} positions/s"
+            if cfg.n_patches else f"{batch * seq / med * 1e3:.1f} tok/s")
     say(f"[train] {cfg.name} on {device_name(device)}: losses {[round(x, 4) for x in losses]}{aux_line} | "
         f"step ms median {med:.3f} (min {step_ms.min():.3f}, max {step_ms.max():.3f}, steps 3 to {steps}; "
-        f"steps 1 and 2: {first}) = {batch * seq / med * 1e3:.1f} tok/s | {memory}")
+        f"steps 1 and 2: {first}) = {rate} | {memory}")
 
     def one_step(b):
         nonlocal state
         state, metrics = step(state, b)
         float(metrics["loss"])
 
-    counts.append(hold_count(f"train {cfg.name} {batch}x{seq}", model, "train", batch, seq, (state, batches[0]),
-                             lambda: one_step(batches[0]), device, expected_train_launches(cfg, batch, seq, 1), med))
+    counts.append(hold_count(f"train {cfg.name} {batch}x{positions}", model, "train", batch, positions,
+                             (state, batches[0]), lambda: one_step(batches[0]), device,
+                             expected_train_launches(cfg, batch, seq, 1), med))
 
     def traced():
         one_step(batches[steps])
 
     if full:  # the CPU rehearsal records no kernel (nbi-100m's trace rehearses profile_step)
-        profile_step(device, traced, f"{cfg.name} {batch}x{seq}", med)
+        profile_step(device, traced, f"{cfg.name} {batch}x{positions}", med)
     del state, batches, step
     free(device)
     if full:
@@ -1929,7 +1955,10 @@ def profile_step(device, run_step, what: str, step_ms: float) -> None:
 
 def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
     """One AdamW step of ``arch``'s small model (:data:`TRAIN_SMALL_MODELS`)
-    from the same host-drawn weights and batch on the card and on the CPU.
+    from the same host-drawn weights and batch on the card and on the CPU
+    (a visual-prefix model's batch with seeded patches, :func:`add_patches`).
+    The card's launches, the counters set to 0 just before its step and read
+    just after, must equal :func:`expected_train_launches` of one step.
 
     Tolerances. Loss rtol 1e-5 and grad_norm rtol 1e-4: K1's 3xTF32 products
     keep about 22 bits (atol 2e-5 on attention outputs) and the f32 GEMMs
@@ -1951,11 +1980,17 @@ def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
     host_batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
     loader.close()
     add_frames(cfg, [host_batch], torch.device("cpu"))
+    add_patches(cfg, [host_batch], torch.device("cpu"))
     outs = {}
     for name in ("cuda", "cpu"):
         params = map_defs(lambda t: t.to(name), host_params)
         state = {"params": params, "opt": opt.init(params), "step": torch.zeros((), dtype=torch.int32, device=name)}
+        zero_counters()
         new_state, metrics = make_train_step(model, opt)(state, {k: v.to(name) for k, v in host_batch.items()})
+        if name == "cuda":
+            sync(torch.device(name))
+            check_launches(f"small {arch} train step", read_counters(),
+                           expected_train_launches(cfg, batch, seq, 1), torch.device(name))
         outs[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                       {p: t.cpu() for p, t in tree_leaves(new_state["params"])},
                       {p: t.cpu() / 0.1 for p, t in tree_leaves(new_state["opt"]["m"])})
@@ -1967,8 +2002,9 @@ def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
     p_excess = max(float(((p_c[k] - p_h[k]).abs()
                           - TRAIN_SMALL_LR * (adam_step(g_c[k]) - adam_step(g_h[k])).abs()).max()) for k in p_h)
     p_err = max(float((p_c[k] - p_h[k]).abs().max()) for k in p_h)
+    patches = f" behind {cfg.n_patches} seeded patches" if cfg.n_patches else ""
     say(f"[train] small {cfg.family} model ({arch} smoke, {overrides}, remat {cfg.remat}, {batch} x {seq} "
-        f"tokens), one AdamW step, card against CPU: "
+        f"tokens{patches}), one AdamW step, card against CPU: "
         f"loss {loss_c:.7f} / {loss_h:.7f}, grad_norm {gn_c:.7f} / {gn_h:.7f}, clipped grads max err "
         f"{g_err:.3e} of each leaf's largest (tolerance 1e-4), params max abs err {p_err:.3e}, past the "
         f"Adam bound by at most {p_excess:.3e} (tolerance 1e-6)")

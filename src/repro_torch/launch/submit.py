@@ -44,11 +44,14 @@ HOST_RAM_PER_GPU_GB = 48
 FIXED_OVERHEAD_GB = 100
 # Train throughput measured by chip_smoke.py phase 5 on an NVIDIA H100 80GB
 # HBM3 at 700.00 W (the lowest tok/s of each path's runs in PERF.md
-# section 5): arch, layers (None: all), tok/s. MFU = 6 * active parameters *
-# tok/s / the config dtype's peak: nbi-100m 30.0%, deepseek-moe-16b 9.1%,
-# recurrentgemma-2b 8.8%, rwkv6-7b 4.2%.
+# section 5): arch, layers (None: all), tok/s (llava-next-mistral-7b's
+# positions, 1152 patches and 896 text tokens a row: its step's FLOPs
+# follow the positions). MFU = 6 * active parameters * tok/s / the config
+# dtype's peak: nbi-100m 30.0%, deepseek-moe-16b 9.1%, recurrentgemma-2b
+# 8.8%, rwkv6-7b 4.2%, minicpm3-4b 5.5%, llava-next-mistral-7b 13.6%.
 MEASURED_TRAIN = [("nbi-100m", None, 30401.0), ("deepseek-moe-16b", 4, 19633.8),
-                  ("rwkv6-7b", 8, 2989.1), ("recurrentgemma-2b", 14, 8337.9)]
+                  ("rwkv6-7b", 8, 2989.1), ("recurrentgemma-2b", 14, 8337.9),
+                  ("minicpm3-4b", 28, 4232.3), ("llava-next-mistral-7b", 8, 11191.1)]
 
 # AdamW's peak, per parameter: old and new weights, two f32 gradient trees
 # (the cast and the clipped one) and old and new moments (PERF.md section 6:
@@ -58,7 +61,9 @@ _STATE_BYTES = {"adamw": 8, "adamw8bit": 2, "lion": 4}
 # Calibrated on chip_smoke.py phase 5's peaks (NVIDIA H100 80GB HBM3, 700.00 W,
 # PERF.md section 5: nbi-100m 8 x 512 7242.3 MiB, deepseek-moe-16b 4 layers
 # 4 x 2048 68238.4, rwkv6-7b 8 layers 65978.2, recurrentgemma-2b 14 layers
-# 2 x 2048 53743.5; the model gives 0.98 to 1.01 of each): the update's f32
+# 2 x 2048 53743.5, minicpm3-4b 28 layers 4 x 2048 62538.6,
+# llava-next-mistral-7b 8 layers 4 x 2048 positions 60006.4; the model
+# gives 0.98 to 1.01 of each): the update's f32
 # temporaries of the largest leaf, f32 logits copies a token (logits, their
 # softmax terms and gradient), and the f32 activations a layer keeps a token
 # in units of (D, d_ff) under remat "none", or that one layer's recompute

@@ -261,19 +261,9 @@ def test_full_configs_build_with_the_reference_param_count(arch):
         assert set(model.param_defs["blocks"]["attn"]) == {"wdq", "q_ln", "wuq", "wdkv", "kv_ln", "wukv", "wkr", "wo"}
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "llava-next-mistral-7b"])
-def test_chip_smoke_counts_the_mesh_legs_train_launches(arch, monkeypatch):
-    """``chip_smoke.py``'s exact train counts for the mesh leg's MLA and
-    visual-prefix models (remat ``full``: every forward kernel twice a step;
-    MLA's 4 norms a layer, q_ln and kv_ln included) equal the calls a train
-    step on the CPU makes to the kernels' forwards (at the CPU rehearsal's
-    smoke size; the counts depend on the layers, not the widths)."""
+def import_chip_smoke():
     import sys
     from pathlib import Path
-
-    from repro_torch.kernels import ops
-    from repro_torch.optim import make_optimizer
-    from repro_torch.training import init_train_state, make_train_step
 
     root = str(Path(__file__).resolve().parent.parent)
     sys.path.insert(0, root)
@@ -281,8 +271,18 @@ def test_chip_smoke_counts_the_mesh_legs_train_launches(arch, monkeypatch):
         import chip_smoke
     finally:
         sys.path.remove(root)
-    cfg = chip_smoke.wide_config(arch, False, False).replace(dtype="float32")
-    batch, seq = 2, 16
+    return chip_smoke
+
+
+def count_train_calls(chip_smoke, cfg, batch, seq, monkeypatch, steps=2) -> dict:
+    """Calls a ``steps``-step train run of ``cfg`` on the CPU makes to the
+    attention and RMSNorm kernels' forwards (``ops._attention_fwd``,
+    ``ops._rmsnorm_fwd``), ``batch`` rows of ``seq`` tokens (behind seeded
+    patches for a visual-prefix config, :func:`chip_smoke.add_patches`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training import init_train_state, make_train_step
+
     calls = {"attention": 0, "rmsnorm": 0}
     for name, fn in (("attention", ops._attention_fwd), ("rmsnorm", ops._rmsnorm_fwd)):
         monkeypatch.setattr(ops, f"_{name}_fwd", lambda *a, _n=name, _f=fn: (calls.__setitem__(_n, calls[_n] + 1),
@@ -295,8 +295,60 @@ def test_chip_smoke_counts_the_mesh_legs_train_launches(arch, monkeypatch):
     chip_smoke.add_patches(cfg, data, torch.device("cpu"))
     state = init_train_state(model, opt, torch.Generator().manual_seed(0), "cpu")
     step = make_train_step(model, opt)
-    for _ in range(2):
+    for _ in range(steps):
         state, _ = step(state, data[0])
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "llava-next-mistral-7b"])
+def test_chip_smoke_counts_the_mesh_legs_train_launches(arch, monkeypatch):
+    """``chip_smoke.py``'s exact train counts for the mesh leg's MLA and
+    visual-prefix models (remat ``full``: every forward kernel twice a step;
+    MLA's 4 norms a layer, q_ln and kv_ln included) equal the calls a train
+    step on the CPU makes to the kernels' forwards (at the CPU rehearsal's
+    smoke size; the counts depend on the layers, not the widths)."""
+    chip_smoke = import_chip_smoke()
+    cfg = chip_smoke.wide_config(arch, False, False).replace(dtype="float32")
+    batch, seq = 2, 16
+    calls = count_train_calls(chip_smoke, cfg, batch, seq, monkeypatch)
     want = chip_smoke.expected_train_launches(cfg, batch, seq, steps=2)
     assert cfg.remat == "full" and want.pop(chip_smoke.attention_counter(cfg)) == calls["attention"] > 0
     assert want.pop("rmsnorm") == calls["rmsnorm"] and not any(want.values())
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "llava-next-mistral-7b"])
+def test_chip_smoke_counts_the_family_train_launches(arch, monkeypatch):
+    """Phase 5's exact counts for the MLA and visual-prefix train paths at
+    ``TRAIN_FAMILIES``' depths (remat ``full``): K1 2L a step through the
+    full config's kernel (bf16 (96, 64) for MLA, bf16 d 128 for llava), K2
+    (8L + 1) and (4L + 1), nothing else; equal to the calls a train step on
+    the CPU makes at that depth (smoke widths: the counts depend on the
+    layers, not the widths). Then the small models of the card-against-CPU
+    step (``TRAIN_SMALL_MODELS``), counted on ``meta`` as the card's
+    ``hold_count`` counts them: the f32 MLA one through K1's f32 (96, 64)
+    kernel, forward and recompute, the llava one with its patches."""
+    from repro_torch.analysis.opstats import count
+    from repro_torch.launch import dryrun
+
+    chip_smoke = import_chip_smoke()
+    layers, _, _ = chip_smoke.TRAIN_FAMILIES[arch]
+    full = get_config(arch).replace(n_layers=layers)
+    kernel = "flash_attention_bf16_mla" if arch == "minicpm3-4b" else "flash_attention_bf16"
+    norms = 8 if arch == "minicpm3-4b" else 4
+    want = dict.fromkeys(chip_smoke.COUNTERS, 0)
+    want.update({kernel: 2 * layers, "rmsnorm": norms * layers + 1})
+    assert full.remat == "full" and chip_smoke.attention_counter(full) == kernel
+    assert chip_smoke.expected_train_launches(full, 4, 2048, 1) == want
+    cfg = get_smoke_config(arch).replace(n_layers=layers, remat=full.remat)
+    calls = count_train_calls(chip_smoke, cfg, 2, 16, monkeypatch, steps=1)
+    assert calls == {"attention": 2 * layers, "rmsnorm": norms * layers + 1}
+
+    overrides, (batch, seq) = chip_smoke.TRAIN_SMALL_MODELS[arch]
+    small = get_smoke_config(arch).replace(**overrides)
+    step, args = dryrun.step_and_inputs(build_model(small), "train", batch, seq + small.n_patches)
+    stats, _ = count(step, *args)
+    small_want = {k: n for k, n in chip_smoke.expected_train_launches(small, batch, seq, 1).items() if n}
+    assert stats.kernel_calls == small_want
+    if arch == "minicpm3-4b":
+        assert small.dtype == "float32" and chip_smoke.attention_counter(small) == "flash_attention_tf32_mla"
+        assert stats.kernel_calls["flash_attention_tf32_mla"] == 2 * small.n_layers > 0

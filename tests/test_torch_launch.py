@@ -48,9 +48,11 @@ def launchers(monkeypatch):
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py phase 5's peaks, NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
-# section 5): arch, layers (None: all), batch, sequence, MiB
+# section 5): arch, layers (None: all), batch, sequence (llava's positions:
+# 1152 patches and 896 text tokens), MiB
 CALIBRATION = [("nbi-100m", None, 8, 512, 7242.3), ("deepseek-moe-16b", 4, 4, 2048, 68238.4),
-               ("rwkv6-7b", 8, 4, 2048, 65978.2), ("recurrentgemma-2b", 14, 2, 2048, 53743.5)]
+               ("rwkv6-7b", 8, 4, 2048, 65978.2), ("recurrentgemma-2b", 14, 2, 2048, 53743.5),
+               ("minicpm3-4b", 28, 4, 2048, 62538.6), ("llava-next-mistral-7b", 8, 4, 2048, 60006.4)]
 
 
 @pytest.mark.parametrize("arch,layers,batch,seq,mib", CALIBRATION)
