@@ -69,19 +69,22 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    train step of a small model on the card against the CPU, and resume
    equivalence: 2N straight steps against N steps, a checkpoint, a fresh
    restore and N more, bitwise under ``torch.use_deterministic_algorithms``.
-   Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (8 of 32),
+   Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (4 of 32),
    recurrentgemma-2b (14 of 26), whisper-small (all 12 + 12 layers, 8
    rows of 448 tokens against 8 x 1500 seeded audio frames, which the data
-   pipeline does not make), minicpm3-4b (MLA, 28 of 62 layers, 4 x 2048
-   tokens) and llava-next-mistral-7b (8 of 32 layers, 4 rows of 896 text
+   pipeline does not make), minicpm3-4b (MLA, 16 of 62 layers, 4 x 2048
+   tokens), llava-next-mistral-7b (8 of 32 layers, 4 rows of 896 text
    tokens behind 1152 seeded patch embeddings, which the data pipeline does
-   not make either) at full width for 10 steps each through the
-   launcher's pieces (the config's optimizer with cosine warmup, the train
-   state drawn on the card, the train step, the data pipeline), with the
-   counts set to 0 just before and read just after: under remat "full"
-   every forward kernel runs twice a step (the forward, then the backward's
-   recompute of each layer), K5 (route and slots) per MoE routing, K4 per
-   RWKV-6 layer, K3 per recurrent layer, K1 per attention layer (Whisper's
+   not make either), an MoE model with MLA attention (deepseek-moe-16b's
+   widths with minicpm3-4b's MLA ranks, 4 of 28 layers), starcoder2-7b (5
+   of 32), codeqwen1.5-7b (6 of 32) and mistral-large-123b (1 of 88, 8 rows
+   as 8 microbatches under remat "selective") at full width for 10 steps
+   each through the launcher's pieces (the config's optimizer with cosine
+   warmup, the train state drawn on the card, the train step, the data
+   pipeline), with the counts set to 0 just before and read just after:
+   under remat "full" and "selective" every forward kernel runs twice a
+   step (the forward, then the backward's recompute of each layer), once a
+   microbatch, K5 (route and slots) per MoE routing, K4 per RWKV-6 layer, K3 per recurrent layer, K1 per attention layer (Whisper's
    encoder, self- and cross-attentions; MLA's through the bf16 (96, 64)
    kernel), K2 per RMSNorm (MLA's q_ln and kv_ln included), and no backward
    launches one; the loss must fall. Then each
@@ -418,7 +421,10 @@ def attention_cases(full: bool):
     at full size; last, the shapes the train paths and kimi-k2's serving give
     the bf16 kernels (deepseek-moe-16b's 4 x 2048, recurrentgemma-2b's MQA
     d 256 under its window at 2 x 2048, minicpm3-4b's MLA at (96, 64), 4 x
-    40 heads x 2048, kimi-k2's 64 over 8 heads at 8 x 1024); then
+    40 heads x 2048, d 128 at starcoder2-7b's 36 heads over 4 and
+    codeqwen1.5-7b's 32 over 32 at 4 x 2048, mistral-large-123b's 96 over 8
+    at a microbatch of 1 x 2048 and llava-next-mistral-7b's 32 over 8 at 4 x
+    2048 positions, kimi-k2's 64 over 8 heads at 8 x 1024); then
     whisper-small's bf16 d 64 kernel as its prefill batch of 8 gives it:
     the encoder over 1500 frames (ragged against the 128-row blocks and the
     64-key tiles), cross-attention from 384 prompt tokens over them,
@@ -464,6 +470,10 @@ def attention_cases(full: bool):
             ("deepseek_train", 2, 4, 4, 32, 32, 16, 16, bf16, True, 0, 0.0),
             ("griffin_train", 2, 4, 1, 16, 16, 16, 16, bf16, True, 8, 0.0),
             ("mla_train", 2, 4, 4, 32, 32, 24, 16, bf16, True, 0, 0.0),
+            ("starcoder_train", 2, 9, 1, 32, 32, 16, 16, bf16, True, 0, 0.0),
+            ("codeqwen_train", 2, 4, 4, 32, 32, 16, 16, bf16, True, 0, 0.0),
+            ("mistral_train", 1, 12, 1, 32, 32, 16, 16, bf16, True, 0, 0.0),
+            ("llava_train", 2, 8, 2, 32, 32, 16, 16, bf16, True, 0, 0.0),
             ("kimi_prefill", 2, 8, 2, 32, 32, 16, 16, bf16, True, 0, 0.0),
             ("whisper_encoder", 2, 4, 4, 24, 24, 16, 16, bf16, False, 0, 0.0),
             ("whisper_cross", 2, 4, 4, 12, 24, 16, 16, bf16, False, 0, 0.0),
@@ -508,6 +518,10 @@ def attention_cases(full: bool):
         ("deepseek_train", 4, 16, 16, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("griffin_train", 2, 10, 1, 2048, 2048, 256, 256, bf16, True, 2048, 0.0),
         ("mla_train", 4, 40, 40, 2048, 2048, 96, 64, bf16, True, 0, 0.0),
+        ("starcoder_train", 4, 36, 4, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
+        ("codeqwen_train", 4, 32, 32, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
+        ("mistral_train", 1, 96, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
+        ("llava_train", 4, 32, 8, 2048, 2048, 128, 128, bf16, True, 0, 0.0),
         ("kimi_prefill", 8, 64, 8, 1024, 1024, 128, 128, bf16, True, 0, 0.0),
         ("whisper_encoder", 8, 12, 12, 1500, 1500, 64, 64, bf16, False, 0, 0.0),
         ("whisper_cross", 8, 12, 12, 384, 1500, 64, 64, bf16, False, 0, 0.0),
@@ -1481,26 +1495,59 @@ TRAIN_ARCH = "nbi-100m"
 # the small model of the card-against-CPU train step: SMALL_MODELS' nbi-100m
 # (head dim 64, so that K1 runs), one AdamW step at a constant lr
 TRAIN_SMALL_LR = 1e-3
-# the other families trained at full width: arch: (layers, global batch,
+# a train path with no config of its own: name: (arch, overrides at full size,
+# overrides in the CPU rehearsal). MoE with MLA attention (the reference has
+# no such config): deepseek-moe-16b's published widths with MLA at
+# minicpm3-4b's published ranks, the only MLA widths of the repo's configs
+# (K1's bf16 (96, 64) kernel); in the rehearsal the MLA smoke ranks
+MOE_MLA = "deepseek-moe-16b-mla"
+TRAIN_VARIANTS = {MOE_MLA: ("deepseek-moe-16b",
+                            dict(name=MOE_MLA, attention="mla", q_lora_rank=768, kv_lora_rank=256, qk_nope_dim=64,
+                                 qk_rope_dim=32, v_head_dim=64),
+                            dict(name=f"{MOE_MLA}-smoke", attention="mla", q_lora_rank=24, kv_lora_rank=16,
+                                 qk_nope_dim=8, qk_rope_dim=8, v_head_dim=8))}
+# the other families trained at full width: path: (layers, global batch,
 # sequence); depth cut so that weights, gradients and AdamW state fit one card
 # (deepseek-moe-16b: its leading dense layer and 3 MoE layers of 28; rwkv6-7b
-# 8 of 32; recurrentgemma-2b 14 of 26, 4 super-layers and 2 tail pairs: all 26
+# 4 of 32; recurrentgemma-2b 14 of 26, 4 super-layers and 2 tail pairs: all 26
 # ran out of an H100 80GB's memory at 74.2 GiB, the AdamW update holding old and
 # new weights and moments and two f32 gradient trees). RWKV-6's sequence is a
 # multiple of 64 (the gradient's chunked form); MoE's 4 x 2048 tokens are 8
 # groups of 1024. whisper-small trains at its full depth (12 + 12 layers) on
 # 8 rows of 448 tokens, its published decoder context, each against 1500
-# seeded audio frames. minicpm3-4b (MLA) and llava-next-mistral-7b take the
-# most layers that launch/submit.py's train_memory_model puts at 61 GiB or
-# less (28 of 62: 60.7 GiB; 8 of 32: 57.6 GiB), so that what the earlier
-# paths leave in the allocator still fits; llava's rows are 896 text tokens
-# behind its 1152 seeded patch embeddings, 2048 positions a row
-TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (8, 4, 2048), "recurrentgemma-2b": (14, 2, 2048),
-                  "whisper-small": (12, 8, 448), "minicpm3-4b": (28, 4, 2048), LLAVA_ARCH: (8, 4, 896)}
+# seeded audio frames. llava-next-mistral-7b, starcoder2-7b, codeqwen1.5-7b
+# and mistral-large-123b take the most layers that launch/submit.py's
+# train_memory_model puts at 61 GiB or less (8 of 32: 57.6 GiB; 5 of 32:
+# 55.9; 6 of 32: 60.4), as minicpm3-4b (MLA) did (28 of 62: 60.7), so that
+# what the earlier paths leave in the allocator still fits; mistral-large-123b's one
+# layer (of 88) reads 61.6 GiB, most of it AdamW's state of its 805 M
+# embedding and unembedding parameters, and its 8 rows run as its config's 8
+# microbatches of one row under remat "selective"; llava's rows are 896 text
+# tokens behind its 1152 seeded patch embeddings, 2048 positions a row. MoE
+# with MLA (MOE_MLA) trains at deepseek-moe-16b's depth and batch (64.2 GiB
+# by the model, under the GQA path's 65.3). The whole script took 591 s with
+# these four paths on an H100 host where nbi-100m's step takes 128 ms; to
+# keep it near 530 s three cuts were made, in this order: rwkv6-7b's 8
+# layers to 4, the mesh leg's timed steps (MESH_TIMED_STEPS), minicpm3-4b's
+# 28 layers to 16
+TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (4, 4, 2048), "recurrentgemma-2b": (14, 2, 2048),
+                  "whisper-small": (12, 8, 448), "minicpm3-4b": (16, 4, 2048), LLAVA_ARCH: (8, 4, 896),
+                  MOE_MLA: (4, 4, 2048), "starcoder2-7b": (5, 4, 2048),
+                  "codeqwen1.5-7b": (6, 4, 2048), "mistral-large-123b": (1, 8, 2048)}
 # steps and warmup of each family's run (one more step is traced), at full
 # size and in the CPU rehearsal (smoke configs at 4 x 32 under their full
 # configs' remat)
 TRAIN_FAMILY_RUN = {True: (10, 3), False: (3, 1)}
+# peak learning rate of each family's run (cosine warmup), and of the paths
+# named here at full width: the widest dense configs (D 4096 to 12288, bf16
+# weights) under a 3-step warmup jump to a loss above their first after two
+# or three steps at 3e-4 and did not come back below it in 10
+# (starcoder2-7b 11.30 -> 11.72, codeqwen1.5-7b 11.99 -> 13.01,
+# mistral-large-123b 11.03 -> 22.52 on an H100; PERF.md), as Adam's first
+# steps move every entry by about the lr; minicpm3-4b jumps too, and at 16
+# layers ended above its first (11.54 -> 11.99)
+TRAIN_FAMILY_LR = 3e-4
+TRAIN_LR = {"starcoder2-7b": 5e-5, "codeqwen1.5-7b": 5e-5, "mistral-large-123b": 5e-5, "minicpm3-4b": 5e-5}
 # arch: (overrides of the smoke config, (batch, sequence)) of the card-against-
 # CPU train step: the kernels' real head widths, the families' remat "full"
 TRAIN_SMALL_MODELS = {
@@ -1513,7 +1560,35 @@ TRAIN_SMALL_MODELS = {
     "minicpm3-4b": ({**SMALL_MODELS["minicpm3-4b"][0], "remat": "full"}, (4, 64)),
     # 64 text tokens a row behind the smoke config's 8 seeded patches
     LLAVA_ARCH: ({**SMALL_MODELS[LLAVA_ARCH][0], "remat": "full"}, (4, 64)),
+    # SMALL_MODELS' deepseek-moe-16b routing (64 experts, top-6, groups of 32)
+    # with f32 MLA at (96, 64): K1's f32 (96, 64) kernel, K2 (the latents'
+    # norms too) and K5
+    MOE_MLA: ({**SMALL_MODELS["deepseek-moe-16b"][0], "attention": "mla", "q_lora_rank": 64, "kv_lora_rank": 32,
+               "qk_nope_dim": 64, "qk_rope_dim": 32, "v_head_dim": 64, "remat": "full"}, (4, 64)),
+    # GQA at G 3 and G 1, head dim 64
+    "starcoder2-7b": ({**SMALL_MODELS["starcoder2-7b"][0], "remat": "full"}, (4, 64)),
+    "codeqwen1.5-7b": (dict(d_model=128, n_heads=2, n_kv_heads=2, head_dim=64, d_ff=256, remat="full"), (4, 64)),
+    # the full config's remat "selective" over 2 microbatches of 2 rows
+    "mistral-large-123b": ({**SMALL_MODELS["mistral-large-123b"][0], "remat": "selective", "microbatch": 2},
+                           (4, 64)),
 }
+
+
+def train_arch(name: str) -> str:
+    """The architecture of the train path ``name`` (TRAIN_VARIANTS' or its own)."""
+    return TRAIN_VARIANTS[name][0] if name in TRAIN_VARIANTS else name
+
+
+def train_config(name: str, full: bool):
+    """The config of the train path ``name``: full width at TRAIN_FAMILIES'
+    depth, or in the CPU rehearsal the smoke config at the kernels' head
+    widths under the full config's remat (and the smoke config's
+    microbatches)."""
+    arch = train_arch(name)
+    wide, smoke = TRAIN_VARIANTS[name][1:] if name in TRAIN_VARIANTS else ({}, {})
+    if full:
+        return get_config(arch).replace(n_layers=TRAIN_FAMILIES[name][0], **wide)
+    return dryrun.kernel_widths(get_smoke_config(arch).replace(remat=get_config(arch).remat, **smoke))
 
 
 def train_args(device, full: bool, *argv):
@@ -1572,18 +1647,23 @@ def train_path(device, full: bool, counts: list) -> dict:
 
 
 def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
-    """Each step's forward through the kernels, twice under remat "full" (the
-    forward, then the backward's recompute of each wrapped layer); every
-    backward launches none. Dense and MoE: K1 and 2 norms a layer (4 with
-    MLA's q_ln and kv_ln), and for MoE K5 a routing (and its slots kernel
-    where a group spans more than one tile); RWKV-6: K4 a layer; Griffin:
-    K3 a recurrent layer, K1 an attention layer, 2 norms a layer; then the
-    final norm once; Whisper: K1 an encoder layer and twice a decoder layer
-    (self- and cross-attention), no norm kernel (its norms are
-    LayerNorms)."""
-    if cfg.remat not in ("none", "full"):
+    """Each step's forward through the kernels, once a microbatch
+    (``cfg.microbatch`` of them, ``batch`` / microbatch rows each), twice under
+    remat "full" and "selective" (the forward, then the backward's recompute
+    of each wrapped layer: "selective" keeps the matmuls' outputs, but the
+    kernels are autograd Functions outside them, so the recompute runs them
+    again); every backward launches none. Dense and MoE: K1 and 2 norms a
+    layer (4 with MLA's q_ln and kv_ln), and for MoE K5 a routing (and its
+    slots kernel where a group spans more than one tile); RWKV-6: K4 a
+    layer; Griffin: K3 a recurrent layer, K1 an attention layer, 2 norms a
+    layer; then the final norm once; Whisper: K1 an encoder layer and twice
+    a decoder layer (self- and cross-attention), no norm kernel (its norms
+    are LayerNorms)."""
+    if cfg.remat not in ("none", "full", "selective"):
         raise ValueError(f"no launch count for remat {cfg.remat!r}")
-    r = 2 if cfg.remat == "full" else 1
+    r = 1 if cfg.remat == "none" else 2
+    mb = max(1, cfg.microbatch)
+    steps, batch = steps * mb, batch // mb  # a forward a microbatch
     L = cfg.n_layers
     want = dict.fromkeys(COUNTERS, 0)
     if cfg.family in ("dense", "moe"):
@@ -1604,12 +1684,13 @@ def expected_train_launches(cfg, batch: int, seq: int, steps: int) -> dict:
     return want
 
 
-def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
-    """Train ``arch`` at full width and TRAIN_FAMILIES' depth through the
-    launcher's pieces (the config's optimizer with cosine warmup, the train
-    state drawn on the card, the train step, the data pipeline) with the
-    launch counters set to 0 just before the steps and read just after; the
-    loss must fall. Then step ms, tok/s and peak memory, one more step
+def family_train_path(name: str, device, full: bool, counts: list) -> dict:
+    """Train the path ``name`` (:func:`train_config`) at full width and
+    TRAIN_FAMILIES' depth through the launcher's pieces (the config's
+    optimizer with cosine warmup from its peak lr, TRAIN_LR's or
+    TRAIN_FAMILY_LR, the train state drawn on the card, the train step, the
+    data pipeline) with the launch counters set to 0 just before the steps
+    and read just after; the loss must fall. Then step ms, tok/s and peak memory, one more step
     counted on meta and run against the count (:func:`hold_count`, its row
     appended to ``counts``), one more step traced and, on the card, a small
     model's step against the CPU. A visual-prefix model's rows are ``seq``
@@ -1617,18 +1698,15 @@ def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
     ``seq + n_patches`` positions (``Model.train_inputs``). Returns the
     launches of each kernel."""
     steps, warmup = TRAIN_FAMILY_RUN[full]
-    if full:
-        layers, batch, seq = TRAIN_FAMILIES[arch]
-        cfg = get_config(arch).replace(n_layers=layers)
-    else:
-        batch, seq = 4, 32
-        cfg = dryrun.kernel_widths(get_smoke_config(arch).replace(remat=get_config(arch).remat))
+    _, batch, seq = TRAIN_FAMILIES[name] if full else (None, 4, 32)
+    cfg = train_config(name, full)
     held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     model = build_model(cfg)
-    opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, warmup, steps))
+    lr = TRAIN_LR.get(name, TRAIN_FAMILY_LR) if full else TRAIN_FAMILY_LR  # TRAIN_LR is for the full widths
+    opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(lr, warmup, steps))
     state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
     step = make_train_step(model, opt)
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
@@ -1641,8 +1719,9 @@ def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
     positions = seq + cfg.n_patches
     sync(device)
     rows = f"{batch} x ({cfg.n_patches} patches + {seq} text tokens)" if cfg.n_patches else f"{batch} x {seq} tokens"
-    say(f"[train] {shape_line(cfg, model.cfg.vocab_size)} | remat={cfg.remat} {cfg.optimizer}, cosine warmup "
-        f"{warmup} | {steps} steps of {rows} | state built in {time.perf_counter() - t0:.2f}s")
+    micro = f" in {cfg.microbatch} microbatches" if cfg.microbatch > 1 else ""
+    say(f"[train] {shape_line(cfg, model.cfg.vocab_size)} | remat={cfg.remat} {cfg.optimizer} lr {lr}, cosine "
+        f"warmup {warmup} | {steps} steps of {rows}{micro} | state built in {time.perf_counter() - t0:.2f}s")
     zero_counters()
     losses, aux, stamps = [], [], [time.perf_counter()]
     for b in batches[:steps]:
@@ -1687,7 +1766,7 @@ def family_train_path(arch: str, device, full: bool, counts: list) -> dict:
     del state, batches, step
     free(device)
     if full:
-        train_card_matches_cpu(arch)
+        train_card_matches_cpu(name)
     return launches
 
 
@@ -1751,8 +1830,8 @@ def hold_count(what: str, model, kind: str, batch: int, seq: int, card_args, run
         f"argument bytes {stats.argument_bytes} (on the {device.type}: {args_bytes}) | peak "
         f"{stats.peak_bytes / 2**20:.1f} MiB (measured "
         f"{'not measured (cpu)' if peak is None else f'{peak / 2**20:.1f} MiB'}"
-        f"{'' if ratio is None else f', ratio {ratio:.4f}'}) | FLOPs {stats.flops:.4e} {stats.flops_by_unit} | "
-        f"HBM bytes {stats.hbm_bytes:.4e}")
+        f"{'' if ratio is None else f', ratio {ratio:.4f}'}) | FLOPs {stats.flops:.4e} {stats.flops_by_unit} "
+        f"by op {stats.flops_by_op} | HBM bytes {stats.hbm_bytes:.4e}")
     say(f"[count] {what} under H100 peaks (published, 700 W; {nvidia_smi_line() if cuda else 'cpu rehearsal'}): "
         f"compute "
         f"{rep['compute_s'] * 1e3:.3f}ms, memory {rep['memory_s'] * 1e3:.3f}ms, collective "
@@ -1953,8 +2032,8 @@ def profile_step(device, run_step, what: str, step_ms: float) -> None:
         say(f"[trace]   {e.key[:72]:72s} calls {e.count:5d} device {dev:9.3f}ms ({100 * dev / busy:5.1f}%)")
 
 
-def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
-    """One AdamW step of ``arch``'s small model (:data:`TRAIN_SMALL_MODELS`)
+def train_card_matches_cpu(path: str = TRAIN_ARCH) -> None:
+    """One AdamW step of the train path ``path``'s small model (:data:`TRAIN_SMALL_MODELS`)
     from the same host-drawn weights and batch on the card and on the CPU
     (a visual-prefix model's batch with seeded patches, :func:`add_patches`).
     The card's launches, the counters set to 0 just before its step and read
@@ -1969,12 +2048,12 @@ def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
     f(g) = g / (|g| + eps), from the two runs' own g, plus 1e-6: tight where
     a gradient is well above its rounding, loose only where it is at its
     noise floor, where the two runs' g may even differ in sign."""
-    overrides, (batch, seq) = TRAIN_SMALL_MODELS[arch]
-    cfg = get_smoke_config(arch).replace(**overrides)
+    overrides, (batch, seq) = TRAIN_SMALL_MODELS[path]
+    cfg = get_smoke_config(train_arch(path)).replace(**overrides)
     model = build_model(cfg)
     opt = make_optimizer("adamw", lr=TRAIN_SMALL_LR)
     host_params = model.init(torch.Generator().manual_seed(3), "cpu")
-    if arch != TRAIN_ARCH:
+    if path != TRAIN_ARCH:
         host_params = liven(host_params)
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=5)
     host_batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
@@ -1989,7 +2068,7 @@ def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
         new_state, metrics = make_train_step(model, opt)(state, {k: v.to(name) for k, v in host_batch.items()})
         if name == "cuda":
             sync(torch.device(name))
-            check_launches(f"small {arch} train step", read_counters(),
+            check_launches(f"small {path} train step", read_counters(),
                            expected_train_launches(cfg, batch, seq, 1), torch.device(name))
         outs[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                       {p: t.cpu() for p, t in tree_leaves(new_state["params"])},
@@ -2003,7 +2082,7 @@ def train_card_matches_cpu(arch: str = TRAIN_ARCH) -> None:
                           - TRAIN_SMALL_LR * (adam_step(g_c[k]) - adam_step(g_h[k])).abs()).max()) for k in p_h)
     p_err = max(float((p_c[k] - p_h[k]).abs().max()) for k in p_h)
     patches = f" behind {cfg.n_patches} seeded patches" if cfg.n_patches else ""
-    say(f"[train] small {cfg.family} model ({arch} smoke, {overrides}, remat {cfg.remat}, {batch} x {seq} "
+    say(f"[train] small {cfg.family} model ({path} smoke, {overrides}, remat {cfg.remat}, {batch} x {seq} "
         f"tokens{patches}), one AdamW step, card against CPU: "
         f"loss {loss_c:.7f} / {loss_h:.7f}, grad_norm {gn_c:.7f} / {gn_h:.7f}, clipped grads max err "
         f"{g_err:.3e} of each leaf's largest (tolerance 1e-4), params max abs err {p_err:.3e}, past the "
@@ -2192,8 +2271,9 @@ def dp_path(device, full: bool) -> dict:
     return launches["dp"]
 
 
-# the mesh leg: timed steps of each step in turns (after the N checked ones)
-MESH_TIMED_STEPS = {True: 6, False: 2}
+# the mesh leg: timed steps of each step in turns (after the N checked ones;
+# 6 before the script's time asked for a cut: TRAIN_FAMILIES)
+MESH_TIMED_STEPS = {True: 2, False: 2}
 MESH_SMALL_ARCHS = ("deepseek-moe-16b", "recurrentgemma-2b", "rwkv6-7b")
 # MLA, the visual prefix and Whisper at full width, depth cut: arch: (layers
 # of the train case, layers of the serve cases; None: the config's own). A
@@ -2709,10 +2789,10 @@ def main(argv=None) -> int:
     counts = []  # hold_count's rows: the dry-run leg's train paths
     by_path["train"] = train_path(device, full, counts)
     say(f"[train] {TRAIN_ARCH} phase took {time.perf_counter() - t0:.1f}s")
-    for arch in TRAIN_FAMILIES:
+    for name in TRAIN_FAMILIES:
         t1 = time.perf_counter()
-        by_path[f"train {arch}"] = family_train_path(arch, device, full, counts)
-        say(f"[train] {arch} phase took {time.perf_counter() - t1:.1f}s")
+        by_path[f"train {name}"] = family_train_path(name, device, full, counts)
+        say(f"[train] {name} phase took {time.perf_counter() - t1:.1f}s")
     t1 = time.perf_counter()
     counts.append(prefill_count_path(device, full))
     say(f"[count] the dry-run leg's steps took {time.perf_counter() - t1 + sum(r['s'] for r in counts[:-1]):.1f}s "

@@ -7,8 +7,10 @@
     srun python -m repro_torch.launch.serve --arch mistral-large-123b --mesh data=1,model=4
 
 The port of ``repro.launch.serve``'s :class:`ServeEngine`, for every family
-(dense with GQA and MLA, MoE, Griffin, RWKV-6, and Whisper's encoder-decoder,
-fed zero audio frames as the reference's engine feeds them): prefill a batch
+(dense with GQA and MLA, MoE with GQA, Griffin, RWKV-6, and Whisper's
+encoder-decoder, fed zero audio frames as the reference's engine feeds them;
+an MoE model with MLA trains but is refused here, as the reference's prefill
+fails on it): prefill a batch
 of prompts (on the card every prefill attention through the flash-attention
 kernel, every RMSNorm through the RMSNorm kernel, every RG-LRU scan and WKV-6
 recurrence through theirs),
@@ -185,6 +187,7 @@ class ServeEngine:
         self.max_seq = max_seq
         self.mesh = mesh
         self.model = build_model(cfg)
+        self.model.cache_defs_fn(batch, max_seq)  # refuses a model the port trains but does not serve
         if mesh is None:
             # Seeded weights are drawn on the engine's device: one seed gives one
             # model per device type (the card's generator differs from the CPU's).

@@ -48,10 +48,17 @@ FIXED_OVERHEAD_GB = 100
 # positions, 1152 patches and 896 text tokens a row: its step's FLOPs
 # follow the positions). MFU = 6 * active parameters * tok/s / the config
 # dtype's peak: nbi-100m 30.0%, deepseek-moe-16b 9.1%, recurrentgemma-2b
-# 8.8%, rwkv6-7b 4.2%, minicpm3-4b 5.5%, llava-next-mistral-7b 13.6%.
+# 8.8%, rwkv6-7b 4.2%, minicpm3-4b 5.5%, llava-next-mistral-7b 13.6%,
+# starcoder2-7b 16.4%, codeqwen1.5-7b 16.4%, mistral-large-123b 24.9% (its 8
+# microbatches under remat "selective"). deepseek-moe-16b with MLA attention
+# (its leading dense layer and 3 MoE layers, 20035.7 tok/s, 9.3%) has no
+# row: no arch names it (the reference has no such config), and a row is
+# keyed by an arch's published config.
 MEASURED_TRAIN = [("nbi-100m", None, 30401.0), ("deepseek-moe-16b", 4, 19633.8),
                   ("rwkv6-7b", 8, 2989.1), ("recurrentgemma-2b", 14, 8337.9),
-                  ("minicpm3-4b", 28, 4232.3), ("llava-next-mistral-7b", 8, 11191.1)]
+                  ("minicpm3-4b", 28, 4232.3), ("llava-next-mistral-7b", 8, 11191.1),
+                  ("starcoder2-7b", 5, 13755.8), ("codeqwen1.5-7b", 6, 12554.8),
+                  ("mistral-large-123b", 1, 18714.2)]
 
 # AdamW's peak, per parameter: old and new weights, two f32 gradient trees
 # (the cast and the clipped one) and old and new moments (PERF.md section 6:
@@ -63,7 +70,11 @@ _STATE_BYTES = {"adamw": 8, "adamw8bit": 2, "lion": 4}
 # 4 x 2048 68238.4, rwkv6-7b 8 layers 65978.2, recurrentgemma-2b 14 layers
 # 2 x 2048 53743.5, minicpm3-4b 28 layers 4 x 2048 62538.6,
 # llava-next-mistral-7b 8 layers 4 x 2048 positions 60006.4; the model
-# gives 0.98 to 1.01 of each): the update's f32
+# gives 0.98 to 1.01 of each; not refitted to later peaks, which it gives
+# 0.983 to 0.996 of: deepseek-moe-16b with MLA attention 4 layers 4 x 2048
+# 66662.3, starcoder2-7b 5 layers 4 x 2048 57512.0, codeqwen1.5-7b 6 layers
+# 4 x 2048 62842.1, mistral-large-123b 1 layer 8 x 2048 in 8 microbatches
+# under remat "selective" 64130.4, which it counts as "full"): the update's f32
 # temporaries of the largest leaf, f32 logits copies a token (logits, their
 # softmax terms and gradient), and the f32 activations a layer keeps a token
 # in units of (D, d_ff) under remat "none", or that one layer's recompute

@@ -1,6 +1,9 @@
 """Mixture-of-Experts family (the port of ``repro.models.moe``): DeepSeek-MoE
 and Kimi-K2, with fine-grained routed experts, shared experts and leading
-dense layers; serving and training.
+dense layers; serving and training. Every layer's attention is
+``cfg.attention``'s, GQA or MLA, as the reference's; a model with MLA trains
+but is not served, as the reference's prefill and decode fail on it
+(:func:`refuse_mla_serving`).
 
 GShard-style capacity routing as in the reference: tokens are grouped
 (``moe_group_tokens`` per group, groups spanning the rows of the batch in
@@ -51,6 +54,7 @@ from .common import ParamDef, cross_entropy, gather_fsdp, map_defs, rms_norm, sh
 from .config import ArchConfig
 from .transformer import (
     _stack,
+    attention_fn,
     attn_defs,
     block_defs,
     embed_tokens,
@@ -324,8 +328,10 @@ def _ffn(p, h, cfg: ArchConfig, decode: bool = False, aux: bool = False):
 
 
 def moe_block(p, x, cfg: ArchConfig, positions):
-    """One layer (a leading dense layer or an MoE layer): (x out, aux loss)."""
-    x = residual(x, gqa_attention(p["attn"], rms_norm(x, p["ln1"]), cfg, positions))
+    """One layer (a leading dense layer or an MoE layer): (x out, aux loss).
+    Its attention is ``cfg.attention``'s (GQA or MLA), as the reference's
+    ``moe_block`` and ``dense_block`` pick it."""
+    x = residual(x, attention_fn(cfg)(p["attn"], rms_norm(x, p["ln1"]), cfg, positions))
     y, aux = _ffn(p, x, cfg, aux=True)
     return residual(x, y), aux
 
@@ -372,10 +378,23 @@ def moe_loss(params, cfg: ArchConfig, batch):
     return loss + cfg.router_aux_weight * aux_mean, metrics
 
 
+def refuse_mla_serving(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for an MoE config with MLA attention: it
+    trains, but the reference serves it with GQA's functions on MLA's
+    parameters (ROADMAP H11), so there is no reference to port."""
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: serving an MoE model with MLA attention is not ported: the reference's moe_prefill and "
+            "moe_decode_step call gqa_attention / gqa_decode_attn on MLA's parameters and raise KeyError: 'wq' "
+            "(ROADMAP H11)")
+
+
 def moe_prefill(params, cfg: ArchConfig, tokens):
     """Prefill with KV-cache collection (attention KV only; MoE is stateless).
     Returns (last-position logits (B, 1, V), {"dense": {k, v}, "moe": {k, v}}
-    with leaves (layers of the stack, B, Hkv, S, hd))."""
+    with leaves (layers of the stack, B, Hkv, S, hd)). GQA only
+    (:func:`refuse_mla_serving`)."""
+    refuse_mla_serving(cfg)
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     kvs: dict = {}
@@ -392,6 +411,7 @@ def moe_prefill(params, cfg: ArchConfig, tokens):
 
 def moe_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     """Abstract cache layout on the ``meta`` device."""
+    refuse_mla_serving(cfg)
     dt = torch_dtype(cfg.dtype)
 
     def leaf(n):
@@ -405,6 +425,7 @@ def moe_cache_defs(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
 
 
 def moe_cache_logical(cfg: ArchConfig) -> dict:
+    refuse_mla_serving(cfg)
     leaf = {"k": ("layers", "batch", None, "kv_seq", None),
             "v": ("layers", "batch", None, "kv_seq", None)}
     out = {"moe": dict(leaf)}
@@ -416,6 +437,7 @@ def moe_cache_logical(cfg: ArchConfig) -> dict:
 def moe_decode_step(params, cfg: ArchConfig, cache, tokens, pos):
     """One decode step. tokens: (B, 1) int; pos: scalar or (B,). Writes the
     step's K/V into ``cache`` in place and returns (logits (B, 1, V), cache)."""
+    refuse_mla_serving(cfg)
     h = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=h.device).long()  # one host-to-device copy per step
     for name, i, p in _layers(params):

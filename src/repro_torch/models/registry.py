@@ -27,8 +27,11 @@ parameters and inputs (``param_logical``,
 ``repro_torch.training.make_prefill_step`` / ``make_serve_step`` run the
 prefill and decode functions under sharding rules on a mesh, as the
 reference's do; without rules they are these functions themselves. Every family trains through ``loss_fn`` (MoE's metrics add the
-``aux_loss``); ``build_model`` raises ``NotImplementedError`` for MLA or a
-visual prefix in an MoE model, which the reference does not build either.
+``aux_loss``), an MoE model with MLA attention too; its prefill, decode and
+cache functions raise ``NotImplementedError``, as the reference's fail
+(:func:`repro_torch.models.moe.refuse_mla_serving`). ``build_model`` raises
+``NotImplementedError`` for a visual prefix in an MoE model, which the
+reference does not build either.
 """
 
 from __future__ import annotations
@@ -146,10 +149,9 @@ _LOSSES = {"dense": tx.dense_loss, "moe": moe.moe_loss, "rglru": rg.griffin_loss
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"unknown family {cfg.family!r} (the port has {sorted(_FAMILIES)})")
-    if cfg.family == "moe" and (cfg.attention not in ("gqa", "local") or cfg.n_patches):
-        raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attention!r} / visual prefix in an MoE model is not ported yet"
-        )
+    if cfg.family == "moe" and cfg.n_patches:
+        raise NotImplementedError(f"{cfg.name}: a visual prefix in an MoE model (the reference's moe_forward "
+                                  "takes none)")
     param_defs, prefill, decode_step, forward, cache_defs, cache_logical = _FAMILIES[cfg.family]
     pcfg = cfg.replace(vocab_size=padded_vocab(cfg))
 

@@ -352,3 +352,91 @@ def test_chip_smoke_counts_the_family_train_launches(arch, monkeypatch):
     if arch == "minicpm3-4b":
         assert small.dtype == "float32" and chip_smoke.attention_counter(small) == "flash_attention_tf32_mla"
         assert stats.kernel_calls["flash_attention_tf32_mla"] == 2 * small.n_layers > 0
+
+
+# the train paths' exact counts a step at full width: path: (batch, seq, K1's
+# count, K1, K2, K5 routings, K5 routings through the slots kernel). Remat
+# "full" and "selective" run every forward kernel twice (the forward, then
+# the recompute); mistral-large-123b's step runs its 8 microbatches' forwards
+NEW_TRAIN_PATHS = {
+    "deepseek-moe-16b-mla": (4, 2048, "flash_attention_bf16_mla", 2 * 4, 8 * 4 + 1, 2 * 3, 2 * 3),
+    "starcoder2-7b": (4, 2048, "flash_attention_bf16", 2 * 5, 4 * 5 + 1, 0, 0),
+    "codeqwen1.5-7b": (4, 2048, "flash_attention_bf16", 2 * 6, 4 * 6 + 1, 0, 0),
+    "mistral-large-123b": (8, 2048, "flash_attention_bf16", 8 * 2 * 1, 8 * (4 * 1 + 1), 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_TRAIN_PATHS))
+def test_chip_smoke_counts_the_moe_mla_and_dense_train_launches(name, monkeypatch):
+    """Phase 5's exact counts for MoE with MLA (``chip_smoke.MOE_MLA``) and
+    the three dense configs, at ``TRAIN_FAMILIES``' depths and their full
+    configs' remat and microbatches (mistral-large-123b: "selective", 8),
+    equal the calls a train step on the CPU makes to the kernels' forwards
+    (K1, K2 and K5's routings) at smoke widths (the counts depend on the
+    layers, the remat and the microbatches, not the widths). Then the small
+    models of the card-against-CPU step, counted on ``meta`` as the card's
+    ``hold_count`` counts them: the MoE one through K1's f32 (96, 64)
+    kernel, the mistral-large one under "selective" over 2 microbatches."""
+    from repro_torch.analysis.opstats import count
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+
+    chip_smoke = import_chip_smoke()
+    batch, seq, kernel, k1, k2, routings, slots = NEW_TRAIN_PATHS[name]
+    full = chip_smoke.train_config(name, True)
+    assert chip_smoke.TRAIN_FAMILIES[name][1:] == (batch, seq) and full.name == name
+    want = dict.fromkeys(chip_smoke.COUNTERS, 0)
+    want.update({kernel: k1, "rmsnorm": k2, "moe_gating": routings, "moe_gating_slots": slots})
+    assert chip_smoke.attention_counter(full) == kernel
+    assert chip_smoke.expected_train_launches(full, batch, seq, 1) == want
+
+    _, _, smoke = chip_smoke.TRAIN_VARIANTS.get(name, (None, None, {}))
+    cfg = get_smoke_config(chip_smoke.train_arch(name)).replace(
+        n_layers=full.n_layers, remat=full.remat, microbatch=full.microbatch, **smoke)
+    assert (cfg.remat, cfg.microbatch) == ((("selective", 8) if name == "mistral-large-123b" else ("full", 1)))
+    routed = []
+    real = moe.ops.moe_gating
+    monkeypatch.setattr(moe.ops, "moe_gating", lambda *a, **kw: routed.append(1) or real(*a, **kw))
+    calls = count_train_calls(chip_smoke, cfg, 8, 16, monkeypatch, steps=1)
+    assert calls == {"attention": k1, "rmsnorm": k2} and len(routed) == routings
+
+    overrides, (b, s) = chip_smoke.TRAIN_SMALL_MODELS[name]
+    small = get_smoke_config(chip_smoke.train_arch(name)).replace(**overrides)
+    step, args = dryrun.step_and_inputs(build_model(small), "train", b, s)
+    stats, _ = count(step, *args)
+    small_want = {k: n for k, n in chip_smoke.expected_train_launches(small, b, s, 1).items() if n}
+    assert stats.kernel_calls == small_want
+    assert small.dtype == "float32" and small.remat == ("selective" if name == "mistral-large-123b" else "full")
+    if name == chip_smoke.MOE_MLA:
+        assert small.attention == "mla" and chip_smoke.attention_counter(small) == "flash_attention_tf32_mla"
+        assert stats.kernel_calls["moe_gating"] == 2 * (small.n_layers - small.n_dense_layers) > 0
+    if name == "mistral-large-123b":
+        assert small.microbatch == 2 and stats.kernel_calls["rmsnorm"] == 2 * (2 * 2 * small.n_layers + 1)
+
+
+def test_selective_remat_saves_only_products_without_batch_dims():
+    """Under remat "selective" the port saves every ``mm``, ``bmm`` and
+    ``addmm`` output (``transformer._MATMULS``); the reference's policy,
+    ``dots_with_no_batch_dims_saveable``, saves the dots without batch
+    dimensions. Every product of mistral-large-123b's layer forward at full
+    width (its attention's in the kernel) is an einsum that reaches
+    ``bmm`` with a batch of 1: a dot with no batch dimension, so both
+    policies save the same products."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    products = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in tx._MATMULS or func in (torch.ops.aten.matmul.default, torch.ops.aten.baddbmm.default):
+                products.append((func, tuple(args[0].shape)))
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_config("mistral-large-123b").replace(n_layers=1)
+    assert cfg.remat == "selective"
+    model = build_model(cfg)
+    with Log():
+        model.forward_fn(model.abstract_params(), torch.empty((1, 2048), dtype=torch.int32, device="meta"))
+    # q, k, v, o, the SwiGLU's three, the unembedding
+    assert len(products) == 8
+    assert all(func == torch.ops.aten.bmm.default and shape[0] == 1 for func, shape in products)

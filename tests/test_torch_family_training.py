@@ -361,8 +361,10 @@ def test_moe_adamw_train_steps_match_reference(jx, ref_pair):
 # steps in both packages (a second moment quantised to 0 gives an update of
 # m / eps), so the launcher's loss-falls test runs deepseek-moe-16b's AdamW;
 # then the dense family's MLA and visual prefix (llava on text only: the data
-# pipeline makes no patches, as the reference's)
-TRAIN_ARCHS = ["deepseek-moe-16b", "rwkv6-7b", "recurrentgemma-2b", "minicpm3-4b", "llava-next-mistral-7b"]
+# pipeline makes no patches, as the reference's), codeqwen1.5-7b, and
+# mistral-large-123b's smoke config over its 2 microbatches
+TRAIN_ARCHS = ["deepseek-moe-16b", "rwkv6-7b", "recurrentgemma-2b", "minicpm3-4b", "llava-next-mistral-7b",
+               "codeqwen1.5-7b", "mistral-large-123b"]
 
 
 def run_train(arch, *argv):

@@ -52,7 +52,9 @@ def launchers(monkeypatch):
 # 1152 patches and 896 text tokens), MiB
 CALIBRATION = [("nbi-100m", None, 8, 512, 7242.3), ("deepseek-moe-16b", 4, 4, 2048, 68238.4),
                ("rwkv6-7b", 8, 4, 2048, 65978.2), ("recurrentgemma-2b", 14, 2, 2048, 53743.5),
-               ("minicpm3-4b", 28, 4, 2048, 62538.6), ("llava-next-mistral-7b", 8, 4, 2048, 60006.4)]
+               ("minicpm3-4b", 28, 4, 2048, 62538.6), ("llava-next-mistral-7b", 8, 4, 2048, 60006.4),
+               ("starcoder2-7b", 5, 4, 2048, 57512.0), ("codeqwen1.5-7b", 6, 4, 2048, 62842.1),
+               ("mistral-large-123b", 1, 8, 2048, 64130.4)]
 
 
 @pytest.mark.parametrize("arch,layers,batch,seq,mib", CALIBRATION)

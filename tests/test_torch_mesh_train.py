@@ -124,7 +124,7 @@ def extras(cfg, batches):
 
 
 for arch in job["archs"]:
-    cfg = get_smoke_config(arch)
+    cfg = get_smoke_config(arch).replace(**job.get("overrides", {}).get(arch, {}))
     if job["fsdp"]:
         cfg = cfg.replace(fsdp=True)
     model = build_model(cfg)

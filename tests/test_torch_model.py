@@ -130,8 +130,16 @@ def test_unported_archs_and_families_raise():
         get_config("whisper-medium")
     with pytest.raises(NotImplementedError, match="unknown family"):
         build_model(get_smoke_config("nbi-100m").replace(family="encoder-only"))
-    with pytest.raises(NotImplementedError, match="mla"):  # MLA in an MoE model
-        build_model(get_smoke_config("deepseek-moe-16b").replace(attention="mla"))
+    # MLA in an MoE model builds and trains, with MLA leaves in both stacks,
+    # and refuses to serve, as the reference's prefill fails on it (H11)
+    moe_mla = build_model(get_smoke_config("deepseek-moe-16b").replace(
+        attention="mla", q_lora_rank=24, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8, v_head_dim=8,
+    ))
+    for stack in ("moe_blocks", "dense_blocks"):
+        assert {"wdq", "q_ln", "wdkv", "kv_ln", "wkr"} <= set(moe_mla.param_defs[stack]["attn"])
+        assert "wq" not in moe_mla.param_defs[stack]["attn"]
+    with pytest.raises(NotImplementedError, match="KeyError: 'wq'"):
+        moe_mla.prefill_fn(None, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
     # dense MLA and the visual prefix build: minicpm3-4b's and llava's configs
     # and the same features on another dense config
     mla = build_model(get_smoke_config("minicpm3-4b"))
