@@ -43,9 +43,19 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    its 12 encoder, 12 self- and 12 cross-attentions a prefill batch through
    the bf16 kernel at d 64, and no other launch); check the
    decode-equals-forward law at full width and the card against the CPU on
-   a small model of each family, then trace one batch with torch.profiler
+   a small model of each family (the card's decode step a replay of its
+   CUDA graph), then trace one batch with torch.profiler
    (device busy share, each of the port's kernels' share of the prefill's
-   device time, and the ops that take the most device time); then
+   device time, and the ops that take the most device time; the kernels the
+   trace shows by name, replays included, must be as many as the counters
+   say). Without a mesh the engines decode by replaying a CUDA graph of the
+   step (``launch/serve.py``'s ``_DecodeGraph``), which counts at each
+   replay the launches its capture recorded: every path's
+   ``decode_replays`` must equal its decode steps. Each path then runs its
+   graph against the eager ``decode_fn`` on a copy of the static cache, 8
+   steps in turns from one state (greedy tokens equal, the largest logit
+   difference, the median wall ms a step, and device ms and busy share
+   from 4 profiled steps each); then
    continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
    of mixed lengths) on minicpm3-4b at full width (16 of 62 layers), on nbi-100m and on
    codeqwen1.5-7b at full width (8 of its 32 layers), with f32 activations: exact
@@ -53,10 +63,11 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    f32 tensor-core (3xTF32) kernel of its heads: the MLA kernel at (96, 64),
    the d 64 kernel, the d 128 kernel; none through the other f32 kernels), every chosen
    token within 1e-3 of the max logit of a full forward over its request,
-   and decode steps against the static bound; then inserts into the live
-   cache beside a slot part-way through its generation, with the same
-   checks, exact launches, and the first request's tokens equal to a run of
-   it alone;
+   and decode steps against the static bound; then inserts into the
+   engine's static cache between replays, beside a slot part-way through its
+   generation, with the same checks, exact launches, and the first
+   request's tokens equal to a run of it alone; then the graph against the
+   eager step with every slot filled;
 5. training: train nbi-100m at full width and depth through
    ``repro_torch.launch.train`` (global batch 8 x 512 tokens, 30 AdamW steps
    with cosine warmup, the port's data pipeline, seeded weights drawn on the
@@ -198,7 +209,8 @@ from repro_torch.data import make_train_loader  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.distributed import dp_groups, initialize  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, device_name, pad_cache_to  # noqa: E402
+from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, _DecodeGraph  # noqa: E402
+from repro_torch.launch.serve import device_name, fill_cache, pad_cache_to  # noqa: E402
 from repro_torch.launch.train import build_argparser as train_argparser  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import rglru as rg  # noqa: E402
@@ -314,15 +326,36 @@ TRACE_NAMES = {"flash_attention_bf16_mla": "flash_attn_bf16_mla_kernel",
                "lru_scan": "lru_scan_kernel", "wkv6": "wkv6_kernel", "moe_gating": "moe_gating_"}
 
 
-def trace_shares(kernels) -> dict:
-    """Device ms of each of the port's kernels among the profiler's kernel
-    entries, each entry counted once, under the first name it matches."""
-    ms = dict.fromkeys(TRACE_NAMES, 0.0)
+def by_trace_name(kernels, value) -> dict:
+    """The sum of ``value(entry)`` over the profiler's kernel entries of each
+    of the port's kernels, each entry counted once, under the first name it
+    matches."""
+    out = dict.fromkeys(TRACE_NAMES, 0)
     for e in kernels:
         name = next((n for n, part in TRACE_NAMES.items() if part in e.key), None)
         if name:
-            ms[name] += e.self_device_time_total / 1e3
-    return ms
+            out[name] += value(e)
+    return out
+
+
+def trace_shares(kernels) -> dict:
+    """Device ms of each of the port's kernels in a trace."""
+    return by_trace_name(kernels, lambda e: e.self_device_time_total / 1e3)
+
+
+def trace_calls(kernels) -> dict:
+    """Calls of each of the port's kernels in a trace."""
+    return by_trace_name(kernels, lambda e: e.count)
+
+
+def launched_kernels(launches: dict) -> dict:
+    """The kernel calls a trace shows for the counters' ``launches``, under
+    :data:`TRACE_NAMES`: a call of the gating with more than one tile a group
+    runs the slots kernel too, and the RMSNorm's generic path is one of its
+    ``rmsnorm_`` kernels."""
+    calls = {name: launches[name] for name in TRACE_NAMES}
+    calls["moe_gating"] += launches["moe_gating_slots"]
+    return calls
 
 
 def say(*parts) -> None:
@@ -931,6 +964,15 @@ CONTINUOUS = {
 }
 
 
+# the graph-against-eager leg: decode steps each way in turns, then steps
+# each way under the profiler, at full size and in the CPU rehearsal
+GRAPH_LEG = {True: (8, 4), False: (2, 2)}
+# traced runs of one batch before its kernel calls must equal the counters':
+# the profiler at times loses a kernel's record (on an H100, one of the 16
+# RMSNorm records of an 8 x 2048 prefill in one of four traced runs of it)
+TRACE_TRIES = 3
+
+
 def path_config(arch: str, full: bool):
     """The path's config: full width (and depth, unless REDUCED_DEPTH cuts
     it), or the smoke config in the CPU rehearsal."""
@@ -963,6 +1005,17 @@ def zero_counters() -> None:
 def read_counters() -> dict:
     # an older tree's wrapper (chip_variants.py) may lack a count: zero_counters set it
     return {name: getattr(module, count, 0) for name, (module, count) in COUNTERS.items()}
+
+
+def check_replays(what: str, stats: dict, device) -> None:
+    """Hold an engine's decode replays to its decode steps on the card (each
+    step of a warmed engine replays its graph), or to 0 on the CPU, which
+    steps the same static buffers eagerly."""
+    want = stats["decode_steps"] if device.type == "cuda" else 0
+    say(f"[graph] {what}: {stats['decode_replays']} decode replays in {stats['decode_steps']} decode steps "
+        f"(expected {want})")
+    if stats["decode_replays"] != want:
+        raise AssertionError(f"{what}: {stats['decode_replays']} decode replays, expected {want}")
 
 
 def check_launches(what: str, launches: dict, want: dict, device) -> None:
@@ -1074,6 +1127,7 @@ def serve_path(arch: str, device, full: bool) -> dict:
     say(f"[serve] {cfg.name}: {len(requests)} requests, prompt lengths {per_len}, {prefill_batches} "
         f"prefill batches, gen_len {gen_len}")
     check_launches(cfg.name, launches, expected_launches(cfg, per_len, batch, gen_len), device)
+    check_replays(cfg.name, engine.stats, device)
     padded_vocab = engine.model.cfg.vocab_size
     for o in outs:
         if o.shape != (gen_len,) or o.min() < 0 or o.max() >= padded_vocab:
@@ -1098,6 +1152,14 @@ def serve_path(arch: str, device, full: bool) -> dict:
         return engine.stats["prefill_s"] * 1e3, engine.stats["decode_s"] * 1e3
 
     trace_one_batch(run, device, prompts.shape, gen_len=4)
+    shortest = min(requests, key=len)
+
+    def prime():  # a batch of the shortest prompt prefilled into the static cache
+        logits, _ = engine._prefill_batch(shortest[None].repeat(batch, 0))
+        engine._graph.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
+        engine._graph.pos.fill_(len(shortest))
+
+    graph_against_eager(cfg.name, engine, prime, device, full)
     del engine, outs
     free(device)
     return launches
@@ -1130,14 +1192,29 @@ def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
     run(gen_len)  # warm the shapes
     runs = {}
     for steps in (0, gen_len):
-        with profile(activities=acts) as prof:
-            pre_ms, dec_ms = run(steps)
-        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        for attempt in range(1, TRACE_TRIES + 1):
+            zero_counters()
+            with profile(activities=acts) as prof:
+                pre_ms, dec_ms = run(steps)
+            launches = read_counters()
+            kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+            if device.type != "cuda":
+                break
+            # the counts, replays included, against the kernels the trace shows by name
+            want, seen = launched_kernels(launches), trace_calls(kernels)
+            say(f"[trace] {steps} decode steps, run {attempt}: the port's kernels in the trace "
+                f"{ {k: n for k, n in seen.items() if n} } (by the counters { {k: n for k, n in want.items() if n} })")
+            if seen == want:
+                break
+            if attempt == TRACE_TRIES:
+                raise AssertionError(f"the trace shows the port's kernels {seen}, the counters {want}")
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         runs[steps] = (pre_ms, dec_ms, busy_ms, kernels)
+    say(f"[trace] traced in {time.perf_counter() - t0:.1f}s")
     if runs[gen_len][2] <= 0:
         say("[trace] the profiler recorded no kernel: device busy share not measured")
         return
@@ -1157,6 +1234,74 @@ def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
         dev = e.self_device_time_total / 1e3
         say(f"[trace]   {e.key[:72]:72s} calls {e.count:5d} device {dev:9.3f}ms "
             f"({100 * dev / busy:5.1f}%)")
+
+
+@torch.inference_mode()
+def graph_against_eager(what: str, engine, prime, device, full: bool) -> dict:
+    """The engine's decode graph against the eager ``engine.model.decode_fn``
+    on a copy of its static cache. ``prime()`` leaves a state in the static
+    buffers (prefilled cache, first tokens, positions); from it each side
+    takes GRAPH_LEG's steps in turns (a replay, then an eager step), feeding
+    its own greedy tokens, which must be equal; then more steps each way
+    under the profiler. Prints the largest logit difference, the median wall
+    ms a step (host clock to the host's read of the token), the device ms a
+    step and the busy share of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    steps, traced = GRAPH_LEG[full]
+    graph, model, params = engine._graph, engine.model, engine.params
+    prime()
+    eager = {"cache": map_defs(torch.clone, graph.cache), "tokens": graph.tokens.clone(), "pos": graph.pos.clone()}
+
+    def replay():
+        logits, _ = graph(params, graph.cache, graph.tokens, graph.pos)
+        tok = logits[:, -1].argmax(-1)
+        graph.tokens.copy_(tok[:, None])
+        graph.pos.add_(1)
+        return logits, tok.cpu()
+
+    def eager_step():
+        logits, _ = model.decode_fn(params, eager["cache"], eager["tokens"], eager["pos"])
+        tok = logits[:, -1].argmax(-1)
+        eager["tokens"], eager["pos"] = tok[:, None], eager["pos"] + 1
+        return logits, tok.cpu()
+
+    replays = graph.replays
+    wall, worst, equal = {"replay": [], "eager": []}, 0.0, True
+    for _ in range(steps):
+        out = {}
+        for which, step in (("replay", replay), ("eager", eager_step)):
+            sync(device)
+            t = time.perf_counter()
+            out[which] = step()
+            wall[which].append((time.perf_counter() - t) * 1e3)
+        equal &= torch.equal(out["replay"][1], out["eager"][1])
+        worst = max(worst, float((out["replay"][0].float() - out["eager"][0].float()).abs().max()))
+    device_ms = dict.fromkeys(wall)
+    for which, step in (("replay", replay), ("eager", eager_step)):
+        if device.type != "cuda":  # no device time on the CPU
+            continue
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the kernels alone: no host op recorded
+            for _ in range(traced):
+                step()
+        busy = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+        device_ms[which] = busy / 1e3 / traced if busy > 0 else None
+    want = (steps + traced) * (device.type == "cuda")
+    med = {which: float(np.median(ms)) for which, ms in wall.items()}
+
+    def dev(which):
+        ms = device_ms[which]
+        return "not measured" if ms is None else f"{ms:.3f} ms, busy {100 * ms / med[which]:.1f}%"
+
+    say(f"[graph] {what}: {steps} decode steps of {tuple(graph.tokens.shape)[0]} rows in turns, the graph's replay "
+        f"against eager decode_fn on a copy of the static cache: greedy tokens equal {equal}, largest logit "
+        f"difference {worst:.3e} | wall ms a step (median, host clock to the token's read): replay {med['replay']:.3f}, "
+        f"eager {med['eager']:.3f}, eager / replay {med['eager'] / med['replay']:.2f} | device a step "
+        f"({traced} profiled steps each): replay {dev('replay')}, eager {dev('eager')} | "
+        f"{graph.replays - replays} replays (expected {want}) | {time.perf_counter() - t0:.1f}s")
+    if not equal or graph.replays - replays != want:
+        raise AssertionError(f"{what}: the graph's replays disagree with the eager decode step")
 
 
 @torch.inference_mode()
@@ -1310,12 +1455,13 @@ def largest_gap(engine, requests, outs, device) -> float:
 @torch.inference_mode()
 def drive_staggered(engine, arrivals, gen_len: int):
     """Greedy decode through the engine's slots with request i written by
-    ``engine._insert`` into slot s of the live cache just before decode step
-    t, for each (t, s, prompt) of ``arrivals``, while the other slots keep
-    decoding. Returns each request's ``gen_len`` tokens and the decode steps."""
-    B, device = engine.batch, engine.device
-    cache = {n: torch.zeros(d.shape, dtype=d.dtype, device=device)
-             for n, d in engine.model.cache_defs_fn(B, engine.max_seq).items()}
+    ``engine._insert`` into slot s of the engine's static cache (zeroed
+    first) just before decode step t, for each (t, s, prompt) of
+    ``arrivals``, while the other slots keep decoding through the engine's
+    decode graph (``engine._step``). Returns each request's ``gen_len``
+    tokens and the decode steps."""
+    B = engine.batch
+    cache = engine._empty_cache()
     tok, pos = np.zeros(B, np.int64), np.zeros(B, np.int64)
     outs, slot_of = [[] for _ in arrivals], {}
     step = 0
@@ -1327,9 +1473,7 @@ def drive_staggered(engine, arrivals, gen_len: int):
                 tok[s], pos[s] = engine._insert(cache, s, prompt), len(prompt)
                 outs[i].append(int(tok[s]))
                 slot_of[i] = s
-        logits, _ = engine.model.decode_fn(engine.params, cache, torch.as_tensor(tok[:, None], device=device),
-                                           torch.as_tensor(pos, device=device))
-        nxt = logits[:, -1].argmax(-1).cpu().numpy()
+        nxt = engine._step(cache, tok, pos)
         for i, s in slot_of.items():
             if len(outs[i]) < gen_len:
                 outs[i].append(int(nxt[s]))
@@ -1383,6 +1527,7 @@ def continuous_path(arch: str, device, full: bool) -> dict:
         f"{bound}), occupancy {occupancy:.4f}, {st['slot_tokens']} slot tokens")
     check_launches(f"{cfg.name} continuous batching", launches,
                    dense_launches(cfg, st["requests"], st["decode_steps"]), device)
+    check_replays(f"{cfg.name} continuous batching", st, device)
     if st["requests"] != len(requests) or st["decode_steps"] > bound + 2:
         raise AssertionError(f"{cfg.name} continuous batching: {st} against the static bound {bound}")
     if any(out.shape != (gen_len,) for out in outs):
@@ -1400,12 +1545,15 @@ def continuous_path(arch: str, device, full: bool) -> dict:
     a, b, c = requests[:3]
     alone = engine.serve([a], gen_len=gen_len)[0]
     arrivals = [(0, 0, a), (max(1, gen_len // 4), 1, b), (gen_len - 1, 0, c)]
+    for key in engine.stats:
+        engine.stats[key] = type(engine.stats[key])()
     zero_counters()
     staggered, steps = drive_staggered(engine, arrivals, gen_len)
     sync(device)
     staggered_launches = read_counters()
     check_launches(f"{cfg.name} staggered inserts", staggered_launches, dense_launches(cfg, len(arrivals), steps),
                    device)
+    check_replays(f"{cfg.name} staggered inserts", engine.stats, device)
     worst = largest_gap(engine, [a, b, c], staggered, device)
     say(f"[continuous] {cfg.name} staggered inserts (step, slot, prompt length) "
         f"{[(t, s, len(p)) for t, s, p in arrivals]}, {steps} decode steps: a's tokens equal a run of a alone: "
@@ -1414,6 +1562,15 @@ def continuous_path(arch: str, device, full: bool) -> dict:
     if not (staggered[0] == alone).all() or worst > 1e-3:
         raise AssertionError(f"{cfg.name}: an insert beside a decoding slot changed the tokens")
     launches = {name: n + staggered_launches[name] for name, n in launches.items()}
+
+    @torch.inference_mode()
+    def prime():  # every slot holds one of the first requests, inserted into the static cache
+        cache, firsts = engine._empty_cache(), requests[:slots]
+        toks = [engine._insert(cache, b, r) for b, r in enumerate(firsts)]
+        engine._graph.tokens.copy_(torch.tensor(toks)[:, None])
+        engine._graph.pos.copy_(torch.tensor([len(r) for r in firsts]))
+
+    graph_against_eager(f"{cfg.name} continuous batching", engine, prime, device, full)
     del engine, outs
     free(device)
     return launches
@@ -1466,16 +1623,26 @@ def card_matches_cpu(arch: str) -> float:
     dropped = []  # picks the CPU run's routing dropped, per MoE layer call
     for name in ("cuda", "cpu"):
         params = map_defs(lambda t: t.to(name), host_params)
-        with count_drops(dropped if name == "cpu" else []):
+        # the counting wrapper reads on the host, which a capture forbids: the CPU's routings only
+        with count_drops(dropped) if name == "cpu" else contextlib.nullcontext():
             last, cache = model.prefill_fn(params, {k: v.to(name) for k, v in host_batch.items()})
-            cache = pad_cache_to(cache, model.cache_defs_fn(2, S + 8))
-            nxt = torch.full((2, 1), 7, device=name)
-            step, _ = model.decode_fn(params, cache, nxt, S)
+            if name == "cpu":  # the eager step
+                step, _ = model.decode_fn(params, pad_cache_to(cache, model.cache_defs_fn(2, S + 8)),
+                                          torch.full((2, 1), 7), S)
+        if name == "cuda":  # a replay of the decode graph, captured after a first step from the same state
+            graph = _DecodeGraph(model, 2, S + 8, torch.device(name))
+            graph.tokens.fill_(7)
+            graph.pos.fill_(S)
+            for _ in range(2):
+                fill_cache(graph.cache, cache)
+                step, _ = graph(params, graph.cache, graph.tokens, graph.pos)
+            if graph.replays != 1:
+                raise AssertionError(f"{arch}: the card's decode step did not replay its graph")
         outs[name] = (last.cpu(), step.cpu())
     worst = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
     drops = f", {sum(dropped)} picks dropped over {len(dropped)} routings" if cfg.family == "moe" else ""
-    say(f"[serve] small {cfg.family} model ({arch} smoke, {overrides}), card against CPU: "
-        f"max abs logit err {worst:.3e} (tolerance 1e-4){drops}")
+    say(f"[serve] small {cfg.family} model ({arch} smoke, {overrides}), card (decode by a graph's replay) against "
+        f"CPU (eager): max abs logit err {worst:.3e} (tolerance 1e-4){drops}")
     if cfg.family == "moe" and not sum(dropped):
         raise AssertionError(f"{arch}: the small model dropped no pick, so it does not exercise capacity")
     if worst > 1e-4:
@@ -2452,13 +2619,14 @@ def mesh_path(device, full: bool) -> dict:
 
 def last_logits(engine) -> list:
     """The whole logits of the engine's latest decode step (recorded around
-    its decode function: gathered where they are DTensors)."""
+    its decode function: gathered where they are DTensors, cloned, as a
+    replay of a meshless engine's decode graph overwrites its logits)."""
     seen = [None]
     decode = engine._decode
 
     def run(*args):
         logits, cache = decode(*args)
-        seen[0] = logits.full_tensor() if ops.is_dtensor(logits) else logits
+        seen[0] = (logits.full_tensor() if ops.is_dtensor(logits) else logits).clone()
         return logits, cache
 
     engine._decode = run
@@ -2508,7 +2676,8 @@ def mesh_serve_path(device, full: bool, mesh) -> dict:
             e.stats.update(decode_s=0.0, decode_tokens=0)
             e.generate_batch(prompts, gen)
             ms[which].append(e.stats["decode_s"] / gen * 1e3)
-        drops = f", {len(dropped)} routings, none dropping a pick" if cfg.family == "moe" else ""
+        # the plain engine's decode replays its graph, which runs no Python wrapper: its prefill's routings
+        drops = f", {len(dropped)} prefill routings, none dropping a pick" if cfg.family == "moe" else ""
         say(f"[mesh] serve {name} ({cfg.n_layers} layers, D={cfg.d_model}, {cfg.dtype}) on a 1 x 1 mesh, rules "
             f"batch->{rules['batch']} kv_seq->{rules['kv_seq']}: {batch} x {P} prompts, {gen} greedy tokens, "
             f"tokens and last logits equal the meshless engine's bit for bit{drops} | launches {launches['mesh']} | "

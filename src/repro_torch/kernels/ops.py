@@ -147,6 +147,21 @@ def _grad_of(fn, inputs, grad_out):
 _KERNEL_NAMES = {_fa: "flash_attention", _rn: "rmsnorm", _lru: "lru_scan", _wkv: "wkv6", _gating: "moe_gating"}
 
 
+def launch_counts() -> dict:
+    """Every wrapper's launch counts now, keyed (wrapper module, count name).
+    A CUDA graph's capture runs no kernel: what a capture adds to these is
+    what each replay launches (:class:`repro_torch.launch.serve._DecodeGraph`)."""
+    return {(module, name): n for module in _KERNEL_NAMES for name, n in vars(module).items()
+            if name.endswith("launches") and type(n) is int}
+
+
+def add_launch_counts(counts: dict, times: int = 1) -> None:
+    """Add ``times`` times each of ``counts`` (keyed as :func:`launch_counts`
+    keys them) to the wrappers' counts."""
+    for (module, name), n in counts.items():
+        setattr(module, name, getattr(module, name) + times * n)
+
+
 def _record(module, counts: tuple, work: tuple, scratch_bytes: int = 0) -> None:
     """Report one meta call of ``module``'s kernel to the innermost active
     dispatch mode that takes records (:func:`repro_torch.analysis.opstats.count`'s),

@@ -28,6 +28,21 @@ request's slot is refilled by a single-row, exact-length prefill.
 
 Both engines run on ``cuda`` unless the caller passes ``device="cpu"``.
 
+Without a mesh both engines decode through a CUDA graph, the counterpart of
+the reference's ``jax.jit`` over its decode step (:class:`_DecodeGraph`):
+the engine owns a static cache, allocated once, and static token, position
+and logit buffers. Each batch's (or each insert's) prefill is written into
+the static cache, every element of every leaf (:func:`fill_cache`); each
+step copies its tokens and positions in on the device and replays the
+graph. The first step runs eagerly and the graph is captured after it; on
+the card every later step replays it, with no switch and no fallback (a
+failed capture raises). On the CPU the same buffers are stepped eagerly.
+``stats["decode_replays"]`` counts the replays. Prefill stays eager (its
+length varies per bucket; the reference retraces per length), and so do
+the mesh engines' steps (DTensor dispatch and NCCL under a capture are
+later work). Sampling stays outside the graph; the host reads each step's
+token, as the reference's engine does.
+
 On a device mesh (``mesh=``, the reference's signature; ``--mesh
 data=D,model=M`` over a job's D·M tasks, as ``launch/train.py`` takes it) the
 rules are the reference's engines' (``sharding.serve_rules``): the weights
@@ -57,8 +72,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import is_dtensor
-from repro_torch.models.common import resolve_device, torch_dtype
+from repro_torch.models.common import map_defs, resolve_device, torch_dtype, tree_leaves
 from repro_torch.models.registry import build_model
 from repro_torch.training import init_sharded_params, make_prefill_step, make_serve_step
 
@@ -89,6 +105,101 @@ def pad_cache_to(cache, cache_defs, placements=None):
     out = torch.zeros(target, dtype=cache_defs.dtype, device=cache.device)
     out[tuple(slice(0, h) for h in cache.shape)] = cache
     return out
+
+
+def fill_cache(static, cache) -> None:
+    """Write a prompt-sized prefill cache into ``static``, a cache in the
+    fixed decode layout (:func:`pad_cache_to`'s), in place. Every element of
+    every leaf is rewritten: a leaf that grows is zeroed past the prompt, and
+    a leaf already of the layout's shape (recurrent states, Griffin's ring
+    buffers with the -1 positions of their empty slots, Whisper's cross K/V)
+    is copied whole, so that no batch sees the state of the batch before."""
+    if isinstance(static, dict):
+        if set(cache) != set(static):
+            raise ValueError(f"cache keys {sorted(cache)} differ from the layout's {sorted(static)}")
+        for name, leaf in static.items():
+            fill_cache(leaf, cache[name])
+        return
+    if cache.dim() != static.dim() or any(h > n for h, n in zip(cache.shape, static.shape)):
+        raise ValueError(f"cache leaf {tuple(cache.shape)} exceeds {tuple(static.shape)}")
+    if cache.shape != static.shape:
+        static.zero_()
+        static = static[tuple(slice(0, h) for h in cache.shape)]
+    static.copy_(cache)
+
+
+class _DecodeGraph:
+    """One device's decode step over static buffers, the counterpart of the
+    reference's ``jax.jit`` over its decode step: the cache of ``batch`` rows
+    and ``max_seq`` positions (allocated once), the tokens (B, 1), the
+    position (0-dim, or (B,) with ``per_row_pos``) and, on the card, the
+    logits.
+
+    On ``cuda`` the first step runs ``model.decode_fn`` eagerly on a side
+    stream (the warm-up; its logits are that step's), then the step over the
+    static buffers is captured with ``torch.cuda.graph`` in a memory pool of
+    its own, and every later step replays it. A failed capture raises; new
+    weights (another ``params`` object) are captured anew. On the CPU every
+    step calls ``decode_fn`` eagerly over the same buffers. No
+    ``torch.compile``: the captured kernels are the eager step's, so a replay
+    gives the eager step's bits.
+
+    The kernel wrappers' launch counts count what runs on the device: the
+    warm-up's launches, nothing at the capture, and at each replay the
+    launches the capture recorded. A replay overwrites the static logits: a
+    caller that keeps a step's logits past the next step clones them."""
+
+    def __init__(self, model, batch: int, max_seq: int, device, per_row_pos: bool = False):
+        self.model, self.device = model, device
+        self.cache = map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device),
+                              model.cache_defs_fn(batch, max_seq))
+        self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros((batch,) if per_row_pos else (), dtype=torch.long, device=device)
+        self.replays = 0
+        self._graph = self._params = self._logits = None
+        self._launches = {}
+
+    def zero(self) -> dict:
+        """The static cache, zeroed in place."""
+        for _, leaf in tree_leaves(self.cache):
+            leaf.zero_()
+        return self.cache
+
+    def __call__(self, params, cache, tokens, pos):
+        """``model.decode_fn``'s call, over the static buffers only: the
+        caller writes the step's tokens and positions into ``self.tokens``
+        and ``self.pos`` and passes them with ``self.cache``. Returns
+        (logits, cache)."""
+        if cache is not self.cache or tokens is not self.tokens or pos is not self.pos:
+            raise ValueError("a decode graph steps its own static cache, tokens and position")
+        if self.device.type != "cuda":
+            return self.model.decode_fn(params, self.cache, self.tokens, self.pos)
+        if self._graph is None or params is not self._params:
+            return self._capture(params), self.cache
+        self._graph.replay()
+        ops.add_launch_counts(self._launches)
+        self.replays += 1
+        return self._logits, self.cache
+
+    def _capture(self, params):
+        """The warm-up step, then the capture; returns the warm-up's logits."""
+        self._graph = self._params = self._logits = None  # the old graph's pool goes first
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):  # the libraries' first calls happen outside the capture
+            logits, _ = self.model.decode_fn(params, self.cache, self.tokens, self.pos)
+        stream.wait_stream(side)
+        logits.record_stream(stream)
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_logits, _ = self.model.decode_fn(params, self.cache, self.tokens, self.pos)
+        after = ops.launch_counts()
+        self._launches = {key: after[key] - n for key, n in before.items() if after[key] != n}
+        ops.add_launch_counts(self._launches, -1)  # the capture launched nothing
+        self._graph, self._params, self._logits = graph, params, static_logits
+        return logits
 
 
 def _pad_shards(leaf, want, placements: tuple):
@@ -193,14 +304,16 @@ class ServeEngine:
             # model per device type (the card's generator differs from the CPU's).
             self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
             self._on = None
-            self._prefill, self._decode = self.model.prefill_fn, self.model.decode_fn
+            self._graph = _DecodeGraph(self.model, batch, max_seq, self.device)
+            self._prefill, self._decode = self.model.prefill_fn, self._graph
         else:
             self._on = _OnMesh(self.model, mesh, batch, max_seq, self.device)
+            self._graph = None
             self.params = init_sharded_params(self.model, seed, mesh, self._on.weights, self.device)
             self._prefill, self._decode = self._on.prefill, self._on.decode
         self.rules = None if mesh is None else self._on.rules
-        self.stats = {"requests": 0, "prefill_tokens": 0, "decode_tokens": 0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+        self.stats = {"requests": 0, "prefill_tokens": 0, "decode_tokens": 0, "decode_steps": 0,
+                      "decode_replays": 0, "prefill_s": 0.0, "decode_s": 0.0}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -224,6 +337,52 @@ class ServeEngine:
         if P + gen_len > self.max_seq:
             raise ValueError(f"prompt {P} + gen {gen_len} exceeds engine capacity {self.max_seq}")
         t0 = time.perf_counter()
+        logits, cache = self._prefill_batch(prompts)
+        on, graph = self._on, self._graph
+        self._sync()
+        t1 = time.perf_counter()
+
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        out = np.zeros((B, gen_len), np.int32)
+        finished = np.zeros((B,), bool)
+        steps, replays = 0, 0 if graph is None else graph.replays
+        tok = self._sample(_whole(logits)[:, -1], temperature, generator)
+        for i in range(gen_len):
+            rewrite = finished.any()  # rows finished at an earlier step feed eos_id
+            out[:, i] = np.where(finished, eos_id or 0, tok.cpu().numpy())
+            if eos_id is not None:
+                finished |= out[:, i] == eos_id
+                if finished.all():
+                    out = out[:, : i + 1]
+                    break
+            if graph is None:
+                step = torch.as_tensor(out[:, i : i + 1], dtype=torch.long, device=self.device)
+                step, pos = on.place({"tokens": step}, {"tokens": on.tokens})["tokens"], P + i
+            else:  # the step's inputs into the static buffers, on the device
+                step, pos = graph.tokens, graph.pos
+                step.copy_(torch.as_tensor(out[:, i : i + 1]) if rewrite else tok[:, None])
+                pos.fill_(P + i)
+            logits, cache = self._decode(self.params, cache, step, pos)
+            tok = self._sample(_whole(logits)[:, -1], temperature, generator)
+            steps += 1
+        self._sync()
+        t2 = time.perf_counter()
+        self.stats["requests"] += B
+        self.stats["prefill_tokens"] += B * P
+        self.stats["decode_tokens"] += B * out.shape[1]
+        self.stats["decode_steps"] += steps
+        if graph is not None:
+            self.stats["decode_replays"] += graph.replays - replays
+        self.stats["prefill_s"] += t1 - t0
+        self.stats["decode_s"] += t2 - t1
+        return out
+
+    def _prefill_batch(self, prompts: np.ndarray):
+        """Prefill a batch of prompts (B, P) into the decode cache: on one
+        device the static cache (:func:`fill_cache`), on a mesh a new one in
+        local shapes. Returns (the prefill's logits, the cache)."""
+        B = prompts.shape[0]
         batch_in = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)}
         if self.cfg.family == "encdec":  # the stub audio front end: zero frames, as the reference's engine
             batch_in["frames"] = torch.zeros((B, self.cfg.enc_len, self.cfg.d_model),
@@ -232,35 +391,10 @@ class ServeEngine:
         if on is not None:
             batch_in = on.place(batch_in, on.inputs)
         logits, cache = self._prefill(self.params, batch_in)
-        cache = pad_cache_to(cache, self.model.cache_defs_fn(B, self.max_seq), None if on is None else on.cache)
-        self._sync()
-        t1 = time.perf_counter()
-
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        out = np.zeros((B, gen_len), np.int32)
-        finished = np.zeros((B,), bool)
-        tok = self._sample(_whole(logits)[:, -1], temperature, generator)
-        for i in range(gen_len):
-            out[:, i] = np.where(finished, eos_id or 0, tok.cpu().numpy())
-            if eos_id is not None:
-                finished |= out[:, i] == eos_id
-                if finished.all():
-                    out = out[:, : i + 1]
-                    break
-            step = torch.as_tensor(out[:, i : i + 1], dtype=torch.long, device=self.device)
-            if on is not None:
-                step = on.place({"tokens": step}, {"tokens": on.tokens})["tokens"]
-            logits, cache = self._decode(self.params, cache, step, P + i)
-            tok = self._sample(_whole(logits)[:, -1], temperature, generator)
-        self._sync()
-        t2 = time.perf_counter()
-        self.stats["requests"] += B
-        self.stats["prefill_tokens"] += B * P
-        self.stats["decode_tokens"] += B * out.shape[1]
-        self.stats["prefill_s"] += t1 - t0
-        self.stats["decode_s"] += t2 - t1
-        return out
+        if self._graph is None:
+            return logits, pad_cache_to(cache, self.model.cache_defs_fn(B, self.max_seq), on.cache)
+        fill_cache(self._graph.cache, cache)
+        return logits, self._graph.cache
 
     @staticmethod
     def _sample(logits, temperature: float, generator: torch.Generator):
@@ -328,15 +462,18 @@ class ContinuousBatchingEngine:
         if mesh is None:
             self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
             self._on = self._row = None
-            self._prefill, self._decode = self.model.prefill_fn, self.model.decode_fn
+            self._graph = _DecodeGraph(self.model, batch, max_seq, self.device, per_row_pos=True)
+            self._prefill, self._decode = self.model.prefill_fn, self._graph
         else:
+            self._graph = None
             self._on = _OnMesh(self.model, mesh, batch, max_seq, self.device)
             # the insert's prefill: a batch of one, its row whole on every rank
             self._row = _OnMesh(self.model, mesh, 1, max_seq, self.device)
             self.params = init_sharded_params(self.model, seed, mesh, self._on.weights, self.device)
             self._prefill, self._decode = self._row.prefill, self._on.decode
         self.rules = None if mesh is None else self._on.rules
-        self.stats = {"requests": 0, "decode_steps": 0, "slot_tokens": 0, "occupancy_sum": 0.0}
+        self.stats = {"requests": 0, "decode_steps": 0, "decode_replays": 0, "slot_tokens": 0,
+                      "occupancy_sum": 0.0}
 
     def _insert(self, cache: dict, slot: int, prompt: np.ndarray) -> int:
         """Prefill one request and write its rows into ``slot`` of ``cache``
@@ -358,6 +495,32 @@ class ContinuousBatchingEngine:
                 full.to_local()[:, slot - rows.start] = row_cache[name].to_local()[:, 0]
         return int(_whole(logits)[0, -1].argmax())
 
+    def _empty_cache(self) -> dict:
+        """A zeroed cache for the slots: the decode graph's static cache,
+        zeroed in place, or on a mesh a new one in local shapes."""
+        if self._graph is not None:
+            return self._graph.zero()
+        return self._on.empty_cache(self.model.cache_defs_fn(self.batch, self.max_seq))
+
+    def _step(self, cache: dict, cur_tok: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One decode step of every slot at its token and position (host
+        arrays of B), writing into ``cache`` in place; returns each slot's
+        greedy next token."""
+        graph = self._graph
+        if graph is None:
+            step = torch.as_tensor(cur_tok[:, None], device=self.device)
+            step = self._on.place({"tokens": step}, {"tokens": self._on.tokens})["tokens"]
+            at = torch.as_tensor(pos, device=self.device)
+        else:  # the slots' tokens and positions into the static buffers
+            replays, step, at = graph.replays, graph.tokens, graph.pos
+            step.copy_(torch.from_numpy(cur_tok[:, None]))
+            at.copy_(torch.from_numpy(pos))
+        logits, _ = self._decode(self.params, cache, step, at)
+        self.stats["decode_steps"] += 1
+        if graph is not None:
+            self.stats["decode_replays"] += graph.replays - replays
+        return _whole(logits)[:, -1].argmax(-1).cpu().numpy()
+
     @_without_grad
     def serve(self, requests: list, gen_len: int) -> list:
         """Greedy-decode every request; returns (gen_len,) int32 outputs in input order."""
@@ -365,11 +528,7 @@ class ContinuousBatchingEngine:
         for r in requests:
             if len(r) + gen_len > self.max_seq:
                 raise ValueError(f"prompt {len(r)} + gen {gen_len} exceeds engine capacity {self.max_seq}")
-        if self._on is None:
-            cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
-                     for name, d in self.model.cache_defs_fn(B, self.max_seq).items()}
-        else:
-            cache = self._on.empty_cache(self.model.cache_defs_fn(B, self.max_seq))
+        cache = self._empty_cache()
         queue = list(range(len(requests)))
         outputs: list = [[] for _ in requests]
         slot_req = [-1] * B  # which request occupies each slot
@@ -390,12 +549,7 @@ class ContinuousBatchingEngine:
         fill_free_slots()
         while any(s != -1 for s in slot_req):
             self.stats["occupancy_sum"] += float(np.mean([s != -1 for s in slot_req]))
-            self.stats["decode_steps"] += 1
-            step = torch.as_tensor(cur_tok[:, None], device=self.device)
-            if self._on is not None:
-                step = self._on.place({"tokens": step}, {"tokens": self._on.tokens})["tokens"]
-            logits, _ = self._decode(self.params, cache, step, torch.as_tensor(pos, device=self.device))
-            nxt = _whole(logits)[:, -1].argmax(-1).cpu().numpy()
+            nxt = self._step(cache, cur_tok, pos)
             for b in range(B):
                 if slot_req[b] == -1:
                     continue
