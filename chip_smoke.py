@@ -52,9 +52,9 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    step (``launch/serve.py``'s ``_DecodeGraph``), which counts at each
    replay the launches its capture recorded: every path's
    ``decode_replays`` must equal its decode steps. Each path then runs its
-   graph against the eager ``decode_fn`` on a copy of the static cache, 8
-   steps in turns from one state (greedy tokens equal, the largest logit
-   difference, the median wall ms a step, and device ms and busy share
+   graph against the eager ``decode_fn`` on a copy of the static cache, 4
+   steps in turns from one state (greedy tokens and every logit equal, the
+   median wall ms a step, and device ms and busy share
    from 4 profiled steps each); then
    continuous batching (``ContinuousBatchingEngine``, 8 slots, 16 requests
    of mixed lengths) on minicpm3-4b at full width (16 of 62 layers), on nbi-100m and on
@@ -147,7 +147,14 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    ``ContinuousBatchingEngine(mesh=)`` for nbi-100m and minicpm3-4b (full
    width, 16 layers) in f32 (K1's f32 (96, 64) kernel an insert): greedy tokens
    and the last logits bit for bit, the exact launches of prefill and
-   decode (counted as paths), each run's decode steps timed in turns. Then
+   decode (counted as paths), each run's decode steps timed in turns. The
+   mesh engines decode by replaying a CUDA graph too (the step under the
+   rules and the gather of the logits, captured once): each of the nine
+   mesh engine paths holds its ``decode_replays`` to its decode steps, and
+   runs its graph against the eager mesh step on a copy of the static
+   DTensor cache as phase 4's paths do (greedy tokens and every logit
+   equal, wall and device ms and busy share in turns); llava's prefix steps
+   stay eager (no engine). Then
    eco-preemption through the launcher plugin ``launchers/torch_h100.py``
    in a subprocess (this script imports nothing of ``repro``), with
    ``NBISLURM_CONFIG`` an empty file: started at the first instant of the default peak hours, the run
@@ -209,7 +216,7 @@ from repro_torch.data import make_train_loader  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.distributed import dp_groups, initialize  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, _DecodeGraph  # noqa: E402
+from repro_torch.launch.serve import ContinuousBatchingEngine, ServeEngine, _DecodeGraph, _whole  # noqa: E402
 from repro_torch.launch.serve import device_name, fill_cache, pad_cache_to  # noqa: E402
 from repro_torch.launch.train import build_argparser as train_argparser  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -218,7 +225,7 @@ from repro_torch.models.common import map_defs, tree_leaves  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import cosine_warmup, make_optimizer  # noqa: E402
 from repro_torch.parallel import ef_compressed_psum, init_ef_state, quant_int8  # noqa: E402
-from repro_torch.parallel.sharding import distribute_tree, full_tree, resolve_tree, rules_for  # noqa: E402
+from repro_torch.parallel.sharding import distribute, distribute_tree, full_tree, resolve_tree, rules_for  # noqa: E402
 from repro_torch.training import init_dp_state, init_train_state, make_dp_train_step, make_train_step  # noqa: E402
 from repro_torch.training import train_state_logical  # noqa: E402
 
@@ -965,8 +972,9 @@ CONTINUOUS = {
 
 
 # the graph-against-eager leg: decode steps each way in turns, then steps
-# each way under the profiler, at full size and in the CPU rehearsal
-GRAPH_LEG = {True: (8, 4), False: (2, 2)}
+# each way under the profiler, at full size and in the CPU rehearsal (4 in
+# turns since the mesh engines' 9 legs joined phase 4's 12: the script's time)
+GRAPH_LEG = {True: (4, 4), False: (2, 2)}
 # traced runs of one batch before its kernel calls must equal the counters':
 # the profiler at times loses a kernel's record (on an H100, one of the 16
 # RMSNorm records of an 8 x 2048 prefill in one of four traced runs of it)
@@ -1153,16 +1161,27 @@ def serve_path(arch: str, device, full: bool) -> dict:
 
     trace_one_batch(run, device, prompts.shape, gen_len=4)
     shortest = min(requests, key=len)
-
-    def prime():  # a batch of the shortest prompt prefilled into the static cache
-        logits, _ = engine._prefill_batch(shortest[None].repeat(batch, 0))
-        engine._graph.tokens.copy_(logits[:, -1].argmax(-1)[:, None])
-        engine._graph.pos.fill_(len(shortest))
-
-    graph_against_eager(cfg.name, engine, prime, device, full)
+    graph_against_eager(cfg.name, engine, lambda: prime_batch(engine, shortest[None].repeat(batch, 0)), device, full)
     del engine, outs
     free(device)
     return launches
+
+
+def prime_batch(engine, prompts: np.ndarray) -> None:
+    """A batch of ``prompts`` prefilled into a ``ServeEngine``'s static
+    cache, its greedy first tokens and its position fed to the decode graph."""
+    logits, _ = engine._prefill_batch(prompts)
+    engine._graph.feed(_whole(logits)[:, -1].argmax(-1)[:, None], prompts.shape[1])
+
+
+def prime_slots(engine, requests: list) -> None:
+    """A ``ContinuousBatchingEngine``'s static cache zeroed, then every slot
+    filled by an insert of one of ``requests``, the first tokens and the
+    slots' positions fed to the decode graph."""
+    firsts = requests[:engine.batch]
+    cache = engine._empty_cache()
+    toks = [engine._insert(cache, b, r) for b, r in enumerate(firsts)]
+    engine._graph.feed(torch.tensor(toks)[:, None], [len(r) for r in firsts])
 
 
 def shape_line(cfg, padded_vocab: int) -> str:
@@ -1236,35 +1255,44 @@ def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
             f"({100 * dev / busy:5.1f}%)")
 
 
-@torch.inference_mode()
-def graph_against_eager(what: str, engine, prime, device, full: bool) -> dict:
-    """The engine's decode graph against the eager ``engine.model.decode_fn``
-    on a copy of its static cache. ``prime()`` leaves a state in the static
-    buffers (prefilled cache, first tokens, positions); from it each side
-    takes GRAPH_LEG's steps in turns (a replay, then an eager step), feeding
-    its own greedy tokens, which must be equal; then more steps each way
-    under the profiler. Prints the largest logit difference, the median wall
-    ms a step (host clock to the host's read of the token), the device ms a
-    step and the busy share of each."""
+def graph_against_eager(what: str, engine, prime, device, full: bool) -> None:
+    """The engine's decode graph against the eager step on a copy of its
+    static cache: ``engine.model.decode_fn``, or on a mesh the engine's
+    ``make_serve_step`` under the rules and the gather of the whole logits
+    (``engine._on.step``, the step the graph captured), over a copy of the
+    static DTensor cache. ``prime()`` leaves a state in the static buffers
+    (prefilled cache, first tokens, positions); from it each side takes
+    GRAPH_LEG's steps in turns (a replay, then an eager step), feeding its
+    own greedy tokens, which must be equal, as must every logit; then more
+    steps each way under the profiler. Prints the largest logit difference,
+    the median wall ms a step (host clock to the host's read of the token),
+    the device ms a step and the busy share of each."""
+    with torch.inference_mode() if engine.mesh is None else torch.no_grad():
+        _graph_against_eager(what, engine, prime, device, full)
+
+
+def _graph_against_eager(what: str, engine, prime, device, full: bool) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     steps, traced = GRAPH_LEG[full]
-    graph, model, params = engine._graph, engine.model, engine.params
+    graph, params = engine._graph, engine.params
+    on = engine._on
+    decode = engine.model.decode_fn if on is None else on.step
+    placed = (lambda t: t) if on is None else (lambda t: distribute(t, on.mesh, on.tokens))  # noqa: E731
     prime()
     eager = {"cache": map_defs(torch.clone, graph.cache), "tokens": graph.tokens.clone(), "pos": graph.pos.clone()}
 
     def replay():
         logits, _ = graph(params, graph.cache, graph.tokens, graph.pos)
         tok = logits[:, -1].argmax(-1)
-        graph.tokens.copy_(tok[:, None])
-        graph.pos.add_(1)
+        graph.feed(tok[:, None], graph.pos + 1)
         return logits, tok.cpu()
 
     def eager_step():
-        logits, _ = model.decode_fn(params, eager["cache"], eager["tokens"], eager["pos"])
+        logits, _ = decode(params, eager["cache"], eager["tokens"], eager["pos"])
         tok = logits[:, -1].argmax(-1)
-        eager["tokens"], eager["pos"] = tok[:, None], eager["pos"] + 1
+        eager["tokens"], eager["pos"] = placed(tok[:, None]), eager["pos"] + 1
         return logits, tok.cpu()
 
     replays = graph.replays
@@ -1294,13 +1322,14 @@ def graph_against_eager(what: str, engine, prime, device, full: bool) -> dict:
         ms = device_ms[which]
         return "not measured" if ms is None else f"{ms:.3f} ms, busy {100 * ms / med[which]:.1f}%"
 
+    eager_name = "decode_fn" if on is None else "mesh step (make_serve_step under the rules, the gather)"
     say(f"[graph] {what}: {steps} decode steps of {tuple(graph.tokens.shape)[0]} rows in turns, the graph's replay "
-        f"against eager decode_fn on a copy of the static cache: greedy tokens equal {equal}, largest logit "
+        f"against the eager {eager_name} on a copy of the static cache: greedy tokens equal {equal}, largest logit "
         f"difference {worst:.3e} | wall ms a step (median, host clock to the token's read): replay {med['replay']:.3f}, "
         f"eager {med['eager']:.3f}, eager / replay {med['eager'] / med['replay']:.2f} | device a step "
         f"({traced} profiled steps each): replay {dev('replay')}, eager {dev('eager')} | "
         f"{graph.replays - replays} replays (expected {want}) | {time.perf_counter() - t0:.1f}s")
-    if not equal or graph.replays - replays != want:
+    if not equal or worst != 0 or graph.replays - replays != want:
         raise AssertionError(f"{what}: the graph's replays disagree with the eager decode step")
 
 
@@ -1563,14 +1592,8 @@ def continuous_path(arch: str, device, full: bool) -> dict:
         raise AssertionError(f"{cfg.name}: an insert beside a decoding slot changed the tokens")
     launches = {name: n + staggered_launches[name] for name, n in launches.items()}
 
-    @torch.inference_mode()
-    def prime():  # every slot holds one of the first requests, inserted into the static cache
-        cache, firsts = engine._empty_cache(), requests[:slots]
-        toks = [engine._insert(cache, b, r) for b, r in enumerate(firsts)]
-        engine._graph.tokens.copy_(torch.tensor(toks)[:, None])
-        engine._graph.pos.copy_(torch.tensor([len(r) for r in firsts]))
-
-    graph_against_eager(f"{cfg.name} continuous batching", engine, prime, device, full)
+    graph_against_eager(f"{cfg.name} continuous batching", engine, lambda: prime_slots(engine, requests), device,
+                        full)
     del engine, outs
     free(device)
     return launches
@@ -2619,14 +2642,14 @@ def mesh_path(device, full: bool) -> dict:
 
 def last_logits(engine) -> list:
     """The whole logits of the engine's latest decode step (recorded around
-    its decode function: gathered where they are DTensors, cloned, as a
-    replay of a meshless engine's decode graph overwrites its logits)."""
+    its decode graph, which gathers them whole on a mesh; cloned, as the
+    next replay overwrites them)."""
     seen = [None]
     decode = engine._decode
 
     def run(*args):
         logits, cache = decode(*args)
-        seen[0] = (logits.full_tensor() if ops.is_dtensor(logits) else logits).clone()
+        seen[0] = logits.clone()
         return logits, cache
 
     engine._decode = run
@@ -2639,9 +2662,11 @@ def mesh_serve_path(device, full: bool, mesh) -> dict:
     :func:`mesh_serve_configs` on the 1 x 1 mesh: greedy tokens and the last
     decode step's logits equal bit for bit, the launches of each engine's
     checked run (the counters set to 0 just before it) equal to the other's
-    and to the exact count; then each engine's decode step timed in turns
-    plain, mesh, mesh, plain. Returns the mesh engines' launches ("serve
-    mesh <name>": counts)."""
+    and to the exact count, each engine's decode replays to its decode steps
+    (:func:`check_replays`); then each engine's decode step timed in turns
+    plain, mesh, mesh, plain, and the mesh engine's graph against its eager
+    mesh step (:func:`graph_against_eager`). Returns the mesh engines'
+    launches ("serve mesh <name>": counts)."""
     out = {}
     for name, cfg, (batch, P, gen) in mesh_serve_configs(full):
         t1 = time.perf_counter()
@@ -2655,11 +2680,13 @@ def mesh_serve_path(device, full: bool, mesh) -> dict:
             e.generate_batch(prompts[:, :4], 2)  # warm-up: library handles, allocator
         tokens, launches, dropped = {}, {}, []
         for which, e in engines.items():
+            e.stats.update(decode_steps=0, decode_replays=0)
             zero_counters()
             with count_drops(dropped if which == "plain" else []):
                 tokens[which] = e.generate_batch(prompts, gen)
             sync(device)
             launches[which] = read_counters()
+            check_replays(f"serve {'mesh ' * (which == 'mesh')}{name}", e.stats, device)
         if not np.array_equal(tokens["mesh"], tokens["plain"]) or not torch.equal(logits["mesh"][0],
                                                                                    logits["plain"][0]):
             raise AssertionError(f"serve mesh {name}: the mesh engine's tokens or last logits differ from the "
@@ -2676,6 +2703,8 @@ def mesh_serve_path(device, full: bool, mesh) -> dict:
             e.stats.update(decode_s=0.0, decode_tokens=0)
             e.generate_batch(prompts, gen)
             ms[which].append(e.stats["decode_s"] / gen * 1e3)
+        graph_against_eager(f"serve mesh {name}", engines["mesh"], lambda: prime_batch(engines["mesh"], prompts),
+                            device, full)
         # the plain engine's decode replays its graph, which runs no Python wrapper: its prefill's routings
         drops = f", {len(dropped)} prefill routings, none dropping a pick" if cfg.family == "moe" else ""
         say(f"[mesh] serve {name} ({cfg.n_layers} layers, D={cfg.d_model}, {cfg.dtype}) on a 1 x 1 mesh, rules "
@@ -2700,7 +2729,7 @@ def mesh_prefix_path(device, full: bool, mesh) -> dict:
     before it) equal to the other's and to the exact count; then each run's
     decode steps timed in turns plain, mesh, mesh, plain. Returns the mesh
     run's launches ("serve mesh <name> prefix": counts)."""
-    from repro_torch.parallel.sharding import distribute, placements_for, serve_rules
+    from repro_torch.parallel.sharding import placements_for, serve_rules
     from repro_torch.training import init_sharded_params, make_prefill_step, make_serve_step
 
     t1 = time.perf_counter()
@@ -2773,7 +2802,8 @@ def mesh_continuous_path(device, full: bool, mesh, name: str, cfg) -> dict:
     """``ContinuousBatchingEngine(mesh=)`` against the meshless one holding the
     same weights, for ``cfg`` on the 1 x 1 mesh, checked and timed as
     :func:`mesh_serve_path` checks and times its engines (a serve call's
-    time over its decode steps, inserts included). Returns the mesh engine's
+    time over its decode steps, inserts included), then its graph against its
+    eager mesh step with every slot filled. Returns the mesh engine's
     launches ("serve mesh continuous <name>": counts)."""
     t1 = time.perf_counter()
     _, _, (slots, lengths, gen) = MESH_SERVE_RUN[full]
@@ -2795,6 +2825,7 @@ def mesh_continuous_path(device, full: bool, mesh, name: str, cfg) -> dict:
         sync(device)
         launches[which] = read_counters()
     st = engines["mesh"].stats
+    check_replays(f"serve mesh continuous {name}", st, device)
     if any(not np.array_equal(a, b) for a, b in zip(outs["mesh"], outs["plain"])) or not torch.equal(
             logits["mesh"][0], logits["plain"][0]):
         raise AssertionError(f"serve mesh continuous {name}: the mesh engine's tokens or last logits differ")
@@ -2812,6 +2843,8 @@ def mesh_continuous_path(device, full: bool, mesh, name: str, cfg) -> dict:
         e.serve(requests, gen)
         sync(device)
         ms[which].append((time.perf_counter() - t) * 1e3 / e.stats["decode_steps"])
+    graph_against_eager(f"serve mesh continuous {name}", engines["mesh"],
+                        lambda: prime_slots(engines["mesh"], requests), device, full)
     say(f"[mesh] serve continuous {name} ({cfg.n_layers} layers, {cfg.dtype}) on a 1 x 1 mesh: {slots} slots, "
         f"{len(requests)} requests of lengths {sorted(len(r) for r in requests)}, {st['decode_steps']} decode steps: "
         f"tokens and last logits equal the meshless engine's bit for bit | launches {launches['mesh']} | serve ms a "

@@ -28,19 +28,18 @@ request's slot is refilled by a single-row, exact-length prefill.
 
 Both engines run on ``cuda`` unless the caller passes ``device="cpu"``.
 
-Without a mesh both engines decode through a CUDA graph, the counterpart of
-the reference's ``jax.jit`` over its decode step (:class:`_DecodeGraph`):
-the engine owns a static cache, allocated once, and static token, position
-and logit buffers. Each batch's (or each insert's) prefill is written into
-the static cache, every element of every leaf (:func:`fill_cache`); each
-step copies its tokens and positions in on the device and replays the
-graph. The first step runs eagerly and the graph is captured after it; on
-the card every later step replays it, with no switch and no fallback (a
-failed capture raises). On the CPU the same buffers are stepped eagerly.
-``stats["decode_replays"]`` counts the replays. Prefill stays eager (its
-length varies per bucket; the reference retraces per length), and so do
-the mesh engines' steps (DTensor dispatch and NCCL under a capture are
-later work). Sampling stays outside the graph; the host reads each step's
+Both engines decode through a CUDA graph, with and without a mesh, the
+counterpart of the reference's ``jax.jit`` over its decode step
+(:class:`_DecodeGraph`): the engine owns a static cache, allocated once, and
+static token, position and logit buffers. Each batch's (or each insert's)
+prefill is written into the static cache, every element of every leaf
+(:func:`fill_cache`); each step copies its tokens and positions in on the
+device and replays the graph. The first step runs eagerly and the graph is
+captured after it; on the card every later step replays it, with no switch
+and no fallback (a failed capture raises). On the CPU the same buffers are
+stepped eagerly. ``stats["decode_replays"]`` counts the replays. Prefill
+stays eager (its length varies per bucket; the reference retraces per
+length). Sampling stays outside the graph; the host reads each step's
 token, as the reference's engine does.
 
 On a device mesh (``mesh=``, the reference's signature; ``--mesh
@@ -50,17 +49,23 @@ are DTensors drawn straight into their placements
 (``init_sharded_params``: no rank holds the whole model, and they differ
 from the one-device engine's for one seed), the prompts are split over the
 data axes, and prefill and decode run under the rules
-(``make_prefill_step`` / ``make_serve_step``). The cache is made in local
-shapes, its ``kv_seq`` dim split over ``model`` (flash-decoding's split-KV:
+(``make_prefill_step`` / ``make_serve_step``). The static cache is made of
+DTensors in local shapes, its ``kv_seq`` dim split over ``model``
+(flash-decoding's split-KV:
 :func:`repro_torch.models.common.attention_single_shot`), so no rank ever
-holds the whole cache. Every rank samples from the whole last logits, so
-every rank feeds the same token. Every family runs on a mesh: MLA's latent
-cache is split over ``kv_seq`` like a K/V cache (its absorbed decode
-split-KV, :func:`repro_torch.models.transformer.absorbed_attention`), and
-Whisper's cross cache over ``heads``. The engines feed no patches, as the
+holds the whole cache; the static tokens are a DTensor split over the data
+axes, of which each rank writes its own rows. The graph records the step
+under the rules, its collectives and the gather of the whole last logits
+included, so a replay runs none of DTensor's host dispatch; every rank
+samples from the whole logits, so every rank feeds the same token. Every
+family runs on a mesh: MLA's latent cache is split over ``kv_seq`` like a
+K/V cache (its absorbed decode split-KV,
+:func:`repro_torch.models.transformer.absorbed_attention`), and Whisper's
+cross cache over ``heads``. The engines feed no patches, as the
 reference's: a visual-prefix model's text is served here, its prefix
 through ``make_prefill_step`` with ``batch["patches"]`` and then
-``make_serve_step``. ``mesh=None`` is the one-device engine, unchanged.
+``make_serve_step``, which steps eagerly (no engine, no graph).
+``mesh=None`` is the one-device engine.
 """
 
 from __future__ import annotations
@@ -113,7 +118,9 @@ def fill_cache(static, cache) -> None:
     every leaf is rewritten: a leaf that grows is zeroed past the prompt, and
     a leaf already of the layout's shape (recurrent states, Griffin's ring
     buffers with the -1 positions of their empty slots, Whisper's cross K/V)
-    is copied whole, so that no batch sees the state of the batch before."""
+    is copied whole, so that no batch sees the state of the batch before. A
+    DTensor leaf is rewritten on each rank's local shard: the prefill's leaf
+    laid out as ``static`` (:func:`_pad_shards`), then copied in."""
     if isinstance(static, dict):
         if set(cache) != set(static):
             raise ValueError(f"cache keys {sorted(cache)} differ from the layout's {sorted(static)}")
@@ -122,39 +129,65 @@ def fill_cache(static, cache) -> None:
         return
     if cache.dim() != static.dim() or any(h > n for h, n in zip(cache.shape, static.shape)):
         raise ValueError(f"cache leaf {tuple(cache.shape)} exceeds {tuple(static.shape)}")
+    if is_dtensor(static):
+        static.to_local().copy_(_pad_shards(cache, static, tuple(static.placements)).to_local())
+        return
     if cache.shape != static.shape:
         static.zero_()
         static = static[tuple(slice(0, h) for h in cache.shape)]
     static.copy_(cache)
 
 
+def _local(t):
+    """This rank's shard of a DTensor (the same storage), else ``t``."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 class _DecodeGraph:
-    """One device's decode step over static buffers, the counterpart of the
+    """The decode step over static buffers, the counterpart of the
     reference's ``jax.jit`` over its decode step: the cache of ``batch`` rows
     and ``max_seq`` positions (allocated once), the tokens (B, 1), the
     position (0-dim, or (B,) with ``per_row_pos``) and, on the card, the
-    logits.
+    logits. Without a mesh the step is ``model.decode_fn``; on a mesh (``on``,
+    an :class:`_OnMesh`) it is ``make_serve_step`` under the rules followed
+    by the gather of the whole logits (:meth:`_OnMesh.step`), the cache is
+    made of DTensors in local shapes and the tokens are a DTensor split over
+    the data axes; the position is a plain tensor, which every rank holds
+    alike.
 
-    On ``cuda`` the first step runs ``model.decode_fn`` eagerly on a side
-    stream (the warm-up; its logits are that step's), then the step over the
-    static buffers is captured with ``torch.cuda.graph`` in a memory pool of
-    its own, and every later step replays it. A failed capture raises; new
-    weights (another ``params`` object) are captured anew. On the CPU every
-    step calls ``decode_fn`` eagerly over the same buffers. No
-    ``torch.compile``: the captured kernels are the eager step's, so a replay
-    gives the eager step's bits.
+    On ``cuda`` the first step runs eagerly on a side stream (the warm-up;
+    its logits are that step's: on a mesh it also makes the communicators
+    and fills DTensor's sharding caches on every rank), then the step over
+    the static buffers is captured with ``torch.cuda.graph`` in a memory pool
+    of its own, and every later step replays it: on a mesh the replay runs
+    none of DTensor's dispatch and enters no rules. A failed capture raises;
+    new weights (another ``params`` object) are captured anew. On the CPU
+    every step runs eagerly over the same buffers. No ``torch.compile``: the
+    captured kernels are the eager step's, so a replay gives the eager
+    step's bits.
 
     The kernel wrappers' launch counts count what runs on the device: the
     warm-up's launches, nothing at the capture, and at each replay the
     launches the capture recorded. A replay overwrites the static logits: a
     caller that keeps a step's logits past the next step clones them."""
 
-    def __init__(self, model, batch: int, max_seq: int, device, per_row_pos: bool = False):
+    def __init__(self, model, batch: int, max_seq: int, device, per_row_pos: bool = False, on=None):
+        from repro_torch.parallel.sharding import local_slices
+
         self.model, self.device = model, device
-        self.cache = map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device),
-                              model.cache_defs_fn(batch, max_seq))
-        self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        defs = model.cache_defs_fn(batch, max_seq)
+        if on is None:
+            self.cache = map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device), defs)
+            self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=device)
+            self._step = model.decode_fn
+        else:
+            self.cache = on.empty_cache(defs)
+            self.tokens = on.zeros((batch, 1), torch.long, on.tokens)
+            self._step = on.step
         self.pos = torch.zeros((batch,) if per_row_pos else (), dtype=torch.long, device=device)
+        # where :meth:`feed` writes the tokens: this rank's rows of the static tokens
+        self._rows = None if on is None else local_slices(self.tokens.shape, self.tokens.placements, on.mesh)[0]
+        self._tokens_here = _local(self.tokens)
         self.replays = 0
         self._graph = self._params = self._logits = None
         self._launches = {}
@@ -162,18 +195,28 @@ class _DecodeGraph:
     def zero(self) -> dict:
         """The static cache, zeroed in place."""
         for _, leaf in tree_leaves(self.cache):
-            leaf.zero_()
+            _local(leaf).zero_()
         return self.cache
+
+    def feed(self, tokens, pos) -> None:
+        """Write a step's whole tokens (B, 1) (a tensor on the host or the
+        device) and its position (an int, or B of them) into the static
+        buffers: on a mesh this rank's rows of the tokens only."""
+        self._tokens_here.copy_(tokens if self._rows is None else tokens[self._rows])
+        if self.pos.dim():
+            self.pos.copy_(torch.as_tensor(pos))
+        else:
+            self.pos.fill_(pos)
 
     def __call__(self, params, cache, tokens, pos):
         """``model.decode_fn``'s call, over the static buffers only: the
-        caller writes the step's tokens and positions into ``self.tokens``
-        and ``self.pos`` and passes them with ``self.cache``. Returns
-        (logits, cache)."""
+        caller writes the step's tokens and positions in (:meth:`feed`) and
+        passes ``self.cache``, ``self.tokens`` and ``self.pos``. Returns
+        (logits, cache), the logits whole on every rank of a mesh."""
         if cache is not self.cache or tokens is not self.tokens or pos is not self.pos:
             raise ValueError("a decode graph steps its own static cache, tokens and position")
         if self.device.type != "cuda":
-            return self.model.decode_fn(params, self.cache, self.tokens, self.pos)
+            return self._step(params, self.cache, self.tokens, self.pos)
         if self._graph is None or params is not self._params:
             return self._capture(params), self.cache
         self._graph.replay()
@@ -188,13 +231,13 @@ class _DecodeGraph:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):  # the libraries' first calls happen outside the capture
-            logits, _ = self.model.decode_fn(params, self.cache, self.tokens, self.pos)
+            logits, _ = self._step(params, self.cache, self.tokens, self.pos)
         stream.wait_stream(side)
         logits.record_stream(stream)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            static_logits, _ = self.model.decode_fn(params, self.cache, self.tokens, self.pos)
+            static_logits, _ = self._step(params, self.cache, self.tokens, self.pos)
         after = ops.launch_counts()
         self._launches = {key: after[key] - n for key, n in before.items() if after[key] != n}
         ops.add_launch_counts(self._launches, -1)  # the capture launched nothing
@@ -276,20 +319,30 @@ class _OnMesh:
 
         return distribute_tree(tree, self.mesh, placements)
 
-    def empty_cache(self, cache_defs) -> dict:
-        """A zeroed cache in local shapes."""
-        from repro_torch.models.common import map_defs
+    def zeros(self, shape, dtype, placements):
+        """A zeroed DTensor of global ``shape``, made in its local shape."""
         from repro_torch.parallel.sharding import from_local, local_shape
 
-        return map_defs(lambda d, pl: from_local(
-            torch.zeros(local_shape(d.shape, pl, self.mesh), dtype=d.dtype, device=self.device), self.mesh, pl,
-            d.shape), cache_defs, self.cache)
+        return from_local(torch.zeros(local_shape(shape, placements, self.mesh), dtype=dtype, device=self.device),
+                          self.mesh, placements, shape)
+
+    def empty_cache(self, cache_defs) -> dict:
+        """A zeroed cache in local shapes."""
+        return map_defs(lambda d, pl: self.zeros(d.shape, d.dtype, pl), cache_defs, self.cache)
+
+    def step(self, params, cache, tokens, pos):
+        """The decode step under the rules, its last logits gathered whole
+        onto every rank: (logits, cache)."""
+        logits, cache = self.decode(params, cache, tokens, pos)
+        return _whole(logits), cache
 
 
 class ServeEngine:
     """Fixed-shape batched generation over one model, on one device or on a
     device mesh (``mesh``: a ``DeviceMesh`` with ``data`` and ``model`` axes;
-    module docstring)."""
+    module docstring). Either way each batch is prefilled into one static
+    cache and decoded by replaying a CUDA graph on the card
+    (:class:`_DecodeGraph`)."""
 
     def __init__(self, cfg, *, batch: int, max_seq: int, mesh=None, seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
@@ -304,13 +357,12 @@ class ServeEngine:
             # model per device type (the card's generator differs from the CPU's).
             self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
             self._on = None
-            self._graph = _DecodeGraph(self.model, batch, max_seq, self.device)
-            self._prefill, self._decode = self.model.prefill_fn, self._graph
+            self._prefill = self.model.prefill_fn
         else:
             self._on = _OnMesh(self.model, mesh, batch, max_seq, self.device)
-            self._graph = None
             self.params = init_sharded_params(self.model, seed, mesh, self._on.weights, self.device)
-            self._prefill, self._decode = self._on.prefill, self._on.decode
+            self._prefill = self._on.prefill
+        self._graph = self._decode = _DecodeGraph(self.model, batch, max_seq, self.device, on=self._on)
         self.rules = None if mesh is None else self._on.rules
         self.stats = {"requests": 0, "prefill_tokens": 0, "decode_tokens": 0, "decode_steps": 0,
                       "decode_replays": 0, "prefill_s": 0.0, "decode_s": 0.0}
@@ -338,7 +390,7 @@ class ServeEngine:
             raise ValueError(f"prompt {P} + gen {gen_len} exceeds engine capacity {self.max_seq}")
         t0 = time.perf_counter()
         logits, cache = self._prefill_batch(prompts)
-        on, graph = self._on, self._graph
+        graph = self._graph
         self._sync()
         t1 = time.perf_counter()
 
@@ -346,7 +398,7 @@ class ServeEngine:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = np.zeros((B, gen_len), np.int32)
         finished = np.zeros((B,), bool)
-        steps, replays = 0, 0 if graph is None else graph.replays
+        steps, replays = 0, graph.replays
         tok = self._sample(_whole(logits)[:, -1], temperature, generator)
         for i in range(gen_len):
             rewrite = finished.any()  # rows finished at an earlier step feed eos_id
@@ -356,15 +408,10 @@ class ServeEngine:
                 if finished.all():
                     out = out[:, : i + 1]
                     break
-            if graph is None:
-                step = torch.as_tensor(out[:, i : i + 1], dtype=torch.long, device=self.device)
-                step, pos = on.place({"tokens": step}, {"tokens": on.tokens})["tokens"], P + i
-            else:  # the step's inputs into the static buffers, on the device
-                step, pos = graph.tokens, graph.pos
-                step.copy_(torch.as_tensor(out[:, i : i + 1]) if rewrite else tok[:, None])
-                pos.fill_(P + i)
-            logits, cache = self._decode(self.params, cache, step, pos)
-            tok = self._sample(_whole(logits)[:, -1], temperature, generator)
+            # the step's inputs into the static buffers, on the device
+            graph.feed(torch.as_tensor(out[:, i : i + 1]) if rewrite else tok[:, None], P + i)
+            logits, cache = self._decode(self.params, cache, graph.tokens, graph.pos)
+            tok = self._sample(logits[:, -1], temperature, generator)
             steps += 1
         self._sync()
         t2 = time.perf_counter()
@@ -372,16 +419,14 @@ class ServeEngine:
         self.stats["prefill_tokens"] += B * P
         self.stats["decode_tokens"] += B * out.shape[1]
         self.stats["decode_steps"] += steps
-        if graph is not None:
-            self.stats["decode_replays"] += graph.replays - replays
+        self.stats["decode_replays"] += graph.replays - replays
         self.stats["prefill_s"] += t1 - t0
         self.stats["decode_s"] += t2 - t1
         return out
 
     def _prefill_batch(self, prompts: np.ndarray):
-        """Prefill a batch of prompts (B, P) into the decode cache: on one
-        device the static cache (:func:`fill_cache`), on a mesh a new one in
-        local shapes. Returns (the prefill's logits, the cache)."""
+        """Prefill a batch of prompts (B, P) into the static decode cache
+        (:func:`fill_cache`). Returns (the prefill's logits, the cache)."""
         B = prompts.shape[0]
         batch_in = {"tokens": torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)}
         if self.cfg.family == "encdec":  # the stub audio front end: zero frames, as the reference's engine
@@ -391,8 +436,6 @@ class ServeEngine:
         if on is not None:
             batch_in = on.place(batch_in, on.inputs)
         logits, cache = self._prefill(self.params, batch_in)
-        if self._graph is None:
-            return logits, pad_cache_to(cache, self.model.cache_defs_fn(B, self.max_seq), on.cache)
         fill_cache(self._graph.cache, cache)
         return logits, self._graph.cache
 
@@ -446,7 +489,9 @@ class ContinuousBatchingEngine:
     mesh (GQA and MLA; module docstring) the slots are split over the data
     axes and each insert's one-row prefill runs under rules of a batch of
     one (its row whole on every rank); the rank that holds the slot copies
-    the row's slice of the sequence into its cache.
+    the row's slice of the sequence into its cache. With or without a mesh
+    the slots live in one static cache, and every decode step after the
+    first replays a CUDA graph on the card (:class:`_DecodeGraph`).
     """
 
     def __init__(self, cfg, *, batch: int, max_seq: int, mesh=None, seed: int = 0, device="cuda"):
@@ -462,22 +507,23 @@ class ContinuousBatchingEngine:
         if mesh is None:
             self.params = self.model.init(torch.Generator(device=self.device).manual_seed(seed), self.device)
             self._on = self._row = None
-            self._graph = _DecodeGraph(self.model, batch, max_seq, self.device, per_row_pos=True)
-            self._prefill, self._decode = self.model.prefill_fn, self._graph
+            self._prefill = self.model.prefill_fn
         else:
-            self._graph = None
             self._on = _OnMesh(self.model, mesh, batch, max_seq, self.device)
             # the insert's prefill: a batch of one, its row whole on every rank
             self._row = _OnMesh(self.model, mesh, 1, max_seq, self.device)
             self.params = init_sharded_params(self.model, seed, mesh, self._on.weights, self.device)
-            self._prefill, self._decode = self._row.prefill, self._on.decode
+            self._prefill = self._row.prefill
+        self._graph = self._decode = _DecodeGraph(self.model, batch, max_seq, self.device, per_row_pos=True,
+                                                  on=self._on)
         self.rules = None if mesh is None else self._on.rules
         self.stats = {"requests": 0, "decode_steps": 0, "decode_replays": 0, "slot_tokens": 0,
                       "occupancy_sum": 0.0}
 
     def _insert(self, cache: dict, slot: int, prompt: np.ndarray) -> int:
         """Prefill one request and write its rows into ``slot`` of ``cache``
-        (in place); returns its first generated token."""
+        (the static cache, in place; on a mesh into the local shard of the
+        rank that holds the slot); returns its first generated token."""
         from repro_torch.parallel.sharding import local_slices
 
         row = self._row
@@ -497,29 +543,20 @@ class ContinuousBatchingEngine:
 
     def _empty_cache(self) -> dict:
         """A zeroed cache for the slots: the decode graph's static cache,
-        zeroed in place, or on a mesh a new one in local shapes."""
-        if self._graph is not None:
-            return self._graph.zero()
-        return self._on.empty_cache(self.model.cache_defs_fn(self.batch, self.max_seq))
+        zeroed in place."""
+        return self._graph.zero()
 
     def _step(self, cache: dict, cur_tok: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """One decode step of every slot at its token and position (host
         arrays of B), writing into ``cache`` in place; returns each slot's
         greedy next token."""
         graph = self._graph
-        if graph is None:
-            step = torch.as_tensor(cur_tok[:, None], device=self.device)
-            step = self._on.place({"tokens": step}, {"tokens": self._on.tokens})["tokens"]
-            at = torch.as_tensor(pos, device=self.device)
-        else:  # the slots' tokens and positions into the static buffers
-            replays, step, at = graph.replays, graph.tokens, graph.pos
-            step.copy_(torch.from_numpy(cur_tok[:, None]))
-            at.copy_(torch.from_numpy(pos))
-        logits, _ = self._decode(self.params, cache, step, at)
+        replays = graph.replays
+        graph.feed(torch.from_numpy(cur_tok[:, None]), pos)  # the slots' tokens and positions
+        logits, _ = self._decode(self.params, cache, graph.tokens, graph.pos)
         self.stats["decode_steps"] += 1
-        if graph is not None:
-            self.stats["decode_replays"] += graph.replays - replays
-        return _whole(logits)[:, -1].argmax(-1).cpu().numpy()
+        self.stats["decode_replays"] += graph.replays - replays
+        return logits[:, -1].argmax(-1).cpu().numpy()
 
     @_without_grad
     def serve(self, requests: list, gen_len: int) -> list:
