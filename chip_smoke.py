@@ -75,33 +75,50 @@ Phases, each of which stops the script with a non-zero exit when it fails:
    every forward's 12 attentions through the f32 tensor-core (3xTF32)
    flash-attention kernel and its 25 norms through the RMSNorm kernel, the
    backward (the plain path recomputed) through neither; the loss must fall.
-   Then train tok/s, step ms and peak memory, one step traced with
-   torch.profiler (device busy share, K1's and K2's shares, top ops), one
-   train step of a small model on the card against the CPU, and resume
+   The launcher steps through the train step's CUDA graph
+   (``training/graph.py``'s ``TrainGraph``, the counterpart of the
+   reference's ``jax.jit`` over its train step with the state donated): the
+   first step is an eager warm-up, then the step is captured, and every
+   later step must replay it (every train path below holds its replays to
+   its steps less one; the launch counts add at each replay what the
+   capture recorded, so they stay exact). Then train tok/s, step ms (the
+   warm-up's and the capture's apart) and peak memory, one replay traced
+   with torch.profiler (device busy share, K1's and K2's shares, top ops),
+   the replays against eager steps from a clone of one state in turns
+   (losses, metrics, launches and the final states equal bit for bit; wall
+   and device ms a step and busy share of each: the eager step's median is
+   the host's yardstick), one train step of a small model on the card
+   against the CPU and its replays against its eager steps, and resume
    equivalence: 2N straight steps against N steps, a checkpoint, a fresh
-   restore and N more, bitwise under ``torch.use_deterministic_algorithms``.
+   restore and N more, bitwise under ``torch.use_deterministic_algorithms``
+   (the resumed run's eager warm-up standing where the straight run
+   replayed: equal losses).
    Then train deepseek-moe-16b (4 of 28 layers), rwkv6-7b (4 of 32),
    recurrentgemma-2b (14 of 26), whisper-small (all 12 + 12 layers, 8
    rows of 448 tokens against 8 x 1500 seeded audio frames, which the data
-   pipeline does not make), minicpm3-4b (MLA, 16 of 62 layers, 4 x 2048
+   pipeline does not make), minicpm3-4b (MLA, 8 of 62 layers, 4 x 2048
    tokens), llava-next-mistral-7b (8 of 32 layers, 4 rows of 896 text
    tokens behind 1152 seeded patch embeddings, which the data pipeline does
    not make either), an MoE model with MLA attention (deepseek-moe-16b's
    widths with minicpm3-4b's MLA ranks, 4 of 28 layers), starcoder2-7b (5
    of 32), codeqwen1.5-7b (6 of 32) and mistral-large-123b (1 of 88, 8 rows
-   as 8 microbatches under remat "selective") at full width for 10 steps
-   each through the launcher's pieces (the config's optimizer with cosine
-   warmup, the train state drawn on the card, the train step, the data
-   pipeline), with the counts set to 0 just before and read just after:
+   as 8 microbatches under remat "selective") at full width for 8 steps
+   each (llava 10) through the launcher's pieces (the config's optimizer with cosine
+   warmup, the train state drawn on the card, the train step's graph, the
+   data pipeline), with the counts set to 0 just before and read just after:
    under remat "full" and "selective" every forward kernel runs twice a
    step (the forward, then the backward's recompute of each layer), once a
    microbatch, K5 (route and slots) per MoE routing, K4 per RWKV-6 layer, K3 per recurrent layer, K1 per attention layer (Whisper's
    encoder, self- and cross-attentions; MLA's through the bf16 (96, 64)
    kernel), K2 per RMSNorm (MLA's q_ln and kv_ln included), and no backward
    launches one; the loss must fall. Then each
-   family's step ms, tok/s, peak memory, one step held against its count,
-   one traced step and a small model's train step on the card against the
-   CPU, its launches counted around the card's step and held exact (the
+   family's step ms, tok/s, peak memory, one traced replay (the port's
+   kernels in the trace must equal what the replay added to the counts),
+   the time of the state's copy into the graph's static leaves, one eager
+   step held against its count (whisper-small's replays against its eager steps
+   in turns too) and a small model's train step on the card against the
+   CPU and its replays against its eager steps, its launches counted
+   around the card's step and held exact (the
    small MLA model's in f32: K1's f32 (96, 64) kernel in the forward and in
    the recompute). The dry-run leg: each train path's step (nbi-100m's
    before its trace) and nbi-100m's prefill at 8 x 512 are counted on meta in this
@@ -227,7 +244,7 @@ from repro_torch.optim import cosine_warmup, make_optimizer  # noqa: E402
 from repro_torch.parallel import ef_compressed_psum, init_ef_state, quant_int8  # noqa: E402
 from repro_torch.parallel.sharding import distribute, distribute_tree, full_tree, resolve_tree, rules_for  # noqa: E402
 from repro_torch.training import init_dp_state, init_train_state, make_dp_train_step, make_train_step  # noqa: E402
-from repro_torch.training import train_state_logical  # noqa: E402
+from repro_torch.training import TrainGraph, train_state_logical  # noqa: E402
 
 # Kernel and plain version both accumulate in f32 and round once at the end,
 # so a bf16 output may differ by one rounding step (8 significant bits)
@@ -363,6 +380,39 @@ def launched_kernels(launches: dict) -> dict:
     calls = {name: launches[name] for name in TRACE_NAMES}
     calls["moe_gating"] += launches["moe_gating_slots"]
     return calls
+
+
+def check_trace(what: str, kernels, launches: dict, attempt: int) -> bool:
+    """Whether the port's kernels in a trace (the profiler's kernel entries)
+    equal the counters' ``launches`` of the traced work, by name
+    (:func:`trace_calls`, :func:`launched_kernels`); raises at the last of
+    TRACE_TRIES attempts (the profiler can lose a record)."""
+    want, seen = launched_kernels(launches), trace_calls(kernels)
+    say(f"[trace] {what}, run {attempt}: the port's kernels in the trace { {k: n for k, n in seen.items() if n} } "
+        f"(by the counters { {k: n for k, n in want.items() if n} })")
+    if seen != want and attempt == TRACE_TRIES:
+        raise AssertionError(f"{what}: the trace shows the port's kernels {seen}, the counters {want}")
+    return seen == want
+
+
+def profiled(device, acts: list, run):
+    """``run()`` under torch.profiler recording ``acts``, PROFILER_LEAD_S
+    after the profiler starts and behind PROFILER_LEAD_KERNELS empty
+    kernels (``torch.cuda._sleep``, left out of the entries): traces of
+    nbi-100m's train step on an H100 lost the records of their first
+    kernels, from 1 to the 100 of the step's first two layers, also after a
+    warm-up cycle of the profiler or 0.1 s into it. Returns the profiler's
+    kernel entries and what ``run()`` returned."""
+    from torch.profiler import profile
+
+    with profile(activities=acts) as prof:
+        time.sleep(PROFILER_LEAD_S)
+        if device.type == "cuda":
+            for _ in range(PROFILER_LEAD_KERNELS):
+                torch.cuda._sleep(1)
+            sync(device)
+        out = run()
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and LEAD_KERNEL not in e.key], out
 
 
 def say(*parts) -> None:
@@ -979,6 +1029,11 @@ GRAPH_LEG = {True: (4, 4), False: (2, 2)}
 # the profiler at times loses a kernel's record (on an H100, one of the 16
 # RMSNorm records of an 8 x 2048 prefill in one of four traced runs of it)
 TRACE_TRIES = 3
+# host seconds and empty kernels between the profiler's start and a traced
+# run (profiled), and the empty kernel's name
+PROFILER_LEAD_S = 0.1
+PROFILER_LEAD_KERNELS = 256
+LEAD_KERNEL = "spin_kernel"
 
 
 def path_config(arch: str, full: bool):
@@ -1024,6 +1079,36 @@ def check_replays(what: str, stats: dict, device) -> None:
         f"(expected {want})")
     if stats["decode_replays"] != want:
         raise AssertionError(f"{what}: {stats['decode_replays']} decode replays, expected {want}")
+
+
+def check_train_replays(what: str, replays: int, steps: int, device) -> None:
+    """Hold a train run's graph replays to its steps less the warm-up on the
+    card (the first step runs eagerly, then the step is captured and every
+    later one replays), or to 0 on the CPU, which steps the same static
+    buffers eagerly."""
+    want = steps - 1 if device.type == "cuda" else 0
+    say(f"[graph] {what}: {replays} train step replays in {steps} steps (expected {want})")
+    if replays != want:
+        raise AssertionError(f"{what}: {replays} train step replays, expected {want}")
+
+
+def graph_seconds(seconds: dict) -> str:
+    """A train graph's warm-up and capture wall seconds (none on the CPU)."""
+    if not seconds:
+        return "not measured (cpu: no capture)"
+    return f"warm-up {seconds['warm_up'] * 1e3:.1f} ms, capture {seconds['capture'] * 1e3:.1f} ms"
+
+
+def train_memory(device, held_before: int) -> str:
+    """The peak allocated and the reserved memory of a train run: the static
+    state, the graph's pool and the warm-up's blocks (returned before the
+    capture)."""
+    if device.type != "cuda":
+        return "max_memory_allocated not measured (cpu)"
+    return (f"max_memory_allocated {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB "
+            f"({held_before / 2**20:.1f} MiB held before the run), memory_reserved "
+            f"{torch.cuda.memory_reserved(device) / 2**20:.1f} MiB (at most "
+            f"{torch.cuda.max_memory_reserved(device) / 2**20:.1f} MiB)")
 
 
 def check_launches(what: str, launches: dict, want: dict, device) -> None:
@@ -1206,7 +1291,7 @@ def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
     clock; device busy time (the sum of kernel times) against the host's wall
     time, the port's kernels' share of the prefill's device time, and the
     kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -1217,20 +1302,11 @@ def trace_one_batch(run, device, shape: tuple, gen_len: int) -> None:
     for steps in (0, gen_len):
         for attempt in range(1, TRACE_TRIES + 1):
             zero_counters()
-            with profile(activities=acts) as prof:
-                pre_ms, dec_ms = run(steps)
+            kernels, (pre_ms, dec_ms) = profiled(device, acts, lambda: run(steps))
             launches = read_counters()
-            kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-            if device.type != "cuda":
-                break
             # the counts, replays included, against the kernels the trace shows by name
-            want, seen = launched_kernels(launches), trace_calls(kernels)
-            say(f"[trace] {steps} decode steps, run {attempt}: the port's kernels in the trace "
-                f"{ {k: n for k, n in seen.items() if n} } (by the counters { {k: n for k, n in want.items() if n} })")
-            if seen == want:
+            if device.type != "cuda" or check_trace(f"{steps} decode steps", kernels, launches, attempt):
                 break
-            if attempt == TRACE_TRIES:
-                raise AssertionError(f"the trace shows the port's kernels {seen}, the counters {want}")
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         runs[steps] = (pre_ms, dec_ms, busy_ms, kernels)
     say(f"[trace] traced in {time.perf_counter() - t0:.1f}s")
@@ -1719,15 +1795,32 @@ TRAIN_VARIANTS = {MOE_MLA: ("deepseek-moe-16b",
 # these four paths on an H100 host where nbi-100m's step takes 128 ms; to
 # keep it near 530 s three cuts were made, in this order: rwkv6-7b's 8
 # layers to 4, the mesh leg's timed steps (MESH_TIMED_STEPS), minicpm3-4b's
-# 28 layers to 16
+# 28 layers to 16; with the train step's graph legs, minicpm3-4b's 16 to 8
+# (the script took 578 s on a host where nbi-100m's eager step took 120 ms)
 TRAIN_FAMILIES = {"deepseek-moe-16b": (4, 4, 2048), "rwkv6-7b": (4, 4, 2048), "recurrentgemma-2b": (14, 2, 2048),
-                  "whisper-small": (12, 8, 448), "minicpm3-4b": (16, 4, 2048), LLAVA_ARCH: (8, 4, 896),
+                  "whisper-small": (12, 8, 448), "minicpm3-4b": (8, 4, 2048), LLAVA_ARCH: (8, 4, 896),
                   MOE_MLA: (4, 4, 2048), "starcoder2-7b": (5, 4, 2048),
                   "codeqwen1.5-7b": (6, 4, 2048), "mistral-large-123b": (1, 8, 2048)}
 # steps and warmup of each family's run (one more step is traced), at full
 # size and in the CPU rehearsal (smoke configs at 4 x 32 under their full
-# configs' remat)
-TRAIN_FAMILY_RUN = {True: (10, 3), False: (3, 1)}
+# configs' remat); 10 at full size until the train step's graph legs took the
+# script to 784 s on an H100 host where nbi-100m's eager step took 147 ms
+# (560 s is the aim on a host where it takes 128 ms); llava-next-mistral-7b
+# keeps its 10: at 3e-4 its loss jumps after two steps and comes back below
+# its first only at step 10 (10.94 -> 11.38 at step 8 on an H100; PERF.md)
+TRAIN_FAMILY_RUN = {True: (8, 3), False: (3, 1)}
+TRAIN_FAMILY_STEPS = {LLAVA_ARCH: 10}
+# the family paths whose graph replays run against eager steps in turns at
+# full width (train_graph_against_eager; nbi-100m's runs in train_path): a
+# state that clones in under 4 GB
+TRAIN_GRAPH_LEG = ("whisper-small",)
+# train_graph_against_eager's steps in turns after the warm-up: at full
+# width GRAPH_LEG's, for each path's small model (train_card_matches_cpu)
+# two; then one step profiled each way: with GRAPH_LEG's 4 the small models'
+# legs took 134 s of that script's 784 s, the profiler's records of
+# host-bound steps of tens of thousands of kernels most of it
+TRAIN_GRAPH_SMALL_STEPS = 2
+TRAIN_GRAPH_TRACED = 1
 # peak learning rate of each family's run (cosine warmup), and of the paths
 # named here at full width: the widest dense configs (D 4096 to 12288, bf16
 # weights) under a 3-step warmup jump to a loss above their first after two
@@ -1812,20 +1905,16 @@ def train_path(device, full: bool, counts: list) -> dict:
         f"{steps} steps of {batch} x {seq} tokens | launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{cfg.name} training: kernel launches {launches} != expected {want}")
+    check_train_replays(f"{cfg.name} training (the launcher)", result["replays"], steps, device)
     losses = [m["loss"] for m in result["metrics"]]
     if len(losses) != steps or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name} training: the loss did not fall: {losses}")
-    step_ms = np.diff(stamps[2:]) * 1e3  # the first steps warm up the allocator and library handles
+    step_ms = np.diff(stamps[2:]) * 1e3  # the first replays warm up the allocator and library handles
     med = float(np.median(step_ms))
-    if device.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(device)
-        memory = (f"max_memory_allocated {peak / 2**20:.1f} MiB ({held_before / 2**20:.1f} MiB held before "
-                  f"the run)")
-    else:
-        memory = "max_memory_allocated not measured (cpu)"
     say(f"[train] {cfg.name} on {device_name(device)}: wall {wall:.3f}s for {steps} steps | loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f} | step ms median {med:.3f} (min {step_ms.min():.3f}, max "
-        f"{step_ms.max():.3f}, steps 4 to {steps}) = {batch * seq / med * 1e3:.1f} tok/s | {memory}")
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} | step 1 (warm-up and capture) {graph_seconds(result['graph_seconds'])}; "
+        f"replayed step ms median {med:.3f} (min {step_ms.min():.3f}, max {step_ms.max():.3f}, steps 4 to {steps}) "
+        f"= {batch * seq / med * 1e3:.1f} tok/s | {train_memory(device, held_before)}")
     free(device)
     trace_train_step(device, cfg if full else dryrun.kernel_widths(cfg), batch, seq, med, counts)
     free(device)
@@ -1878,16 +1967,21 @@ def family_train_path(name: str, device, full: bool, counts: list) -> dict:
     """Train the path ``name`` (:func:`train_config`) at full width and
     TRAIN_FAMILIES' depth through the launcher's pieces (the config's
     optimizer with cosine warmup from its peak lr, TRAIN_LR's or
-    TRAIN_FAMILY_LR, the train state drawn on the card, the train step, the
-    data pipeline) with the launch counters set to 0 just before the steps
-    and read just after; the loss must fall. Then step ms, tok/s and peak memory, one more step
-    counted on meta and run against the count (:func:`hold_count`, its row
-    appended to ``counts``), one more step traced and, on the card, a small
-    model's step against the CPU. A visual-prefix model's rows are ``seq``
-    text tokens behind its seeded patches: the count's step takes
-    ``seq + n_patches`` positions (``Model.train_inputs``). Returns the
-    launches of each kernel."""
+    TRAIN_FAMILY_LR, the train state drawn on the card, the train step
+    through its CUDA graph, :class:`TrainGraph`, the data pipeline) with the
+    launch counters set to 0 just before the steps and read just after;
+    every step after the first replays the graph, and the loss must fall.
+    Then step ms (the warm-up's and capture's apart), tok/s and peak memory,
+    one more step traced (a replay), and one more step (eager: a replay
+    allocates nothing) counted on meta and run against the count
+    (:func:`hold_count`, its row appended to ``counts``); whisper-small's
+    replays against its eager steps in turns (:func:`train_graph_against_eager`)
+    and, on the card, a small model's step against the CPU. A visual-prefix
+    model's rows are ``seq`` text tokens behind its seeded patches: the
+    count's step takes ``seq + n_patches`` positions
+    (``Model.train_inputs``). Returns the launches of each kernel."""
     steps, warmup = TRAIN_FAMILY_RUN[full]
+    steps = TRAIN_FAMILY_STEPS.get(name, steps) if full else steps
     _, batch, seq = TRAIN_FAMILIES[name] if full else (None, 4, 32)
     cfg = train_config(name, full)
     held_before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
@@ -1897,8 +1991,8 @@ def family_train_path(name: str, device, full: bool, counts: list) -> dict:
     model = build_model(cfg)
     lr = TRAIN_LR.get(name, TRAIN_FAMILY_LR) if full else TRAIN_FAMILY_LR  # TRAIN_LR is for the full widths
     opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(lr, warmup, steps))
-    state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
     step = make_train_step(model, opt)
+    graph = TrainGraph(step, init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device))
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
     # contiguous: the pipeline's tokens are a view of a (rows, seq + 1) block
     batches = [{k: torch.from_numpy(v).to(device).contiguous() for k, v in next(loader).items()}
@@ -1915,29 +2009,35 @@ def family_train_path(name: str, device, full: bool, counts: list) -> dict:
     zero_counters()
     losses, aux, stamps = [], [], [time.perf_counter()]
     for b in batches[:steps]:
-        state, metrics = step(state, b)
+        _, metrics = graph(graph.state, graph.feed(b))
         losses.append(float(metrics["loss"]))  # waits for the step
         aux.append(float(metrics.get("aux_loss", math.nan)))
         stamps.append(time.perf_counter())
     launches = read_counters()
     check_launches(f"{cfg.name} training", launches, expected_train_launches(cfg, batch, seq, steps), device)
+    check_train_replays(f"{cfg.name} training", graph.replays, steps, device)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name} training: the loss did not fall: {losses}")
-    step_ms = np.diff(stamps[2:]) * 1e3  # the first two steps warm up the allocator and library handles
+    step_ms = np.diff(stamps[2:]) * 1e3  # the first replay warms up the graph's upload
     med = float(np.median(step_ms))
-    if device.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(device)
-        memory = (f"max_memory_allocated {peak / 2**20:.1f} MiB ({held_before / 2**20:.1f} MiB held before "
-                  f"the run)")
-    else:
-        memory = "max_memory_allocated not measured (cpu)"
     aux_line = f" | aux_loss {aux[0]:.4f} -> {aux[-1]:.4f}" if cfg.family == "moe" else ""
     first = ", ".join(f"{x:.1f}" for x in np.diff(stamps[:3]) * 1e3)
     rate = (f"{batch * seq / med * 1e3:.1f} text tok/s, {batch * positions / med * 1e3:.1f} positions/s"
             if cfg.n_patches else f"{batch * seq / med * 1e3:.1f} tok/s")
     say(f"[train] {cfg.name} on {device_name(device)}: losses {[round(x, 4) for x in losses]}{aux_line} | "
-        f"step ms median {med:.3f} (min {step_ms.min():.3f}, max {step_ms.max():.3f}, steps 3 to {steps}; "
-        f"steps 1 and 2: {first}) = {rate} | {memory}")
+        f"replayed step ms median {med:.3f} (min {step_ms.min():.3f}, max {step_ms.max():.3f}, steps 3 to {steps}; "
+        f"steps 1 (warm-up and capture: {graph_seconds(graph.seconds)}) and 2: {first}) = {rate} | "
+        f"{train_memory(device, held_before)}")
+
+    def replay():
+        float(graph(graph.state, graph.feed(batches[steps]))[1]["loss"])
+
+    if full:  # the CPU rehearsal records no kernel (nbi-100m's trace rehearses profile_step)
+        profile_step(device, replay, f"{cfg.name} {batch}x{positions}", med)
+    state = graph.state
+    del graph  # its pool goes: the eager step below needs the room
+    free(device)
+    state_copy(f"train {cfg.name} {batch}x{positions}", state, device, med)
 
     def one_step(b):
         nonlocal state
@@ -1947,12 +2047,9 @@ def family_train_path(name: str, device, full: bool, counts: list) -> dict:
     counts.append(hold_count(f"train {cfg.name} {batch}x{positions}", model, "train", batch, positions,
                              (state, batches[0]), lambda: one_step(batches[0]), device,
                              expected_train_launches(cfg, batch, seq, 1), med))
-
-    def traced():
-        one_step(batches[steps])
-
-    if full:  # the CPU rehearsal records no kernel (nbi-100m's trace rehearses profile_step)
-        profile_step(device, traced, f"{cfg.name} {batch}x{positions}", med)
+    if name in TRAIN_GRAPH_LEG:
+        train_graph_against_eager(f"train {cfg.name} {batch}x{positions}", step, state, batches, device,
+                                  GRAPH_LEG[full][0])
     del state, batches, step
     free(device)
     if full:
@@ -1984,7 +2081,10 @@ def hold_count(what: str, model, kind: str, batch: int, seq: int, card_args, run
     within COUNT_PEAK_RANGE (the card only): the measured peak is what the
     step allocated above what was allocated before it, plus the arguments.
     Prints the roofline's terms under H100 beside ``step_ms``, the median
-    step measured without the count. Returns the row."""
+    step measured without the count. A train step's ``run()`` is an eager
+    step (the function a :class:`TrainGraph` wraps), not a replay: a replay
+    allocates nothing (its graph's pool was reserved at the capture), so the
+    count's peak could not be held against it. Returns the row."""
     t0 = time.perf_counter()
     step, meta_args = dryrun.step_and_inputs(model, kind, batch, seq)
     stats, _ = count(step, *meta_args)
@@ -2163,20 +2263,27 @@ def add_frames(cfg, batches: list, device) -> None:
 
 
 def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float, counts: list) -> None:
-    """One nbi-100m train step (after two warm-up steps) under torch.profiler,
-    from a fresh state (the launcher's is gone): :func:`profile_step`; before
-    it one step held against its count on meta (:func:`hold_count`, its row
-    appended to ``counts``)."""
+    """One nbi-100m train step under torch.profiler, from a fresh state (the
+    launcher's is gone): a replay of the step's graph (:class:`TrainGraph`,
+    after its warm-up and a first replay), :func:`profile_step`; then one
+    eager step held against its count on meta (:func:`hold_count`, its row
+    appended to ``counts``; a replay allocates nothing) and the replays
+    against eager steps in turns (:func:`train_graph_against_eager`)."""
     model = build_model(cfg)
     opt = make_optimizer(cfg.optimizer, lr=cosine_warmup(3e-4, 10, 30))
-    state = init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device)
     step = make_train_step(model, opt)
+    graph = TrainGraph(step, init_train_state(model, opt, torch.Generator(device=device).manual_seed(0), device))
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=0)
     batches = [{k: torch.from_numpy(v).to(device).contiguous() for k, v in next(loader).items()} for _ in range(4)]
     loader.close()
     for b in batches[:2]:
-        state, metrics = step(state, b)
-    float(metrics["loss"])
+        float(graph(graph.state, graph.feed(b))[1]["loss"])
+    profile_step(device, lambda: float(graph(graph.state, graph.feed(batches[2]))[1]["loss"]), f"{batch}x{seq}",
+                 step_ms)
+    state = graph.state
+    del graph
+    free(device)
+    state_copy(f"train {cfg.name} {batch}x{seq}", state, device, step_ms)
 
     def one_step():
         nonlocal state
@@ -2185,27 +2292,77 @@ def trace_train_step(device, cfg, batch: int, seq: int, step_ms: float, counts: 
 
     counts.append(hold_count(f"train {cfg.name} {batch}x{seq}", model, "train", batch, seq, (state, batches[3]),
                              one_step, device, expected_train_launches(cfg, batch, seq, 1), step_ms))
-    profile_step(device, lambda: float(step(state, batches[2])[1]["loss"]), f"{batch}x{seq}", step_ms)
+    train_graph_against_eager(f"train {cfg.name} {batch}x{seq}", step, state, batches, device,
+                              GRAPH_LEG[device.type == "cuda"][0])
+
+
+STATE_COPY_TIMED = 3
+
+
+def state_copy(what: str, state: dict, device, step_ms: float) -> None:
+    """What a :class:`TrainGraph`'s step pays that the eager step does not:
+    the copy of each new leaf into its static leaf, every byte of the state
+    read once and written once. Timed here outside the graph, each leaf
+    copied into a scratch buffer of its dtype, the median of
+    STATE_COPY_TIMED copies of the whole state by CUDA events, beside the
+    bytes' time at H100's HBM rate and ``step_ms``, the median replayed
+    step. Prints bytes alone on the CPU."""
+    leaves = [t for _, t in tree_leaves(state)]
+    moved = 2 * sum(t.numel() * t.element_size() for t in leaves)
+    line = (f"[graph] {what}: the state's copy into the static leaves moves {moved / 1e9:.3f} GB a step "
+            f"(at least {moved / roofline.H100.hbm_bw * 1e3:.3f} ms at H100's published HBM rate)")
+    if device.type != "cuda":
+        say(line)
+        return
+    largest = {}
+    for t in leaves:
+        largest[t.dtype] = max(largest.get(t.dtype, 0), t.numel())
+    scratch = {dtype: torch.empty(n, dtype=dtype, device=device) for dtype, n in largest.items()}
+    ms = []
+    for _ in range(STATE_COPY_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for t in leaves:
+            scratch[t.dtype][:t.numel()].view(t.shape).copy_(t)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    del scratch
+    med = float(np.median(ms))
+    say(f"{line}; measured {med:.3f} ms on the card (median of {STATE_COPY_TIMED}, outside the graph), "
+        f"{100 * med / step_ms:.1f}% of the replayed step ({step_ms:.3f} ms)")
 
 
 def profile_step(device, run_step, what: str, step_ms: float) -> None:
-    """``run_step()`` (one train step that waits for its loss) under
-    torch.profiler: device busy time against the host's wall time under the
-    profiler and against ``step_ms``, the median step without it; each of the
-    port's kernels' share of the step's device time, and the ops that take
-    the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """``run_step()`` (one train step that waits for its loss: a replay of
+    the step's graph, as users run it) under torch.profiler, with the launch
+    counters set to 0 just before and read just after: on the card the
+    port's kernels that the trace shows by name must equal the counts
+    (:func:`check_trace`; a replay's counts are what its capture recorded,
+    so the trace shows that the replay launched them), the step traced
+    again, up to TRACE_TRIES times, where the profiler lost a record. Then
+    device busy time against the host's wall time under the profiler and
+    against ``step_ms``, the median step without it; each of the port's
+    kernels' share of the step's device time, and the ops that take the
+    most device time."""
+    from torch.profiler import ProfilerActivity
 
-    sync(device)
     # the card's kernels only: recording every host op of a step of tens of
     # thousands of ops costs more than the step
     acts = [ProfilerActivity.CUDA] if device.type == "cuda" else [ProfilerActivity.CPU]
-    with profile(activities=acts) as prof:
+
+    def timed():
         t0 = time.perf_counter()
         run_step()
         sync(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        return (time.perf_counter() - t0) * 1e3
+
+    for attempt in range(1, TRACE_TRIES + 1):
+        sync(device)
+        zero_counters()
+        kernels, wall_ms = profiled(device, acts, timed)
+        if device.type != "cuda" or check_trace(f"train step {what}", kernels, read_counters(), attempt):
+            break
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy <= 0:
         say(f"[trace] train step {what}: wall {wall_ms:.3f}ms under the profiler; no kernel recorded: "
@@ -2222,12 +2379,104 @@ def profile_step(device, run_step, what: str, step_ms: float) -> None:
         say(f"[trace]   {e.key[:72]:72s} calls {e.count:5d} device {dev:9.3f}ms ({100 * dev / busy:5.1f}%)")
 
 
+def train_graph_against_eager(what: str, step, state: dict, batches: list, device, steps: int) -> None:
+    """A train step's graph (:class:`TrainGraph` over a clone of ``state``)
+    against the eager ``step`` on another clone, in turns: the graph's
+    warm-up and an eager step, then ``steps`` steps each way (replays on the
+    card), then TRAIN_GRAPH_TRACED steps each way under the profiler
+    (kernels only), the batches taken in turn from ``batches``. Every step's
+    loss and metrics and the final states must be equal bit for bit, the
+    replays as many as the steps after the warm-up (none on the CPU), the
+    kernels' launches of each side equal, and on the card the port's
+    kernels in the replays' trace equal their counts (:func:`check_trace`:
+    the replays' counts are what the capture recorded; the traced steps
+    run again each way, up to TRACE_TRIES times, where the profiler lost a
+    record). Prints the median wall ms a step (host clock to the loss's
+    read) and the device ms a step and busy share of each side (the eager
+    step's median is the host's yardstick)."""
+    from torch.profiler import ProfilerActivity
+
+    t0 = time.perf_counter()
+    traced = TRAIN_GRAPH_TRACED
+    graph = TrainGraph(step, map_defs(torch.clone, state))
+    eager = {"state": map_defs(torch.clone, state)}
+    feed = itertools.cycle(batches)
+
+    def replay(b):
+        return graph(graph.state, graph.feed(b))[1]
+
+    def eager_step(b):
+        eager["state"], metrics = step(eager["state"], b)
+        return metrics
+
+    wall = {"replay": [], "eager": []}
+    launches = {which: dict.fromkeys(COUNTERS, 0) for which in wall}
+    equal = True
+    for i in range(1 + steps):  # the graph's warm-up first
+        b = next(feed)
+        out = {}
+        for which, run in (("replay", replay), ("eager", eager_step)):
+            sync(device)
+            zero_counters()
+            t = time.perf_counter()
+            out[which] = {k: v.clone() for k, v in run(b).items()}
+            float(out[which]["loss"])
+            if i:
+                wall[which].append((time.perf_counter() - t) * 1e3)
+            launches[which] = {k: n + launches[which][k] for k, n in read_counters().items()}
+        equal &= all(torch.equal(out["replay"][k], out["eager"][k]) for k in out["eager"])
+    device_ms = dict.fromkeys(wall)
+    for attempt in range(1, TRACE_TRIES + 1):
+        traced_batches = [next(feed) for _ in range(traced)]
+        seen = True
+        for which, run in (("replay", replay), ("eager", eager_step)):
+            if device.type != "cuda":  # no device time on the CPU
+                for b in traced_batches:
+                    run(b)
+                continue
+            sync(device)
+            zero_counters()
+            # the kernels alone: no host op recorded
+            kernels, _ = profiled(device, [ProfilerActivity.CUDA],
+                                  lambda: [float(run(b)["loss"]) for b in traced_batches])
+            counted = read_counters()
+            launches[which] = {k: n + launches[which][k] for k, n in counted.items()}
+            if which == "replay":  # the eager side's counts are the wrappers' own, at each launch
+                seen &= check_trace(f"{what}, {traced} traced replay(s)", kernels, counted, attempt)
+            busy = sum(e.self_device_time_total for e in kernels)
+            device_ms[which] = busy / 1e3 / traced if busy > 0 else None
+        if seen or device.type != "cuda":
+            break
+    same_state = all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(graph.state),
+                                                                 tree_leaves(eager["state"]), strict=True))
+    want = (steps + traced * attempt) * (device.type == "cuda")
+    med = {which: float(np.median(ms)) for which, ms in wall.items()}
+
+    def dev(which):
+        ms = device_ms[which]
+        return "not measured" if ms is None else f"{ms:.3f} ms, busy {100 * ms / med[which]:.1f}%"
+
+    say(f"[graph] {what}: {steps} train steps in turns after the warm-up, the graph's replay against the eager "
+        f"step from a clone of one state: losses and metrics equal {equal}, states equal {same_state} | wall ms a "
+        f"step (median, host clock to the loss's read): replay {med['replay']:.3f}, eager {med['eager']:.3f}, "
+        f"eager / replay {med['eager'] / med['replay']:.2f} | device a step ({traced} profiled steps each): "
+        f"replay {dev('replay')}, eager {dev('eager')} | step 1: {graph_seconds(graph.seconds)} | "
+        f"{graph.replays} replays (expected {want}) | launches "
+        f"equal {launches['replay'] == launches['eager']} | {time.perf_counter() - t0:.1f}s")
+    if not equal or not same_state or graph.replays != want or launches["replay"] != launches["eager"]:
+        raise AssertionError(f"{what}: the train graph's replays disagree with the eager step")
+    del graph, eager
+    free(device)
+
+
 def train_card_matches_cpu(path: str = TRAIN_ARCH) -> None:
     """One AdamW step of the train path ``path``'s small model (:data:`TRAIN_SMALL_MODELS`)
     from the same host-drawn weights and batch on the card and on the CPU
     (a visual-prefix model's batch with seeded patches, :func:`add_patches`).
     The card's launches, the counters set to 0 just before its step and read
-    just after, must equal :func:`expected_train_launches` of one step.
+    just after, must equal :func:`expected_train_launches` of one step. Then
+    the small model's graph replays against its eager steps on the card
+    (:func:`train_graph_against_eager`), from the same weights.
 
     Tolerances. Loss rtol 1e-5 and grad_norm rtol 1e-4: K1's 3xTF32 products
     keep about 22 bits (atol 2e-5 on attention outputs) and the f32 GEMMs
@@ -2247,7 +2496,6 @@ def train_card_matches_cpu(path: str = TRAIN_ARCH) -> None:
         host_params = liven(host_params)
     loader = make_train_loader(model.cfg.vocab_size, batch, seq, seed=5)
     host_batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
-    loader.close()
     add_frames(cfg, [host_batch], torch.device("cpu"))
     add_patches(cfg, [host_batch], torch.device("cpu"))
     outs = {}
@@ -2264,6 +2512,18 @@ def train_card_matches_cpu(path: str = TRAIN_ARCH) -> None:
                       {p: t.cpu() for p, t in tree_leaves(new_state["params"])},
                       {p: t.cpu() / 0.1 for p, t in tree_leaves(new_state["opt"]["m"])})
     (loss_c, gn_c, p_c, g_c), (loss_h, gn_h, p_h, g_h) = outs["cuda"], outs["cpu"]
+    # the graph's replays against eager steps on the card, from the same weights
+    cuda = torch.device("cuda")
+    batches = [host_batch, *({k: torch.from_numpy(v) for k, v in next(loader).items()} for _ in range(2))]
+    loader.close()
+    add_frames(cfg, batches[1:], torch.device("cpu"))
+    add_patches(cfg, batches[1:], torch.device("cpu"))
+    params = map_defs(lambda t: t.to(cuda), host_params)
+    train_graph_against_eager(f"small {path} train step", make_train_step(model, opt),
+                              {"params": params, "opt": opt.init(params),
+                               "step": torch.zeros((), dtype=torch.int32, device=cuda)},
+                              [{k: v.to(cuda) for k, v in b.items()} for b in batches], cuda,
+                              TRAIN_GRAPH_SMALL_STEPS)
     g_err = max(float((g_c[k] - g_h[k]).abs().max() / g_h[k].abs().max().clamp_min(1e-30)) for k in g_h)
     def adam_step(g):
         return g / (g.abs() + 1e-8)
@@ -2300,19 +2560,29 @@ def deterministic(device):
 def resume_equivalence(device, full: bool) -> None:
     """2N straight steps through the launcher equal N steps, a checkpoint, a
     fresh restore (a new train() call) and N more: the two final checkpoints'
-    manifests and leaf files are identical, byte for byte. Every step is
-    inside the default warmup of 20, where the learning rate does not depend
-    on ``--steps`` (as in the reference's own resume test)."""
+    manifests and leaf files are identical, byte for byte. On the card each
+    run replays its step's graph after the first step, so the resumed run's
+    step N+1, an eager warm-up over the restored state, stands where the
+    straight run replayed: its loss, and every later one, must equal the
+    straight run's. Every step is inside the default warmup of 20, where the
+    learning rate does not depend on ``--steps`` (as in the reference's own
+    resume test)."""
     _, (batch, seq, n) = TRAIN_RUN[full]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, deterministic(device):
         def run(steps, name, every):
             return train(train_args(device, full, "--steps", steps, "--global-batch", batch, "--seq", seq,
-                                    "--ckpt-dir", Path(tmp) / name, "--ckpt-every", every, "--log-every", 100))
+                                    "--ckpt-dir", Path(tmp) / name, "--ckpt-every", every, "--log-every", 1))
 
-        run(2 * n, "straight", 2 * n)
-        run(n, "split", n)
-        run(2 * n, "split", n)
+        straight = run(2 * n, "straight", 2 * n)
+        first = run(n, "split", n)
+        resumed = run(2 * n, "split", n)
+        for what, result, steps in (("straight", straight, 2 * n), ("split", first, n), ("resumed", resumed, n)):
+            check_train_replays(f"resume equivalence, the {what} run", result["replays"], steps, device)
+        losses = [[m["loss"] for m in r["metrics"][-n:]] for r in (straight, resumed)]
+        if losses[0] != losses[1]:
+            raise AssertionError(f"resume: steps {n + 1} to {2 * n} lost {losses[1]} after the restore, "
+                                 f"{losses[0]} straight")
         dirs = [CheckpointManager(Path(tmp) / name) for name in ("straight", "split")]
         if [m.latest_step() for m in dirs] != [2 * n, 2 * n]:
             raise AssertionError(f"resume: latest steps {[m.latest_step() for m in dirs]}")
@@ -2327,8 +2597,9 @@ def resume_equivalence(device, full: bool) -> None:
         raise AssertionError(f"resume: leaves differ: {differ}")
     how = "under torch.use_deterministic_algorithms" if device.type == "cuda" else "on the CPU"
     say(f"[train] resume equivalence ({how}): {2 * n} straight steps == {n} + checkpoint + restore + {n}, "
-        f"{len(manifests[0]['leaves'])} leaves ({nbytes / 2**20:.1f} MiB) identical byte for byte, "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{len(manifests[0]['leaves'])} leaves ({nbytes / 2**20:.1f} MiB) identical byte for byte; the resumed "
+        f"run's eager warm-up (step {n + 1}) and its replays lost what the straight run's replays did "
+        f"{losses[1]}, {time.perf_counter() - t0:.1f}s")
 
 
 # The data-parallel leg: timed steps of each step in turns (after the N

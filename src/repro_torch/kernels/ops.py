@@ -150,7 +150,7 @@ _KERNEL_NAMES = {_fa: "flash_attention", _rn: "rmsnorm", _lru: "lru_scan", _wkv:
 def launch_counts() -> dict:
     """Every wrapper's launch counts now, keyed (wrapper module, count name).
     A CUDA graph's capture runs no kernel: what a capture adds to these is
-    what each replay launches (:class:`repro_torch.launch.serve._DecodeGraph`)."""
+    what each replay launches (:class:`repro_torch.training.graph.Captured`)."""
     return {(module, name): n for module in _KERNEL_NAMES for name, n in vars(module).items()
             if name.endswith("launches") and type(n) is int}
 

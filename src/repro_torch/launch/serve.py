@@ -77,11 +77,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.kernels import ops
 from repro_torch.kernels.ops import is_dtensor
 from repro_torch.models.common import map_defs, resolve_device, torch_dtype, tree_leaves
 from repro_torch.models.registry import build_model
 from repro_torch.training import init_sharded_params, make_prefill_step, make_serve_step
+from repro_torch.training.graph import Captured, warm_up
 
 
 def pad_cache_to(cache, cache_defs, placements=None):
@@ -168,8 +168,10 @@ class _DecodeGraph:
 
     The kernel wrappers' launch counts count what runs on the device: the
     warm-up's launches, nothing at the capture, and at each replay the
-    launches the capture recorded. A replay overwrites the static logits: a
-    caller that keeps a step's logits past the next step clones them."""
+    launches the capture recorded (:class:`repro_torch.training.graph.
+    Captured`, which the train step's graph shares). A replay overwrites
+    the static logits: a caller that keeps a step's logits past the next
+    step clones them."""
 
     def __init__(self, model, batch: int, max_seq: int, device, per_row_pos: bool = False, on=None):
         from repro_torch.parallel.sharding import local_slices
@@ -189,8 +191,7 @@ class _DecodeGraph:
         self._rows = None if on is None else local_slices(self.tokens.shape, self.tokens.placements, on.mesh)[0]
         self._tokens_here = _local(self.tokens)
         self.replays = 0
-        self._graph = self._params = self._logits = None
-        self._launches = {}
+        self._graph = self._params = None
 
     def zero(self) -> dict:
         """The static cache, zeroed in place."""
@@ -220,28 +221,16 @@ class _DecodeGraph:
         if self._graph is None or params is not self._params:
             return self._capture(params), self.cache
         self._graph.replay()
-        ops.add_launch_counts(self._launches)
         self.replays += 1
-        return self._logits, self.cache
+        return self._graph.out, self.cache
 
     def _capture(self, params):
         """The warm-up step, then the capture; returns the warm-up's logits."""
-        self._graph = self._params = self._logits = None  # the old graph's pool goes first
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):  # the libraries' first calls happen outside the capture
-            logits, _ = self._step(params, self.cache, self.tokens, self.pos)
-        stream.wait_stream(side)
-        logits.record_stream(stream)
-        before = ops.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_logits, _ = self._step(params, self.cache, self.tokens, self.pos)
-        after = ops.launch_counts()
-        self._launches = {key: after[key] - n for key, n in before.items() if after[key] != n}
-        ops.add_launch_counts(self._launches, -1)  # the capture launched nothing
-        self._graph, self._params, self._logits = graph, params, static_logits
+        self._graph = self._params = None  # the old graph's pool goes first
+        logits, _ = warm_up(lambda: self._step(params, self.cache, self.tokens, self.pos), self.device)
+        logits.record_stream(torch.cuda.current_stream(self.device))
+        self._graph = Captured(lambda: self._step(params, self.cache, self.tokens, self.pos)[0])
+        self._params = params
         return logits
 
 

@@ -53,6 +53,14 @@ on one GPU a task, with:
   builds the reference's ``EcoScheduler`` and passes it. The flag without a
   scheduler is an error, never ignored;
 * **throughput accounting** — tokens/s in the log.
+
+On one device (no mesh, one task) the step is a :class:`repro_torch.training.
+TrainGraph`, the counterpart of the reference's ``jax.jit`` over its train
+step with the state donated: built after any restore, it adopts the state as
+static buffers, each batch is copied into its static batch, and on the card
+every step after the first (an eager warm-up, then the capture) replays a
+CUDA graph; on the CPU the same buffers are stepped eagerly. The
+data-parallel and mesh steps stay eager (ROADMAP Queue 1, item 3d).
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.optim import cosine_warmup, make_optimizer
 from repro_torch.training import (
+    TrainGraph,
     abstract_train_state,
     init_sharded_train_state,
     init_train_state,
@@ -113,8 +122,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def train(args, *, eco=None, on_metrics=None) -> dict:
     """Run ``args.steps`` steps (from the latest checkpoint, if any). Returns
-    ``{"completed_steps", "stopped", "metrics", "final_loss"}`` and, after an
-    eco-preemption, ``"resubmit_begin"``."""
+    ``{"completed_steps", "stopped", "metrics", "final_loss", "replays",
+    "graph_seconds"}`` (the graph's replays, and its warm-up's and
+    capture's wall seconds on the card) and, after an eco-preemption,
+    ``"resubmit_begin"``."""
     if args.eco_preempt and eco is None:
         raise ValueError(NO_SCHEDULER)
     device = resolve_device(args.device)
@@ -153,6 +164,9 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
             state, extra, start_step = manager.restore(state, device=device)
             data_cursor = int(extra.get("data_cursor", start_step))
             print(f"[train] resumed from step {start_step}")
+    # one device: the step over static buffers, replayed as a CUDA graph on the
+    # card, captured over the (restored) state it adopts here
+    graph = TrainGraph(step_fn, state) if mesh is None and world == 1 else None
 
     loader = make_train_loader(
         model.cfg.vocab_size, args.global_batch, args.seq, seed=args.seed,
@@ -199,10 +213,14 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
     steps_done = start_step  # steps whose update actually applied
     try:
         for step in range(start_step, args.steps):
-            batch = {k: torch.from_numpy(v).to(device) for k, v in next(loader).items()}
-            if mesh is not None:
-                batch = _global_batch(batch, mesh, rules, args.global_batch)
-            state, metrics = step_fn(state, batch)
+            if graph is not None:
+                state, metrics = graph(graph.state, graph.feed({k: torch.from_numpy(v) for k, v in
+                                                                 next(loader).items()}))
+            else:
+                batch = {k: torch.from_numpy(v).to(device) for k, v in next(loader).items()}
+                if mesh is not None:
+                    batch = _global_batch(batch, mesh, rules, args.global_batch)
+                state, metrics = step_fn(state, batch)
             steps_done = step + 1
             if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
                 m = {k: float(v) for k, v in metrics.items()}  # waits for the step
@@ -217,6 +235,9 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
                     f"acc={m.get('accuracy', 0):.3f}{aux} tok/s={m['tokens_per_s']:.0f}",
                     flush=True,
                 )
+            # a save copies the state to the host before it returns (also when
+            # the write is not blocking): the next replay overwrites the
+            # static state in place
             if manager and (step + 1) % args.ckpt_every == 0:
                 save(step + 1, {"data_cursor": loader.state_dict()["cursor"], "arch": args.arch}, False)
             if not stop["reason"] and eco_deadline and clock() >= eco_deadline:
@@ -235,6 +256,8 @@ def train(args, *, eco=None, on_metrics=None) -> dict:
         "stopped": stop["reason"],
         "metrics": metrics_hist,
         "final_loss": metrics_hist[-1]["loss"] if metrics_hist else None,
+        "replays": graph.replays if graph is not None else 0,
+        "graph_seconds": dict(graph.seconds) if graph is not None else {},
     }
     if manager and (stop["reason"] or args.steps > start_step):
         save(steps_done, {"data_cursor": loader.state_dict()["cursor"], "arch": args.arch,

@@ -74,8 +74,10 @@ def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 64):
     decay ratio e^{lc_excl_t - lc_s} (s < t, at most 1) is a (C, C, dk)
     tensor; each chunk runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint(step)``), so the backward recomputes that tensor rather
-    than keep one per chunk. Returns (y (B, H, T, dv) in r's dtype, S_final
-    f32); every sum in f32."""
+    than keep one per chunk (without saving the generators' states: nothing
+    here is random, and a CUDA graph's capture refuses the CUDA generator's
+    read). Returns (y (B, H, T, dv) in r's dtype, S_final f32); every sum in
+    f32."""
     B, H, T, dk = r.shape
     dv = v.shape[-1]
     C = min(chunk, T)
@@ -87,7 +89,7 @@ def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 64):
     ys = []
     for i in range(T // C):
         y, s = checkpoint(_wkv6_chunk, s, rc[:, :, i], kc[:, :, i], vc[:, :, i], wc[:, :, i], uf,
-                          use_reentrant=False)
+                          use_reentrant=False, preserve_rng_state=False)
         ys.append(y)
     return torch.stack(ys, dim=2).reshape(B, H, T, dv).to(r.dtype), s
 

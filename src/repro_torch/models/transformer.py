@@ -260,7 +260,11 @@ _MATMULS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.ate
 
 def remat_wrap(fn, cfg: ArchConfig):
     """``fn`` under ``cfg.remat`` when autograd records: ``full`` recomputes
-    the whole call in the backward, ``selective`` all but the matmuls."""
+    the whole call in the backward, ``selective`` all but the matmuls. No
+    layer draws random numbers, so the recompute does not save and restore
+    the generators' states (``preserve_rng_state=False``): a read of the CUDA
+    generator's state is refused inside a CUDA graph's capture
+    (:class:`repro_torch.training.TrainGraph`)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "selective":
@@ -270,7 +274,7 @@ def remat_wrap(fn, cfg: ArchConfig):
             return create_selective_checkpoint_contexts(_MATMULS)
     else:
         context_fn = noop_context_fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, preserve_rng_state=False)
 
 
 def run_stack(blocks, x, cfg: ArchConfig, apply_block):

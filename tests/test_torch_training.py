@@ -503,15 +503,18 @@ def test_train_driver_loss_decreases(nano):
 
 def test_train_driver_resume_is_bitwise(nano, tmp_path):
     """20 straight steps ≡ 10 steps + checkpoint + restart + 10 steps, bitwise
-    on every leaf of the train state (the fault-tolerance guarantee)."""
+    on every leaf of the train state (the fault-tolerance guarantee), and
+    the resumed run's losses of steps 11 to 20 equal the straight run's."""
     def run(steps, name, every):
         return run_train("--steps", steps, "--global-batch", 4, "--seq", 32, "--ckpt-dir", tmp_path / name,
-                         "--ckpt-every", every, "--log-every", 100)
+                         "--ckpt-every", every, "--log-every", 1)
 
-    run(20, "straight", 20)
+    straight = run(20, "straight", 20)
     run(10, "split", 10)
     assert CheckpointManager(tmp_path / "split").latest_step() == 10
-    run(20, "split", 10)
+    resumed = run(20, "split", 10)
+    assert [m["step"] for m in resumed["metrics"]] == list(range(11, 21))
+    assert [m["loss"] for m in resumed["metrics"]] == [m["loss"] for m in straight["metrics"][10:]]
     trees = {}
     for name in ("straight", "split"):
         manager = CheckpointManager(tmp_path / name)
